@@ -1,19 +1,29 @@
-"""Drive the PyTorch port's main path once on one NVIDIA GPU.
+"""Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
     python3 chip_smoke.py
 
-Builds the port's CUDA kernels from ``libstevi_tpu_torch/csrc``, holds each
-kernel (K1 box cost volume, K2 SGM pass, K3 SGM pass + WTA) against its
-plain PyTorch version at the flagship shape and at an odd shape, in float32
-and bfloat16, then runs the flagship stereo path (`entry.flagship_forward`:
-480x640, D=120, ZNCC 7x7, bf16 volume, SGM-8, parabola subpixel) on three
-full-size pairs: the two committed parity fixtures, held to accuracy bars
-against their ground truth, and a random pair.  It checks that each kernel
-was launched during that run, times the frame and each kernel against its
-plain version (CUDA events, median of 5), and prints one JSON line of
-kernel records, the card's name and power limit, and a last JSON line
-``{"ok": true, "device": ...}``.  Any failed check raises: the exit code is
-then non-zero and no result line is printed.  There is no CPU path.
+Builds the port's CUDA kernels from ``libstevi_tpu_torch/csrc`` and holds
+each kernel against its plain PyTorch version: K1 box cost volume, K2 SGM
+pass and K3 SGM pass + WTA at the flagship shape and at an odd shape, in
+float32 and bfloat16; K5 feature-volume cost volume at the WTA path's shape
+(480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset search,
+an RGB F=147 input); K6 PatchMatch sweep and K7 probe, exactly, on the
+480x640x120 NCC volume.  Then it runs three paths, each with the launch
+counts set to 0 just before it and read just after:
+- the flagship stereo path (`entry.flagship_forward`: 480x640, D=120,
+  ZNCC 7x7, bf16 volume, SGM-8, parabola subpixel) on the two committed
+  parity fixtures, held to accuracy bars against their ground truth, and a
+  random pair;
+- PatchMatch (`entry.patchmatch_forward`: NCC 7x7, D=120, 5 iterations, 4
+  random candidates) on the fixtures, held to bars;
+- the WTA matcher with ZSAD (`entry.wta_forward`), which K5 carries, on the
+  fixtures (no bar: the JAX package's parity record has no ZSAD row).
+Each path also runs small against its plain version on the CPU.  It checks
+that each kernel was launched in its path, times the frames and each kernel
+against its plain version (CUDA events, median of 5), and prints one JSON
+line of kernel records, the card's name and power limit, and a last JSON
+line ``{"ok": true, "device": ...}``.  Any failed check raises: the exit
+code is then non-zero and no result line is printed.  There is no CPU path.
 """
 
 import json
@@ -32,6 +42,10 @@ FIXTURES = ROOT / "tests" / "data" / "parity"
 # PARITY_r05.json, row zncc_sgm8_bf16 (480x640, D=120): prop_good_2.0 minus
 # 0.001 and inlier_mae plus about 0.01
 BARS = {"warp": ("", 0.9985, 0.14), "occluded": ("_occ", 0.9982, 0.21)}
+# PARITY_r05.json, row patchmatch_ncc_5it: prop_good_2.0 minus 0.005 and
+# inlier_mae plus 0.03 (the candidate stream differs from JAX's, so the
+# match is statistical)
+PM_BARS = {"warp": (0.9947, 0.2926), "occluded": (0.9734, 0.4397)}
 P1, P2, POUT = 0.1, 0.5, 100.0
 
 
@@ -78,10 +92,19 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from libstevi_tpu_torch import _build, entry
-    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.core import MatchingFunction, SearchOffset1
     from libstevi_tpu_torch.io import read_stevimg
-    from libstevi_tpu_torch.ops import dense_sgm_stereo
+    from libstevi_tpu_torch.ops import (dense_sgm_stereo,
+                                        extract_selected_index,
+                                        normalize_feature_volume, unfold,
+                                        unfold_based_cost_volume)
     from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
+    from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
+                                                   fused_fv_cost_volume_plain)
+    from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
+                                                   cost_oriented_volume)
+    from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
+                                                        sweep, sweep_plain)
     from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
                                             direction_adj, _tcv_from_bands)
     from libstevi_tpu_torch.ops.sgm_cuda import (sgm_pass, sgm_pass_plain,
@@ -190,6 +213,86 @@ def main() -> int:
     print(f"path 64x96x24 f32: CUDA vs CPU idx agree "
           f"{same.float().mean().item():.6f}", flush=True)
 
+    # -- K5 against its plain version ----------------------------------------
+    NCC, ZSAD = MatchingFunction.NCC, MatchingFunction.ZSAD
+    K5_FUNCS = {"dot": MatchingFunction.ZNCC, "ssd": MatchingFunction.SSD,
+                "sad": ZSAD}
+    err.update(K5=0.0, K6=0.0, K7=0.0)
+
+    def features(func, img):
+        """The normalized 7x7 unfold the WTA path aggregates."""
+        return normalize_feature_volume(func, unfold(3, 3, img))
+
+    def check_k5(kernel, src, tgt, shifts, tag):
+        want = fused_fv_cost_volume_plain(kernel, src, tgt, shifts)
+        for dt in (torch.float32, torch.bfloat16):
+            got = fused_fv_cost_volume(kernel, src, tgt, shifts, dt)
+            torch.cuda.synchronize()
+            e5 = (got.float() - want).abs()
+            if dt == torch.float32:
+                torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+                err["K5"] = max(err["K5"], e5.max().item())
+            else:
+                assert (e5 <= bf16_ulp(want) + 1e-5).all(), tag
+            print(f"K5 {tag} {kernel} {str(dt).split('.')[-1]}: max |kernel "
+                  f"- plain| = {e5.max().item():.3g}", flush=True)
+
+    L, R = pair(480, 640, 4, dev)
+    for kernel, func in K5_FUNCS.items():
+        check_k5(kernel, features(func, R), features(func, L), range(120),
+                 "480x640x120 F=49")
+    Lo, Ro = pair(37, 101, 5, dev)
+    rgb = np.random.default_rng(6).uniform(0, 1, (2, 37, 101, 3))
+    Lc, Rc = torch.from_numpy(rgb.astype(np.float32)).to(dev)
+    for kernel, func in K5_FUNCS.items():
+        fl, fr = features(func, Lo), features(func, Ro)
+        # LEFT_TO_RIGHT: source = left, target = right at j - d
+        check_k5(kernel, fl, fr, [-d for d in range(13)],
+                 "37x101x13 F=49 left-to-right")
+        check_k5(kernel, fr, fl, range(-4, 9), "37x101x13 F=49 offset [-4, 8]")
+        check_k5(kernel, features(func, Rc), features(func, Lc), range(13),
+                 "37x101x13 F=147 RGB")
+
+    # -- K6 and K7 against their plain versions, exactly ---------------------
+    def state_err(got, want):
+        d_eq = torch.equal(got[0], want[0])
+        c_eq = torch.equal(got[1], want[1])
+        assert d_eq and c_eq, (d_eq, c_eq)
+        fin = torch.isfinite(want[1])
+        return float(max((got[0] - want[0]).abs().max().item(),
+                         (got[1] - want[1])[fin].abs().max().item()))
+
+    costc = cost_oriented_volume(NCC, box_cv(NCC, L, R, 3, 3, 120), 0)
+    g = torch.Generator(device=dev).manual_seed(7)
+    d0 = torch.randint(0, 120, (480, 640), generator=g, device=dev,
+                       dtype=torch.int32)
+    inf_cost = torch.full((480, 640), float("inf"), device=dev)
+    got, want = (probe(costc, d0, d0, inf_cost, 0),
+                 probe_plain(costc, d0, d0, inf_cost, 0))
+    err["K7"] = state_err(got, want)
+    d1, c1 = got
+    cand = torch.randint(-3, 123, (4, 480, 640), generator=g, device=dev,
+                         dtype=torch.int32)
+    cand[0, ::7] = d1[::7]                          # ties with the current cost
+    sel = torch.gather(costc.expand(4, -1, -1, -1), -1,
+                       cand.clamp(0, 119).long()[..., None])[..., 0]
+    n_oor = ((cand < 0) | (cand > 119)).sum().item()
+    n_inf = (torch.isinf(sel) & (cand >= 0) & (cand <= 119)).sum().item()
+    assert n_oor > 0 and n_inf > 0, (n_oor, n_inf)
+    for K in (1, 4):
+        e7 = state_err(probe(costc, cand[:K], d1, c1, 0),
+                       probe_plain(costc, cand[:K], d1, c1, 0))
+        err["K7"] = max(err["K7"], e7)
+    print(f"K7 480x640x120 K=1 (init) and K=1, 4 ({n_oor} out-of-range, "
+          f"{n_inf} +inf candidates): equal to plain", flush=True)
+    for axis in (0, 1):
+        for rev in (False, True):
+            e6 = state_err(sweep(costc, d1, c1, 0, axis, rev),
+                           sweep_plain(costc, d1, c1, 0, axis, rev))
+            err["K6"] = max(err["K6"], e6)
+    print("K6 480x640x120 sweeps (axis 0, 1; forward, reverse): equal to "
+          "plain", flush=True)
+
     # -- the main path: three full-size pairs --------------------------------
     pairs = {}
     for name, (suffix, _, _) in BARS.items():
@@ -236,6 +339,87 @@ def main() -> int:
               f"inlier_mae = {mae:.4f} (bar <= {mae_bar})", flush=True)
         assert pg >= pg_bar and mae <= mae_bar, (name, pg, mae)
 
+    # -- the PatchMatch path: both fixtures -----------------------------------
+    # a small run against the plain route on the CPU: one volume, one
+    # replayed candidate stream, equal disparities
+    Ls, Rs = pair(64, 96, 8, dev)
+    cv_s = box_cv(NCC, Ls, Rs, 3, 3, 24)
+
+    def pm_small(vol, device):
+        rng = np.random.default_rng(9)
+
+        def draw(shape, lo, hi):
+            return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+                np.int32)).to(device)
+        return _patch_match_stereo_cv(NCC, None, None, SearchOffset1(0, 23),
+                                      5, 4, cv=vol, draw=draw)
+
+    assert torch.equal(pm_small(cv_s, dev).cpu(), pm_small(cv_s.cpu(), "cpu"))
+    print("PatchMatch 64x96x24: CUDA equals CPU with one replayed candidate "
+          "stream", flush=True)
+
+    box_cv.launches = sweep.launches = probe.launches = 0
+    fused_fv_cost_volume.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_pm = {name: entry.patchmatch_forward(
+        *pairs[name][0], torch.Generator(device=dev).manual_seed(0))
+        for name in PM_BARS}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches.update(K6=sweep.launches, K7=probe.launches)
+    pm_k1 = box_cv.launches
+    print(f"PatchMatch path: 2 pairs in {wall:.3f} s host wall, launches "
+          f"K1 {pm_k1}, K5 {fused_fv_cost_volume.launches}, K6 "
+          f"{launches['K6']}, K7 {launches['K7']}", flush=True)
+    assert pm_k1 > 0 and launches["K6"] > 0 and launches["K7"] > 0
+    for name, disp in out_pm.items():
+        assert disp.shape == (480, 640) and disp.dtype == torch.int32
+        assert 0 <= disp.min().item() and disp.max().item() <= 119
+        d = disp.cpu().numpy().astype(np.float32)
+        gt = pairs[name][1]
+        pg, mae = prop_good(d, gt, 2.0), inlier_mae(d, gt, 2.0)
+        pg_bar, mae_bar = PM_BARS[name]
+        print(f"  {name}: prop_good_2.0 = {pg:.4f} (bar >= {pg_bar}), "
+              f"inlier_mae = {mae:.4f} (bar <= {mae_bar})", flush=True)
+        assert pg >= pg_bar and mae <= mae_bar, (name, pg, mae)
+
+    # -- the WTA path with ZSAD: both fixtures --------------------------------
+    # small, against the plain route on the CPU: volumes within float
+    # tolerance, indices equal away from near-ties
+    Lw, Rw = pair(48, 160, 10, dev)
+    cv_g = unfold_based_cost_volume(ZSAD, Lw, Rw, **entry.WTA)
+    cv_c = unfold_based_cost_volume(ZSAD, Lw.cpu(), Rw.cpu(), **entry.WTA)
+    torch.testing.assert_close(cv_g.cpu(), cv_c, rtol=1e-5, atol=1e-5)
+    two = torch.topk(cv_c, 2, dim=-1, largest=False).values
+    clear = (two[..., 1] - two[..., 0]) > 1e-4
+    idx_g = entry.wta_forward(ZSAD, Lw, Rw).cpu()
+    idx_c = entry.wta_forward(ZSAD, Lw.cpu(), Rw.cpu())
+    assert torch.equal(idx_g[clear], idx_c[clear])
+    print(f"WTA ZSAD 48x160x120: CUDA vs CPU idx agree "
+          f"{(idx_g == idx_c).float().mean().item():.6f}, equal on the "
+          f"{clear.float().mean().item():.4f} clear of near-ties", flush=True)
+
+    box_cv.launches = sweep.launches = probe.launches = 0
+    fused_fv_cost_volume.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out_wta = {name: entry.wta_forward(ZSAD, *pairs[name][0])
+               for name in PM_BARS}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["K5"] = fused_fv_cost_volume.launches
+    print(f"WTA ZSAD path: 2 pairs in {wall:.3f} s host wall, launches K5 "
+          f"{launches['K5']}, K1 {box_cv.launches}", flush=True)
+    assert launches["K5"] > 0
+    for name, idx in out_wta.items():
+        assert idx.shape == (480, 640) and idx.dtype == torch.int32
+        d = idx.cpu().numpy().astype(np.float32)
+        gt = pairs[name][1]
+        print(f"  {name}: prop_good_2.0 = {prop_good(d, gt, 2.0):.4f}, "
+              f"inlier_mae = {inlier_mae(d, gt, 2.0):.4f} (no bar)",
+              flush=True)
+
     # -- timing (CUDA events, median of 5, flagship shape) -------------------
     L, R = pair(480, 640, 3, dev)
     frame_ms = median_ms(lambda: entry.flagship_forward(L, R))
@@ -259,6 +443,15 @@ def main() -> int:
         "K3": (lambda: sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True),
                lambda: sgm_wta_plain(cv, acc, P1, P2, POUT, 1, 3, 3, True)),
     }
+    fs, ft = features(ZSAD, R), features(ZSAD, L)
+    jobs.update({
+        "K5": (lambda: fused_fv_cost_volume("sad", fs, ft, range(120)),
+               lambda: fused_fv_cost_volume_plain("sad", fs, ft, range(120))),
+        "K6": (lambda: sweep(costc, d1, c1, 0, 1, False),
+               lambda: sweep_plain(costc, d1, c1, 0, 1, False)),
+        "K7": (lambda: probe(costc, cand, d1, c1, 0),
+               lambda: probe_plain(costc, cand, d1, c1, 0)),
+    })
     ms = {}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
@@ -269,6 +462,28 @@ def main() -> int:
               f"{ms[name][1]:.3f} ms (median of 5, twice each; {smi})",
               flush=True)
 
+    # the PatchMatch frame and its parts (CUDA events, median of 5)
+    gen = torch.Generator(device=dev)
+    pm_ms = median_ms(lambda: entry.patchmatch_forward(L, R,
+                                                       gen.manual_seed(0)))
+    parts = {
+        "K1 NCC f32 (incl. glue)": median_ms(
+            lambda: box_cv(NCC, L, R, 3, 3, 120)),
+        "K6 sweep along W x5": 5 * median_ms(
+            lambda: sweep(costc, d1, c1, 0, 1, False)),
+        "K6 sweep along H x5": 5 * median_ms(
+            lambda: sweep(costc, d1, c1, 0, 0, False)),
+        "K7 K=1 x1": median_ms(lambda: probe(costc, d0, d0, inf_cost, 0)),
+        "K7 K=4 x5": 5 * median_ms(lambda: probe(costc, cand, d1, c1, 0)),
+    }
+    parts["glue (the rest)"] = pm_ms - sum(parts.values())
+    print(f"time: PatchMatch frame 480x640 D=120 5 it: {pm_ms:.3f} ms "
+          f"(median of 5; {smi}); parts: "
+          + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    wta_ms = median_ms(lambda: entry.wta_forward(ZSAD, L, R))
+    print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
+          f"5; {smi})", flush=True)
+
     records = [
         ("K1 box_cv", "libstevi_tpu_torch/csrc/box_cv.cu",
          "libstevi_tpu/ops/box_pallas.py:99", "K1"),
@@ -276,6 +491,12 @@ def main() -> int:
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2"),
         ("K3 sgm_wta", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3"),
+        ("K5 fv_cv", "libstevi_tpu_torch/csrc/fv_cv.cu",
+         "libstevi_tpu/ops/fv_backend.py:38", "K5"),
+        ("K6 pm_sweep", "libstevi_tpu_torch/csrc/patchmatch.cu",
+         "libstevi_tpu/ops/patchmatch_pallas.py:47", "K6"),
+        ("K7 pm_probe", "libstevi_tpu_torch/csrc/patchmatch.cu",
+         "libstevi_tpu/ops/patchmatch_pallas.py:118", "K7"),
     ]
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,

@@ -47,6 +47,19 @@ SIGNATURES = {
         "sgm_wta_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
                            _I, _I, _I, _P],
     },
+    "fv_cv": {
+        # src, tgt, shifts, out, H, W, F, D, min_shift, span, kind,
+        # out_bf16, stream
+        "fv_cv_launch": [_P] * 4 + [_I] * 8 + [_P],
+    },
+    "patchmatch": {
+        # cv, disp_in, cost_in, disp_out, cost_out, H, W, D, lower, axis,
+        # reverse, stream
+        "pm_sweep_launch": [_P] * 5 + [_I] * 6 + [_P],
+        # cv, cand, disp_in, cost_in, disp_out, cost_out, H, W, D, K,
+        # lower, stream
+        "pm_probe_launch": [_P] * 6 + [_I] * 5 + [_P],
+    },
 }
 
 

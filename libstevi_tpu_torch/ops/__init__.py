@@ -1,20 +1,38 @@
 from .filters import box_filter_2d, mean_filter_2d, sigma_filter
-from .box_backend import box_cost_volume
-from .cost_volume import (unfold_based_cost_volume, extract_selected_index,
+from .unfold import (unfold, unfold_offsets, unfold_permutation,
+                     unfold_sliding_subwindow_idxs, PatchOrientation)
+from .census import census_features, census_transform_2d
+from .matching import feature_comparison, compare_feature_volumes
+from .box_backend import box_cost_volume, supports_box
+from .fv_backend import fused_fv_cost_volume, FUSABLE_KERNELS
+from .cost_volume import (normalize_feature_volume, channels_mean,
+                          channels_norm, channels_zero_mean_norm,
+                          aggregate_cost, feature_volume_to_cost_volume,
+                          unfold_based_cost_volume, extract_selected_index,
                           selected_index_to_disp, selected_cost,
                           truncated_cost_volume)
 from .refinement import (InterpolationKernel, refine_cost_triplet,
                          refine_disp_cost_interpolation)
 from .sgm import (SgmDirection, directions_for, sgm_cost_volume,
                   sgm_wta_truncated, dense_sgm_stereo)
+from .patchmatch import patch_match, patch_match_stereo
 
 __all__ = [
     "box_filter_2d", "mean_filter_2d", "sigma_filter",
-    "box_cost_volume",
+    "unfold", "unfold_offsets", "unfold_permutation",
+    "unfold_sliding_subwindow_idxs", "PatchOrientation",
+    "census_features", "census_transform_2d",
+    "feature_comparison", "compare_feature_volumes",
+    "box_cost_volume", "supports_box",
+    "fused_fv_cost_volume", "FUSABLE_KERNELS",
+    "normalize_feature_volume", "channels_mean", "channels_norm",
+    "channels_zero_mean_norm", "aggregate_cost",
+    "feature_volume_to_cost_volume",
     "unfold_based_cost_volume", "extract_selected_index",
     "selected_index_to_disp", "selected_cost", "truncated_cost_volume",
     "InterpolationKernel", "refine_cost_triplet",
     "refine_disp_cost_interpolation",
     "SgmDirection", "directions_for", "sgm_cost_volume",
     "sgm_wta_truncated", "dense_sgm_stereo",
+    "patch_match", "patch_match_stereo",
 ]

@@ -1,50 +1,204 @@
-"""Cost-volume construction and disparity extraction, the dot-family slice
-of `libstevi_tpu/ops/cost_volume.py`.
+"""Cost-volume construction and disparity extraction, the 1-D engine of
+`libstevi_tpu/ops/cost_volume.py`.
 
-Reference parity: `unfoldBasedCostVolume` (`cross_correlations.h:740`),
-`extractSelectedIndex` (`correlation_base.h:428`; ties break toward the
-LAST optimal index because the reference uses `<=` / `>=`),
-`selectedIndexToDisp` (:512), `selectedCost` (:557) and
-`truncatedCostVolume` (:582), SAME mode.
+Reference parity:
+  * feature normalization — `channelsMean` (`correlation/correlation_base.h:1080`),
+    `channelsNorm`/`channelsZeroMeanNorm` (`correlation/cross_correlations.h:36-191`),
+    `getFeatureVolumeForMatchFunc` (`cross_correlations.h:647-722`);
+  * aggregation — `aggregateCost` (`cross_correlations.h:195,252,311`): source /
+    target roles from the disparity direction (`condImgRef`,
+    `correlation_base.h:824-878`; RIGHT_TO_LEFT means source = right image and
+    target sampled at ``j + d``), out-of-range target feature vectors are all
+    zeros;
+  * umbrella entries — `featureVolume2CostVolume` (:724),
+    `unfoldBasedCostVolume` (:740);
+  * WTA extraction — `extractSelectedIndex` (`correlation_base.h:428`; ties
+    break toward the LAST optimal index because the reference uses `<=` /
+    `>=`), `selectedIndexToDisp` (:512), `selectedCost` (:557) and
+    `truncatedCostVolume` (:582), SAME mode.
+
+Dispatch follows the JAX package, with "the tensors are on CUDA" in place
+of "the default backend is the TPU": `aggregate_cost` 'auto' launches K5
+(`fv_backend`) for dot/ssd/sad on CUDA, and `unfold_based_cost_volume`
+'auto' launches K1 (`box_cuda`) for a dot-family cost on gray images,
+RIGHT_TO_LEFT over [0, D).  2-D searches are not ported yet (ROADMAP.md A8).
 """
 
 from __future__ import annotations
 
+import functools
+
 import torch
 
-from ..core.types import (MatchingFunction, ExtractionStrategy, DispDirection,
-                          TruncatedCvDirection, disp_dtype)
-from ..core.search import SearchOffset1
-from .box_backend import DOT_FAMILY, box_cost_volume
+from ..core.types import (MatchingFunction, MATCH_TRAITS, ExtractionStrategy,
+                          DispDirection, TruncatedCvDirection, disp_dtype)
+from ..core.search import SearchOffset1, SearchOffset2
+from .box_backend import (DOT_FAMILY, box_cost_volume, disparities,
+                          supports_box)
+from .census import census_features
+from .fv_backend import FUSABLE_KERNELS, fused_fv_cost_volume, shifted_compare
+from .matching import feature_comparison
+from .unfold import unfold
+
+_NO_2D = ("2-D (SearchOffset2) cost volumes are not ported yet; they are "
+          "queued in ROADMAP.md (A8)")
+
+
+# ---------------------------------------------------------------------------
+# Feature-volume normalization
+# ---------------------------------------------------------------------------
+
+def channels_mean(fv: torch.Tensor) -> torch.Tensor:
+    """Per-pixel mean over the feature axis (`correlation_base.h:1080`)."""
+    return torch.mean(fv, dim=-1)
+
+
+def channels_norm(fv: torch.Tensor) -> torch.Tensor:
+    """Per-pixel L2 norm over the feature axis (`cross_correlations.h:124-191`)."""
+    return torch.sqrt(torch.sum(fv * fv, dim=-1))
+
+
+def channels_zero_mean_norm(fv: torch.Tensor,
+                            mean: torch.Tensor | None = None) -> torch.Tensor:
+    """Per-pixel L2 norm of the mean-subtracted features
+    (`cross_correlations.h:36-122`)."""
+    if mean is None:
+        mean = channels_mean(fv)
+    d = fv - mean[..., None]
+    return torch.sqrt(torch.sum(d * d, dim=-1))
+
+
+def normalize_feature_volume(func: MatchingFunction,
+                             fv: torch.Tensor) -> torch.Tensor:
+    """Apply the zero-mean / normalization / census preprocessing a matching
+    function requires (`getFeatureVolumeForMatchFunc`,
+    `cross_correlations.h:647-722`)."""
+    traits = MATCH_TRAITS[func]
+    fv = fv.float() if not traits.census else fv
+    if traits.zero_mean and traits.normalized:
+        mean = channels_mean(fv)
+        sigma = channels_zero_mean_norm(fv, mean)
+        fv = (fv - mean[..., None]) / sigma[..., None]
+    elif traits.zero_mean:
+        fv = fv - channels_mean(fv)[..., None]
+    elif traits.normalized:
+        fv = fv / channels_norm(fv)[..., None]
+    if traits.census:
+        fv = census_features(fv)
+    return fv
+
+
+# ---------------------------------------------------------------------------
+# Aggregation
+# ---------------------------------------------------------------------------
+
+def _source_target(func_dir: DispDirection, fv_l: torch.Tensor,
+                   fv_r: torch.Tensor):
+    """`condImgRef` role assignment (`correlation_base.h:824-878`)."""
+    if func_dir is DispDirection.RIGHT_TO_LEFT:
+        return fv_r, fv_l
+    return fv_l, fv_r
+
+
+def _shifted_compare_scan(func: MatchingFunction, source_fv: torch.Tensor,
+                          target_fv: torch.Tensor, shifts,
+                          cv_dtype) -> torch.Tensor:
+    """(H, W, D): cost[i, j, d] = compare(source[i, j, :],
+    target[i, j + shifts[d], :]) with zero target features out of range.
+    K5's plain version for dot/ssd/sad and the only route for
+    medad/hamming/kermi."""
+    return shifted_compare(functools.partial(feature_comparison, func),
+                           source_fv, target_fv, shifts, cv_dtype)
+
+
+def aggregate_cost(func: MatchingFunction, fv_l: torch.Tensor,
+                   fv_r: torch.Tensor, search,
+                   direction: DispDirection = DispDirection.RIGHT_TO_LEFT,
+                   cv_dtype=torch.float32, backend: str = "auto") -> torch.Tensor:
+    """Build an (H, W, D) cost volume from two *already normalized* feature
+    volumes over a 1-D search (int width or SearchOffset1) (`aggregateCost`,
+    `cross_correlations.h:195,252`).
+
+    ``backend='auto'`` launches K5 for the dot/SSD/SAD families on CUDA
+    tensors and takes the shifted-compare loop otherwise; 'scan' forces the
+    loop, 'fused' forces K5 (its plain version on CPU tensors)."""
+    if isinstance(search, SearchOffset2):
+        raise NotImplementedError(_NO_2D)
+    if backend not in ("auto", "scan", "fused"):
+        raise ValueError(f"backend {backend!r}: 'auto', 'scan' or 'fused'")
+    source_fv, target_fv = _source_target(direction, fv_l, fv_r)
+    shifts = [direction.delta_sign * d for d in disparities(search)]
+    kernel = MATCH_TRAITS[func].kernel
+    if backend == "auto":
+        backend = ("fused" if source_fv.is_cuda and kernel in FUSABLE_KERNELS
+                   and source_fv.ndim == 3 else "scan")
+    if backend == "fused":
+        return fused_fv_cost_volume(kernel, source_fv, target_fv, shifts,
+                                    cv_dtype)
+    return _shifted_compare_scan(func, source_fv, target_fv, shifts, cv_dtype)
+
+
+def feature_volume_to_cost_volume(func: MatchingFunction, fv_l: torch.Tensor,
+                                  fv_r: torch.Tensor, search,
+                                  direction: DispDirection = DispDirection.RIGHT_TO_LEFT,
+                                  cv_dtype=torch.float32,
+                                  backend: str = "auto") -> torch.Tensor:
+    """Normalize per the matching function's traits, then aggregate
+    (`featureVolume2CostVolume`, `cross_correlations.h:724-738`)."""
+    return aggregate_cost(func,
+                          normalize_feature_volume(func, fv_l),
+                          normalize_feature_volume(func, fv_r),
+                          search, direction, cv_dtype, backend=backend)
+
+
+def _k1_disp_width(func, img_l, search, direction):
+    """D when K1 takes the configuration (a dot-family cost on gray images,
+    RIGHT_TO_LEFT over [0, D)), else None."""
+    if func not in DOT_FAMILY or img_l.ndim != 2 \
+            or direction is not DispDirection.RIGHT_TO_LEFT:
+        return None
+    if isinstance(search, SearchOffset1):
+        return search.upper + 1 if search.lower == 0 else None
+    return int(search)
 
 
 def unfold_based_cost_volume(func: MatchingFunction, img_l: torch.Tensor,
                              img_r: torch.Tensor, h_radius: int, v_radius: int,
                              search,
                              direction: DispDirection = DispDirection.RIGHT_TO_LEFT,
-                             cv_dtype=torch.float32) -> torch.Tensor:
-    """(H, W, D) cost volume by the box route.
+                             cv_dtype=torch.float32,
+                             backend: str = "auto") -> torch.Tensor:
+    """(H, W, D) cost volume: unfold -> normalize -> aggregate
+    (`unfoldBasedCostVolume`, `cross_correlations.h:740-765`), or the box
+    decomposition for the window-decomposable functions.
 
-    On a CUDA tensor this is the K1 kernel (`box_cuda.box_cv`), which takes
-    gray images, RIGHT_TO_LEFT and a search of [0, D); anything else raises.
-    On the CPU it is `box_backend.box_cost_volume`.  The unfold route of
-    the non-box matching functions is not ported yet (ROADMAP.md A8)."""
-    if func not in DOT_FAMILY:
-        raise NotImplementedError(
-            f"{func}: only the dot family (CC/NCC/ZCC/ZNCC) is ported; the "
-            "other matching functions are queued in ROADMAP.md (A8)")
-    if not img_l.is_cuda:
+    ``backend``: 'auto' takes the box route when the function supports it
+    and the unfold route otherwise; 'box' forces the box route (K1 where it
+    takes the configuration on CUDA, `box_backend` otherwise); 'unfold'
+    forces unfold + the shifted-compare loop.  On the unfold route under
+    'auto', `aggregate_cost` launches K5 for the dot/SSD/SAD families on
+    CUDA."""
+    if isinstance(search, SearchOffset2):
+        raise NotImplementedError(_NO_2D)
+    if backend not in ("auto", "box", "unfold"):
+        raise ValueError(f"backend {backend!r}: 'auto', 'box' or 'unfold'")
+    auto = backend == "auto"
+    if auto:
+        backend = "box" if supports_box(func) else "unfold"
+    if backend == "box":
+        dw = _k1_disp_width(func, img_l, search, direction)
+        if img_l.is_cuda and dw is not None:
+            from .box_cuda import box_cv
+            return box_cv(func, img_l, img_r, h_radius, v_radius, dw,
+                          cv_dtype)
         return box_cost_volume(func, img_l, img_r, h_radius, v_radius, search,
                                direction, cv_dtype)
-    if isinstance(search, SearchOffset1) and search.lower == 0:
-        search = search.upper + 1
-    if not isinstance(search, int) or direction is not DispDirection.RIGHT_TO_LEFT:
-        raise NotImplementedError(
-            "the CUDA cost volume takes RIGHT_TO_LEFT over disparities "
-            "[0, D); offset searches and LEFT_TO_RIGHT are queued in "
-            "ROADMAP.md (A8)")
-    from .box_cuda import box_cv
-    return box_cv(func, img_l, img_r, h_radius, v_radius, search, cv_dtype)
+    fv_l = unfold(h_radius, v_radius, img_l)
+    fv_r = unfold(h_radius, v_radius, img_r)
+    # 'unfold' forces the loop; 'auto' lets aggregate_cost launch K5
+    return feature_volume_to_cost_volume(
+        func, fv_l, fv_r, search, direction, cv_dtype,
+        backend="auto" if auto else "scan")
 
 
 def extract_selected_index(cv: torch.Tensor,

@@ -13,11 +13,12 @@ import enum
 
 from .core import types
 from .ops import refinement, sgm
+from .ops.unfold import PatchOrientation
 
 PORT_ENUMS = {cls.__name__: cls for cls in (
     types.MatchingFunction, types.ExtractionStrategy, types.DispDirection,
     types.TruncatedCvDirection, refinement.InterpolationKernel,
-    sgm.SgmDirection)}
+    sgm.SgmDirection, PatchOrientation)}
 
 
 def to_port(obj):

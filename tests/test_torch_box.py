@@ -14,7 +14,7 @@ from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
 from libstevi_tpu.ops.box_pallas import box_cost_volume_fused_padded
 from libstevi_tpu.ops.cost_volume import unfold_based_cost_volume as j_unfold
 
-from libstevi_tpu_torch.core.search import SearchOffset1
+from libstevi_tpu_torch.core.search import SearchOffset1, SearchOffset2
 from libstevi_tpu_torch.ops import filters as tfilters
 from libstevi_tpu_torch.ops import box_cost_volume, unfold_based_cost_volume
 from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
@@ -86,11 +86,18 @@ def test_unfold_based_cost_volume_matches_jax(func):
 
 
 def test_non_dot_costs_are_not_ported_yet():
+    """Every 1-D matching function is ported now; what is left is the 2-D
+    search, and the box route refuses a function it cannot decompose, as
+    the JAX package does."""
     L, R = (torch.zeros(8, 8),) * 2
+    with pytest.raises(ValueError):
+        box_cost_volume(to_port(JMF.CENSUS), L, R, 1, 1, 4)
     with pytest.raises(NotImplementedError):
-        box_cost_volume(to_port(JMF.SSD), L, R, 1, 1, 4)
+        box_cost_volume(to_port(JMF.SSD), L, R, 1, 1,
+                        SearchOffset2(-1, 1, -1, 1))
     with pytest.raises(NotImplementedError):
-        unfold_based_cost_volume(to_port(JMF.CENSUS), L, R, 1, 1, 4)
+        unfold_based_cost_volume(to_port(JMF.CENSUS), L, R, 1, 1,
+                                 SearchOffset2(-1, 1, -1, 1))
 
 
 @pytest.mark.parametrize("bake", [False, True], ids=["plain", "pout_baked"])

@@ -15,6 +15,7 @@ from libstevi_tpu.core import types as jtypes
 from libstevi_tpu.io.image_io import read_stevimg as j_read, write_stevimg as j_write
 from libstevi_tpu.ops.refinement import InterpolationKernel as JInterp
 from libstevi_tpu.ops.sgm import SgmDirection as JSgmDirection
+from libstevi_tpu.ops.unfold import PatchOrientation as JPatchOrientation
 from libstevi_tpu.statistics import metrics as jmetrics
 
 from libstevi_tpu_torch.core import types as ttypes
@@ -29,7 +30,7 @@ DATA = REPO / "tests" / "data" / "parity"
 
 JAX_ENUMS = [jtypes.MatchingFunction, jtypes.ExtractionStrategy,
              jtypes.DispDirection, jtypes.TruncatedCvDirection, JInterp,
-             JSgmDirection]
+             JSgmDirection, JPatchOrientation]
 
 
 @pytest.mark.parametrize("jcls", JAX_ENUMS, ids=lambda c: c.__name__)
@@ -110,6 +111,10 @@ disp, idx, tcv = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 2, 2, 5,
                                   0.1, 0.5, refine_kernel=InterpolationKernel.PARABOLA,
                                   cv_dtype=torch.bfloat16)
 assert disp.shape == (12, 16) and tcv.shape == (12, 16, 3)
+pm = entry.patchmatch_forward(L, R, torch.Generator().manual_seed(0))
+assert pm.shape == (12, 16) and pm.dtype == torch.int32
+idx = entry.wta_forward(MatchingFunction.ZSAD, L, R)
+assert idx.shape == (12, 16) and idx.dtype == torch.int32
 assert not [m for m, v in sys.modules.items()
             if v is not None and (m == "jax" or m.startswith("jax."))]
 print("ran without jax")
@@ -118,7 +123,8 @@ print("ran without jax")
 
 def test_port_imports_and_runs_without_jax():
     """With jax and libstevi_tpu made unimportable, the port imports and
-    runs the dense path end to end on the CPU (the card has no JAX)."""
+    runs the dense SGM, PatchMatch and WTA paths end to end on the CPU (the
+    card has no JAX)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)

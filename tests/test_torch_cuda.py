@@ -14,6 +14,13 @@ from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
 from libstevi_tpu_torch.ops.sgm import SgmDirection, directions_for
 from libstevi_tpu_torch.ops.sgm_cuda import (sgm_pass, sgm_pass_plain,
                                              sgm_wta, sgm_wta_plain)
+from libstevi_tpu_torch.core import SearchOffset1
+from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
+                                               fused_fv_cost_volume_plain)
+from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
+                                               cost_oriented_volume)
+from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
+                                                    sweep, sweep_plain)
 
 pytestmark = pytest.mark.cuda
 
@@ -133,3 +140,109 @@ def test_unsupported_configurations_raise(dev, case):
             sgm_cost_volume(cv, 0.1, 0.5, Margins(1, 1, 1, 1))
         else:
             dense_sgm_stereo(MatchingFunction.SSD, L, R, 1, 1, 4, 0.1, 0.5)
+
+
+def _ulp_close(got, want):
+    """Within one bf16 ulp of the f32 value, plus 1e-5."""
+    _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
+    ulp = torch.ldexp(torch.ones_like(want), (e - 8).int())
+    assert ((got - want).abs() <= ulp + 1e-5).all()
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shifts", [list(range(13)), [-d for d in range(9)],
+                                    list(range(-4, 17))],
+                         ids=["r2l", "l2r", "offset"])
+@pytest.mark.parametrize("F", [49, 147])
+@pytest.mark.parametrize("kernel", ["dot", "ssd", "sad"])
+def test_k5_matches_plain(dev, kernel, F, shifts, dtype):
+    g = torch.Generator(device=dev).manual_seed(F)
+    H, W = (37, 101) if F == 49 else (20, 45)
+    src = torch.rand(H, W, F, generator=g, device=dev) - 0.5
+    tgt = torch.rand(H, W, F, generator=g, device=dev) - 0.5
+    before = fused_fv_cost_volume.launches
+    got = fused_fv_cost_volume(kernel, src, tgt, shifts, dtype)
+    assert fused_fv_cost_volume.launches == before + 1
+    want = fused_fv_cost_volume_plain(kernel, src, tgt, shifts)
+    torch.cuda.synchronize()
+    assert got.shape == (H, W, len(shifts)) and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _ulp_close(got.float(), want)
+
+
+def test_k5_refuses_what_it_does_not_take(dev):
+    fv = torch.zeros(4, 5, 3, device=dev)
+    with pytest.raises(NotImplementedError):
+        fused_fv_cost_volume("medad", fv, fv, [0, 1])
+    big = torch.zeros(2, 40, 400, device=dev)
+    with pytest.raises(NotImplementedError):
+        fused_fv_cost_volume("dot", big, big, list(range(200)))
+
+
+def _pm_state(dev, shape, seed):
+    H, W, D = shape
+    L, R = _pair(dev, H, W, seed)
+    cv = box_cv(MatchingFunction.NCC, L, R, 2, 2, D)
+    costc = cost_oriented_volume(MatchingFunction.NCC, cv, 0)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    disp = torch.randint(-2, D + 2, (H, W), generator=g, device=dev,
+                         dtype=torch.int32)
+    cost = probe_plain(costc, disp, disp, torch.full((H, W), float("inf"),
+                                                     device=dev), 0)[1]
+    return costc, disp, cost, g
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k6_equals_plain(dev, axis, reverse, shape):
+    costc, disp, cost, _ = _pm_state(dev, shape, 3)
+    before = sweep.launches
+    got = sweep(costc, disp, cost, 0, axis, reverse)
+    assert sweep.launches == before + 1
+    want = sweep_plain(costc, disp, cost, 0, axis, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("shape", SHAPES)
+@pytest.mark.parametrize("K", [1, 4])
+def test_k7_equals_plain(dev, K, shape):
+    costc, disp, cost, g = _pm_state(dev, shape, 4)
+    D = shape[2]
+    cand = torch.randint(-3, D + 3, (K,) + shape[:2], generator=g,
+                         device=dev, dtype=torch.int32)
+    cand[0, :3] = disp[:3]                       # ties with the current cost
+    before = probe.launches
+    got = probe(costc, cand, disp, cost, 0)
+    assert probe.launches == before + 1
+    want = probe_plain(costc, cand, disp, cost, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def test_cv_patchmatch_matches_cpu_with_one_draw_stream(dev):
+    """The CV route on the card against the plain route on the CPU, one
+    volume and one replayed candidate stream: equal disparities."""
+    L, R = _pair(dev, 40, 64, seed=5)
+    cv = box_cv(MatchingFunction.NCC, L, R, 3, 3, 24)
+
+    def drawer():
+        rng = np.random.default_rng(9)
+        return lambda shape, lo, hi: torch.from_numpy(
+            rng.integers(lo, hi, shape).astype(np.int32))
+
+    def run(vol, device):
+        draw = drawer()
+        return _patch_match_stereo_cv(
+            MatchingFunction.NCC, None, None, SearchOffset1(0, 23), 5, 4,
+            cv=vol, draw=lambda *a: draw(*a).to(device))
+
+    counts = (sweep.launches, probe.launches)
+    got = run(cv, dev)
+    assert (sweep.launches, probe.launches) == (counts[0] + 10,
+                                                counts[1] + 6)
+    want = run(cv.cpu(), "cpu")
+    assert torch.equal(got.cpu(), want)

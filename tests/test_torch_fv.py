@@ -1,0 +1,225 @@
+"""The port's 1-D cost-volume engine against the JAX package: `aggregate_cost`
+(the shifted-compare loop and K5's plain version against the JAX scan and
+the Pallas K5 kernel in interpret mode), the unfold route of
+`unfold_based_cost_volume` and the SSD / ZSSD / SAD box family."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from libstevi_tpu.core import MatchingFunction as JMF, DispDirection as JDir
+from libstevi_tpu.core.search import SearchOffset1 as JSearch1
+from libstevi_tpu.core.types import MATCH_TRAITS as J_TRAITS
+from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
+from libstevi_tpu.ops.cost_volume import (
+    aggregate_cost as j_aggregate, normalize_feature_volume as j_norm,
+    unfold_based_cost_volume as j_unfold_cv,
+    extract_selected_index as j_wta)
+from libstevi_tpu.ops.fv_backend import fused_fv_cost_volume as j_fused
+
+from libstevi_tpu_torch import entry
+from libstevi_tpu_torch.core.search import SearchOffset1, SearchOffset2
+from libstevi_tpu_torch.ops import (aggregate_cost, box_cost_volume,
+                                    extract_selected_index,
+                                    normalize_feature_volume,
+                                    unfold_based_cost_volume)
+from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
+                                               fused_fv_cost_volume_plain)
+from libstevi_tpu_torch.reference import to_port
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-5, atol=1e-5)
+BOX_TOL = dict(rtol=1e-4, atol=1e-4)
+SEARCHES = {"width": (7, 7), "offset": (JSearch1(-2, 6), SearchOffset1(-2, 6))}
+FUSABLE = {"dot": "ZNCC", "ssd": "SSD", "sad": "ZSAD"}
+
+
+def _fvs(seed, shape=(10, 17, 5)):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, shape).astype(np.float32),
+            rng.uniform(0, 1, shape).astype(np.float32))
+
+
+def _normalized(func, fl, fr):
+    jl, jr = (j_norm(func, jnp.asarray(x)) for x in (fl, fr))
+    tl, tr = (normalize_feature_volume(to_port(func), torch.from_numpy(x))
+              for x in (fl, fr))
+    return (jl, jr), (tl, tr)
+
+
+@pytest.mark.parametrize("backend", ["scan", "fused"])
+@pytest.mark.parametrize("search", list(SEARCHES))
+@pytest.mark.parametrize("direction", ["RIGHT_TO_LEFT", "LEFT_TO_RIGHT"])
+@pytest.mark.parametrize("kernel", list(FUSABLE))
+def test_aggregate_cost_matches_jax(kernel, direction, search, backend):
+    """The port's plain aggregate (the loop for 'scan', K5's plain version
+    for 'fused') against the JAX scan and the JAX Pallas K5 kernel run in
+    interpret mode."""
+    func = JMF[FUSABLE[kernel]]
+    (jl, jr), (tl, tr) = _normalized(func, *_fvs(1))
+    js, ts = SEARCHES[search]
+    want = np.asarray(j_aggregate(func, jl, jr, js, JDir[direction],
+                                  backend=backend))
+    got = aggregate_cost(to_port(func), tl, tr, ts,
+                         to_port(JDir[direction]), backend=backend).numpy()
+    assert got.shape == want.shape
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("func", ["MEDAD", "ZMEDAD", "CENSUS", "HAMMING",
+                                  "KERMI"])
+def test_aggregate_cost_loop_only_functions_match_jax(func):
+    f = JMF[func]
+    (jl, jr), (tl, tr) = _normalized(f, *_fvs(2, (8, 13, 9)))
+    want = np.asarray(j_aggregate(f, jl, jr, JSearch1(-1, 5)))
+    got = aggregate_cost(to_port(f), tl, tr, SearchOffset1(-1, 5)).numpy()
+    if J_TRAITS[f].census:
+        np.testing.assert_array_equal(got, want)
+    else:
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("layout", ["hwd", "dhw"])
+@pytest.mark.parametrize("shifts", [[0, 1, 2, 3, 4], [0, -1, -2, -3],
+                                    [-3, 5, 1, 9]], ids=["r2l", "l2r", "any"])
+def test_k5_plain_matches_pallas_kernel(shifts, layout):
+    """K5's plain version against the Pallas kernel in interpret mode, on a
+    19-feature (RGB-like) volume, any static shift list."""
+    fs, ft = _fvs(3, (6, 14, 19))
+    for kernel in ("dot", "ssd", "sad"):
+        want = np.asarray(j_fused(kernel, jnp.asarray(fs), jnp.asarray(ft),
+                                  shifts, layout=layout, interpret=True))
+        got = fused_fv_cost_volume(kernel, torch.from_numpy(fs),
+                                   torch.from_numpy(ft), shifts,
+                                   layout=layout).numpy()
+        np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_k5_plain_bf16_matches_jax():
+    fs, ft = _fvs(4, (5, 9, 7))
+    want = np.asarray(j_fused("sad", jnp.asarray(fs), jnp.asarray(ft),
+                              range(4), jnp.bfloat16, interpret=True),
+                      np.float32)
+    got = fused_fv_cost_volume("sad", torch.from_numpy(fs),
+                               torch.from_numpy(ft), range(4),
+                               torch.bfloat16).float().numpy()
+    # one bf16 ulp: the two f32 sums may round to neighbours
+    np.testing.assert_allclose(got, want, rtol=2 ** -7, atol=1e-5)
+
+
+def test_k5_wrapper_on_cpu_is_the_plain_version():
+    fs, ft = (torch.from_numpy(x) for x in _fvs(5, (4, 6, 3)))
+    before = fused_fv_cost_volume.launches
+    np.testing.assert_array_equal(
+        fused_fv_cost_volume("ssd", fs, ft, [0, -2, 1]).numpy(),
+        fused_fv_cost_volume_plain("ssd", fs, ft, [0, -2, 1]).numpy())
+    assert fused_fv_cost_volume.launches == before
+
+
+def _pair(seed, shape):
+    rng = np.random.default_rng(seed)
+    return (rng.uniform(0, 1, shape).astype(np.float32),
+            rng.uniform(0, 1, shape).astype(np.float32))
+
+
+def _wta_agree(cv, want, strategy, gap=1e-4):
+    """WTA indices of two volumes equal wherever the best two entries of the
+    reference volume are more than ``gap`` apart."""
+    got_idx = extract_selected_index(torch.from_numpy(cv), to_port(strategy))
+    want_idx = np.asarray(j_wta(jnp.asarray(want), strategy))
+    w = -want if strategy.name == "SCORE" else want
+    two = np.sort(w, axis=-1)[..., :2]
+    clear = (two[..., 1] - two[..., 0]) > gap
+    assert clear.mean() > 0.5
+    np.testing.assert_array_equal(got_idx.numpy()[clear], want_idx[clear])
+
+
+@pytest.mark.parametrize("func", ["ZSAD", "CENSUS", "MEDAD", "KERMI"])
+def test_unfold_route_matches_jax(func):
+    f = JMF[func]
+    L, R = _pair(6, (12, 18))
+    want = np.asarray(j_unfold_cv(f, jnp.asarray(L), jnp.asarray(R), 2, 2, 6))
+    got = unfold_based_cost_volume(to_port(f), torch.from_numpy(L),
+                                   torch.from_numpy(R), 2, 2, 6).numpy()
+    np.testing.assert_allclose(got, want, **BOX_TOL)
+    _wta_agree(got, want, J_TRAITS[f].strategy)
+
+
+@pytest.mark.parametrize("direction", ["RIGHT_TO_LEFT", "LEFT_TO_RIGHT"])
+@pytest.mark.parametrize("func", ["SSD", "ZSSD", "SAD"])
+def test_box_family_matches_jax(func, direction):
+    f = JMF[func]
+    L, R = _pair(7, (15, 21))
+    want = np.asarray(j_box(f, jnp.asarray(L), jnp.asarray(R), 2, 3, 8,
+                            JDir[direction]))
+    got = box_cost_volume(to_port(f), torch.from_numpy(L),
+                          torch.from_numpy(R), 2, 3, 8,
+                          to_port(JDir[direction])).numpy()
+    np.testing.assert_allclose(got, want, **BOX_TOL)
+    _wta_agree(got, want, J_TRAITS[f].strategy)
+
+
+@pytest.mark.parametrize("case", ["offset_search", "multichannel"])
+@pytest.mark.parametrize("func", ["SSD", "ZSSD", "SAD"])
+def test_box_family_variants_match_jax(func, case):
+    f = JMF[func]
+    L, R = _pair(8, (13, 19, 3) if case == "multichannel" else (13, 19))
+    js, ts = ((JSearch1(-3, 4), SearchOffset1(-3, 4))
+              if case == "offset_search" else (6, 6))
+    want = np.asarray(j_box(f, jnp.asarray(L), jnp.asarray(R), 1, 2, js))
+    got = box_cost_volume(to_port(f), torch.from_numpy(L),
+                          torch.from_numpy(R), 1, 2, ts).numpy()
+    np.testing.assert_allclose(got, want, **BOX_TOL)
+
+
+@pytest.mark.parametrize("backend", ["box", "unfold"])
+@pytest.mark.parametrize("func", ["SSD", "SAD", "ZNCC"])
+def test_unfold_based_backends_match_jax(func, backend):
+    """'box' and 'unfold' name the same volume; each matches its JAX
+    route."""
+    f = JMF[func]
+    L, R = _pair(9, (11, 16))
+    want = np.asarray(j_unfold_cv(f, jnp.asarray(L), jnp.asarray(R), 2, 1,
+                                  JSearch1(0, 5), backend=backend))
+    got = unfold_based_cost_volume(to_port(f), torch.from_numpy(L),
+                                   torch.from_numpy(R), 2, 1,
+                                   SearchOffset1(0, 5),
+                                   backend=backend).numpy()
+    np.testing.assert_allclose(got, want, **BOX_TOL)
+
+
+@pytest.mark.parametrize("func", ["ZSAD", "SSD", "CENSUS"])
+def test_wta_forward_matches_jax(func):
+    """The slice's WTA entry (7x7 window, D=120) against the JAX package's
+    `bench_grid.py` configuration: volumes within float tolerance, indices
+    equal away from near-ties."""
+    f = JMF[func]
+    L, R = _pair(11, (14, 140))
+    want = np.asarray(j_unfold_cv(f, jnp.asarray(L), jnp.asarray(R), 3, 3,
+                                  120))
+    got = unfold_based_cost_volume(to_port(f), torch.from_numpy(L),
+                                   torch.from_numpy(R), **entry.WTA).numpy()
+    np.testing.assert_allclose(got, want, **BOX_TOL)
+    idx = entry.wta_forward(to_port(f), torch.from_numpy(L),
+                            torch.from_numpy(R))
+    np.testing.assert_array_equal(
+        idx.numpy(),
+        extract_selected_index(torch.from_numpy(got),
+                               to_port(J_TRAITS[f].strategy)).numpy())
+    if J_TRAITS[f].census:      # integer costs: equal volumes, equal ties
+        np.testing.assert_array_equal(
+            idx.numpy(), np.asarray(j_wta(jnp.asarray(want),
+                                          J_TRAITS[f].strategy)))
+    else:
+        _wta_agree(got, want, J_TRAITS[f].strategy)
+
+
+def test_two_d_searches_are_not_ported_yet():
+    fv = torch.zeros(4, 5, 3)
+    with pytest.raises(NotImplementedError):
+        aggregate_cost(to_port(JMF.SSD), fv, fv, SearchOffset2(-1, 1, -1, 1))
+    with pytest.raises(NotImplementedError):
+        unfold_based_cost_volume(to_port(JMF.SSD), fv[..., 0], fv[..., 0],
+                                 1, 1, SearchOffset2(-1, 1, -1, 1))

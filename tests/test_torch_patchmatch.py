@@ -1,0 +1,294 @@
+"""The port's PatchMatch against the JAX package: K6/K7's plain versions
+against the Pallas sweep and probe kernels in interpret mode, the whole
+CV-route matcher replaying JAX's candidate stream on one shared volume, the
+cacheless sweeps, and the matcher's quality on the small parity pairs."""
+
+from pathlib import Path
+
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from libstevi_tpu.core import MatchingFunction as JMF
+from libstevi_tpu.core.search import SearchOffset1 as JSearch1
+from libstevi_tpu.ops import patchmatch as jpm
+from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
+from libstevi_tpu.ops.cost_volume import normalize_feature_volume as j_norm
+from libstevi_tpu.ops.patchmatch import patch_match as j_patch_match
+from libstevi_tpu.ops.patchmatch_pallas import (probe as j_probe,
+                                                sweep as j_sweep, _round_up)
+from libstevi_tpu.ops.unfold import unfold as j_unfold
+
+from libstevi_tpu_torch import entry
+from libstevi_tpu_torch.core import MatchingFunction, SearchOffset1
+from libstevi_tpu_torch.io import read_stevimg
+from libstevi_tpu_torch.ops import patchmatch as tpm
+from libstevi_tpu_torch.ops import patch_match, patch_match_stereo
+from libstevi_tpu_torch.ops.cost_volume import normalize_feature_volume
+from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
+                                                    sweep, sweep_plain)
+from libstevi_tpu_torch.ops.unfold import unfold
+from libstevi_tpu_torch.reference import to_port
+from libstevi_tpu_torch.statistics import inlier_mae, prop_good
+
+torch.set_num_threads(2)
+
+DATA = Path(__file__).resolve().parent / "data" / "parity"
+_INF = np.float32(np.inf)
+
+
+def _state(seed, H, W, D, lower):
+    """A cost-oriented (H, W, D) volume of small integers (many ties) with
+    +inf entries, and a state whose disparities reach 2 past either end of
+    [lower, lower + D) (out-of-range candidates) with some +inf costs."""
+    rng = np.random.default_rng(seed)
+    cv = rng.integers(0, 4, (H, W, D)).astype(np.float32)
+    cv[rng.uniform(size=cv.shape) < 0.1] = _INF
+    disp = rng.integers(lower - 2, lower + D + 2, (H, W)).astype(np.int32)
+    cost = rng.integers(0, 4, (H, W)).astype(np.float32)
+    cost[rng.uniform(size=cost.shape) < 0.1] = _INF
+    return cv, disp, cost
+
+
+def _jax_layout(cv, *maps, rc=8):
+    """(H, W, D) -> the TPU kernels' padded (Hp, Dp, Wp) volume and
+    (Hp, Wp) maps (volume and costs padded with +inf)."""
+    H, W, D = cv.shape
+    Hp, Wp, Dp = _round_up(H, rc), _round_up(W, 128), _round_up(D, 8)
+    cv_p = np.moveaxis(np.pad(cv, ((0, Hp - H), (0, Wp - W), (0, Dp - D)),
+                              constant_values=np.inf), -1, 1)
+    out = [np.pad(m, ((0, Hp - H), (0, Wp - W)),
+                  constant_values=np.inf if m.dtype == np.float32 else 0)
+           for m in maps]
+    return cv_p, out
+
+
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_sweep_plain_matches_pallas_kernel(axis, reverse):
+    H, W, D, lower = 13, 11, 6, -2
+    cv, disp, cost = _state(axis * 2 + reverse, H, W, D, lower)
+    if axis == 0:           # lines are rows: the kernel's own orientation
+        cv_j, d_j, c_j, L = cv, disp, cost, H
+    else:                   # lines are columns: the transposed problem
+        cv_j, d_j, c_j, L = (cv.transpose(1, 0, 2), disp.T.copy(),
+                             cost.T.copy(), W)
+    cv_p, (d_p, c_p) = _jax_layout(np.ascontiguousarray(cv_j), d_j, c_j)
+    jd, jc = j_sweep(jnp.asarray(cv_p), jnp.asarray(d_p), jnp.asarray(c_p),
+                     lower, D, L, reverse, interpret=True)
+    S = cv_j.shape[1]
+    jd, jc = np.asarray(jd)[:L, :S], np.asarray(jc)[:L, :S]
+    if axis == 1:
+        jd, jc = jd.T, jc.T
+    td, tc = sweep_plain(torch.from_numpy(cv), torch.from_numpy(disp),
+                         torch.from_numpy(cost), lower, axis, reverse)
+    assert td.dtype == torch.int32 and tc.dtype == torch.float32
+    assert not np.array_equal(td.numpy(), disp)        # something moved
+    np.testing.assert_array_equal(td.numpy(), jd)
+    np.testing.assert_array_equal(tc.numpy(), jc)
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_probe_plain_matches_pallas_kernel(K):
+    H, W, D, lower = 16, 9, 7, 3
+    cv, disp, cost = _state(10 + K, H, W, D, lower)
+    rng = np.random.default_rng(20 + K)
+    cand = rng.integers(lower - 2, lower + D + 2, (K, H, W)).astype(np.int32)
+    cand[0, :2] = disp[:2]                         # exact ties with itself
+    cv_p, (d_p, c_p) = _jax_layout(cv, disp, cost)
+    c_pad = np.stack([_jax_layout(cv, c)[1][0] for c in cand], axis=1)
+    jd, jc = j_probe(jnp.asarray(cv_p), jnp.asarray(c_pad), jnp.asarray(d_p),
+                     jnp.asarray(c_p), lower, D, interpret=True)
+    td, tc = probe_plain(torch.from_numpy(cv), torch.from_numpy(cand),
+                         torch.from_numpy(disp), torch.from_numpy(cost), lower)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd)[:H, :W])
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(jc)[:H, :W])
+
+
+def test_wrappers_on_cpu_are_the_plain_versions():
+    cv, disp, cost = (torch.from_numpy(x) for x in _state(30, 6, 7, 5, 0))
+    before = (sweep.launches, probe.launches)
+    for got, want in ((sweep(cv, disp, cost, 0, 1, True),
+                       sweep_plain(cv, disp, cost, 0, 1, True)),
+                      (probe(cv, disp, disp, cost, 0),
+                       probe_plain(cv, disp, disp, cost, 0))):
+        for g, w in zip(got, want):
+            assert torch.equal(g, w)
+    assert (sweep.launches, probe.launches) == before
+
+
+def test_scaled_candidate_floors_like_jax():
+    rng = np.random.default_rng(40)
+    cand = rng.integers(-10, 30, (5, 8)).astype(np.int32)
+    disp = rng.integers(-10, 30, (5, 8)).astype(np.int32)
+    assert ((cand - disp) < 0).any() and ((cand - disp) % 5 != 0).any()
+    for k in range(4):
+        want = (jnp.asarray(disp) + ((jnp.asarray(cand) - jnp.asarray(disp))
+                                     * (k + 1)) // 5)
+        want = np.asarray(jnp.where(want == jnp.asarray(disp),
+                                    jnp.asarray(disp) + 1, want))
+        got = tpm._scaled_candidate(torch.from_numpy(cand),
+                                    torch.from_numpy(disp), k, 4)
+        assert got.dtype == torch.int32
+        np.testing.assert_array_equal(got.numpy(), want)
+
+
+def _jax_draws(seed, H, W, lower, upper, n_iter, n_random):
+    """JAX's candidate stream of `_patch_match_stereo_cv`
+    (`patchmatch.py:219-253`): drawn at the padded (round_up(H, 128),
+    round_up(W, 128)) shape and cropped to (H, W)."""
+    Hp, Wp = _round_up(H, 128), _round_up(W, 128)
+
+    def rnd(k):
+        return np.array(jax.random.randint(k, (Hp, Wp), lower, upper + 1,
+                                           dtype=jnp.int32)[:H, :W])
+
+    key = jax.random.PRNGKey(seed)
+    key, k0 = jax.random.split(key)
+    draws = [rnd(k0)]
+    for _ in range(n_iter):
+        key, ks = jax.random.split(key)
+        keys = jax.random.split(ks, n_random)
+        draws += [rnd(keys[k]) for k in range(n_random)]
+    return draws
+
+
+def _replay(draws, low, high):
+    """A ``draw`` that hands out ``draws`` in order."""
+    queue = list(draws)
+
+    def draw(shape, lo, hi):
+        assert (tuple(shape), lo, hi) == (queue[0].shape, low, high)
+        return torch.from_numpy(queue.pop(0))
+    draw.left = queue
+    return draw
+
+
+def _shifted_pair(seed, H, W, shift):
+    """right(i, j) = left(i, j + shift), plus a little noise."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.1, 1, (H, W + shift)).astype(np.float32)
+    right = base[:, shift:]
+    left = base[:, :W]
+    noise = rng.normal(0, 0.02, (2, H, W)).astype(np.float32)
+    return left + noise[0], right + noise[1]
+
+
+@pytest.mark.parametrize("func,search", [("NCC", (0, 15)), ("SSD", (-3, 12))],
+                         ids=["ncc_score", "ssd_cost_offset"])
+def test_cv_patchmatch_matches_jax_exactly(func, search):
+    """The whole CV route on one shared volume, replaying JAX's candidate
+    stream: disparities equal JAX's with the Pallas kernels in interpret
+    mode."""
+    H, W, n_iter, n_random = 24, 40, 4, 2
+    lo, hi = search
+    L, R = _shifted_pair(50, H, W, 5)
+    f = JMF[func]
+    cv_j = j_box(f, jnp.asarray(L), jnp.asarray(R), 2, 2, JSearch1(lo, hi))
+    want = np.asarray(jpm._patch_match_stereo_cv(
+        f, None, None, JSearch1(lo, hi), n_iter, n_random,
+        jax.random.PRNGKey(3), interpret=True, cv=cv_j))
+    draw = _replay(_jax_draws(3, H, W, lo, hi, n_iter, n_random), lo, hi + 1)
+    got = tpm._patch_match_stereo_cv(
+        to_port(f), None, None, SearchOffset1(lo, hi), n_iter, n_random,
+        cv=torch.from_numpy(np.array(cv_j)), draw=draw)
+    assert not draw.left
+    assert got.dtype == torch.int32 and got.shape == (H, W)
+    np.testing.assert_array_equal(got.numpy(), want)
+    assert (want[3:-3, 3:-8] == 5).mean() > 0.8     # it found the shift
+
+
+def _fv_pair(func, seed=60, H=14, W=22, r=2):
+    L, R = _shifted_pair(seed, H, W, 3)
+    jl, jr = (j_norm(func, j_unfold(r, r, jnp.asarray(x))) for x in (L, R))
+    tl, tr = (normalize_feature_volume(to_port(func),
+                                       unfold(r, r, torch.from_numpy(x)))
+              for x in (L, R))
+    return (jl, jr), (tl, tr)
+
+
+@pytest.mark.parametrize("func", ["ZNCC", "SAD", "CENSUS"])
+def test_cacheless_sweeps_match_jax(func):
+    """The cacheless evaluator and sweeps on the same state (costs within
+    float tolerance: the two packages sum features in other orders, so a
+    candidate equal to the current disparity may or may not count as a
+    tie; the disparities agree)."""
+    f = JMF[func]
+    (jl, jr), (tl, tr) = _fv_pair(f)
+    jev = jpm._StereoEval(f, jr, jl)
+    tev = tpm._StereoEval(to_port(f), tr, tl)
+    disp = np.random.default_rng(61).integers(-1, 9, jr.shape[:2]).astype(
+        np.int32)
+    jc = jev.cost_field(jnp.asarray(disp))
+    tc = tev.cost_field(torch.from_numpy(disp))
+    np.testing.assert_allclose(tc.numpy(), np.asarray(jc), rtol=1e-5,
+                               atol=1e-5)
+    jd, jcost = jnp.asarray(disp), jc
+    td, tcost = torch.from_numpy(disp), tc
+    for forward in (True, False):
+        jd, jcost, _ = jpm._row_sweep(jev, jd, jcost, forward)
+        td, tcost, _ = tpm._row_sweep(tev, td, tcost, forward)
+        jd, jcost, _ = jpm._col_sweep(jev, jd, jcost, not forward)
+        td, tcost, _ = tpm._col_sweep(tev, td, tcost, not forward)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(jd))
+    np.testing.assert_allclose(tcost.numpy(), np.asarray(jcost), rtol=1e-5,
+                               atol=1e-5)
+
+
+def _small(occ):
+    sfx = "_occ_small" if occ else "_small"
+    L, R, gt = (read_stevimg(str(DATA / f"{n}{sfx}.stevimg"))
+                for n in ("left", "right", "gt"))
+    return torch.from_numpy(L), torch.from_numpy(R), gt
+
+
+@pytest.mark.parametrize("route", ["scan", "cv"])
+@pytest.mark.parametrize("occ,bar", [(False, 0.85), (True, 0.93)],
+                         ids=["warp", "occluded"])
+def test_patch_match_on_small_pairs(occ, bar, route):
+    """The JAX tests' bars (`tests/test_parity.py:149-154, 269-274`) for
+    both routes of the port on the CPU."""
+    L, R, gt = _small(occ)
+    g = torch.Generator().manual_seed(0)
+    f = MatchingFunction.NCC
+    search = SearchOffset1(0, 31)
+    if route == "scan":
+        disp = patch_match(f, L, R, search, 3, 3, n_iter=5, generator=g)
+    else:
+        fl, fr = (normalize_feature_volume(f, unfold(3, 3, x)) for x in (L, R))
+        disp = patch_match_stereo(f, fr, fl, search, n_iter=5, generator=g,
+                                  backend="cv")
+    assert disp.dtype == torch.int32 and disp.shape == L.shape
+    pg = prop_good(disp.numpy().astype(np.float32), gt, 2.0)
+    assert pg > bar, pg
+
+
+def test_patch_match_respects_search_range():
+    base = torch.from_numpy(np.random.default_rng(70).uniform(
+        0.1, 1, (24, 32)).astype(np.float32))
+    so = SearchOffset1(2, 9)
+    for backend in ("scan", "cv"):
+        fv = normalize_feature_volume(MatchingFunction.NCC,
+                                      unfold(2, 2, base))
+        disp = patch_match_stereo(MatchingFunction.NCC, fv, fv, so, n_iter=4,
+                                  backend=backend)
+        assert disp.min() >= 2 and disp.max() <= 9
+
+
+@pytest.mark.parametrize("occ", [False, True], ids=["warp", "occluded"])
+def test_patchmatch_forward_matches_jax_quality(occ):
+    """The slice's PatchMatch entry (NCC 7x7, D=120, 5 iterations, 4 random
+    candidates) on the small parity pairs, against the JAX package's
+    `patch_match` in the same configuration: the candidate streams differ,
+    so the two agree statistically."""
+    L, R, gt = _small(occ)
+    j = np.asarray(j_patch_match(JMF.NCC, jnp.asarray(L.numpy()),
+                                 jnp.asarray(R.numpy()), JSearch1(0, 119), 3,
+                                 3, 5, 4), np.float32)
+    t = entry.patchmatch_forward(L, R, torch.Generator().manual_seed(0))
+    t = t.numpy().astype(np.float32)
+    pg_j, pg_t = prop_good(j, gt, 2.0), prop_good(t, gt, 2.0)
+    assert pg_t > 0.95 and abs(pg_t - pg_j) < 0.01, (pg_t, pg_j)
+    assert abs(inlier_mae(t, gt, 2.0) - inlier_mae(j, gt, 2.0)) < 0.03
