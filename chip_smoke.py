@@ -4,32 +4,47 @@
 
 Builds the port's CUDA kernels from ``libstevi_tpu_torch/csrc`` and holds
 each kernel against its plain PyTorch version: K1 box cost volume, K2 SGM
-pass and K3 SGM pass + WTA at the flagship shape and at an odd shape, in
-float32 and bfloat16; K5 feature-volume cost volume at the WTA path's shape
-(480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset search,
-an RGB F=147 input); K6 PatchMatch sweep and K7 probe, exactly, on the
-480x640x120 NCC volume.  Then it runs three paths, each with the launch
+pass, K2k knight-direction SGM pass (all 8 directions, run twice: the same
+acc both times) and K3 SGM pass + WTA at the flagship shape, at an odd
+shape and at D=300 (40x360), in float32 and bfloat16, and at the HD path's
+shape (720x1280, D=320) in bfloat16; the SGM entries with margins against
+the CPU; K5 feature-volume cost volume at the WTA path's
+shape (480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset
+search, an RGB F=147 input); K6 PatchMatch sweep and K7 probe, exactly, on
+the 480x640x120 NCC volume.  Then it runs six paths, each with the launch
 counts set to 0 just before it and read just after:
 - the flagship stereo path (`entry.flagship_forward`: 480x640, D=120,
   ZNCC 7x7, bf16 volume, SGM-8, parabola subpixel) on the two committed
   parity fixtures, held to accuracy bars against their ground truth, and a
   random pair;
+- SGM-16 (`entry.sgm16_forward`: the same with 16 directions and an f32
+  volume), the path of K2k, on the same three pairs, held to the
+  `PARITY_r05` `zncc_sgm16_f32` bars; a bfloat16 request must give the
+  float32 result;
+- census + SGM-8 (`entry.census_sgm_forward`) on the fixtures, held to the
+  `census_sgm8` bars;
+- HD (`entry.hd_forward`: 720x1280, D=320, bf16 volume, SGM-8) on a random
+  pair;
 - PatchMatch (`entry.patchmatch_forward`: NCC 7x7, D=120, 5 iterations, 4
   random candidates) on the fixtures, held to bars;
 - the WTA matcher with ZSAD (`entry.wta_forward`), which K5 carries, on the
   fixtures (no bar: the JAX package's parity record has no ZSAD row).
-Each path also runs small against its plain version on the CPU.  It checks
-that each kernel was launched in its path, times the frames and each kernel
-against its plain version (CUDA events, median of 5), and prints one JSON
-line of kernel records, the card's name and power limit, and a last JSON
-line ``{"ok": true, "device": ...}``.  Any failed check raises: the exit
-code is then non-zero and no result line is printed.  There is no CPU path.
+Each path also runs small against its plain version on the CPU, and the
+port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
+--sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
+SGM-16 bars.  It checks that each kernel was launched in its path, times
+the frames and each kernel against its plain version (CUDA events, median
+of 5), and prints one JSON line of kernel records, the card's name and
+power limit, and a last JSON line ``{"ok": true, "device": ...}``.  Any
+failed check raises: the exit code is then non-zero and no result line is
+printed.  There is no CPU path.
 """
 
 import json
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from pathlib import Path
 
@@ -46,6 +61,10 @@ BARS = {"warp": ("", 0.9985, 0.14), "occluded": ("_occ", 0.9982, 0.21)}
 # inlier_mae plus 0.03 (the candidate stream differs from JAX's, so the
 # match is statistical)
 PM_BARS = {"warp": (0.9947, 0.2926), "occluded": (0.9734, 0.4397)}
+# PARITY_r05.json, row zncc_sgm16_f32, set as the flagship's
+SGM16_BARS = {"warp": (0.9986, 0.1474), "occluded": (0.9983, 0.2085)}
+# PARITY_r05.json, row census_sgm8
+CENSUS_BARS = {"warp": (0.9967, 0.1915), "occluded": (0.9388, 0.4475)}
 P1, P2, POUT = 0.1, 0.5, 100.0
 
 
@@ -79,6 +98,45 @@ def median_ms(fn, reps=5, warmup=1):
     return statistics.median(times)
 
 
+def check_bars(tag, disp, gt, bars):
+    """Hold a disparity map to (prop_good_2.0, inlier_mae) bars."""
+    from libstevi_tpu_torch.statistics import prop_good, inlier_mae
+    d = disp.cpu().numpy()
+    pg, mae = prop_good(d, gt, 2.0), inlier_mae(d, gt, 2.0)
+    pg_bar, mae_bar = bars
+    print(f"  {tag}: prop_good_2.0 = {pg:.4f} (bar >= {pg_bar}), "
+          f"inlier_mae = {mae:.4f} (bar <= {mae_bar})", flush=True)
+    assert pg >= pg_bar and mae <= mae_bar, (tag, pg, mae)
+
+
+def check_random(tag, disp, idx, D, h=3, v=3):
+    """The parabola through a minimum moves it by at most half a pixel;
+    inside the valid window and away from d = 0 and d = D-1 (where a band
+    slot is NaN by rule) the disparity is finite.  Returns the finite
+    share."""
+    H, W = disp.shape
+    inner = (slice(v, H - v), slice(h, W - h - D))
+    mid = (idx[inner] > 0) & (idx[inner] < D - 1)
+    dd = (disp[inner] - idx[inner].float())[mid]
+    frac = torch.isfinite(dd).float().mean().item()
+    assert frac > 0.999, (tag, frac)
+    assert (dd[torch.isfinite(dd)].abs() <= 0.5 + 1e-5).all(), tag
+    print(f"  {tag}: finite share {frac:.6f} where 0 < idx < D-1 in the "
+          f"valid window, |disp - idx| <= 0.5", flush=True)
+    return frac
+
+
+def spilling_instances(report: str):
+    """Kernel instances for which ptxas reported spill stores."""
+    name, out = None, []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            name = line.split("'")[1]
+        elif "spill stores" in line and "0 bytes spill stores" not in line:
+            out.append(f"{name}: {line.strip()}")
+    return out
+
+
 def bf16_ulp(x):
     """One bfloat16 ulp of each f32 value (8 significant bits)."""
     _, e = torch.frexp(x)
@@ -92,12 +150,13 @@ def main() -> int:
         return 2
     sys.path.insert(0, str(ROOT))
     from libstevi_tpu_torch import _build, entry
-    from libstevi_tpu_torch.core import MatchingFunction, SearchOffset1
+    from libstevi_tpu_torch.core import (Margins, MatchingFunction,
+                                         SearchOffset1)
     from libstevi_tpu_torch.io import read_stevimg
     from libstevi_tpu_torch.ops import (dense_sgm_stereo,
-                                        extract_selected_index,
-                                        normalize_feature_volume, unfold,
-                                        unfold_based_cost_volume)
+                                        normalize_feature_volume,
+                                        sgm_cost_volume, sgm_wta_truncated,
+                                        unfold, unfold_based_cost_volume)
     from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
     from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
                                                    fused_fv_cost_volume_plain)
@@ -106,8 +165,11 @@ def main() -> int:
     from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
                                                         sweep, sweep_plain)
     from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
-                                            direction_adj, _tcv_from_bands)
-    from libstevi_tpu_torch.ops.sgm_cuda import (sgm_pass, sgm_pass_plain,
+                                            direction_adj, _KNIGHT_DIRS,
+                                            _tcv_from_bands)
+    from libstevi_tpu_torch.ops.sgm_cuda import (sgm_knight_pass,
+                                                 sgm_knight_pass_plain,
+                                                 sgm_pass, sgm_pass_plain,
                                                  sgm_wta, sgm_wta_plain)
     from libstevi_tpu_torch.statistics import prop_good, inlier_mae
 
@@ -122,24 +184,32 @@ def main() -> int:
     secs = _build.build_all()
     print(f"build: {secs:.2f} s (nvcc, sm_90a)", flush=True)
     for name in _build.SIGNATURES:
-        report = _build.ptxas_report(name).splitlines()
-        regs = [line.split("Used ")[1].split(",")[0] for line in report
-                if "Used " in line]
-        spills = [line for line in report if "spill stores" in line
-                  and "0 bytes spill stores" not in line]
+        report = _build.ptxas_report(name)
+        regs = [line.split("Used ")[1].split(",")[0]
+                for line in report.splitlines() if "Used " in line]
+        spills = spilling_instances(report)
         print(f"  {name}: {len(regs)} kernel instances, registers "
               f"{sorted(set(regs))}, spilling instances {len(spills)}",
               flush=True)
+        for line in spills:
+            print(f"    {line}", flush=True)
 
     ZNCC = MatchingFunction.ZNCC
     R2L = SgmDirection.RIGHT2LEFT
     k2_dirs = [d for d in directions_for(8) if d is not R2L]
-    err = {"K1": 0.0, "K2": 0.0, "K3": 0.0}
+    err = {"K1": 0.0, "K2": 0.0, "K2k": 0.0, "K3": 0.0}
 
     # -- kernel phases: each kernel against its plain version ----------------
-    for (H, W, D) in ((480, 640, 120), (37, 101, 13)):
+    # D=300 takes K = 10 values a lane in K1, K2, K2k and K3; the HD path's
+    # shape (720x1280, D=320, bf16) fills every slice of every lane and K1's
+    # largest shared tile
+    both = (torch.float32, torch.bfloat16)
+    for (H, W, D), dts in (((480, 640, 120), both), ((37, 101, 13), both),
+                           ((40, 360, 300), both),
+                           ((entry.HD_HEIGHT, entry.HD_WIDTH, 320),
+                            (torch.bfloat16,))):
         L, R = pair(H, W, 1, dev)
-        for dt in (torch.float32, torch.bfloat16):
+        for dt in dts:
             tag = f"{H}x{W}x{D} {str(dt).split('.')[-1]}"
             cv = box_cv(ZNCC, L, R, 3, 3, D, dt, negate=True)
             want = box_cv_plain(ZNCC, L, R, 3, 3, D, torch.float32,
@@ -169,6 +239,20 @@ def main() -> int:
             print(f"K2 {tag}: 7 passes, max |kernel - plain| = {e2:.3g}",
                   flush=True)
 
+            # K2k: the 8 knight directions on top, twice from one acc
+            acc2 = acc.clone()
+            for d in _KNIGHT_DIRS:
+                sgm_knight_pass(cv, acc, d, P1, P2, POUT)
+                sgm_knight_pass(cv, acc2, d, P1, P2, POUT)
+                sgm_knight_pass_plain(cv, acc_p, d, P1, P2, POUT)
+            torch.cuda.synchronize()
+            assert torch.equal(acc, acc2), f"K2k {tag}: two runs differ"
+            torch.testing.assert_close(acc, acc_p, rtol=1e-4, atol=1e-4)
+            ek = (acc - acc_p).abs().max().item()
+            err["K2k"] = max(err["K2k"], ek)
+            print(f"K2k {tag}: 8 directions, two runs equal, max |kernel - "
+                  f"plain| = {ek:.3g}", flush=True)
+
             idx, bands, disp = sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True)
             idx_p, bands_p, disp_p = sgm_wta_plain(cv, acc, P1, P2, POUT, 1,
                                                    3, 3, True)
@@ -197,21 +281,49 @@ def main() -> int:
             print(f"K3 {tag}: idx agree {agree:.6f}, max |kernel - plain| "
                   f"= {e3:.3g}", flush=True)
 
+    # SGM margins: the region runs contiguous (image column offset and
+    # width for Pout) and is padded back; against the plain path on the CPU
+    L, R = pair(37, 101, 11, dev)
+    cv = box_cv(ZNCC, L, R, 3, 3, 13, torch.float32, negate=True)
+    m = Margins(2, 1, 3, 2)
+    for nd in (8, 16):
+        got = sgm_cost_volume(cv, P1, P2, m, n_directions=nd)
+        want = sgm_cost_volume(cv.cpu(), P1, P2, m, n_directions=nd)
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+        ig, tg = sgm_wta_truncated(cv, P1, P2, m, n_directions=nd,
+                                   h_radius=3, v_radius=3)
+        ic, tc = sgm_wta_truncated(cv.cpu(), P1, P2, m, n_directions=nd,
+                                   h_radius=3, v_radius=3)
+        same = ig.cpu() == ic
+        assert same.float().mean().item() >= 0.999, nd
+        torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
+                                   atol=1e-4, equal_nan=True)
+        print(f"margins {m} 37x101x13 SGM-{nd}: volume and WTA equal the "
+              f"CPU within 1e-4, idx agree {same.float().mean().item():.6f}",
+              flush=True)
+
     # the path glue on a small input: the kernel path against the plain
     # path run on the CPU (f32 volume: a bf16 volume built by two routes
     # may round single entries to neighbouring bf16 values)
-    Ls, Rs = pair(64, 96, 2, dev)
-    kw = dict(entry.FLAGSHIP, disp_width=24, cv_dtype=torch.float32)
-    dg, ig, tg = dense_sgm_stereo(ZNCC, Ls, Rs, **kw)
-    dc, ic, tc = dense_sgm_stereo(ZNCC, Ls.cpu(), Rs.cpu(), **kw)
-    same = ig.cpu() == ic
-    assert same.float().mean().item() >= 0.999
-    torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
-                               atol=1e-4, equal_nan=True)
-    torch.testing.assert_close(dg.cpu()[same], dc[same], rtol=1e-4,
-                               atol=1e-4, equal_nan=True)
-    print(f"path 64x96x24 f32: CUDA vs CPU idx agree "
-          f"{same.float().mean().item():.6f}", flush=True)
+    def cuda_vs_cpu(tag, func, H, W, cfg, D):
+        Ls, Rs = pair(H, W, 2, dev)
+        kw = dict(cfg, disp_width=D, cv_dtype=torch.float32)
+        dg, ig, tg = dense_sgm_stereo(func, Ls, Rs, **kw)
+        dc, ic, tc = dense_sgm_stereo(func, Ls.cpu(), Rs.cpu(), **kw)
+        same = ig.cpu() == ic
+        assert same.float().mean().item() >= 0.999, tag
+        torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
+                                   atol=1e-4, equal_nan=True)
+        torch.testing.assert_close(dg.cpu()[same], dc[same], rtol=1e-4,
+                                   atol=1e-4, equal_nan=True)
+        print(f"path {tag} {H}x{W}x{D} f32: CUDA vs CPU idx agree "
+              f"{same.float().mean().item():.6f}", flush=True)
+
+    CENSUS = MatchingFunction.CENSUS
+    cuda_vs_cpu("flagship", ZNCC, 64, 96, entry.FLAGSHIP, 24)
+    cuda_vs_cpu("SGM-16", ZNCC, 64, 96, entry.SGM16, 24)
+    cuda_vs_cpu("census SGM-8", CENSUS, 64, 96, entry.CENSUS_SGM8, 24)
+    cuda_vs_cpu("HD settings, D > 256", ZNCC, 24, 330, entry.HD_BF16, 300)
 
     # -- K5 against its plain version ----------------------------------------
     NCC, ZSAD = MatchingFunction.NCC, MatchingFunction.ZSAD
@@ -303,8 +415,14 @@ def main() -> int:
         pairs[name] = (imgs, gt)
     _, (Lr, Rr) = entry.entry(dev)
     pairs["random"] = ([Lr, Rr], None)
-    box_cv.launches = sgm_pass.launches = sgm_wta.launches = 0
-    torch.cuda.synchronize()
+    K2K_COUNTERS = (box_cv, sgm_pass, sgm_knight_pass, sgm_wta)
+
+    def reset(*fns):
+        for fn in fns:
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    reset(*K2K_COUNTERS)
     t0 = time.perf_counter()
     out = {name: dense_sgm_stereo(ZNCC, *imgs, **entry.FLAGSHIP)
            for name, (imgs, _) in pairs.items()}
@@ -318,26 +436,89 @@ def main() -> int:
     for name, (disp, idx, tcv) in out.items():
         assert disp.shape == idx.shape == (480, 640)
         assert disp.dtype == torch.float32 and tcv.shape == (480, 640, 3)
-        d = disp.cpu().numpy()
-        gt = pairs[name][1]
-        if gt is None:
-            # the parabola through a minimum moves it by at most half a
-            # pixel; inside the valid window and away from d = 0 and
-            # d = D-1 (where a band slot is NaN by rule) disp is finite
-            inner = (slice(3, -3), slice(3, 640 - 3 - 120))
-            mid = (idx[inner] > 0) & (idx[inner] < 119)
-            dd = (disp[inner] - idx[inner].float())[mid]
-            frac = torch.isfinite(dd).float().mean().item()
-            assert frac > 0.999, frac
-            assert (dd[torch.isfinite(dd)].abs() <= 0.5 + 1e-5).all()
-            print(f"  random: finite share {frac:.6f} where 0 < idx < D-1 "
-                  f"in the valid window, |disp - idx| <= 0.5", flush=True)
-            continue
-        pg, mae = prop_good(d, gt, 2.0), inlier_mae(d, gt, 2.0)
-        _, pg_bar, mae_bar = BARS[name]
-        print(f"  {name}: prop_good_2.0 = {pg:.4f} (bar >= {pg_bar}), "
-              f"inlier_mae = {mae:.4f} (bar <= {mae_bar})", flush=True)
-        assert pg >= pg_bar and mae <= mae_bar, (name, pg, mae)
+        if name == "random":
+            check_random("random", disp, idx, 120)
+        else:
+            check_bars(name, disp, pairs[name][1], BARS[name][1:])
+
+    # -- the SGM-16 path: both fixtures and the random pair -------------------
+    reset(*K2K_COUNTERS, fused_fv_cost_volume)
+    t0 = time.perf_counter()
+    out16 = {name: dense_sgm_stereo(ZNCC, *imgs, **entry.SGM16)
+             for name, (imgs, _) in pairs.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches16 = {"K1": box_cv.launches, "K2": sgm_pass.launches,
+                  "K2k": sgm_knight_pass.launches, "K3": sgm_wta.launches}
+    print(f"SGM-16 path: 3 pairs in {wall:.3f} s host wall (first calls), "
+          f"launches {launches16}, K5 {fused_fv_cost_volume.launches}",
+          flush=True)
+    assert all(n > 0 for n in launches16.values()), launches16
+    for name, (disp, idx, tcv) in out16.items():
+        assert disp.shape == idx.shape == (480, 640)
+        assert disp.dtype == torch.float32 and tcv.shape == (480, 640, 3)
+        if name == "random":
+            check_random("random", disp, idx, 120)
+        else:
+            check_bars(name, disp, pairs[name][1], SGM16_BARS[name])
+    # the bf16 rule: a bf16 request with 16 directions runs an f32 volume
+    d16 = dense_sgm_stereo(ZNCC, *pairs["warp"][0],
+                           **dict(entry.SGM16, cv_dtype=torch.bfloat16))
+    for a, b in zip(d16, out16["warp"]):
+        assert torch.equal(torch.nan_to_num(a, 9.0), torch.nan_to_num(b, 9.0))
+    print("  warp, cv_dtype=bfloat16: equal to the float32 result", flush=True)
+
+    # -- census + SGM-8: both fixtures ---------------------------------------
+    reset(*K2K_COUNTERS, fused_fv_cost_volume)
+    t0 = time.perf_counter()
+    out_cs = {name: entry.census_sgm_forward(*pairs[name][0])
+              for name in CENSUS_BARS}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    cs_launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
+                   "K2k": sgm_knight_pass.launches, "K3": sgm_wta.launches,
+                   "K5": fused_fv_cost_volume.launches}
+    print(f"census SGM-8 path: 2 pairs in {wall:.3f} s host wall, launches "
+          f"{cs_launches} (the census volume runs on the shifted-compare "
+          f"loop)", flush=True)
+    assert cs_launches["K2"] > 0 and cs_launches["K3"] > 0, cs_launches
+    for name, disp in out_cs.items():
+        assert disp.shape == (480, 640) and disp.dtype == torch.float32
+        check_bars(name, disp, pairs[name][1], CENSUS_BARS[name])
+
+    # -- HD 720x1280, D=320, bf16, SGM-8: a random pair ----------------------
+    Lh, Rh = pair(entry.HD_HEIGHT, entry.HD_WIDTH, 12, dev)
+    reset(*K2K_COUNTERS)
+    t0 = time.perf_counter()
+    dh, ih, th = dense_sgm_stereo(ZNCC, Lh, Rh, **entry.HD_BF16)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hd_launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
+                   "K3": sgm_wta.launches}
+    print(f"HD path 720x1280x320 bf16: {wall:.3f} s host wall (first call), "
+          f"launches {hd_launches}", flush=True)
+    assert all(n > 0 for n in hd_launches.values()), hd_launches
+    assert dh.shape == (720, 1280) and th.shape == (720, 1280, 3)
+    check_random("HD random", dh, ih, 320)
+
+    # -- the CLI, as a subprocess, SGM-16 on the warp fixture ----------------
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = str(Path(tmp) / "disp16.stevimg")
+        res = subprocess.run(
+            [sys.executable, "-m", "libstevi_tpu_torch.cli.stereo_match",
+             str(FIXTURES / "left.stevimg"), str(FIXTURES / "right.stevimg"),
+             "-o", out_path, "-d", "120", "--matcher", "sgm", "--sgm-dirs",
+             "16", "--refine", "parabola", "--gt",
+             str(FIXTURES / "gt.stevimg")],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        disp_cli = read_stevimg(out_path)
+    print(f"CLI: {json.dumps(report)}", flush=True)
+    assert disp_cli.shape == (480, 640)
+    pg_bar, mae_bar = SGM16_BARS["warp"]
+    assert report["prop_good_2.0"] >= pg_bar, report
+    assert report["inlier_mae"] <= mae_bar, report
 
     # -- the PatchMatch path: both fixtures -----------------------------------
     # a small run against the plain route on the CPU: one volume, one
@@ -376,13 +557,7 @@ def main() -> int:
     for name, disp in out_pm.items():
         assert disp.shape == (480, 640) and disp.dtype == torch.int32
         assert 0 <= disp.min().item() and disp.max().item() <= 119
-        d = disp.cpu().numpy().astype(np.float32)
-        gt = pairs[name][1]
-        pg, mae = prop_good(d, gt, 2.0), inlier_mae(d, gt, 2.0)
-        pg_bar, mae_bar = PM_BARS[name]
-        print(f"  {name}: prop_good_2.0 = {pg:.4f} (bar >= {pg_bar}), "
-              f"inlier_mae = {mae:.4f} (bar <= {mae_bar})", flush=True)
-        assert pg >= pg_bar and mae <= mae_bar, (name, pg, mae)
+        check_bars(name, disp.float(), pairs[name][1], PM_BARS[name])
 
     # -- the WTA path with ZSAD: both fixtures --------------------------------
     # small, against the plain route on the CPU: volumes within float
@@ -425,6 +600,17 @@ def main() -> int:
     frame_ms = median_ms(lambda: entry.flagship_forward(L, R))
     print(f"time: flagship frame 480x640 D=120 bf16: {frame_ms:.3f} ms "
           f"(median of 5; {smi})", flush=True)
+    frames = {
+        "SGM-16 frame 480x640 D=120 f32": lambda: entry.sgm16_forward(L, R),
+        "census SGM-8 frame 480x640 D=120": (
+            lambda: entry.census_sgm_forward(L, R)),
+        "HD frame 720x1280 D=320 bf16 SGM-8": lambda: entry.hd_forward(Lh, Rh),
+    }
+    frame_times = {}
+    for name, fn in frames.items():
+        frame_times[name] = median_ms(fn)
+        print(f"time: {name}: {frame_times[name]:.3f} ms (median of 5; "
+              f"{smi})", flush=True)
     cv = box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16, negate=True)
     acc = torch.empty(cv.shape, device=dev)
     acc_p = torch.empty(cv.shape, device=dev)
@@ -435,11 +621,20 @@ def main() -> int:
 
     for k, d in enumerate(k2_dirs):
         sgm_pass(cv, acc, d, P1, P2, POUT, accumulate=k > 0)
+    cv32 = box_cv(ZNCC, L, R, 3, 3, 120, torch.float32, negate=True)
+    acc_k = torch.zeros(cv32.shape, device=dev)
+
+    def k2k(fn):
+        for d in _KNIGHT_DIRS:
+            fn(cv32, acc_k, d, P1, P2, POUT)
+
     jobs = {
         "K1": (lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16, True),
                lambda: box_cv_plain(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
                                     True)),
         "K2": (lambda: k2(sgm_pass, acc_p), lambda: k2(sgm_pass_plain, acc_p)),
+        "K2k": (lambda: k2k(sgm_knight_pass),
+                lambda: k2k(sgm_knight_pass_plain)),
         "K3": (lambda: sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True),
                lambda: sgm_wta_plain(cv, acc, P1, P2, POUT, 1, 3, 3, True)),
     }
@@ -452,15 +647,17 @@ def main() -> int:
         "K7": (lambda: probe(costc, cand, d1, c1, 0),
                lambda: probe_plain(costc, cand, d1, c1, 0)),
     })
+    plain_reps = {"K2k": 2}      # the plain knight passes take ~1 s a run
     ms = {}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
-        p1, k1, k2_, p2 = (median_ms(plain), median_ms(kern),
-                           median_ms(kern), median_ms(plain))
+        n = plain_reps.get(name, 5)
+        p1, k1, k2_, p2 = (median_ms(plain, n), median_ms(kern),
+                           median_ms(kern), median_ms(plain, n))
         ms[name] = ((k1 + k2_) / 2, (p1 + p2) / 2)
         print(f"time: {name} kernel {ms[name][0]:.3f} ms vs plain "
-              f"{ms[name][1]:.3f} ms (median of 5, twice each; {smi})",
-              flush=True)
+              f"{ms[name][1]:.3f} ms (kernel median of 5, plain median of "
+              f"{n}, twice each; {smi})", flush=True)
 
     # the PatchMatch frame and its parts (CUDA events, median of 5)
     gen = torch.Generator(device=dev)
@@ -489,6 +686,8 @@ def main() -> int:
          "libstevi_tpu/ops/box_pallas.py:99", "K1"),
         ("K2 sgm_pass", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2"),
+        ("K2k sgm_knight_pass", "libstevi_tpu_torch/csrc/sgm_scan.cu",
+         "libstevi_tpu/ops/sgm_pallas_dhw.py:107", "K2k"),
         ("K3 sgm_wta", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3"),
         ("K5 fv_cv", "libstevi_tpu_torch/csrc/fv_cv.cu",
@@ -498,6 +697,7 @@ def main() -> int:
         ("K7 pm_probe", "libstevi_tpu_torch/csrc/patchmatch.cu",
          "libstevi_tpu/ops/patchmatch_pallas.py:118", "K7"),
     ]
+    launches["K2k"] = launches16["K2k"]     # the SGM-16 path's run
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key], "max_abs_err": err[key],

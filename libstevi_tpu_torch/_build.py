@@ -39,13 +39,18 @@ SIGNATURES = {
         "box_cv_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     },
     "sgm_scan": {
-        # cv, cv_bf16, acc, H, W, D, di, dj, P1, P2, Pout, accumulate, stream
-        "sgm_pass_launch": [_P, _I, _P, _I, _I, _I, _I, _I, _F, _F, _F, _I,
-                            _P],
+        # cv, cv_bf16, acc, H, W, D, di, dj, P1, P2, Pout, accumulate, col0,
+        # W_pout, stream
+        "sgm_pass_launch": [_P, _I, _P] + [_I] * 5 + [_F] * 3 + [_I] * 3
+                           + [_P],
+        # cv, cv_bf16, acc, H, W, D, v0, v1, h0, h1, phase, P1, P2, Pout,
+        # col0, W_pout, stream
+        "sgm_knight_launch": [_P, _I, _P] + [_I] * 8 + [_F] * 3 + [_I] * 2
+                             + [_P],
         # cv, cv_bf16, acc, idx, bands, disp, H, W, D, P1, P2, Pout, r,
         # h_radius, v_radius, stream
-        "sgm_wta_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F,
-                           _I, _I, _I, _P],
+        "sgm_wta_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F]
+                          + [_I] * 3 + [_P],
     },
     "fv_cv": {
         # src, tgt, shifts, out, H, W, F, D, min_shift, span, kind,

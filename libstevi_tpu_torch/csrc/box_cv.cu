@@ -22,6 +22,8 @@
 // consecutive tgt columns (no bank conflicts, the src value is a broadcast)
 // and writes 32 consecutive d of one pixel.  Each thread keeps K partial
 // sums, so one src load feeds K FMAs.
+// D <= 320 (K <= 10): at D = 320 and a 7x7 window a block stages
+// 10 x (38 + 357) floats, 15.8 KB of shared memory.
 // Left for later PRs: separable row-then-column sums instead of 49 FMAs per
 // entry, 16-byte stores, computing the window statistics in the kernel.
 
@@ -143,6 +145,7 @@ cudaError_t dispatch(int K, const float* src, const float* tgt,
   switch (K) {
     BOX_CV_CASE(1) BOX_CV_CASE(2) BOX_CV_CASE(3) BOX_CV_CASE(4)
     BOX_CV_CASE(5) BOX_CV_CASE(6) BOX_CV_CASE(7) BOX_CV_CASE(8)
+    BOX_CV_CASE(9) BOX_CV_CASE(10)
     default: return cudaErrorInvalidValue;
   }
 #undef BOX_CV_CASE
@@ -156,7 +159,7 @@ extern "C" int box_cv_launch(const void* src, const void* tgt,
                              int H, int W, int D, int hr, int vr, int kind,
                              float inv_n, int negate, int out_bf16,
                              void* stream) {
-  if (H < 1 || W < 1 || D < 1 || D > 256 || hr < 0 || vr < 0 || kind < 0 ||
+  if (H < 1 || W < 1 || D < 1 || D > 320 || hr < 0 || vr < 0 || kind < 0 ||
       kind > 3)
     return (int)cudaErrorInvalidValue;
   const int K = (D + 31) / 32;

@@ -7,6 +7,13 @@ WTA -> truncated band (r=1) -> parabola subpixel, at the reference benchmark
 geometry (480x640; `test/benchmarks/benchmarkCrossCorrelationAlgorithms.cpp:
 370-401`).  `entry(device)` returns it with a random pair made from seed 0.
 
+`sgm16_forward` is the same path with 16 directions and a float32 volume
+(`bench_grid.py:114-126`, "SGM16 ZNCC SD D=120"); `census_sgm_forward` is
+census + 8-direction SGM (P1=1, P2=4) + parabola, the `census_sgm8` row of
+`PARITY_r05` (`scripts/run_parity_r05.py:67-74`); `hd_forward` is the
+flagship at 720x1280 with D=320 (`bench_grid.py:153-154`, "SGM8 ZNCC bf16
+dense HD D=320").
+
 `patchmatch_forward` is the PatchMatch matcher in the `BENCH_GRID_r05` /
 `PARITY_r05` configuration (NCC, 7x7 window, disparities [0, 119], 5
 iterations, 4 random candidates); `wta_forward` is the per-matching-function
@@ -27,16 +34,42 @@ FLAGSHIP = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
                 n_directions=8, cost_vol_radius=1,
                 refine_kernel=InterpolationKernel.PARABOLA,
                 cv_dtype=torch.bfloat16)
+SGM16 = dict(FLAGSHIP, n_directions=16, cv_dtype=torch.float32)
+CENSUS_SGM8 = dict(FLAGSHIP, P1=1.0, P2=4.0, cv_dtype=torch.float32)
+HD_BF16 = dict(FLAGSHIP, disp_width=320)
 PATCHMATCH = dict(search=SearchOffset1(0, 119), h_radius=3, v_radius=3,
                   n_iter=5, n_random=4)
 WTA = dict(h_radius=3, v_radius=3, search=120)
 HEIGHT, WIDTH = 480, 640
+HD_HEIGHT, HD_WIDTH = 720, 1280
 
 
 def flagship_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
     """Refined disparity (H, W) float32 of a gray pair."""
     disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
                                   **FLAGSHIP)
+    return disp
+
+
+def sgm16_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair, 16-direction SGM."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
+                                  **SGM16)
+    return disp
+
+
+def census_sgm_forward(img_l: torch.Tensor,
+                       img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair, census + SGM-8."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.CENSUS, img_l, img_r,
+                                  **CENSUS_SGM8)
+    return disp
+
+
+def hd_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair at D=320, bf16."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
+                                  **HD_BF16)
     return disp
 
 

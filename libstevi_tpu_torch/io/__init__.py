@@ -1,3 +1,3 @@
-from .image_io import read_stevimg, write_stevimg
+from .image_io import read_image, read_stevimg, write_image, write_stevimg
 
-__all__ = ["read_stevimg", "write_stevimg"]
+__all__ = ["read_image", "read_stevimg", "write_image", "write_stevimg"]

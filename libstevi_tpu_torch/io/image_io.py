@@ -1,5 +1,8 @@
 """.stevimg image IO in numpy (the `read_stevimg`/`write_stevimg` part of
-`libstevi_tpu/io/image_io.py`).
+`libstevi_tpu/io/image_io.py`), and `read_image`/`write_image`, which
+dispatch on the extension as the JAX package's do.  Only ``.stevimg`` is
+ported; other formats raise ValueError (the card's machine has no
+imageio).
 
 Reference parity: `io/image_io.h:49-160` — a text header line ``<dtype>
 <ndim> <shape...> <strides...>`` with dtype descriptors like ``f32``/``u8``
@@ -7,6 +10,8 @@ followed by raw row-major data.
 """
 
 from __future__ import annotations
+
+import os
 
 import numpy as np
 
@@ -49,3 +54,24 @@ def read_stevimg(path: str) -> np.ndarray:
         shape = tuple(int(v) for v in parts[2:2 + ndim])
         data = np.frombuffer(f.read(), dtype=dtype)
     return data.reshape(shape).copy()
+
+
+def _ext(path: str) -> str:
+    ext = os.path.splitext(path)[1].lower()
+    if ext != ".stevimg":
+        raise ValueError(f"{path}: only .stevimg images are ported "
+                         "(ROADMAP.md A11)")
+    return ext
+
+
+def read_image(path: str, dtype=None) -> np.ndarray:
+    """`IO::readImage` (`image_io.h:171`) for ``.stevimg`` files."""
+    _ext(path)
+    img = read_stevimg(path)
+    return img if dtype is None else img.astype(dtype)
+
+
+def write_image(path: str, image: np.ndarray) -> bool:
+    """`IO::writeImage` (`image_io.h:177`) for ``.stevimg`` files."""
+    _ext(path)
+    return write_stevimg(path, image)

@@ -1,5 +1,5 @@
 """Semi-global matching as cost-volume smoothing (counterpart of
-`libstevi_tpu/ops/sgm.py`, 4 and 8 directions).
+`libstevi_tpu/ops/sgm.py`, 4, 8 and 16 directions).
 
 Reference parity: `correlation/sgm.h` — scanline directions as step-pair
 traits (:57-155), the per-line DP recurrence with P1 (|delta d| = 1), P2
@@ -16,14 +16,20 @@ The plain PyTorch versions here walk each direction the way the TPU's
 streaming kernels do: vertical and diagonal directions loop over image rows
 with a (W, D) carry (a diagonal carry shifts one column per row, a zero
 shifted in is a line start), horizontal directions loop over columns with
-an (H, D) carry — O(H + W) vectorised steps per direction.  On a CUDA
-tensor the public entry points run the K2/K3 kernels (`sgm_cuda.py`).
+an (H, D) carry — O(H + W) vectorised steps per direction.  The eight
+knight-move directions of the 16-direction set alternate two step vectors
+(`sgm.h:112-155`); their lines come from `_build_lines` and run through
+`_cost_mode_pass` (gather, scan along the lines, scatter-add), as in the
+JAX package.  On a CUDA tensor the public entry points run the K2, K2k and
+K3 kernels (`sgm_cuda.py`).
 """
 
 from __future__ import annotations
 
 import enum
+from functools import lru_cache
 
+import numpy as np
 import torch
 
 from ..core.types import ExtractionStrategy, MATCH_TRAITS
@@ -56,8 +62,21 @@ class SgmDirection(enum.Enum):
         """(di, dj) of a principal (non-knight) direction."""
         (v0, v1), (h0, h1) = self.value
         if v0 != v1 or h0 != h1:
-            raise NotImplementedError(f"{self.name} is a knight-move direction")
+            raise ValueError(f"{self.name} is a knight-move direction: "
+                             "use .steps")
         return v0, h0
+
+    @property
+    def steps(self) -> tuple[tuple[int, int], tuple[int, int]]:
+        """The two (di, dj) steps a line alternates: step c of a line is
+        ``steps[c % 2]``.  Both are equal for a principal direction."""
+        (v0, v1), (h0, h1) = self.value
+        return (v0, h0), (v1, h1)
+
+    @property
+    def knight(self) -> bool:
+        s0, s1 = self.steps
+        return s0 != s1
 
 
 _KNIGHT_DIRS = [SgmDirection.UPLEFT2DOWN, SgmDirection.DOWNRIGHT2UP,
@@ -77,13 +96,6 @@ def directions_for(n_directions: int):
     if n_directions >= 16:
         dirs += _KNIGHT_DIRS
     return dirs
-
-
-def _no_knights(n_directions: int) -> None:
-    if n_directions == 16:
-        raise NotImplementedError(
-            "16-direction SGM (the knight-move families) is not ported yet: "
-            "queued in ROADMAP.md (A7, kernel K2k)")
 
 
 # ---------------------------------------------------------------------------
@@ -122,9 +134,10 @@ def direction_adj(cv: torch.Tensor, direction: SgmDirection, P1: float,
     """One principal direction's adjustment ``L_dir - cv`` over an
     (H, W, D) float32 region, the corner line counted twice.  ``col0`` is
     the image column of the region's first column and ``W_pout`` the image
-    width, for the Pout test ``j + d >= W`` (non-zero margins)."""
+    width (default ``col0 + W``), for the Pout test ``j + d >= W``
+    (non-zero margins)."""
     H, W, D = cv.shape
-    W_pout = W if W_pout is None else W_pout
+    W_pout = col0 + W if W_pout is None else W_pout
     di, dj = direction.step
     dd = torch.arange(D, device=cv.device)
     adj = torch.empty_like(cv)
@@ -153,6 +166,94 @@ def direction_adj(cv: torch.Tensor, direction: SgmDirection, P1: float,
     return adj
 
 
+@lru_cache(maxsize=32)  # bounded: maps are O((H+W)*line_len) per key
+def _build_lines(H: int, W: int, margins: tuple, direction: SgmDirection):
+    """Static (lines, steps) index maps for one direction, following
+    `addDirectionalCost`'s start enumeration (`sgm.h:329-355`): numpy
+    (ii, jj, active) of shape (lines, max length), padded steps repeating a
+    line's last pixel.  The JAX package's `_build_lines`, verbatim."""
+    ml, mt, mr, mb = margins
+    sv, sh = direction.value
+    starts = []
+    if sh != (0, 0):
+        sj = ml if (sh[0] >= 0 and sh[1] >= 0) else W - mr - 1
+        for si in range(mt, H - mb):
+            starts.append((si, sj))
+    if sv != (0, 0):
+        si = mt if (sv[0] >= 0 and sv[1] >= 0) else H - mb - 1
+        for sj in range(ml, W - mr):
+            starts.append((si, sj))
+
+    lines = []
+    max_len = 0
+    for (si, sj) in starts:
+        i, j, c = si, sj, 0
+        coords = []
+        while mt <= i < H - mb and ml <= j < W - mr:
+            coords.append((i, j))
+            i += sv[c % 2]
+            j += sh[c % 2]
+            c += 1
+        if coords:
+            lines.append(coords)
+            max_len = max(max_len, len(coords))
+
+    L = len(lines)
+    ii = np.zeros((L, max_len), np.int32)
+    jj = np.zeros((L, max_len), np.int32)
+    active = np.zeros((L, max_len), bool)
+    for k, coords in enumerate(lines):
+        n = len(coords)
+        arr = np.asarray(coords, np.int32)
+        ii[k, :n] = arr[:, 0]
+        jj[k, :n] = arr[:, 1]
+        active[k, :n] = True
+        ii[k, n:] = arr[-1, 0]
+        jj[k, n:] = arr[-1, 1]
+    return ii, jj, active
+
+
+def _cost_mode_pass(cv: torch.Tensor, ii, jj, active, P1: float, P2: float,
+                    Pout: float, col0: int = 0,
+                    W_pout: int | None = None) -> torch.Tensor:
+    """One direction's adjustment over an (H, W, D) float32 volume from its
+    line maps: gather the lines, run `_dp_step` along them, scatter-add
+    back (a pixel on two lines, or on the corner line enumerated twice,
+    gets both contributions).  ``col0`` and ``W_pout`` as in
+    `direction_adj`."""
+    H, W, D = cv.shape
+    W_pout = col0 + W if W_pout is None else W_pout
+    ii_t = torch.from_numpy(ii).long().to(cv.device)
+    jj_t = torch.from_numpy(jj).long().to(cv.device)
+    act = torch.from_numpy(active).to(cv.device)
+    lines = cv[ii_t, jj_t]                                   # (L, T, D)
+    L, T = ii_t.shape
+    dd = torch.arange(D, device=cv.device)
+    carry = cv.new_zeros((L, D))
+    adjs = torch.empty_like(lines)
+    for t in range(T):
+        pout = torch.where(col0 + jj_t[:, t, None] + dd >= W_pout, Pout, 0.0)
+        cur, adj = _dp_step(carry, lines[:, t], pout, P1, P2)
+        v = act[:, t, None]
+        carry = torch.where(v, cur, 0.0)
+        adjs[:, t] = torch.where(v, adj, 0.0)
+    out = cv.new_zeros((H, W, D))
+    return out.index_put_((ii_t.reshape(-1), jj_t.reshape(-1)),
+                          adjs.reshape(L * T, D), accumulate=True)
+
+
+def knight_adj(cv: torch.Tensor, direction: SgmDirection, P1: float,
+               P2: float, Pout: float, col0: int = 0,
+               W_pout: int | None = None) -> torch.Tensor:
+    """One knight direction's adjustment over an (H, W, D) float32 region;
+    ``col0`` and ``W_pout`` as in `direction_adj`."""
+    H, W, _ = cv.shape
+    ii, jj, active = _build_lines(H, W, (0, 0, 0, 0), direction)
+    if ii.size == 0:
+        return torch.zeros_like(cv)
+    return _cost_mode_pass(cv, ii, jj, active, P1, P2, Pout, col0, W_pout)
+
+
 def _grouped_adj(region, P1, P2, Pout, n_directions, col0, W_pout):
     """Sum of the direction adjustments, grouped as the JAX XLA path sums
     them (horizontal pair + vertical pair, then the diagonal pairs)."""
@@ -171,35 +272,53 @@ def _grouped_adj(region, P1, P2, Pout, n_directions, col0, W_pout):
 # Public entries
 # ---------------------------------------------------------------------------
 
+def _region(cv: torch.Tensor, margins: Margins) -> torch.Tensor:
+    H, W = cv.shape[:2]
+    return cv[margins.top:H - margins.bottom, margins.left:W - margins.right]
+
+
 def sgm_cost_volume(cv: torch.Tensor, P1: float, P2: float,
                     margins: Margins = Margins(), Pout: float = 100.0,
                     n_directions: int = 8,
                     strategy: ExtractionStrategy = ExtractionStrategy.COST
                     ) -> torch.Tensor:
-    """Aggregate an (H, W, D) cost volume along 4/8 scanline directions
-    (`sgmCostVolume`, `sgm.h:361-404`).  Returns float32.  SCORE volumes
-    run the cost-mode engine on the negated volume.  On a CUDA tensor every
-    direction is one K2 launch (`sgm_cuda.sgm_pass`)."""
+    """Aggregate an (H, W, D) cost volume along 4/8/16 scanline directions
+    (`sgmCostVolume`, `sgm.h:361-404`) inside ``margins``; the volume
+    outside them is returned unchanged.  Returns float32.  SCORE volumes
+    run the cost-mode engine on the negated volume.  On a CUDA tensor the
+    region runs contiguous through one K2 launch per principal direction
+    and one K2k call per knight direction (`sgm_cuda.sgm_accumulate`), and
+    is padded back.  On the CPU the sums follow the JAX XLA path: the
+    principal directions grouped, then each knight pass in `_KNIGHT_DIRS`
+    order, each padded to the full volume."""
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
-    _no_knights(n_directions)
     if strategy is ExtractionStrategy.SCORE:
         return -sgm_cost_volume(-cv, P1, P2, margins, Pout, n_directions,
                                 ExtractionStrategy.COST)
     P1, P2, Pout = float(P1), float(P2), float(Pout)
+    H, W, D = cv.shape
+    ml, mt, mr, mb = margins.left, margins.top, margins.right, margins.bottom
+    region = _region(cv, margins)
+    if region.shape[0] == 0 or region.shape[1] == 0:
+        return cv.float()
+
+    def pad(adj):
+        return torch.nn.functional.pad(adj, (0, 0, ml, mr, mt, mb))
+
     if cv.is_cuda:
         from .sgm_cuda import check_kernel_config, sgm_accumulate
-        check_kernel_config(n_directions, P1, P2, cv.shape[-1], margins)
-        return cv.float() + sgm_accumulate(cv, directions_for(n_directions),
-                                           P1, P2, Pout)
-    H, W, D = cv.shape
-    cv = cv.float()
-    ml, mt, mr, mb = margins.left, margins.top, margins.right, margins.bottom
-    region = cv[mt:H - mb, ml:W - mr]
-    if region.shape[0] == 0 or region.shape[1] == 0:
-        return cv
-    adj = _grouped_adj(region, P1, P2, Pout, n_directions, ml, W)
-    return cv + torch.nn.functional.pad(adj, (0, 0, ml, mr, mt, mb))
+        check_kernel_config(n_directions, P1, P2, D)
+        adj = sgm_accumulate(region, directions_for(n_directions), P1, P2,
+                             Pout, ml, W)
+        return cv.float() + pad(adj)
+    region = region.float()
+    sgm = cv.float() + pad(_grouped_adj(region, P1, P2, Pout, n_directions,
+                                        ml, W))
+    if n_directions >= 16:
+        for direction in _KNIGHT_DIRS:
+            sgm = sgm + pad(knight_adj(region, direction, P1, P2, Pout, ml, W))
+    return sgm
 
 
 def _tcv_from_bands(idx, bands, H, W, D, h_radius, v_radius, r):
@@ -215,6 +334,17 @@ def _tcv_from_bands(idx, bands, H, W, D, h_radius, v_radius, r):
     return idx.to(disp_dtype), torch.stack(slots, dim=-1)
 
 
+def wta_bands(C: torch.Tensor, r: int):
+    """Tie-last argmin of an (H, W, D) COST volume and the band
+    C[idx - r .. idx + r] (+inf outside [0, D)): what K3 emits."""
+    from .cost_volume import extract_selected_index
+    idx = extract_selected_index(C, ExtractionStrategy.COST)
+    Cp = torch.nn.functional.pad(C, (r, r), value=float("inf"))
+    bands = torch.stack([torch.gather(Cp, -1, (idx.long() + k)[..., None])[..., 0]
+                         for k in range(2 * r + 1)], dim=-1)
+    return idx, bands
+
+
 def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
                       margins: Margins = Margins(), Pout: float = 100.0,
                       n_directions: int = 8,
@@ -224,19 +354,21 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
     """The chain ``sgm_cost_volume`` -> ``extract_selected_index`` ->
     ``truncated_cost_volume`` (SAME mode).  Returns ``(selected_index,
     truncated_cv)``; the truncated volume is in COST orientation (for SCORE
-    inputs it holds the negated SGM scores).  On a CUDA tensor the WTA and
-    the band come out of the last SGM pass (K2 launches, then K3)."""
+    inputs it holds the negated SGM scores).  On a CUDA tensor without
+    margins the WTA and the band come out of the last SGM pass (K2 and K2k
+    launches, then K3).  With margins both devices run the chain itself, as
+    the JAX package does (`libstevi_tpu/ops/sgm.py:571`): on CUDA,
+    `sgm_cost_volume` runs the region through K2 and K2k."""
     from .cost_volume import extract_selected_index, truncated_cost_volume
     H, W, D = cv.shape
     r = cost_vol_radius
-    _no_knights(n_directions)
-    if cv.is_cuda:
+    if cv.is_cuda and margins == Margins() and H and W:
         from .sgm_cuda import check_kernel_config, sgm_wta_fused
-        check_kernel_config(n_directions, P1, P2, D, margins)
-        vol = cv if strategy is ExtractionStrategy.COST else -cv
-        idx, bands, _ = sgm_wta_fused(vol, float(P1), float(P2), float(Pout),
-                                      n_directions, r, h_radius, v_radius,
-                                      refine=False)
+        check_kernel_config(n_directions, P1, P2, D)
+        sign = 1.0 if strategy is ExtractionStrategy.COST else -1.0
+        idx, bands, _ = sgm_wta_fused(sign * cv, float(P1), float(P2),
+                                      float(Pout), n_directions, r, h_radius,
+                                      v_radius, refine=False)
         return _tcv_from_bands(idx, bands, H, W, D, h_radius, v_radius, r)
     sgm = sgm_cost_volume(cv, P1, P2, margins, Pout, n_directions, strategy)
     idx = extract_selected_index(sgm, strategy)
@@ -250,18 +382,23 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
                      P1: float, P2: float, *, Pout: float = 100.0,
                      n_directions: int = 8, cost_vol_radius: int = 1,
                      refine_kernel=None, cv_dtype=torch.float32):
-    """Dense SGM stereo end-to-end: cost volume -> 4/8-direction SGM ->
+    """Dense SGM stereo end-to-end: cost volume -> 4/8/16-direction SGM ->
     tie-last WTA -> truncated band -> optional cost-based subpixel (the
     dense hot loop of `examples/stereo-match/main.cpp:234-258`).
 
     For a dot-family cost on gray images with P2 >= P1 this runs the kernel
-    path K1 -> K2 (one launch per direction but the last) -> K3 (the last
-    direction fused with WTA, band and, for PARABOLA, the subpixel).  On a
-    CUDA tensor that is the only route, and a configuration it does not
-    take raises NotImplementedError; on the CPU every kernel wrapper runs
-    its plain version, and other configurations run the composed plain
-    chain.  The volume is stored in ``cv_dtype`` (float32 or bfloat16) and
-    the DP runs in float32.
+    path K1 -> K2 (one launch per principal direction but the last) -> K2k
+    (16 directions) -> K3 (the last direction fused with WTA, band and, for
+    PARABOLA, the subpixel).  Other costs and multichannel images take the
+    JAX package's general route: ``unfold_based_cost_volume`` (the box
+    route, or unfold with K5 where `aggregate_cost` launches it and the
+    shifted-compare loop for CENSUS and Hamming) -> ``sgm_wta_truncated``
+    -> refinement.  On the CPU every
+    kernel wrapper runs its plain version.  P2 < P1 on CUDA raises
+    NotImplementedError.  The volume is stored in ``cv_dtype`` (float32 or
+    bfloat16) and the DP runs in float32; a bfloat16 request with 16
+    directions builds a float32 volume, the JAX package's TPU rule
+    (`libstevi_tpu/ops/sgm.py:477-478`).
 
     Returns ``(disp, idx, tcv)``: refined disparity (H, W) float32 (equal
     to ``idx`` when ``refine_kernel`` is None), the raw WTA index map, and
@@ -272,17 +409,13 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     H, W = img_l.shape[:2]
     D = int(disp_width)
     r = cost_vol_radius
-    _no_knights(n_directions)
-    kernel_path = func in DOT_FAMILY and img_l.ndim == 2 and P2 >= P1
+    if n_directions >= 16:
+        cv_dtype = torch.float32
     if img_l.is_cuda:
         from .sgm_cuda import check_kernel_config
         check_kernel_config(n_directions, P1, P2, D)
-        if not kernel_path:
-            raise NotImplementedError(
-                "the CUDA path takes gray images and the dot family "
-                "(CC/NCC/ZCC/ZNCC); other costs are queued in ROADMAP.md (A8)")
 
-    if kernel_path:
+    if func in DOT_FAMILY and img_l.ndim == 2 and P2 >= P1:
         from .box_cuda import box_cv
         from .sgm_cuda import sgm_wta_fused
         dt = torch.bfloat16 if cv_dtype == torch.bfloat16 else torch.float32

@@ -13,13 +13,15 @@ import torch
 
 from libstevi_tpu.core import types as jtypes
 from libstevi_tpu.io.image_io import read_stevimg as j_read, write_stevimg as j_write
+from libstevi_tpu.io.image_io import read_image as j_read_image
 from libstevi_tpu.ops.refinement import InterpolationKernel as JInterp
 from libstevi_tpu.ops.sgm import SgmDirection as JSgmDirection
 from libstevi_tpu.ops.unfold import PatchOrientation as JPatchOrientation
 from libstevi_tpu.statistics import metrics as jmetrics
 
 from libstevi_tpu_torch.core import types as ttypes
-from libstevi_tpu_torch.io import read_stevimg, write_stevimg
+from libstevi_tpu_torch.io import (read_image, read_stevimg, write_image,
+                                   write_stevimg)
 from libstevi_tpu_torch.reference import PORT_ENUMS, to_port
 from libstevi_tpu_torch.statistics import metrics as tmetrics
 
@@ -82,6 +84,21 @@ def test_stevimg_roundtrip_with_jax(tmp_path, dtype):
                                   img)
 
 
+def test_read_write_image_dispatch_stevimg(tmp_path):
+    img = np.random.default_rng(2).uniform(0, 1, (4, 6)).astype(np.float32)
+    path = str(tmp_path / "a.stevimg")
+    assert write_image(path, img)
+    np.testing.assert_array_equal(j_read_image(path), img)
+    got = read_image(str(DATA / "left_small.stevimg"), np.float64)
+    np.testing.assert_array_equal(
+        got, j_read_image(str(DATA / "left_small.stevimg"), np.float64))
+    for bad in ("a.png", "a.flo"):
+        with pytest.raises(ValueError):
+            read_image(str(tmp_path / bad))
+        with pytest.raises(ValueError):
+            write_image(str(tmp_path / bad), img)
+
+
 @pytest.mark.parametrize("threshold", [0.5, 1.0, 2.0])
 def test_metrics_match_jax(threshold):
     rng = np.random.default_rng(1)
@@ -115,6 +132,11 @@ pm = entry.patchmatch_forward(L, R, torch.Generator().manual_seed(0))
 assert pm.shape == (12, 16) and pm.dtype == torch.int32
 idx = entry.wta_forward(MatchingFunction.ZSAD, L, R)
 assert idx.shape == (12, 16) and idx.dtype == torch.int32
+d16 = entry.sgm16_forward(L, R)
+assert d16.shape == (12, 16) and d16.dtype == torch.float32
+dc = entry.census_sgm_forward(L, R)
+assert dc.shape == (12, 16)
+from libstevi_tpu_torch.cli import stereo_match
 assert not [m for m, v in sys.modules.items()
             if v is not None and (m == "jax" or m.startswith("jax."))]
 print("ran without jax")
@@ -123,8 +145,9 @@ print("ran without jax")
 
 def test_port_imports_and_runs_without_jax():
     """With jax and libstevi_tpu made unimportable, the port imports and
-    runs the dense SGM, PatchMatch and WTA paths end to end on the CPU (the
-    card has no JAX)."""
+    runs the dense SGM (8 and 16 directions, ZNCC and census), PatchMatch
+    and WTA paths end to end on the CPU, and imports its CLI (the card has
+    no JAX)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)

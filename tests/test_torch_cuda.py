@@ -11,9 +11,13 @@ from libstevi_tpu_torch.core import MatchingFunction, Margins
 from libstevi_tpu_torch.ops import (dense_sgm_stereo, sgm_cost_volume,
                                     InterpolationKernel)
 from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
-from libstevi_tpu_torch.ops.sgm import SgmDirection, directions_for
-from libstevi_tpu_torch.ops.sgm_cuda import (sgm_pass, sgm_pass_plain,
-                                             sgm_wta, sgm_wta_plain)
+from libstevi_tpu_torch.ops import sgm_wta_truncated
+from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
+                                        _KNIGHT_DIRS)
+from libstevi_tpu_torch.ops.sgm_cuda import (sgm_knight_pass,
+                                             sgm_knight_pass_plain, sgm_pass,
+                                             sgm_pass_plain, sgm_wta,
+                                             sgm_wta_plain)
 from libstevi_tpu_torch.core import SearchOffset1
 from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
                                                fused_fv_cost_volume_plain)
@@ -126,20 +130,119 @@ def test_sgm_cost_volume_runs_the_kernel(dev):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
 
-@pytest.mark.parametrize("case", ["16_directions", "p2_below_p1", "margins",
-                                  "ssd"])
-def test_unsupported_configurations_raise(dev, case):
-    cv = torch.zeros(8, 9, 4, device=dev)
+def test_unsupported_configurations_raise(dev):
+    """P2 < P1 is the one SGM configuration the kernels still refuse."""
     L, R = _pair(dev, 8, 9)
     with pytest.raises(NotImplementedError):
-        if case == "16_directions":
-            sgm_cost_volume(cv, 0.1, 0.5, n_directions=16)
-        elif case == "p2_below_p1":
-            dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 4, 0.5, 0.1)
-        elif case == "margins":
-            sgm_cost_volume(cv, 0.1, 0.5, Margins(1, 1, 1, 1))
+        dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 4, 0.5, 0.1)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + [(18, 7, 5), (5, 21, 5)])
+@pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
+def test_k2k_matches_plain(dev, direction, shape, dtype):
+    cv = _volume(dev, shape, dtype)
+    acc = torch.rand(cv.shape, device=dev)
+    want = sgm_knight_pass_plain(cv, acc.clone(), direction, 0.1, 0.5, 100.0)
+    before = sgm_knight_pass.launches
+    got = sgm_knight_pass(cv, acc, direction, 0.1, 0.5, 100.0)
+    assert sgm_knight_pass.launches == before + 2
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+def test_k2k_is_deterministic(dev):
+    cv = _volume(dev, (64, 96, 40), torch.float32)
+    runs = []
+    for _ in range(2):
+        acc = torch.zeros(cv.shape, device=dev)
+        for d in _KNIGHT_DIRS:
+            sgm_knight_pass(cv, acc, d, 0.1, 0.5, 100.0)
+        runs.append(acc)
+    assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", [300, 320])
+def test_d300_kernels_match_plain(dev, D, dtype):
+    """K1, K2, K2k and K3 at D = 300 and 320 (K = 10 values a lane; at 320
+    every slice of every lane is full and K1 stages its largest tile)."""
+    H, W = 24, 340
+    L, R = _pair(dev, H, W, 3)
+    cv = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, D, dtype, negate=True)
+    want = box_cv_plain(MatchingFunction.ZNCC, L, R, 3, 3, D, torch.float32,
+                        negate=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(cv, want, rtol=1e-4, atol=1e-4)
+    else:
+        _ulp_close(cv.float(), want)
+    acc = torch.empty(cv.shape, device=dev)
+    acc2 = torch.empty(cv.shape, device=dev)
+    for k, d in enumerate(directions_for(16)):
+        if d is SgmDirection.RIGHT2LEFT:
+            continue
+        if d.knight:
+            sgm_knight_pass(cv, acc, d, 0.1, 0.5, 100.0)
+            sgm_knight_pass_plain(cv, acc2, d, 0.1, 0.5, 100.0)
         else:
-            dense_sgm_stereo(MatchingFunction.SSD, L, R, 1, 1, 4, 0.1, 0.5)
+            sgm_pass(cv, acc, d, 0.1, 0.5, 100.0, accumulate=k > 0)
+            sgm_pass_plain(cv, acc2, d, 0.1, 0.5, 100.0, accumulate=k > 0)
+    torch.testing.assert_close(acc, acc2, rtol=1e-4, atol=1e-4)
+    i1, b1, d1 = sgm_wta(cv, acc, 0.1, 0.5, 100.0, 1, 3, 3, True)
+    i2, b2, d2 = sgm_wta_plain(cv, acc, 0.1, 0.5, 100.0, 1, 3, 3, True)
+    same = i1 == i2
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(b1[same], b2[same], rtol=1e-4, atol=1e-4)
+    f = same & torch.isfinite(d2)
+    torch.testing.assert_close(d1[f], d2[f], rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("n_dirs", [8, 16])
+def test_margins_match_cpu(dev, n_dirs):
+    cv = _volume(dev, (30, 44, 11), torch.float32)
+    m = Margins(2, 1, 3, 2)
+    got = sgm_cost_volume(cv, 0.1, 0.5, m, n_directions=n_dirs)
+    want = sgm_cost_volume(cv.cpu(), 0.1, 0.5, m, n_directions=n_dirs)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got[:1].cpu(), cv[:1].cpu())    # outside: untouched
+    # with margins: sgm_cost_volume (K2 x8, K2k) -> WTA -> band, as in JAX
+    counts = (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches)
+    ig, tg = sgm_wta_truncated(cv, 0.1, 0.5, m, n_directions=n_dirs,
+                               h_radius=2, v_radius=1)
+    assert (sgm_pass.launches, sgm_knight_pass.launches,
+            sgm_wta.launches) == (counts[0] + 8,
+                                  counts[1] + (16 if n_dirs == 16 else 0),
+                                  counts[2])
+    ic, tc = sgm_wta_truncated(cv.cpu(), 0.1, 0.5, m, n_directions=n_dirs,
+                               h_radius=2, v_radius=1)
+    same = ig.cpu() == ic
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
+                               atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("func,n_dirs", [("CENSUS", 8), ("SAD", 8),
+                                         ("ZNCC", 16)])
+def test_dense_routes_match_cpu(dev, func, n_dirs):
+    """The census / SAD route (volume, then K2 and K3) and the 16-direction
+    path on the card against the plain path on the CPU."""
+    L, R = _pair(dev, 40, 72, seed=6)
+    P1, P2 = (1.0, 4.0) if func == "CENSUS" else (0.1, 0.5)
+    kw = dict(n_directions=n_dirs, refine_kernel=InterpolationKernel.PARABOLA)
+    counts = (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches)
+    f = MatchingFunction[func]
+    dg, ig, tg = dense_sgm_stereo(f, L, R, 3, 3, 16, P1, P2, **kw)
+    assert (sgm_pass.launches, sgm_knight_pass.launches,
+            sgm_wta.launches) == (counts[0] + 7,
+                                  counts[1] + (16 if n_dirs == 16 else 0),
+                                  counts[2] + 1)
+    dc, ic, tc = dense_sgm_stereo(f, L.cpu(), R.cpu(), 3, 3, 16, P1, P2, **kw)
+    same = ig.cpu() == ic
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
+                               atol=1e-4, equal_nan=True)
+    torch.testing.assert_close(dg.cpu()[same], dc[same], rtol=1e-4,
+                               atol=1e-4, equal_nan=True)
 
 
 def _ulp_close(got, want):

@@ -86,14 +86,6 @@ def test_sgm_cost_volume_cases_match_xla(case):
     np.testing.assert_allclose(got, want, **TOL)
 
 
-def test_sixteen_directions_are_not_ported_yet():
-    cv = torch.zeros(4, 5, 3)
-    with pytest.raises(NotImplementedError):
-        sgm_cost_volume(cv, 0.1, 0.5, n_directions=16)
-    with pytest.raises(NotImplementedError):
-        sgm_wta_truncated(cv, 0.1, 0.5, n_directions=16)
-
-
 @pytest.mark.parametrize("strategy", ["COST", "SCORE"])
 @pytest.mark.parametrize("n_dirs", [4, 8])
 def test_sgm_wta_truncated_matches_xla(n_dirs, strategy):

@@ -116,6 +116,43 @@ def test_dense_sgm_stereo_on_small_parity_fixture():
     assert abs(inlier_mae(dt, gt) - inlier_mae(dj, gt)) < 5e-3
 
 
+@pytest.mark.parametrize("func,P1,P2", [("CENSUS", 1.0, 4.0),
+                                        ("SAD", 0.1, 0.5)])
+def test_non_dot_route_matches_jax_on_small_fixture(func, P1, P2):
+    """Non-dot costs take the general route (unfold_based_cost_volume ->
+    sgm_wta_truncated -> refinement), as in the JAX package, on the 96x128
+    warp fixture."""
+    L = read_stevimg(str(DATA / "left_small.stevimg"))
+    R = read_stevimg(str(DATA / "right_small.stevimg"))
+    gt = read_stevimg(str(DATA / "gt_small.stevimg"))
+    (dj, ij, tj), (dt, it, tt) = _run_both(
+        L, R, JMF[func], 3, 3, 24, P1, P2, jnp.float32, torch.float32,
+        refine_kernel=JInterp.PARABOLA)
+    same = it == ij
+    assert same.mean() > 0.99, same.mean()
+    np.testing.assert_array_equal(np.isnan(tt[same]), np.isnan(tj[same]))
+    np.testing.assert_allclose(tt[same], tj[same], **TOL)
+    f = same & np.isfinite(dj)
+    np.testing.assert_allclose(dt[f], dj[f], **TOL)
+    assert abs(prop_good(dt, gt) - prop_good(dj, gt)) < 2e-3
+
+
+def test_census_entry_is_the_parity_configuration():
+    """`entry.census_sgm_forward` runs the PARITY_r05 `census_sgm8` chain
+    (`scripts/run_parity_r05.py:67-74`) through `dense_sgm_stereo`."""
+    cfg = entry.CENSUS_SGM8
+    assert (cfg["P1"], cfg["P2"], cfg["n_directions"]) == (1.0, 4.0, 8)
+    assert (cfg["h_radius"], cfg["v_radius"], cfg["disp_width"]) == (3, 3, 120)
+    assert entry.HD_BF16["disp_width"] == 320
+    assert entry.HD_BF16["cv_dtype"] == torch.bfloat16
+    assert (entry.HD_HEIGHT, entry.HD_WIDTH) == (720, 1280)
+    rng = np.random.default_rng(13)
+    L = rng.uniform(0, 1, (16, 30)).astype(np.float32)
+    R = rng.uniform(0, 1, (16, 30)).astype(np.float32)
+    got = entry.census_sgm_forward(torch.from_numpy(L), torch.from_numpy(R))
+    assert got.shape == (16, 30) and got.dtype == torch.float32
+
+
 def test_entry_gives_the_flagship_geometry():
     fn, (L, R) = entry.entry("cpu")
     assert fn is entry.flagship_forward
