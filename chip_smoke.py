@@ -11,8 +11,13 @@ shape (720x1280, D=320) in bfloat16; the SGM entries with margins against
 the CPU; K5 feature-volume cost volume at the WTA path's
 shape (480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset
 search, an RGB F=147 input); K6 PatchMatch sweep and K7 probe, exactly, on
-the 480x640x120 NCC volume.  Then it runs six paths, each with the launch
-counts set to 0 just before it and read just after:
+the 480x640x120 NCC volume; the lane-layout SGM kernels past D = 320,
+bitwise: K4a shear / unshear (both signs), K4b's row sweeps, column scans
+and WTA scan at the wide path's 480x640x384 f32 volume, at 37x101x333 and
+(after the HD wide path) at its 720x1280x640 volume, with the
+separate-accumulation mode within 1e-4, and K4d's four chunked sweeps at
+40x300x352 with 32-column chunks; and K1 at D=640.  Then it runs its paths,
+each with the launch counts set to 0 just before it and read just after:
 - the flagship stereo path (`entry.flagship_forward`: 480x640, D=120,
   ZNCC 7x7, bf16 volume, SGM-8, parabola subpixel) on the two committed
   parity fixtures, held to accuracy bars against their ground truth, and a
@@ -28,14 +33,28 @@ counts set to 0 just before it and read just after:
 - PatchMatch (`entry.patchmatch_forward`: NCC 7x7, D=120, 5 iterations, 4
   random candidates) on the fixtures, held to bars;
 - the WTA matcher with ZSAD (`entry.wta_forward`), which K5 carries, on the
-  fixtures (no bar: the JAX package's parity record has no ZSAD row).
+  fixtures (no bar: the JAX package's parity record has no ZSAD row);
+- wide (`entry.wide_forward`: 480x640, D=384, f32 volume, SGM-8), the path
+  of K1 over d-slices and K4b, on the fixtures and a random pair, its idx
+  held to the plain route's on the card (no bar: no PARITY row at D=384);
+- HD wide (`entry.hd_wide_forward`: 720x1280, D=640), K4b again, since its
+  carries fit on chip too (155 KiB a block), on a random pair;
+- K4d at full size: `sgm_lane_cuda.chunked_adj` called directly on the HD
+  D=640 volume, then WTA and subpixel (no public entry takes K4d at that
+  size on an H100); it and `fused_adj` are held to the plain direction sum
+  on the card at 1e-4;
+- the route cross-check: on the fixtures at D=120 f32, `fused_adj` and a
+  forced `chunked_adj` equal K2's direction sum and give the K2/K3
+  route's idx off near-ties, each held to the `zncc_sgm8_f32` bars.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
-SGM-16 bars.  It checks that each kernel was launched in its path, times
-the frames and each kernel against its plain version (CUDA events, median
-of 5), and prints one JSON line of kernel records, the card's name and
-power limit, and a last JSON line ``{"ok": true, "device": ...}``.  Any
+SGM-16 bars, and again with ``-d 384``.  P2 < P1 runs small on the card
+against the CPU.  It checks that each kernel was launched in its path,
+times the frames and each kernel against its plain version (CUDA events,
+median of 5), and prints one JSON line of kernel records (each with its
+least time on the card, ``bound_ms``, from this run's shapes), the card's
+name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
 failed check raises: the exit code is then non-zero and no result line is
 printed.  There is no CPU path.
 """
@@ -65,7 +84,17 @@ PM_BARS = {"warp": (0.9947, 0.2926), "occluded": (0.9734, 0.4397)}
 SGM16_BARS = {"warp": (0.9986, 0.1474), "occluded": (0.9983, 0.2085)}
 # PARITY_r05.json, row census_sgm8
 CENSUS_BARS = {"warp": (0.9967, 0.1915), "occluded": (0.9388, 0.4475)}
+# PARITY_r05.json, row zncc_sgm8_f32, set as the flagship's
+F32_BARS = {"warp": (0.9985, 0.1392), "occluded": (0.9982, 0.209)}
 P1, P2, POUT = 0.1, 0.5, 100.0
+# an H100 SXM's published peaks (NVIDIA's data sheet): memory rate and f32
+# outside the tensor cores
+HBM_BYTES_PER_MS = 3.35e9
+F32_FLOPS_PER_MS = 67e9
+# f32 operations an SGM DP step spends per element and direction (the min
+# reduction, two mins against m + P2 and the d +- 1 neighbours, + P1, the
+# min, - m, + Pout, the new carry and the accumulation)
+SGM_OPS = 9
 
 
 def card() -> str:
@@ -137,6 +166,35 @@ def spilling_instances(report: str):
     return out
 
 
+def bound(nbytes, flops):
+    """The least time the card could take: the larger of the bytes over
+    the memory rate and the operations over the f32 peak."""
+    b, f = nbytes / HBM_BYTES_PER_MS, flops / F32_FLOPS_PER_MS
+    return (b, "bytes") if b >= f else (f, "operations")
+
+
+def close(got, want, tol=1e-4):
+    """assert_close at rtol = atol = tol; returns the max abs error."""
+    torch.testing.assert_close(got, want, rtol=tol, atol=tol)
+    return (got - want).abs().max().item()
+
+
+def exact(got, want, tag):
+    """Hold a kernel's output to its plain version's bit for bit; returns
+    the max abs error (0.0)."""
+    assert torch.equal(got, want), tag
+    return 0.0
+
+
+def shift_rows_gather(x, W_out, base, slope):
+    """K4a's function as one `torch.gather` (the library yardstick; the
+    port does not call it)."""
+    H, W_in, Dp = x.shape
+    s = (base + slope * torch.arange(H, device=x.device)).clamp(0, W_in - W_out)
+    cols = s[:, None] + torch.arange(W_out, device=x.device)
+    return torch.gather(x, 1, cols[..., None].expand(H, W_out, Dp))
+
+
 def bf16_ulp(x):
     """One bfloat16 ulp of each f32 value (8 significant bits)."""
     _, e = torch.frexp(x)
@@ -144,6 +202,7 @@ def bf16_ulp(x):
 
 
 def main() -> int:
+    t_script = time.perf_counter()
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
               "on a GPU", file=sys.stderr)
@@ -171,6 +230,11 @@ def main() -> int:
                                                  sgm_knight_pass_plain,
                                                  sgm_pass, sgm_pass_plain,
                                                  sgm_wta, sgm_wta_plain)
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    from libstevi_tpu_torch.ops.refinement import (
+        InterpolationKernel, refine_disp_cost_interpolation)
+    from libstevi_tpu_torch.ops.sgm import _grouped_adj, wta_bands
+    from libstevi_tpu_torch.ops.sgm_cuda import sgm_accumulate, sgm_wta_fused
     from libstevi_tpu_torch.statistics import prop_good, inlier_mae
 
     dev = torch.device("cuda")
@@ -324,6 +388,9 @@ def main() -> int:
     cuda_vs_cpu("SGM-16", ZNCC, 64, 96, entry.SGM16, 24)
     cuda_vs_cpu("census SGM-8", CENSUS, 64, 96, entry.CENSUS_SGM8, 24)
     cuda_vs_cpu("HD settings, D > 256", ZNCC, 24, 330, entry.HD_BF16, 300)
+    cuda_vs_cpu("P2 < P1 (plain steps on the card)", ZNCC, 64, 96,
+                dict(entry.FLAGSHIP, P1=0.5, P2=0.1), 24)
+    cuda_vs_cpu("wide settings, D > 320", ZNCC, 20, 400, entry.WIDE, 330)
 
     # -- K5 against its plain version ----------------------------------------
     NCC, ZSAD = MatchingFunction.NCC, MatchingFunction.ZSAD
@@ -404,6 +471,97 @@ def main() -> int:
             err["K6"] = max(err["K6"], e6)
     print("K6 480x640x120 sweeps (axis 0, 1; forward, reverse): equal to "
           "plain", flush=True)
+
+    # -- K4a, K4b, K4d against their plain versions ---------------------------
+    err.update(K4a=0.0, K4b=0.0, K4d=0.0)
+    INF = float("inf")
+    WH, WW, WD = entry.HEIGHT, entry.WIDTH, entry.WIDE["disp_width"]
+    Lw, Rw = pair(WH, WW, 13, dev)
+    cvw = box_cv(ZNCC, Lw, Rw, 3, 3, WD, torch.float32, negate=True)
+
+    def shear_args(H, W, neg):
+        return (W + H - 1, H - 1, -1) if neg else (W + H - 1, 0, 1)
+
+    for neg in (False, True):
+        S = lane.shear(cvw, neg)
+        padded = torch.nn.functional.pad(cvw, (0, 0, WH - 1, WH), value=INF)
+        assert torch.equal(S, lane.shift_rows_plain(
+            padded, *shear_args(WH, WW, neg))), neg
+        assert torch.equal(lane.unshear(S, WW, neg), cvw), neg
+    del S, padded
+    print(f"K4a {WH}x{WW}x{WD} f32: shear and unshear (both signs) equal "
+          f"the plain version bitwise and give the volume back", flush=True)
+
+    def k4b_check(cv, tag, col0=0, W_pout=None):
+        """Each K4b pass against its plain version, bit for bit, chained as
+        `fused_adj` chains them (down, up, forward, reverse or WTA, each on
+        the plain version's input); then the separate-accumulation mode,
+        which sums in another order, against the alias mode at 1e-4."""
+        H, W, D = cv.shape
+        kw = dict(col0=col0, W_pout=W + col0 if W_pout is None else W_pout,
+                  P1=P1, P2=P2, Pout=POUT)
+        acc_p = lane.fused_rows_pass_plain(cv, None, False, True, **kw)
+        e = exact(lane.fused_rows_pass(cv, None, False, True, **kw), acc_p,
+                  (tag, "down"))
+        got = lane.fused_rows_pass(cv, acc_p.clone(), True, True, **kw)
+        acc_p = lane.fused_rows_pass_plain(cv, acc_p, True, True, **kw)
+        e = max(e, exact(got, acc_p, (tag, "up")))
+        got = lane.fused_cols_pass(cv, acc_p.clone(), False, **kw)
+        acc_p = lane.fused_cols_pass_plain(cv, acc_p, False, **kw)
+        e = max(e, exact(got, acc_p, (tag, "forward")))
+        del got
+        idx, bands = lane.fused_cols_wta(cv, acc_p, 1, **kw)
+        idx_p, bands_p = lane.fused_cols_wta_plain(cv, acc_p, 1, **kw)
+        assert torch.equal(idx, idx_p), (tag, "WTA idx")
+        e = max(e, exact(bands, bands_p, (tag, "WTA bands")))
+        got = lane.fused_cols_pass(cv, acc_p.clone(), True, **kw)
+        acc_p = lane.fused_cols_pass_plain(cv, acc_p, True, **kw)
+        e = max(e, exact(got, acc_p, (tag, "reverse")))
+        del got
+        alias = lane.fused_adj(cv, kw["col0"], kw["W_pout"], P1, P2, POUT, 8)
+        e = max(e, exact(alias, acc_p, (tag, "fused_adj")))
+        del acc_p
+        e_sep = close(lane.fused_adj(cv, kw["col0"], kw["W_pout"], P1, P2,
+                                     POUT, 8, separate=True), alias)
+        err["K4b"] = max(err["K4b"], e)
+        print(f"K4b {tag}: down, up, forward, reverse and WTA passes and "
+              f"fused_adj equal their plain versions bitwise; the separate "
+              f"mode within {e_sep:.3g} of the alias mode", flush=True)
+
+    k4b_check(cvw, f"{WH}x{WW}x{WD} f32")
+    Lo, Ro = pair(37, 101, 15, dev)
+    k4b_check(box_cv(ZNCC, Lo, Ro, 3, 3, 333, torch.float32, negate=True),
+              "37x101x333 f32, col0 2, W_pout 106", col0=2, W_pout=106)
+
+    # K4d: the four sweeps of `chunked_adj`'s table on the first, a middle
+    # and the last (12-column) chunk, from a random history; then the whole
+    # `chunked_adj` with 32-column chunks against the plain direction sum
+    Lo, Ro = pair(40, 300, 16, dev)
+    cvo = box_cv(ZNCC, Lo, Ro, 3, 3, 352, torch.float32, negate=True)
+    g4 = torch.Generator(device=dev).manual_seed(17)
+    for rev, down, corner, vert in ((False, True, (0, 1), True),
+                                    (True, True, (39, -1), True),
+                                    (False, False, (299, -1), False),
+                                    (True, False, (260, 1), False)):
+        for c0 in (0, 128, 288):
+            adj0 = torch.rand(cvo.shape, generator=g4, device=dev)
+            hist = torch.rand((40, 352), generator=g4, device=dev)
+            kw = dict(col0=0, W_pout=300, P1=P1, P2=P2, Pout=POUT,
+                      reverse=rev, shift_down=down, corner_c0=corner[0],
+                      corner_slope=corner[1], with_vertical=vert,
+                      with_diag=True, accumulate=c0 > 0)
+            wc = min(32, 300 - c0)
+            adj_p = adj0.clone()
+            h_k = lane.chunked_pass(cvo, adj0, hist, c0, wc, **kw)
+            h_p = lane.chunked_pass_plain(cvo, adj_p, hist, c0, wc, **kw)
+            err["K4d"] = max(err["K4d"], exact(adj0, adj_p, (rev, down, c0)),
+                             exact(h_k, h_p, (rev, down, c0, "history")))
+    e4d = close(lane.chunked_adj(cvo, 0, 300, P1, P2, POUT, 8, cw=32),
+                _grouped_adj(cvo, P1, P2, POUT, 8, 0, 300))
+    print(f"K4d 40x300x352 f32: four chunked sweeps on chunks at c0 = 0, "
+          f"128, 288 equal their plain versions bitwise (adj and history "
+          f"out); chunked_adj (cw 32) within {e4d:.3g} of the plain "
+          f"direction sum (the XLA grouping)", flush=True)
 
     # -- the main path: three full-size pairs --------------------------------
     pairs = {}
@@ -501,6 +659,153 @@ def main() -> int:
     assert dh.shape == (720, 1280) and th.shape == (720, 1280, 3)
     check_random("HD random", dh, ih, 320)
 
+    # -- the wide path: 480x640, D=384, f32, SGM-8 (K1 x2, K4b) --------------
+    LANE_K4B = (lane.fused_rows_pass, lane.fused_cols_pass,
+                lane.fused_cols_wta)
+    LANE = LANE_K4B + (lane.chunked_pass, lane.shift_rows)
+
+    def lane_launches():
+        return {"K1": box_cv.launches, "K4a": lane.shift_rows.launches,
+                "K4b": sum(fn.launches for fn in LANE_K4B),
+                "K4d": lane.chunked_pass.launches,
+                "K2": sgm_pass.launches, "K3": sgm_wta.launches}
+
+    def wide_plain(cv, r=1):
+        """The plain route of the wide path on the card: K4b's plain
+        passes, chained as `fused_adj` chains its kernels."""
+        H, W, _ = cv.shape
+        kw = dict(col0=0, W_pout=W, P1=P1, P2=P2, Pout=POUT)
+        adj = lane.fused_rows_pass_plain(cv, None, False, True, **kw)
+        adj = lane.fused_rows_pass_plain(cv, adj, True, True, **kw)
+        adj = lane.fused_cols_pass_plain(cv, adj, False, **kw)
+        return lane.fused_cols_wta_plain(cv, adj, r, **kw), adj
+
+    reset(box_cv, *LANE, *K2K_COUNTERS)
+    t0 = time.perf_counter()
+    out_w = {name: dense_sgm_stereo(ZNCC, *imgs, **entry.WIDE)
+             for name, (imgs, _) in pairs.items()}
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    wide_launches = lane_launches()
+    print(f"wide path 480x640x{WD} f32: 3 pairs in {wall:.3f} s host wall "
+          f"(first calls), launches {wide_launches}", flush=True)
+    assert wide_launches["K1"] > 0 and wide_launches["K4b"] > 0, wide_launches
+    for name, (disp, idx, tcv) in out_w.items():
+        assert disp.shape == idx.shape == (WH, WW)
+        assert disp.dtype == torch.float32 and tcv.shape == (WH, WW, 3)
+        # the plain SGM route on K1's volume (K1 is held to its plain
+        # version above; on the fixtures' flat windows the two volumes
+        # differ by up to ~7e-3, the ZNCC normalization amplifying
+        # rounding, which moves idx where costs nearly tie)
+        cvk = box_cv(ZNCC, *pairs[name][0], 3, 3, WD, torch.float32,
+                     negate=True)
+        (idx_p, _), adj_p = wide_plain(cvk)
+        adj_p = lane.fused_cols_pass_plain(cvk, adj_p, True, col0=0,
+                                           W_pout=WW, P1=P1, P2=P2,
+                                           Pout=POUT)
+        two = torch.topk(cvk + adj_p, 2, dim=-1, largest=False).values
+        clear = (two[..., 1] - two[..., 0]) > 1e-4
+        agree = (idx == idx_p).float().mean().item()
+        assert torch.equal(idx[clear], idx_p[clear]) and agree >= 0.999, name
+        (idx_pp, _), _ = wide_plain(box_cv_plain(
+            ZNCC, *pairs[name][0], 3, 3, WD, torch.float32, negate=True))
+        agree_pp = (idx == idx_pp).float().mean().item()
+        assert agree_pp >= 0.999, (name, agree_pp)
+        del cvk, adj_p
+        if name == "random":
+            check_random("wide random", disp, idx, WD)
+        else:
+            d = disp.cpu().numpy()
+            gt = pairs[name][1]
+            print(f"  {name}: prop_good_2.0 = {prop_good(d, gt, 2.0):.4f}, "
+                  f"inlier_mae = {inlier_mae(d, gt, 2.0):.4f} (no bar)",
+                  flush=True)
+        print(f"  {name}: idx agree with the plain route on the card "
+              f"{agree:.6f} on K1's volume (equal off near-ties), "
+              f"{agree_pp:.6f} with plain K1", flush=True)
+
+    # -- HD wide: 720x1280, D=640, f32, SGM-8 (K1 x2, K4b) -------------------
+    HH, HW, HD = entry.HD_HEIGHT, entry.HD_WIDTH, entry.HD_WIDE["disp_width"]
+    reset(box_cv, *LANE, *K2K_COUNTERS)
+    t0 = time.perf_counter()
+    dhw, ihw, thw = dense_sgm_stereo(ZNCC, Lh, Rh, **entry.HD_WIDE)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    hdw_launches = lane_launches()
+    print(f"HD wide path {HH}x{HW}x{HD} f32: {wall:.3f} s host wall (first "
+          f"call), launches {hdw_launches}", flush=True)
+    assert hdw_launches["K1"] > 0 and hdw_launches["K4b"] > 0, hdw_launches
+    assert dhw.shape == (HH, HW) and thw.shape == (HH, HW, 3)
+    check_random("HD wide random", dhw, ihw, HD)
+    del dhw, ihw, thw
+    # K4b at this path's shape: 10 columns a block and 155 KiB of shared
+    # memory (the opt-in attribute past 48 KiB), on this pair's volume
+    cv_hd = box_cv(ZNCC, Lh, Rh, 3, 3, HD, torch.float32, negate=True)
+    err["K1"] = max(err["K1"], close(
+        cv_hd, box_cv_plain(ZNCC, Lh, Rh, 3, 3, HD, torch.float32,
+                            negate=True)))
+    k4b_check(cv_hd, f"{HH}x{HW}x{HD} f32")
+
+    # -- K4d at full size: chunked_adj on the HD D=640 volume ----------------
+    # K4b's carries fit on chip at this size, so no public entry takes K4d
+    # here on an H100; `chunked_adj` is called directly, as the JAX tests call
+    # `sgm_chunked_adj`
+    reset(box_cv, *LANE, *K2K_COUNTERS)
+    t0 = time.perf_counter()
+    adj_hd = lane.chunked_adj(cv_hd, 0, HW, P1, P2, POUT, 8)
+    C = cv_hd + adj_hd
+    idx_hd, bands_hd = wta_bands(C, 1)
+    _, tcv_hd = _tcv_from_bands(idx_hd, bands_hd, HH, HW, HD, 3, 3, 1)
+    disp_hd = refine_disp_cost_interpolation(InterpolationKernel.PARABOLA,
+                                             tcv_hd, idx_hd)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k4d_launches = lane_launches()
+    print(f"K4d path {HH}x{HW}x{HD} f32 (chunk width "
+          f"{lane.chunk_width(HD)}): {wall:.3f} s host wall (first call), "
+          f"launches {k4d_launches}", flush=True)
+    assert k4d_launches["K4d"] > 0, k4d_launches
+    check_random("K4d HD random", disp_hd, idx_hd, HD)
+    del C, bands_hd, tcv_hd, disp_hd, idx_hd
+    # both lane routes against the plain direction sum (the XLA grouping,
+    # another sum order) on the card
+    ref_hd = _grouped_adj(cv_hd, P1, P2, POUT, 8, 0, HW)
+    e_hd = close(adj_hd, ref_hd)
+    del adj_hd
+    e_hb = close(lane.fused_adj(cv_hd, 0, HW, P1, P2, POUT, 8), ref_hd)
+    del ref_hd
+    print(f"  at {HH}x{HW}x{HD} against the plain direction sum on the card: "
+          f"chunked_adj (K4d) within {e_hd:.3g}, fused_adj (K4b) within "
+          f"{e_hb:.3g}", flush=True)
+
+    # -- route cross-check at the flagship geometry (D=120, f32) -------------
+    for name in F32_BARS:
+        imgs, gt = pairs[name]
+        cvf = box_cv(ZNCC, *imgs, 3, 3, 120, torch.float32, negate=True)
+        ref = sgm_accumulate(cvf, directions_for(8), P1, P2, POUT)
+        idx_k, bands_k, _ = sgm_wta_fused(cvf, P1, P2, POUT, 8, 1, 3, 3,
+                                          False)
+        two = torch.topk(cvf + ref, 2, dim=-1, largest=False).values
+        clear = (two[..., 1] - two[..., 0]) > 1e-4
+        e_f = close(lane.fused_adj(cvf, 0, 640, P1, P2, POUT, 8), ref)
+        adj_c = lane.chunked_adj(cvf, 0, 640, P1, P2, POUT, 8, cw=64)
+        e_c = close(adj_c, ref)
+        routes = {"K4b": lane.fused_adj(cvf, 0, 640, P1, P2, POUT, 8,
+                                        wta_radius=1),
+                  "K4d": wta_bands(cvf + adj_c, 1)}
+        for route, (idx_r, bands_r) in routes.items():
+            agree = (idx_r == idx_k).float().mean().item()
+            assert torch.equal(idx_r[clear], idx_k[clear]), (name, route)
+            assert agree >= 0.999, (name, route, agree)
+            idx_r, tcv_r = _tcv_from_bands(idx_r, bands_r, 480, 640, 120, 3,
+                                           3, 1)
+            disp_r = refine_disp_cost_interpolation(
+                InterpolationKernel.PARABOLA, tcv_r, idx_r)
+            print(f"route {route} on {name} (D=120 f32): adj within "
+                  f"{e_f if route == 'K4b' else e_c:.3g} of K2's sum, idx "
+                  f"agree with K2/K3 {agree:.6f}", flush=True)
+            check_bars(f"{name} via {route}", disp_r, gt, F32_BARS[name])
+
     # -- the CLI, as a subprocess, SGM-16 on the warp fixture ----------------
     with tempfile.TemporaryDirectory() as tmp:
         out_path = str(Path(tmp) / "disp16.stevimg")
@@ -519,6 +824,20 @@ def main() -> int:
     pg_bar, mae_bar = SGM16_BARS["warp"]
     assert report["prop_good_2.0"] >= pg_bar, report
     assert report["inlier_mae"] <= mae_bar, report
+    # ... and SGM-8 at D=384 (K4b)
+    with tempfile.TemporaryDirectory() as tmp:
+        out_path = str(Path(tmp) / "disp384.stevimg")
+        res = subprocess.run(
+            [sys.executable, "-m", "libstevi_tpu_torch.cli.stereo_match",
+             str(FIXTURES / "left.stevimg"), str(FIXTURES / "right.stevimg"),
+             "-o", out_path, "-d", str(WD), "--matcher", "sgm",
+             "--refine", "parabola", "--gt", str(FIXTURES / "gt.stevimg")],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        report = json.loads(res.stdout.strip().splitlines()[-1])
+        assert read_stevimg(out_path).shape == (480, 640)
+    print(f"CLI -d {WD}: {json.dumps(report)}", flush=True)
+    assert report["disp_width"] == WD, report
 
     # -- the PatchMatch path: both fixtures -----------------------------------
     # a small run against the plain route on the CPU: one volume, one
@@ -605,6 +924,12 @@ def main() -> int:
         "census SGM-8 frame 480x640 D=120": (
             lambda: entry.census_sgm_forward(L, R)),
         "HD frame 720x1280 D=320 bf16 SGM-8": lambda: entry.hd_forward(Lh, Rh),
+        f"wide frame 480x640 D={WD} f32 SGM-8 (K4b)": (
+            lambda: entry.wide_forward(L, R)),
+        f"HD wide frame {HH}x{HW} D={HD} f32 SGM-8 (K4b)": (
+            lambda: entry.hd_wide_forward(Lh, Rh)),
+        f"K4d route {HH}x{HW} D={HD}: chunked_adj alone": (
+            lambda: lane.chunked_adj(cv_hd, 0, HW, P1, P2, POUT, 8)),
     }
     frame_times = {}
     for name, fn in frames.items():
@@ -647,13 +972,60 @@ def main() -> int:
         "K7": (lambda: probe(costc, cand, d1, c1, 0),
                lambda: probe_plain(costc, cand, d1, c1, 0)),
     })
-    plain_reps = {"K2k": 2}      # the plain knight passes take ~1 s a run
+    # the lane kernels at the wide path's volume (480x640x384 f32): K4a the
+    # shear's window copy out of the padded volume, K4b the whole
+    # `fused_adj` with WTA, K4d the whole
+    # `chunked_adj` (chunk width 37; at this width K4b would take it)
+    padded = torch.nn.functional.pad(cvw, (0, 0, WH - 1, WH), value=INF)
+    sa = shear_args(WH, WW, False)
+    wkw = dict(col0=0, W_pout=WW, P1=P1, P2=P2, Pout=POUT)
+
+    def k4d_plain():
+        cvc = cvw
+        adj = torch.empty_like(cvc)
+        cw = lane.chunk_width(WD)
+        n_w = -(-WW // cw)
+        zrow = cvc.new_zeros((1, WD))
+        for k, (rev, down, corner, vert, order) in enumerate((
+                (False, True, (0, 1), True, range(n_w)),
+                (True, True, (WH - 1, -1), True, range(n_w)),
+                (False, False, (WW - 1, -1), False, range(n_w - 1, -1, -1)),
+                (True, False, (WW - WH, 1), False, range(n_w - 1, -1, -1)))):
+            hist = cvc.new_zeros((WH, WD))
+            for w in order:
+                hout = lane.chunked_pass_plain(
+                    cvc, adj, hist, w * cw, min(cw, WW - w * cw), reverse=rev,
+                    shift_down=down, corner_c0=corner[0],
+                    corner_slope=corner[1], with_vertical=vert,
+                    with_diag=True, accumulate=k > 0, **wkw)
+                hist = (torch.cat([hout[1:], zrow]) if rev
+                        else torch.cat([zrow, hout[:-1]]))
+        adj = lane.fused_cols_pass_plain(cvc, adj, False, **wkw)
+        return lane.fused_cols_pass_plain(cvc, adj, True, **wkw)
+
+    jobs.update({
+        "K4a": (lambda: lane.shift_rows(padded, *sa),
+                lambda: lane.shift_rows_plain(padded, *sa)),
+        "K4b": (lambda: lane.fused_adj(cvw, 0, WW, P1, P2, POUT, 8,
+                                       wta_radius=1),
+                lambda: wide_plain(cvw)),
+        "K4d": (lambda: lane.chunked_adj(cvw, 0, WW, P1, P2, POUT, 8),
+                k4d_plain),
+    })
+    assert torch.equal(shift_rows_gather(padded, *sa), lane.shear(cvw, False))
+    lib_ms = median_ms(lambda: shift_rows_gather(padded, *sa))
+    print(f"time: K4a library call (one torch.gather) {lib_ms:.3f} ms "
+          f"(median of 5; {smi})", flush=True)
+    # the plain knight passes take ~1 s a run, the plain chunked sweeps
+    # several
+    plain_reps = {"K2k": 2, "K4b": 2, "K4d": 1}
     ms = {}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
         n = plain_reps.get(name, 5)
-        p1, k1, k2_, p2 = (median_ms(plain, n), median_ms(kern),
-                           median_ms(kern), median_ms(plain, n))
+        w = 1 if n > 1 else 0
+        p1, k1, k2_, p2 = (median_ms(plain, n, w), median_ms(kern),
+                           median_ms(kern), median_ms(plain, n, w))
         ms[name] = ((k1 + k2_) / 2, (p1 + p2) / 2)
         print(f"time: {name} kernel {ms[name][0]:.3f} ms vs plain "
               f"{ms[name][1]:.3f} ms (kernel median of 5, plain median of "
@@ -696,13 +1068,45 @@ def main() -> int:
          "libstevi_tpu/ops/patchmatch_pallas.py:47", "K6"),
         ("K7 pm_probe", "libstevi_tpu_torch/csrc/patchmatch.cu",
          "libstevi_tpu/ops/patchmatch_pallas.py:118", "K7"),
+        ("K4a shift_rows", "libstevi_tpu_torch/csrc/sgm_lane.cu",
+         "libstevi_tpu/ops/sgm_pallas.py:43", "K4a"),
+        ("K4b fused_rows/fused_cols", "libstevi_tpu_torch/csrc/sgm_lane.cu",
+         "libstevi_tpu/ops/sgm_pallas.py:147", "K4b"),
+        ("K4d chunked_rows", "libstevi_tpu_torch/csrc/sgm_lane.cu",
+         "libstevi_tpu/ops/sgm_pallas.py:586", "K4d"),
     ]
     launches["K2k"] = launches16["K2k"]     # the SGM-16 path's run
+    # K4a is on no path (the JAX package calls it only in a test): its
+    # count is the wide path's, as K4b's; K4d's is the full-size K4d run's
+    launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
+                    K4d=k4d_launches["K4d"])
+    # bounds from the timed calls' shapes: each input read once, each
+    # output written once, and their f32 operations
+    HW1, N1 = 480 * 640, 480 * 640 * 120
+    NW = WH * WW * WD
+    bounds = {
+        "K1": bound(2 * HW1 * 4 + N1 * 2, 2 * 49 * N1),
+        "K2": bound(N1 * 2 + N1 * 4, SGM_OPS * 7 * N1),
+        "K2k": bound(N1 * 4 + 2 * N1 * 4, SGM_OPS * 8 * N1),
+        "K3": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3) * N1),
+        "K5": bound(2 * HW1 * 49 * 4 + N1 * 4, 3 * 49 * N1),
+        "K6": bound(5 * HW1 * 4, 4 * HW1),
+        "K7": bound(12 * HW1 * 4, 4 * 4 * HW1),
+        # K4a reads only the copied window of its padded input
+        "K4a": bound(2 * WH * (WW + WH - 1) * WD * 4, 0),
+        "K4b": bound(NW * 4 + 4 * WH * WW * 4, (SGM_OPS * 8 + 3) * NW),
+        "K4d": bound(2 * NW * 4, SGM_OPS * 8 * NW),
+    }
+    library = {"K4a": lib_ms}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key], "max_abs_err": err[key],
-         "ms": ms[key][0], "plain_ms": ms[key][1]}
+         "ms": ms[key][0], "plain_ms": ms[key][1],
+         "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
+         "library_ms": library.get(key)}
         for name, src, rep, key in records]}), flush=True)
+    print(f"script wall time {time.perf_counter() - t_script:.1f} s",
+          flush=True)
     print(smi, flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

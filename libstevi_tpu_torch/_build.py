@@ -34,9 +34,26 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every launch function, per source file.
 SIGNATURES = {
     "box_cv": {
-        # src, tgt, sum_s, den_s, sum_t, den_t, out, H, W, D, h, v, kind,
-        # inv_n, negate, out_bf16, stream
-        "box_cv_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
+        # src, tgt, sum_s, den_s, sum_t, den_t, out, H, W, D, d0, D_slice,
+        # h, v, kind, inv_n, negate, out_bf16, stream
+        "box_cv_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+    },
+    "sgm_lane": {
+        # in, out, H, W_in, W_out, Dp, base, slope, stream
+        "shift_rows_launch": [_P, _P] + [_I] * 6 + [_P],
+        # cv, acc, out, edge, H, W, D, ncols, col0, W_pout, P1, P2, Pout,
+        # reverse, diag, stream
+        "fused_rows_launch": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_I] * 2
+                             + [_P],
+        # cv, acc, out, idx, bands, H, W, D, col0, W_pout, P1, P2, Pout,
+        # reverse, r, wta, stream
+        "fused_cols_launch": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_I] * 3
+                             + [_P],
+        # cv, acc, out, hin, hout, H, W, D, c0, Wc, col0, W_pout, P1, P2,
+        # Pout, reverse, shift_down, corner_c0, corner_slope,
+        # with_vertical, with_diag, accumulate, stream
+        "chunked_rows_launch": [_P] * 5 + [_I] * 7 + [_F] * 3 + [_I] * 7
+                               + [_P],
     },
     "sgm_scan": {
         # cv, cv_bf16, acc, H, W, D, di, dj, P1, P2, Pout, accumulate, col0,

@@ -8,7 +8,9 @@ report accuracy against ground truth: the proportion of pixels with
 |err| <= 2.0 ("prop good", `main.cpp:234-258`) and the inlier MAE
 (`main.cpp:275-303`).  The arguments and the JSON report keys are the JAX
 tool's, plus ``--device`` (default ``cuda``; without a GPU that is an
-error, never a silent CPU run).  Images are ``.stevimg`` files.
+error, never a silent CPU run).  Images are ``.stevimg`` files.  On the
+card SGM takes any ``-d`` with 4 or 8 directions (past D = 320 through the
+lane-layout kernels K4b / K4d) and ``-d`` up to 320 with 16 directions.
 
 Usage:
   python -m libstevi_tpu_torch.cli.stereo_match LEFT RIGHT -o disp.stevimg \\

@@ -22,8 +22,11 @@
 // consecutive tgt columns (no bank conflicts, the src value is a broadcast)
 // and writes 32 consecutive d of one pixel.  Each thread keeps K partial
 // sums, so one src load feeds K FMAs.
-// D <= 320 (K <= 10): at D = 320 and a 7x7 window a block stages
-// 10 x (38 + 357) floats, 15.8 KB of shared memory.
+// One launch writes one slice of at most 320 disparities, [d0, d0 + Ds)
+// of the volume's D (K <= 10): at Ds = 320 and a 7x7 window a block stages
+// 10 x (38 + 357) floats, 15.8 KB of shared memory.  Wider ranges are
+// several launches over slices (ops/box_cuda.py), sharing one set of window
+// statistics.
 // Left for later PRs: separable row-then-column sums instead of 49 FMAs per
 // entry, 16-byte stores, computing the window statistics in the kernel.
 
@@ -47,8 +50,8 @@ __global__ void __launch_bounds__(32 * WARPS)
 box_cv_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
               const float* __restrict__ sum_s, const float* __restrict__ den_s,
               const float* __restrict__ sum_t, const float* __restrict__ den_t,
-              OutT* __restrict__ out, int H, int W, int D, int hr, int vr,
-              int kind, float inv_n, int negate) {
+              OutT* __restrict__ out, int H, int W, int D, int d0, int Ds,
+              int hr, int vr, int kind, float inv_n, int negate) {
   extern __shared__ float smem[];
   const int i0 = blockIdx.y * TI;
   const int j0 = blockIdx.x * TJ;
@@ -64,7 +67,7 @@ box_cv_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
                     ? src[(size_t)gi * W + gj] : 0.f;
   }
   for (int e = tid; e < rows * tw; e += 32 * WARPS) {
-    const int gi = i0 - vr + e / tw, gj = j0 - hr + e % tw;
+    const int gi = i0 - vr + e / tw, gj = j0 - hr + d0 + e % tw;
     t_tile[e] = (gi >= 0 && gi < H && gj >= 0 && gj < W)
                     ? tgt[(size_t)gi * W + gj] : 0.f;
   }
@@ -80,7 +83,8 @@ box_cv_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 #pragma unroll
       for (int k = 0; k < K; ++k) cross[k] = 0.f;
       for (int a = 0; a < nv; ++a) {
-        // src(i-v+a, j-h+b) is srow[b]; tgt(i-v+a, j-h+b+d) is trow[b+32k]
+        // src(i-v+a, j-h+b) is srow[b]; tgt(i-v+a, j-h+b+d0+d) is
+        // trow[b+32k] for the slice's d = lane + 32k
         const float* srow = s_tile + (li + a) * sw + lj;
         const float* trow = t_tile + (li + a) * tw + lj + lane;
         for (int b = 0; b < nh; ++b) {
@@ -94,8 +98,8 @@ box_cv_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
       const float ss = sum_s[pix], ds = den_s[pix];
 #pragma unroll
       for (int k = 0; k < K; ++k) {
-        const int d = lane + 32 * k;
-        if (d >= D) break;
+        const int d = d0 + lane + 32 * k;
+        if (lane + 32 * k >= Ds) break;
         float val = 0.f;  // out of range: the all-zero target feature
         if (j + d < W) {
           float c = cross[k];
@@ -114,8 +118,9 @@ box_cv_kernel(const float* __restrict__ src, const float* __restrict__ tgt,
 template <int K, typename OutT>
 cudaError_t launch(const float* src, const float* tgt, const float* sum_s,
                    const float* den_s, const float* sum_t, const float* den_t,
-                   void* out, int H, int W, int D, int hr, int vr, int kind,
-                   float inv_n, int negate, cudaStream_t stream) {
+                   void* out, int H, int W, int D, int d0, int Ds, int hr,
+                   int vr, int kind, float inv_n, int negate,
+                   cudaStream_t stream) {
   const dim3 block(32, WARPS);
   const dim3 grid((W + TJ - 1) / TJ, (H + TI - 1) / TI);
   const size_t smem = sizeof(float) * (TI + 2 * vr) *
@@ -128,7 +133,7 @@ cudaError_t launch(const float* src, const float* tgt, const float* sum_s,
   }
   box_cv_kernel<K, OutT><<<grid, block, smem, stream>>>(
       src, tgt, sum_s, den_s, sum_t, den_t, static_cast<OutT*>(out), H, W, D,
-      hr, vr, kind, inv_n, negate);
+      d0, Ds, hr, vr, kind, inv_n, negate);
   return cudaGetLastError();
 }
 
@@ -136,12 +141,12 @@ template <typename OutT>
 cudaError_t dispatch(int K, const float* src, const float* tgt,
                      const float* sum_s, const float* den_s,
                      const float* sum_t, const float* den_t, void* out, int H,
-                     int W, int D, int hr, int vr, int kind, float inv_n,
-                     int negate, cudaStream_t stream) {
+                     int W, int D, int d0, int Ds, int hr, int vr, int kind,
+                     float inv_n, int negate, cudaStream_t stream) {
 #define BOX_CV_CASE(k)                                                      \
   case k:                                                                   \
     return launch<k, OutT>(src, tgt, sum_s, den_s, sum_t, den_t, out, H, W, \
-                           D, hr, vr, kind, inv_n, negate, stream);
+                           D, d0, Ds, hr, vr, kind, inv_n, negate, stream);
   switch (K) {
     BOX_CV_CASE(1) BOX_CV_CASE(2) BOX_CV_CASE(3) BOX_CV_CASE(4)
     BOX_CV_CASE(5) BOX_CV_CASE(6) BOX_CV_CASE(7) BOX_CV_CASE(8)
@@ -156,22 +161,23 @@ cudaError_t dispatch(int K, const float* src, const float* tgt,
 extern "C" int box_cv_launch(const void* src, const void* tgt,
                              const void* sum_s, const void* den_s,
                              const void* sum_t, const void* den_t, void* out,
-                             int H, int W, int D, int hr, int vr, int kind,
-                             float inv_n, int negate, int out_bf16,
-                             void* stream) {
-  if (H < 1 || W < 1 || D < 1 || D > 320 || hr < 0 || vr < 0 || kind < 0 ||
-      kind > 3)
+                             int H, int W, int D, int d0, int Ds, int hr,
+                             int vr, int kind, float inv_n, int negate,
+                             int out_bf16, void* stream) {
+  if (H < 1 || W < 1 || Ds < 1 || Ds > 320 || d0 < 0 || d0 + Ds > D ||
+      hr < 0 || vr < 0 || kind < 0 || kind > 3)
     return (int)cudaErrorInvalidValue;
-  const int K = (D + 31) / 32;
+  const int K = (Ds + 31) / 32;
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   const float *a = static_cast<const float*>(src), *b = static_cast<const float*>(tgt),
               *c = static_cast<const float*>(sum_s), *d = static_cast<const float*>(den_s),
               *e = static_cast<const float*>(sum_t), *g = static_cast<const float*>(den_t);
   return (int)(out_bf16
                    ? dispatch<__nv_bfloat16>(K, a, b, c, d, e, g, out, H, W, D,
-                                             hr, vr, kind, inv_n, negate, s)
-                   : dispatch<float>(K, a, b, c, d, e, g, out, H, W, D, hr, vr,
-                                     kind, inv_n, negate, s));
+                                             d0, Ds, hr, vr, kind, inv_n,
+                                             negate, s)
+                   : dispatch<float>(K, a, b, c, d, e, g, out, H, W, D, d0, Ds,
+                                     hr, vr, kind, inv_n, negate, s));
 }
 
 extern "C" const char* cuda_error_string(int err) {

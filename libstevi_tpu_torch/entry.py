@@ -12,7 +12,12 @@ geometry (480x640; `test/benchmarks/benchmarkCrossCorrelationAlgorithms.cpp:
 census + 8-direction SGM (P1=1, P2=4) + parabola, the `census_sgm8` row of
 `PARITY_r05` (`scripts/run_parity_r05.py:67-74`); `hd_forward` is the
 flagship at 720x1280 with D=320 (`bench_grid.py:153-154`, "SGM8 ZNCC bf16
-dense HD D=320").
+dense HD D=320").  `wide_forward` is the flagship just past K2's reach:
+ZNCC 7x7, D=384, SGM-8, a float32 volume (K4b casts to float32,
+`libstevi_tpu/ops/sgm_pallas.py:394`), at 480x640; `hd_wide_forward` is
+the HD row with its range doubled to D=640, at 720x1280.  Both run K1 over
+d-slices and the lane-layout SGM kernels (K4b, or K4d where K4b's carries
+do not fit on chip).
 
 `patchmatch_forward` is the PatchMatch matcher in the `BENCH_GRID_r05` /
 `PARITY_r05` configuration (NCC, 7x7 window, disparities [0, 119], 5
@@ -37,6 +42,8 @@ FLAGSHIP = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
 SGM16 = dict(FLAGSHIP, n_directions=16, cv_dtype=torch.float32)
 CENSUS_SGM8 = dict(FLAGSHIP, P1=1.0, P2=4.0, cv_dtype=torch.float32)
 HD_BF16 = dict(FLAGSHIP, disp_width=320)
+WIDE = dict(FLAGSHIP, disp_width=384, cv_dtype=torch.float32)
+HD_WIDE = dict(WIDE, disp_width=640)
 PATCHMATCH = dict(search=SearchOffset1(0, 119), h_radius=3, v_radius=3,
                   n_iter=5, n_random=4)
 WTA = dict(h_radius=3, v_radius=3, search=120)
@@ -70,6 +77,20 @@ def hd_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
     """Refined disparity (H, W) float32 of a gray pair at D=320, bf16."""
     disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
                                   **HD_BF16)
+    return disp
+
+
+def wide_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair at D=384, f32."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r, **WIDE)
+    return disp
+
+
+def hd_wide_forward(img_l: torch.Tensor,
+                    img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair at D=640, f32."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
+                                  **HD_WIDE)
     return disp
 
 

@@ -8,6 +8,10 @@ the kernel's per-disparity normalization is two multiplies and zero-variance
 windows score 0.  The kernel writes the (H, W, D) volume, negated for SCORE
 functions and 0 where j + d >= W.
 
+A launch writes one slice of at most ``MAX_D`` disparities (lanes keep
+ceil(D_slice / 32) <= 10 sums each); a wider range is one launch a slice,
+at offsets d0 = 0, 320, ..., all from one set of window statistics.
+
 `box_cv` launches the kernel for CUDA tensors and runs `box_cv_plain`, the
 plain version (`box_backend.box_cost_volume`), for CPU tensors.
 """
@@ -23,7 +27,7 @@ from .filters import box_filter_2d
 
 _KIND = {MatchingFunction.CC: 0, MatchingFunction.NCC: 1,
          MatchingFunction.ZCC: 2, MatchingFunction.ZNCC: 3}
-MAX_D = 320        # the kernels keep ceil(D / 32) <= 10 values per lane
+MAX_D = 320        # K1 and K2/K3 keep ceil(D / 32) <= 10 values per lane
 
 
 def _prep_inputs(func, img_l, img_r, h_radius, v_radius):
@@ -61,7 +65,8 @@ def box_cv(func: MatchingFunction, img_l: torch.Tensor, img_r: torch.Tensor,
            cv_dtype=torch.float32, negate: bool = False) -> torch.Tensor:
     """(H, W, D) dot-family cost volume, RIGHT_TO_LEFT over d in [0, D),
     gray images, stored as ``cv_dtype`` (float32 or bfloat16) and negated
-    when ``negate`` (SCORE volumes feed the COST-mode SGM negated)."""
+    when ``negate`` (SCORE volumes feed the COST-mode SGM negated).  On
+    CUDA, one launch per slice of at most ``MAX_D`` disparities."""
     if img_l.device.type == "cpu":
         return box_cv_plain(func, img_l, img_r, h_radius, v_radius,
                             disp_width, cv_dtype, negate)
@@ -74,9 +79,8 @@ def box_cv(func: MatchingFunction, img_l: torch.Tensor, img_r: torch.Tensor,
     if cv_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("box_cv stores float32 or bfloat16 volumes")
     D = int(disp_width)
-    if not 1 <= D <= MAX_D:
-        raise NotImplementedError(f"box_cv: D = {D}; the kernel takes "
-                                  f"1 <= D <= {MAX_D} (ROADMAP.md B)")
+    if D < 1:
+        raise ValueError("box_cv: D >= 1")
     if h_radius < 0 or v_radius < 0:
         raise ValueError("box_cv: negative window radius")
     H, W = img_l.shape
@@ -85,14 +89,16 @@ def box_cv(func: MatchingFunction, img_l: torch.Tensor, img_r: torch.Tensor,
     out = torch.empty((H, W, D), dtype=cv_dtype, device=img_l.device)
     lib = _build.load("box_cv")
     with torch.cuda.device(img_l.device):
-        err = lib.box_cv_launch(
-            src.data_ptr(), tgt.data_ptr(), sum_s.data_ptr(),
-            inv_s.data_ptr(), sum_t.data_ptr(), inv_t.data_ptr(),
-            out.data_ptr(), H, W, D, h_radius, v_radius, _KIND[func],
-            1.0 / n, int(negate), int(cv_dtype == torch.bfloat16),
-            torch.cuda.current_stream().cuda_stream)
-    _build.check(lib, err, "box_cv_launch")
-    box_cv.launches += 1
+        for d0 in range(0, D, MAX_D):
+            err = lib.box_cv_launch(
+                src.data_ptr(), tgt.data_ptr(), sum_s.data_ptr(),
+                inv_s.data_ptr(), sum_t.data_ptr(), inv_t.data_ptr(),
+                out.data_ptr(), H, W, D, d0, min(MAX_D, D - d0), h_radius,
+                v_radius, _KIND[func], 1.0 / n, int(negate),
+                int(cv_dtype == torch.bfloat16),
+                torch.cuda.current_stream().cuda_stream)
+            _build.check(lib, err, "box_cv_launch")
+            box_cv.launches += 1
     return out
 
 

@@ -20,8 +20,18 @@ an (H, D) carry — O(H + W) vectorised steps per direction.  The eight
 knight-move directions of the 16-direction set alternate two step vectors
 (`sgm.h:112-155`); their lines come from `_build_lines` and run through
 `_cost_mode_pass` (gather, scan along the lines, scatter-add), as in the
-JAX package.  On a CUDA tensor the public entry points run the K2, K2k and
-K3 kernels (`sgm_cuda.py`).
+JAX package.  Which engine runs a configuration is `sgm_route`'s choice,
+made from the configuration alone, as the JAX package chooses between its
+Pallas kernels and its XLA groups (`libstevi_tpu/ops/sgm.py:333-352, 387`):
+- P2 < P1: the plain steps with the dense D x D penalty, on either device
+  (the O(D) min-shift of the kernels is exact only for P2 >= P1);
+- D <= 320: K2, K2k and K3 on a CUDA tensor (`sgm_cuda.py`), their plain
+  versions on the CPU;
+- D > 320 with 4 or 8 directions: the lane route, K4b
+  (`sgm_lane_cuda.fused_adj`), and K4d (`chunked_adj`) where `fused_adj`
+  returns None because its carries do not fit on chip, and their plain
+  versions on the CPU; 16 directions at D > 320 raise on CUDA (K2k keeps
+  its D in registers; queued in ROADMAP.md B) and run plain on the CPU.
 """
 
 from __future__ import annotations
@@ -272,6 +282,40 @@ def _grouped_adj(region, P1, P2, Pout, n_directions, col0, W_pout):
 # Public entries
 # ---------------------------------------------------------------------------
 
+def sgm_route(D: int, n_directions: int, P1: float, P2: float,
+              cuda: bool) -> str:
+    """The engine that runs the principal directions of an SGM call (see
+    the module docstring): 'dense' (P2 < P1, plain torch ops on either
+    device, no kernel), 'scan' (K2/K2k/K3, or their plain versions on the
+    CPU) or 'lane' (K4b, else K4d: `_lane_adj`).  16 directions at D > 320
+    raise NotImplementedError for a CUDA tensor."""
+    from .box_cuda import MAX_D
+    if n_directions not in (4, 8, 16):
+        raise ValueError("SGM operates with 4, 8 or 16 directions")
+    if P2 < P1:
+        return "dense"
+    if D <= MAX_D:
+        return "scan"
+    if n_directions >= 16:
+        if cuda:
+            raise NotImplementedError(
+                f"16-direction SGM at D = {D} > {MAX_D} on CUDA: K2k keeps "
+                "ceil(D / 32) values a lane in registers; 'K2k over "
+                "d-slices' is queued in ROADMAP.md B")
+        return "scan"
+    return "lane"
+
+
+def _lane_adj(region, col0, W_pout, P1, P2, Pout, n_directions):
+    """K4b, and K4d where `fused_adj` refuses the width (as
+    `_pallas_adj` takes `sgm_fused_adj`, then `sgm_chunked_adj`)."""
+    from .sgm_lane_cuda import chunked_adj, fused_adj
+    adj = fused_adj(region, col0, W_pout, P1, P2, Pout, n_directions)
+    if adj is None:
+        adj = chunked_adj(region, col0, W_pout, P1, P2, Pout, n_directions)
+    return adj
+
+
 def _region(cv: torch.Tensor, margins: Margins) -> torch.Tensor:
     H, W = cv.shape[:2]
     return cv[margins.top:H - margins.bottom, margins.left:W - margins.right]
@@ -290,7 +334,9 @@ def sgm_cost_volume(cv: torch.Tensor, P1: float, P2: float,
     and one K2k call per knight direction (`sgm_cuda.sgm_accumulate`), and
     is padded back.  On the CPU the sums follow the JAX XLA path: the
     principal directions grouped, then each knight pass in `_KNIGHT_DIRS`
-    order, each padded to the full volume."""
+    order, each padded to the full volume.  At D > 320 (4 or 8
+    directions) both devices run `sgm_lane_cuda`'s K4b or K4d route, and
+    P2 < P1 runs the plain dense-penalty steps (`sgm_route`)."""
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
     if strategy is ExtractionStrategy.SCORE:
@@ -306,12 +352,15 @@ def sgm_cost_volume(cv: torch.Tensor, P1: float, P2: float,
     def pad(adj):
         return torch.nn.functional.pad(adj, (0, 0, ml, mr, mt, mb))
 
-    if cv.is_cuda:
-        from .sgm_cuda import check_kernel_config, sgm_accumulate
-        check_kernel_config(n_directions, P1, P2, D)
+    route = sgm_route(D, n_directions, P1, P2, cv.is_cuda)
+    if route == "scan" and cv.is_cuda:
+        from .sgm_cuda import sgm_accumulate
         adj = sgm_accumulate(region, directions_for(n_directions), P1, P2,
                              Pout, ml, W)
         return cv.float() + pad(adj)
+    if route == "lane":
+        return cv.float() + pad(_lane_adj(region, ml, W, P1, P2, Pout,
+                                          n_directions))
     region = region.float()
     sgm = cv.float() + pad(_grouped_adj(region, P1, P2, Pout, n_directions,
                                         ml, W))
@@ -354,22 +403,31 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
     """The chain ``sgm_cost_volume`` -> ``extract_selected_index`` ->
     ``truncated_cost_volume`` (SAME mode).  Returns ``(selected_index,
     truncated_cv)``; the truncated volume is in COST orientation (for SCORE
-    inputs it holds the negated SGM scores).  On a CUDA tensor without
-    margins the WTA and the band come out of the last SGM pass (K2 and K2k
-    launches, then K3).  With margins both devices run the chain itself, as
-    the JAX package does (`libstevi_tpu/ops/sgm.py:571`): on CUDA,
-    `sgm_cost_volume` runs the region through K2 and K2k."""
+    inputs it holds the negated SGM scores).  Without margins the WTA and
+    the band come out of the last SGM pass: on a CUDA tensor at D <= 320,
+    K2 and K2k launches, then K3; at D > 320 (both devices), K4b's
+    `fused_cols_wta` where K4b takes the geometry.  Elsewhere (margins,
+    K4d's geometry, P2 < P1) both devices run the chain itself, as the JAX
+    package does (`libstevi_tpu/ops/sgm.py:571-600`)."""
     from .cost_volume import extract_selected_index, truncated_cost_volume
     H, W, D = cv.shape
     r = cost_vol_radius
-    if cv.is_cuda and margins == Margins() and H and W:
-        from .sgm_cuda import check_kernel_config, sgm_wta_fused
-        check_kernel_config(n_directions, P1, P2, D)
-        sign = 1.0 if strategy is ExtractionStrategy.COST else -1.0
-        idx, bands, _ = sgm_wta_fused(sign * cv, float(P1), float(P2),
-                                      float(Pout), n_directions, r, h_radius,
-                                      v_radius, refine=False)
-        return _tcv_from_bands(idx, bands, H, W, D, h_radius, v_radius, r)
+    if margins == Margins() and H and W:
+        route = sgm_route(D, n_directions, P1, P2, cv.is_cuda)
+        res = None
+        if (route == "scan" and cv.is_cuda) or route == "lane":
+            vol = cv if strategy is ExtractionStrategy.COST else -cv
+            P = (float(P1), float(P2), float(Pout))
+            if route == "scan":
+                from .sgm_cuda import sgm_wta_fused
+                res = sgm_wta_fused(vol, *P, n_directions, r, h_radius,
+                                    v_radius, refine=False)[:2]
+            else:   # None where K4b's carries do not fit: K4d's geometry
+                from .sgm_lane_cuda import fused_adj
+                res = fused_adj(vol, 0, W, *P, n_directions, wta_radius=r)
+        if res is not None:
+            return _tcv_from_bands(res[0], res[1], H, W, D, h_radius,
+                                   v_radius, r)
     sgm = sgm_cost_volume(cv, P1, P2, margins, Pout, n_directions, strategy)
     idx = extract_selected_index(sgm, strategy)
     vol = sgm if strategy is ExtractionStrategy.COST else -sgm
@@ -386,16 +444,19 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     tie-last WTA -> truncated band -> optional cost-based subpixel (the
     dense hot loop of `examples/stereo-match/main.cpp:234-258`).
 
-    For a dot-family cost on gray images with P2 >= P1 this runs the kernel
-    path K1 -> K2 (one launch per principal direction but the last) -> K2k
-    (16 directions) -> K3 (the last direction fused with WTA, band and, for
-    PARABOLA, the subpixel).  Other costs and multichannel images take the
-    JAX package's general route: ``unfold_based_cost_volume`` (the box
-    route, or unfold with K5 where `aggregate_cost` launches it and the
-    shifted-compare loop for CENSUS and Hamming) -> ``sgm_wta_truncated``
-    -> refinement.  On the CPU every
-    kernel wrapper runs its plain version.  P2 < P1 on CUDA raises
-    NotImplementedError.  The volume is stored in ``cv_dtype`` (float32 or
+    For a dot-family cost on gray images with P2 >= P1 and D <= 320 this
+    runs the kernel path K1 -> K2 (one launch per principal direction but
+    the last) -> K2k (16 directions) -> K3 (the last direction fused with
+    WTA, band and, for PARABOLA, the subpixel).  At D > 320 (4 or 8
+    directions) it runs K1 over d-slices -> ``sgm_wta_truncated`` (K4b's
+    passes and WTA, or K4d) -> refinement in torch.  Other costs,
+    multichannel images and P2 < P1 take the JAX package's general route:
+    ``unfold_based_cost_volume`` (the box route, or unfold with K5 where
+    `aggregate_cost` launches it and the shifted-compare loop for CENSUS
+    and Hamming) -> ``sgm_wta_truncated`` -> refinement.  On the CPU every
+    kernel wrapper runs its plain version.  16 directions at D > 320 on
+    CUDA raise NotImplementedError (`sgm_route`).  The volume is stored in
+    ``cv_dtype`` (float32 or
     bfloat16) and the DP runs in float32; a bfloat16 request with 16
     directions builds a float32 volume, the JAX package's TPU rule
     (`libstevi_tpu/ops/sgm.py:477-478`).
@@ -411,23 +472,28 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     r = cost_vol_radius
     if n_directions >= 16:
         cv_dtype = torch.float32
-    if img_l.is_cuda:
-        from .sgm_cuda import check_kernel_config
-        check_kernel_config(n_directions, P1, P2, D)
+    route = sgm_route(D, n_directions, P1, P2, img_l.is_cuda)
 
-    if func in DOT_FAMILY and img_l.ndim == 2 and P2 >= P1:
+    if func in DOT_FAMILY and img_l.ndim == 2 and route != "dense":
         from .box_cuda import box_cv
-        from .sgm_cuda import sgm_wta_fused
         dt = torch.bfloat16 if cv_dtype == torch.bfloat16 else torch.float32
         cv = box_cv(func, img_l, img_r, h_radius, v_radius, D, dt,
                     negate=strategy is ExtractionStrategy.SCORE)
-        fuse_refine = refine_kernel is InterpolationKernel.PARABOLA and r >= 1
-        idx, bands, disp = sgm_wta_fused(cv, float(P1), float(P2),
-                                         float(Pout), n_directions, r,
-                                         h_radius, v_radius, fuse_refine)
-        idx, tcv = _tcv_from_bands(idx, bands, H, W, D, h_radius, v_radius, r)
-        if fuse_refine:
-            return disp, idx, tcv
+        if route == "scan":
+            from .sgm_cuda import sgm_wta_fused
+            fuse_refine = (refine_kernel is InterpolationKernel.PARABOLA
+                           and r >= 1)
+            idx, bands, disp = sgm_wta_fused(cv, float(P1), float(P2),
+                                             float(Pout), n_directions, r,
+                                             h_radius, v_radius, fuse_refine)
+            idx, tcv = _tcv_from_bands(idx, bands, H, W, D, h_radius,
+                                       v_radius, r)
+            if fuse_refine:
+                return disp, idx, tcv
+        else:
+            idx, tcv = sgm_wta_truncated(
+                cv, P1, P2, Pout=Pout, n_directions=n_directions,
+                h_radius=h_radius, v_radius=v_radius, cost_vol_radius=r)
     else:
         from .cost_volume import unfold_based_cost_volume
         cv = unfold_based_cost_volume(func, img_l, img_r, h_radius, v_radius,

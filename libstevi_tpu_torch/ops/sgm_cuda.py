@@ -38,21 +38,6 @@ from .sgm import (SgmDirection, directions_for, direction_adj, knight_adj,
                   wta_bands, _tcv_from_bands)
 
 
-def check_kernel_config(n_directions: int, P1: float, P2: float,
-                        D: int) -> None:
-    """Raise NotImplementedError for a configuration the CUDA kernels do not
-    take (each is queued in ROADMAP.md)."""
-    if n_directions not in (4, 8, 16):
-        raise ValueError("SGM operates with 4, 8 or 16 directions")
-    if P2 < P1:
-        raise NotImplementedError(
-            "P2 < P1 on CUDA: the kernels use the O(D) min-shift step, exact "
-            "only for P2 >= P1; the dense penalty is queued in ROADMAP.md B")
-    if not 1 <= D <= MAX_D:
-        raise NotImplementedError(
-            f"SGM on CUDA takes 1 <= D <= {MAX_D} (ROADMAP.md B)")
-
-
 def kernel_volume(cv: torch.Tensor) -> torch.Tensor:
     """``cv`` as a contiguous float32 or bfloat16 volume, the types the
     kernels read."""
@@ -71,6 +56,8 @@ def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str) -> None:
     if not (cv.is_contiguous() and acc.is_contiguous()):
         raise ValueError(f"{what}: cv and acc must be contiguous")
     if not 1 <= cv.shape[-1] <= MAX_D:
+        # ceil(D / 32) <= 10 values a lane in registers; `sgm.sgm_route`
+        # sends wider ranges to K4b / K4d
         raise NotImplementedError(f"{what}: 1 <= D <= {MAX_D}")
 
 

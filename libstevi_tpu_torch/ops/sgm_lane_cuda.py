@@ -1,0 +1,484 @@
+"""K4a, K4b and K4d: the lane-layout SGM kernels (`csrc/sgm_lane.cu`), the
+port of `libstevi_tpu/ops/sgm_pallas.py` less its row-shard passes.
+
+These carry SGM past K2/K3's register limit (D <= 320): every carry lives
+in shared memory, so D is unbounded.
+- K4a `shift_rows` (`_shift_rows`): the per-row window copy, and `shear` /
+  `unshear` on it (`pallas_shear` / `pallas_unshear`).
+- K4b `fused_rows_pass`, `fused_cols_pass`, `fused_cols_wta`
+  (`_fused_rows_kernel`, `_fused_cols_kernel`, `_make_fused_cols_wta`),
+  driven by `fused_adj` (`sgm_fused_adj`): the vertical direction and both
+  diagonal families in one sweep down and one up, then the two column
+  scans, the last one optionally fused with the tie-last WTA and the band.
+  `fused_adj` returns None when `fused_fits` says the full-width carries do
+  not fit on chip (the GPU form of `sgm_fused_adj`'s VMEM test).
+- K4d `chunked_pass` (`_chunked_rows_kernel` / `_chunked_pass`), driven by
+  `chunked_adj` (`sgm_chunked_adj`): W-chunks run one after another, the
+  diagonal carry crossing each chunk edge through an (H, D) edge history.
+
+The volumes are (H, W, D) float32 regions; ``col0`` is the image column of
+the region's first column and ``W_pout`` the image width, for the Pout test
+``j + d >= W``.  The DP step is `_fused_step` (no isfinite guards; the TPU
+padded d with +inf, here d = -1 and d = D read +inf), and every sum runs in
+the TPU kernels' order, so a kernel and its plain version agree to the bit.
+Each wrapper launches its kernel for CUDA tensors (counting the launch) and
+runs its plain version (`*_plain`) for CPU tensors.
+"""
+
+from __future__ import annotations
+
+import torch
+
+from .. import _build
+
+SMEM_BLOCK = 232448      # bytes of shared memory one block can opt into (H100)
+H100_SMS = 132           # streaming multiprocessors of an H100 SXM
+_INF = float("inf")
+
+
+def _ceil_div(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+# ---------------------------------------------------------------------------
+# Fit rules
+# ---------------------------------------------------------------------------
+
+def fused_fits(W: int, D: int, n_directions: int, budget: int | None = None,
+               n_sm: int = H100_SMS) -> bool:
+    """Whether K4b's rows pass holds a region of width W on chip: one block
+    per SM owns ceil(W / n_sm) columns and keeps 2 buffers (row parity) of
+    3 carries (1 for 4 directions) of D floats each for every column, plus
+    the two neighbour-block carries it reads (8 directions), in at most
+    ``budget`` bytes of shared memory (default: one block's 227 KiB)."""
+    budget = SMEM_BLOCK if budget is None else budget
+    n_car = 3 if n_directions >= 8 else 1
+    halo = 2 if n_directions >= 8 else 0
+    return (2 * n_car * _ceil_div(W, n_sm) + halo) * D * 4 <= budget
+
+
+def chunk_width(D: int) -> int:
+    """K4d's chunk width: the most columns whose vertical and diagonal
+    carries (2 buffers each, D floats a column), with the staged history
+    row, fit one block's shared memory."""
+    cw = (SMEM_BLOCK // (D * 4) - 1) // 4
+    if cw < 1:
+        raise NotImplementedError(f"K4d: D = {D} leaves no chunk column in "
+                                  f"{SMEM_BLOCK} bytes of shared memory")
+    return cw
+
+
+def _sms(t: torch.Tensor) -> int:
+    if t.is_cuda:
+        return torch.cuda.get_device_properties(t.device).multi_processor_count
+    return H100_SMS
+
+
+def _check_cuda(what: str, *ts) -> None:
+    dev = ts[0].device
+    for t in ts:
+        if t is None:
+            continue
+        if not t.is_cuda or t.device != dev:
+            raise ValueError(f"{what}: every tensor on one CUDA device")
+        if t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{what}: contiguous float32 tensors")
+
+
+def _stream() -> int:
+    return torch.cuda.current_stream().cuda_stream
+
+
+def _pout_row(W, D, col0, W_pout, Pout, device):
+    """(W, D): Pout where col0 + j + d >= W_pout, else 0."""
+    j = col0 + torch.arange(W, device=device)[:, None]
+    d = torch.arange(D, device=device)
+    return torch.where(j + d >= W_pout, Pout, 0.0)
+
+
+def _step(prev, base, pout, P1, P2):
+    """`_fused_step` on (..., D): (cur, adj); prev[-1], prev[D] are +inf."""
+    m = prev.amin(-1, keepdim=True)
+    inf = torch.full_like(prev[..., :1], _INF)
+    left = torch.cat([inf, prev[..., :-1]], -1)
+    right = torch.cat([prev[..., 1:], inf], -1)
+    agg = torch.minimum(torch.minimum(prev, m + P2),
+                        torch.minimum(left, right) + P1)
+    adj = agg - m + pout
+    return base + adj, adj
+
+
+# ---------------------------------------------------------------------------
+# K4a: per-row shifted window copy
+# ---------------------------------------------------------------------------
+
+def _starts(H, base, slope, smax, device):
+    i = torch.arange(H, device=device)
+    return (base + slope * i).clamp(0, smax)
+
+
+def shift_rows_plain(x: torch.Tensor, W_out: int, base: int,
+                     slope: int) -> torch.Tensor:
+    """The plain version of K4a: slicing row by row."""
+    H, W_in, _ = x.shape
+    s = _starts(H, base, slope, W_in - W_out, "cpu").tolist()
+    return torch.stack([x[i, s[i]:s[i] + W_out] for i in range(H)])
+
+
+def shift_rows(x: torch.Tensor, W_out: int, base: int,
+               slope: int) -> torch.Tensor:
+    """out[i, c, :] = x[i, clamp(base + slope * i, 0, W_in - W_out) + c, :]
+    for an (H, W_in, Dp) float32 volume."""
+    H, W_in, Dp = x.shape
+    if W_out > W_in:
+        raise ValueError("shift_rows: W_out <= W_in")
+    if x.device.type == "cpu":
+        return shift_rows_plain(x, W_out, base, slope)
+    _check_cuda("shift_rows", x)
+    out = torch.empty((H, W_out, Dp), dtype=torch.float32, device=x.device)
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(x.device):
+        err = lib.shift_rows_launch(x.data_ptr(), out.data_ptr(), H, W_in,
+                                    W_out, Dp, base, slope, _stream())
+    _build.check(lib, err, "shift_rows_launch")
+    shift_rows.launches += 1
+    return out
+
+
+shift_rows.launches = 0
+
+
+def shear(cv: torch.Tensor, neg: bool) -> torch.Tensor:
+    """Diagonal shear of an (H, W, Dp) volume to (H, W + H - 1, Dp): column
+    c holds the down-right (c = j + H-1 - i) or, with ``neg``, the
+    down-left (c = i + j) diagonal; +inf off the image."""
+    H = cv.shape[0]
+    x = torch.nn.functional.pad(cv, (0, 0, H - 1, H), value=_INF)
+    Wd = cv.shape[1] + H - 1
+    return shift_rows(x, Wd, H - 1, -1) if neg else shift_rows(x, Wd, 0, 1)
+
+
+def unshear(S: torch.Tensor, W: int, neg: bool) -> torch.Tensor:
+    """The inverse of `shear` on the image columns."""
+    H = S.shape[0]
+    return shift_rows(S, W, 0, 1) if neg else shift_rows(S, W, H - 1, -1)
+
+
+# ---------------------------------------------------------------------------
+# K4b: fused row sweeps, column scans, column scan + WTA
+# ---------------------------------------------------------------------------
+
+def fused_rows_pass_plain(cv, acc, reverse: bool, diag: bool, col0: int,
+                          W_pout: int, P1: float, P2: float,
+                          Pout: float) -> torch.Tensor:
+    """The plain version of K4b's rows pass: returns the new adj volume
+    (``acc`` plus this sweep's directions; ``acc`` None means zeros)."""
+    H, W, D = cv.shape
+    pout = _pout_row(W, D, col0, W_pout, Pout, cv.device)
+    out = torch.empty_like(cv)
+    zrow = cv.new_zeros((1, D))
+    c_v = cv.new_zeros((W, D))
+    c_p = c_n = c_v
+    cols = torch.arange(W, device=cv.device)[:, None]
+    for i in (range(H - 1, -1, -1) if reverse else range(H)):
+        base = cv[i]
+        total = acc[i] if acc is not None else torch.zeros_like(base)
+        c_v, adj = _step(c_v, base, pout, P1, P2)
+        total = total + adj
+        if diag:
+            shift = (torch.cat([c_p[1:], zrow]) if reverse
+                     else torch.cat([zrow, c_p[:-1]]))
+            c_p, adj = _step(shift, base, pout, P1, P2)
+            cj = W - H + i if reverse else i
+            total = total + adj * (1.0 + (cols == cj).float())
+            shift = (torch.cat([zrow, c_n[:-1]]) if reverse
+                     else torch.cat([c_n[1:], zrow]))
+            c_n, adj = _step(shift, base, pout, P1, P2)
+            cj = H - 1 - i if reverse else W - 1 - i
+            total = total + adj * (1.0 + (cols == cj).float())
+        out[i] = total
+    return out
+
+
+def fused_rows_pass(cv: torch.Tensor, acc: torch.Tensor | None,
+                    reverse: bool, diag: bool, col0: int, W_pout: int,
+                    P1: float, P2: float, Pout: float) -> torch.Tensor:
+    """One sweep down (up with ``reverse``) carrying the vertical direction
+    and, with ``diag``, both diagonal families.  With ``acc`` the sweep adds
+    into it IN PLACE and returns it; without, it returns a new volume."""
+    if cv.device.type == "cpu":
+        return fused_rows_pass_plain(cv, acc, reverse, diag, col0, W_pout,
+                                     P1, P2, Pout)
+    _check_cuda("fused_rows_pass", cv, acc)
+    H, W, D = cv.shape
+    n_sm = _sms(cv)
+    if not fused_fits(W, D, 8 if diag else 4, n_sm=n_sm):
+        raise NotImplementedError("fused_rows_pass: the carries do not fit "
+                                  "(fused_fits); use chunked_adj")
+    out = acc if acc is not None else torch.empty_like(cv)
+    edge = torch.empty((2, 2, W, D) if diag else (1,), dtype=torch.float32,
+                       device=cv.device)
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(cv.device):
+        err = lib.fused_rows_launch(
+            cv.data_ptr(), acc.data_ptr() if acc is not None else None,
+            out.data_ptr(), edge.data_ptr(), H, W, D, _ceil_div(W, n_sm),
+            col0, W_pout, P1, P2, Pout, int(reverse), int(diag), _stream())
+    _build.check(lib, err, "fused_rows_launch")
+    fused_rows_pass.launches += 1
+    return out
+
+
+fused_rows_pass.launches = 0
+
+
+def fused_cols_pass_plain(cv, acc, reverse: bool, col0: int, W_pout: int,
+                          P1: float, P2: float, Pout: float) -> torch.Tensor:
+    """The plain version of K4b's column scan (adds into ``acc`` in place)."""
+    H, W, D = cv.shape
+    pout = _pout_row(W, D, col0, W_pout, Pout, cv.device)
+    carry = cv.new_zeros((H, D))
+    for j in (range(W - 1, -1, -1) if reverse else range(W)):
+        carry, adj = _step(carry, cv[:, j], pout[j], P1, P2)
+        acc[:, j] = acc[:, j] + adj
+    return acc
+
+
+def fused_cols_pass(cv: torch.Tensor, acc: torch.Tensor, reverse: bool,
+                    col0: int, W_pout: int, P1: float, P2: float,
+                    Pout: float) -> torch.Tensor:
+    """LEFT2RIGHT (RIGHT2LEFT with ``reverse``): adds the direction's
+    adjustment into ``acc`` IN PLACE and returns it."""
+    if cv.device.type == "cpu":
+        return fused_cols_pass_plain(cv, acc, reverse, col0, W_pout, P1, P2,
+                                     Pout)
+    _check_cuda("fused_cols_pass", cv, acc)
+    H, W, D = cv.shape
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(cv.device):
+        err = lib.fused_cols_launch(
+            cv.data_ptr(), acc.data_ptr(), acc.data_ptr(), None, None, H, W,
+            D, col0, W_pout, P1, P2, Pout, int(reverse), 0, 0, _stream())
+    _build.check(lib, err, "fused_cols_launch")
+    fused_cols_pass.launches += 1
+    return acc
+
+
+fused_cols_pass.launches = 0
+
+
+def fused_cols_wta_plain(cv, acc, r: int, col0: int, W_pout: int, P1: float,
+                         P2: float, Pout: float):
+    """The plain version of K4b's WTA column scan: (idx, bands)."""
+    H, W, D = cv.shape
+    pout = _pout_row(W, D, col0, W_pout, Pout, cv.device)
+    dd = torch.arange(D, device=cv.device)
+    idx = torch.empty((H, W), dtype=torch.int32, device=cv.device)
+    bands = cv.new_empty((H, W, 2 * r + 1))
+    carry = cv.new_zeros((H, D))
+    for j in range(W - 1, -1, -1):
+        base = cv[:, j]
+        carry, adj = _step(carry, base, pout[j], P1, P2)
+        C = acc[:, j] + adj + base
+        m = C.amin(-1, keepdim=True)
+        best = torch.where(C == m, dd, -1).amax(-1)
+        idx[:, j] = best.int()
+        Cp = torch.nn.functional.pad(C, (r, r), value=_INF)
+        for k in range(2 * r + 1):
+            bands[:, j, k] = (m[:, 0] if k == r else
+                              torch.gather(Cp, 1, (best + k)[:, None])[:, 0])
+    return idx, bands
+
+
+def fused_cols_wta(cv: torch.Tensor, acc: torch.Tensor, r: int, col0: int,
+                   W_pout: int, P1: float, P2: float, Pout: float):
+    """RIGHT2LEFT fused with C = acc + adj + cv, the tie-last argmin and
+    the band C[idx - r .. idx + r] (+inf outside [0, D); the centre slot is
+    the minimum).  Returns (idx (H, W) int32, bands (H, W, 2r+1))."""
+    if r < 0:
+        raise ValueError("fused_cols_wta: r >= 0")
+    if cv.device.type == "cpu":
+        return fused_cols_wta_plain(cv, acc, r, col0, W_pout, P1, P2, Pout)
+    _check_cuda("fused_cols_wta", cv, acc)
+    H, W, D = cv.shape
+    idx = torch.empty((H, W), dtype=torch.int32, device=cv.device)
+    bands = torch.empty((H, W, 2 * r + 1), dtype=torch.float32,
+                        device=cv.device)
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(cv.device):
+        err = lib.fused_cols_launch(
+            cv.data_ptr(), acc.data_ptr(), None, idx.data_ptr(),
+            bands.data_ptr(), H, W, D, col0, W_pout, P1, P2, Pout, 1, r, 1,
+            _stream())
+    _build.check(lib, err, "fused_cols_launch")
+    fused_cols_wta.launches += 1
+    return idx, bands
+
+
+fused_cols_wta.launches = 0
+
+
+def _region_f32(region: torch.Tensor) -> torch.Tensor:
+    return region.float().contiguous()
+
+
+def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
+              P2: float, Pout: float, n_directions: int,
+              budget: int | None = None, wta_radius: int | None = None,
+              separate: bool = False):
+    """All principal-direction adjustments of an (H, W, D) region through
+    K4b: down, up (adding onto down's output, or with ``separate`` into a
+    volume of its own, added at the end), then the two column scans.  With
+    ``wta_radius`` the last scan is `fused_cols_wta` and the result is
+    (idx, bands).  Returns None when `fused_fits` refuses the width
+    (``budget`` overrides its shared-memory budget)."""
+    if n_directions not in (4, 8):
+        raise ValueError("fused_adj takes 4 or 8 directions")
+    if separate and wta_radius is not None:
+        raise ValueError("fused_adj: separate accumulation has no WTA pass")
+    H, W, D = region.shape
+    if not fused_fits(W, D, n_directions, budget, _sms(region)):
+        return None
+    cv = _region_f32(region)
+    P1, P2, Pout = float(P1), float(P2), float(Pout)
+    diag = n_directions >= 8
+    kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
+    adj = fused_rows_pass(cv, None, False, diag, **kw)
+    if separate:
+        adj_up = fused_rows_pass(cv, None, True, diag, **kw)
+    else:
+        adj = fused_rows_pass(cv, adj, True, diag, **kw)
+    adj = fused_cols_pass(cv, adj, False, **kw)
+    if wta_radius is not None:
+        return fused_cols_wta(cv, adj, wta_radius, **kw)
+    adj = fused_cols_pass(cv, adj, True, **kw)
+    return adj + adj_up if separate else adj
+
+
+# ---------------------------------------------------------------------------
+# K4d: W-chunked row sweeps with an edge-history relay
+# ---------------------------------------------------------------------------
+
+def chunked_pass_plain(cv, adj, hist, c0: int, Wc: int, *, col0: int,
+                       W_pout: int, P1: float, P2: float, Pout: float,
+                       reverse: bool, shift_down: bool, corner_c0: int,
+                       corner_slope: int, with_vertical: bool,
+                       with_diag: bool, accumulate: bool) -> torch.Tensor:
+    """The plain version of K4d: writes (or adds, with ``accumulate``)
+    columns [c0, c0 + Wc) of ``adj`` in place and returns the history out."""
+    H, W, D = cv.shape
+    pout = _pout_row(Wc, D, col0 + c0, W_pout, Pout, cv.device)
+    cols = torch.arange(Wc, device=cv.device)[:, None]
+    c_v = c_d = cv.new_zeros((Wc, D))
+    hout = torch.empty_like(hist)
+    for i in (range(H - 1, -1, -1) if reverse else range(H)):
+        base = cv[i, c0:c0 + Wc]
+        total = (adj[i, c0:c0 + Wc] if accumulate
+                 else torch.zeros_like(base))
+        if with_vertical:
+            c_v, a = _step(c_v, base, pout, P1, P2)
+            total = total + a
+        if with_diag:
+            hrow = hist[i:i + 1]
+            shift = (torch.cat([hrow, c_d[:-1]]) if shift_down
+                     else torch.cat([c_d[1:], hrow]))
+            c_d, a = _step(shift, base, pout, P1, P2)
+            hout[i] = c_d[Wc - 1] if shift_down else c_d[0]
+            cj = corner_c0 + corner_slope * i - c0
+            total = total + a * (1.0 + (cols == cj).float())
+        else:
+            hout[i] = hist[i]
+        adj[i, c0:c0 + Wc] = total
+    return hout
+
+
+def chunked_pass(cv: torch.Tensor, adj: torch.Tensor, hist: torch.Tensor,
+                 c0: int, Wc: int, *, col0: int, W_pout: int, P1: float,
+                 P2: float, Pout: float, reverse: bool, shift_down: bool,
+                 corner_c0: int, corner_slope: int, with_vertical: bool,
+                 with_diag: bool, accumulate: bool) -> torch.Tensor:
+    """One W-chunk (region columns [c0, c0 + Wc)) of a row sweep over all
+    rows: the vertical direction (``with_vertical``) and one diagonal family
+    (``with_diag``; ``shift_down``: the carry moves to higher columns and
+    the chunk's first column takes ``hist[i]``, else the mirror).  Writes
+    the chunk's columns of ``adj`` in place and returns the (H, D) history
+    out: the boundary column's post-row carry, or ``hist`` without the
+    diagonal.  The doubled corner line is at column corner_c0 +
+    corner_slope * i of the region."""
+    kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout,
+              reverse=reverse, shift_down=shift_down, corner_c0=corner_c0,
+              corner_slope=corner_slope, with_vertical=with_vertical,
+              with_diag=with_diag, accumulate=accumulate)
+    if cv.device.type == "cpu":
+        return chunked_pass_plain(cv, adj, hist, c0, Wc, **kw)
+    _check_cuda("chunked_pass", cv, adj, hist)
+    H, W, D = cv.shape
+    if not 0 <= c0 < c0 + Wc <= W or hist.shape != (H, D):
+        raise ValueError("chunked_pass: a chunk inside the region and an "
+                         "(H, D) history")
+    if Wc > chunk_width(D):
+        raise NotImplementedError("chunked_pass: Wc above chunk_width(D)")
+    hout = torch.empty_like(hist)
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(cv.device):
+        err = lib.chunked_rows_launch(
+            cv.data_ptr(), adj.data_ptr(), adj.data_ptr(), hist.data_ptr(),
+            hout.data_ptr(), H, W, D, c0, Wc, col0, W_pout, float(P1),
+            float(P2), float(Pout), int(reverse), int(shift_down), corner_c0,
+            corner_slope, int(with_vertical), int(with_diag), int(accumulate),
+            _stream())
+    _build.check(lib, err, "chunked_rows_launch")
+    chunked_pass.launches += 1
+    return hout
+
+
+chunked_pass.launches = 0
+
+
+def chunked_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
+                P2: float, Pout: float, n_directions: int,
+                cw: int | None = None) -> torch.Tensor:
+    """All principal-direction adjustments of an (H, W, D) region through
+    K4d (the four chunked sweeps of `sgm_chunked_adj`'s table, in their
+    chunk order) and K4b's two column scans.  ``cw`` forces the chunk
+    width (default `chunk_width`)."""
+    if n_directions not in (4, 8):
+        raise ValueError("chunked_adj takes 4 or 8 directions")
+    cv = _region_f32(region)
+    H, W, D = cv.shape
+    CW = min(W, cw if cw is not None else chunk_width(D))
+    n_w = _ceil_div(W, CW)
+    diag = n_directions >= 8
+    P1, P2, Pout = float(P1), float(P2), float(Pout)
+    adj = torch.empty_like(cv)
+    started = [False] * n_w
+    zrow = cv.new_zeros((1, D))
+
+    def run_pass(order, reverse, shift_down, corner, with_vertical):
+        hist = cv.new_zeros((H, D))
+        for w in order:
+            c0 = w * CW
+            hout = chunked_pass(
+                cv, adj, hist, c0, min(CW, W - c0), col0=col0, W_pout=W_pout,
+                P1=P1, P2=P2, Pout=Pout, reverse=reverse,
+                shift_down=shift_down, corner_c0=corner[0],
+                corner_slope=corner[1], with_vertical=with_vertical,
+                with_diag=diag, accumulate=started[w])
+            started[w] = True
+            # the consumer at row i takes the producer's carry after row
+            # i - 1 (i + 1 on reverse sweeps); the zero row starts a line
+            hist = (torch.cat([hout[1:], zrow]) if reverse
+                    else torch.cat([zrow, hout[:-1]]))
+
+    # sweep, carry shift, chunk order, doubled corner line j = c0 + slope*i:
+    #   SE fwd  down  L->R  j = i          NE rev  down  L->R  j = H-1-i
+    #   SW fwd  up    R->L  j = W-1-i      NW rev  up    R->L  j = i + W-H
+    # the verticals ride the two left-to-right sweeps
+    run_pass(range(n_w), False, True, (0, 1), True)
+    run_pass(range(n_w), True, True, (H - 1, -1), True)
+    if diag:
+        run_pass(reversed(range(n_w)), False, False, (W - 1, -1), False)
+        run_pass(reversed(range(n_w)), True, False, (W - H, 1), False)
+    kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
+    adj = fused_cols_pass(cv, adj, False, **kw)
+    return fused_cols_pass(cv, adj, True, **kw)

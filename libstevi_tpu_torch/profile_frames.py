@@ -33,6 +33,8 @@ FRAMES = {
     "sgm16": ((entry.HEIGHT, entry.WIDTH), entry.sgm16_forward),
     "census": ((entry.HEIGHT, entry.WIDTH), entry.census_sgm_forward),
     "hd": ((entry.HD_HEIGHT, entry.HD_WIDTH), entry.hd_forward),
+    "wide": ((entry.HEIGHT, entry.WIDTH), entry.wide_forward),
+    "hd_wide": ((entry.HD_HEIGHT, entry.HD_WIDTH), entry.hd_wide_forward),
     "patchmatch": ((entry.HEIGHT, entry.WIDTH), entry.patchmatch_forward),
     "wta_zsad": ((entry.HEIGHT, entry.WIDTH),
                  lambda L, R: entry.wta_forward(MatchingFunction.ZSAD, L, R)),

@@ -25,6 +25,7 @@ from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
                                                cost_oriented_volume)
 from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
                                                     sweep, sweep_plain)
+from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
 
 pytestmark = pytest.mark.cuda
 
@@ -131,10 +132,154 @@ def test_sgm_cost_volume_runs_the_kernel(dev):
 
 
 def test_unsupported_configurations_raise(dev):
-    """P2 < P1 is the one SGM configuration the kernels still refuse."""
-    L, R = _pair(dev, 8, 9)
-    with pytest.raises(NotImplementedError):
-        dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 4, 0.5, 0.1)
+    """16 directions at D > 320 are the one SGM configuration the card
+    still refuses (K2k keeps D in registers; queued in ROADMAP.md)."""
+    L, R = _pair(dev, 8, 340)
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 330, 0.1, 0.5,
+                         n_directions=16)
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8, 16])
+def test_p2_below_p1_runs_plain_on_the_card(dev, n_dirs):
+    """P2 < P1 runs the dense-penalty steps as torch ops on the card, with
+    no kernel launch, and equals the CPU run."""
+    L, R = _pair(dev, 24, 40, seed=7)
+    counts = (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches,
+              lane.fused_rows_pass.launches)
+    dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 2, 2, 8, 0.5,
+                                  0.1, n_directions=n_dirs)
+    assert (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches,
+            lane.fused_rows_pass.launches) == counts
+    assert ig.is_cuda
+    dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(), 2,
+                                  2, 8, 0.5, 0.1, n_directions=n_dirs)
+    same = ig.cpu() == ic
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
+                               atol=1e-4, equal_nan=True)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+def test_k1_d640_matches_plain(dev, dtype):
+    """K1 over two d-slices (0-319, 320-639) from one set of statistics."""
+    L, R = _pair(dev, 12, 700, 4)
+    before = box_cv.launches
+    got = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, 640, dtype, negate=True)
+    assert box_cv.launches == before + 2
+    want = box_cv_plain(MatchingFunction.ZNCC, L, R, 3, 3, 640, torch.float32,
+                        negate=True)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    else:
+        _ulp_close(got.float(), want)
+
+
+# (6, 1400, 360): 11 columns a K4b block, 96 KiB of shared memory (past the
+# 48 KiB a block gets without opting in)
+LANE_SHAPES = [(37, 101, 333), (18, 7, 5), (5, 21, 40), (30, 300, 352),
+               (6, 1400, 360)]
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+@pytest.mark.parametrize("neg", [False, True])
+def test_k4a_equals_plain(dev, shape, neg):
+    x = torch.rand(shape, device=dev)
+    before = lane.shift_rows.launches
+    S = lane.shear(x, neg)
+    assert lane.shift_rows.launches == before + 1
+    H = shape[0]
+    pad = torch.nn.functional.pad(x, (0, 0, H - 1, H), value=float("inf"))
+    args = (shape[1] + H - 1, H - 1, -1) if neg else (shape[1] + H - 1, 0, 1)
+    assert torch.equal(S, lane.shift_rows_plain(pad, *args))
+    assert torch.equal(lane.unshear(S, shape[1], neg), x)
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k4b_rows_equal_plain(dev, shape, diag, reverse):
+    """K4b's row sweep, fresh and accumulating, with a column offset and
+    image width for Pout: equal to the plain version to the bit."""
+    cv = torch.rand(shape, device=dev) * 3
+    acc = torch.rand(shape, device=dev)
+    kw = dict(col0=3, W_pout=shape[1] + 5, P1=0.3, P2=1.1, Pout=7.0)
+    got = lane.fused_rows_pass(cv, None, reverse, diag, **kw)
+    want = lane.fused_rows_pass_plain(cv, None, reverse, diag, **kw)
+    assert torch.equal(got, want)
+    want = lane.fused_rows_pass_plain(cv, acc.clone(), reverse, diag, **kw)
+    assert torch.equal(lane.fused_rows_pass(cv, acc, reverse, diag, **kw),
+                       want)
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k4b_cols_equal_plain(dev, shape, reverse):
+    cv = torch.rand(shape, device=dev) * 3
+    acc = torch.rand(shape, device=dev)
+    kw = dict(col0=0, W_pout=shape[1], P1=0.3, P2=1.1, Pout=7.0)
+    want = lane.fused_cols_pass_plain(cv, acc.clone(), reverse, **kw)
+    assert torch.equal(lane.fused_cols_pass(cv, acc, reverse, **kw), want)
+    i1, b1 = lane.fused_cols_wta(cv, acc, 1, **kw)
+    i2, b2 = lane.fused_cols_wta_plain(cv, acc, 1, **kw)
+    assert torch.equal(i1, i2) and torch.equal(b1, b2)
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+@pytest.mark.parametrize("n_dirs", [4, 8])
+def test_fused_and_chunked_adj_match_grouped(dev, shape, n_dirs):
+    """`fused_adj` (also in separate mode) and `chunked_adj` with small
+    chunks against the plain grouped directions, within 1e-4."""
+    from libstevi_tpu_torch.ops.sgm import _grouped_adj
+    cv = torch.rand(shape, device=dev) * 3
+    want = _grouped_adj(cv, 0.3, 1.1, 7.0, n_dirs, 2, shape[1] + 4)
+    before = (lane.fused_rows_pass.launches, lane.chunked_pass.launches)
+    for got in (lane.fused_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs),
+                lane.fused_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs,
+                               separate=True),
+                lane.chunked_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs,
+                                 cw=32)):
+        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    n_w = -(-shape[1] // 32)
+    assert (lane.fused_rows_pass.launches, lane.chunked_pass.launches) == \
+        (before[0] + 4, before[1] + (4 if n_dirs == 8 else 2) * n_w)
+
+
+@pytest.mark.parametrize("shift_down", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k4d_pass_equals_plain(dev, shift_down, reverse):
+    H, W, D = 40, 300, 352
+    cv = torch.rand(H, W, D, device=dev) * 3
+    adj = torch.rand(H, W, D, device=dev)
+    hist = torch.rand(H, D, device=dev)
+    kw = dict(col0=1, W_pout=W + 2, P1=0.3, P2=1.1, Pout=7.0,
+              reverse=reverse, shift_down=shift_down, corner_c0=40,
+              corner_slope=1 if shift_down else -1, with_vertical=True,
+              with_diag=True, accumulate=True)
+    adj_p = adj.clone()
+    h_p = lane.chunked_pass_plain(cv, adj_p, hist, 32, 32, **kw)
+    h_k = lane.chunked_pass(cv, adj, hist, 32, 32, **kw)
+    assert torch.equal(adj, adj_p) and torch.equal(h_k, h_p)
+
+
+def test_wide_path_matches_cpu(dev):
+    """D > 320 through `dense_sgm_stereo` on the card (K1 over two slices,
+    K4b with WTA) against the CPU run."""
+    L, R = _pair(dev, 20, 400, seed=8)
+    kw = dict(n_directions=8, refine_kernel=InterpolationKernel.PARABOLA)
+    counts = (box_cv.launches, lane.fused_rows_pass.launches,
+              lane.fused_cols_wta.launches)
+    dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 3, 3, 330,
+                                  0.1, 0.5, **kw)
+    assert (box_cv.launches, lane.fused_rows_pass.launches,
+            lane.fused_cols_wta.launches) == (counts[0] + 2, counts[1] + 2,
+                                              counts[2] + 1)
+    dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(),
+                                  3, 3, 330, 0.1, 0.5, **kw)
+    same = ig.cpu() == ic
+    assert same.float().mean().item() > 0.999
+    torch.testing.assert_close(tg.cpu()[same], tc[same], rtol=1e-4,
+                               atol=1e-4, equal_nan=True)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)

@@ -1,0 +1,283 @@
+"""The lane-layout SGM kernels' plain versions (K4a, K4b, K4d in
+`libstevi_tpu_torch/ops/sgm_lane_cuda.py`) against the JAX package's Pallas
+kernels in interpret mode (`libstevi_tpu/ops/sgm_pallas.py`), the D > 320
+slice and P2 < P1 against the JAX XLA path, and the route each SGM
+configuration takes (`sgm.sgm_route`), all on the CPU."""
+
+import numpy as np
+import jax.numpy as jnp
+import pytest
+import torch
+
+from libstevi_tpu.core import Margins as JMargins, MatchingFunction as JMF
+from libstevi_tpu.ops import dense_sgm_stereo as j_dense
+from libstevi_tpu.ops import sgm_cost_volume as j_sgm
+from libstevi_tpu.ops import sgm_wta_truncated as j_wta
+from libstevi_tpu.ops import sgm_pallas as jp
+from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
+from libstevi_tpu.ops.refinement import InterpolationKernel as JInterp
+
+from libstevi_tpu_torch.core import Margins
+from libstevi_tpu_torch.ops import (dense_sgm_stereo, sgm_cost_volume,
+                                    sgm_wta_truncated)
+from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+from libstevi_tpu_torch.ops.sgm import sgm_route
+from libstevi_tpu_torch.reference import to_port
+
+torch.set_num_threads(2)
+
+TOL = dict(rtol=1e-4, atol=1e-4)
+P1, P2, POUT = 0.3, 1.1, 7.0
+
+
+def _cv(seed, shape, hi=3.0):
+    return np.random.default_rng(seed).uniform(0, hi, shape).astype(
+        np.float32)
+
+
+def _dp_pad(x, D):
+    """(..., D) -> (..., Dp) with +inf lanes, the Pallas kernels' layout."""
+    Dp = jp._round_up(D, 128)
+    pad = [(0, 0)] * (x.ndim - 1) + [(0, Dp - D)]
+    return np.pad(x, pad, constant_values=np.inf)
+
+
+@pytest.mark.parametrize("case", ["n4", "n8", "margins", "tall", "wide"])
+def test_fused_adj_matches_pallas(case):
+    """K4b's four passes (plain) against `sgm_fused_adj` in interpret mode,
+    with the region's image column offset and width for Pout, and on a
+    tall region (W < H: the reverse corner line j = i + W - H leaves the
+    image for some rows)."""
+    shape, n, col0, W_pout = (10, 14, 6), 8, 0, None
+    if case == "n4":
+        n = 4
+    elif case == "margins":
+        col0, W_pout = 2, 19
+    elif case == "tall":
+        shape = (18, 7, 5)
+    elif case == "wide":
+        shape = (5, 21, 5)
+    cv = _cv(0, shape)
+    W_pout = shape[1] + col0 if W_pout is None else W_pout
+    want = jp.sgm_fused_adj(jnp.asarray(cv), col0, W_pout, P1, P2, POUT, n,
+                            interpret=True)
+    got = lane.fused_adj(torch.from_numpy(cv), col0, W_pout, P1, P2, POUT, n)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+def test_separate_accumulation_matches_pallas():
+    """Down and up each write, the two are added at the end (JAX's
+    large-shape mode, forced there by a small VMEM budget)."""
+    cv = _cv(1, (12, 16, 6))
+    want = jp.sgm_fused_adj(jnp.asarray(cv), 0, 16, P1, P2, POUT, 8,
+                            interpret=True, vmem_budget=60 * 1024)
+    got = lane.fused_adj(torch.from_numpy(cv), 0, 16, P1, P2, POUT, 8,
+                         separate=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+    alias = lane.fused_adj(torch.from_numpy(cv), 0, 16, P1, P2, POUT, 8)
+    np.testing.assert_allclose(got.numpy(), alias.numpy(), rtol=1e-6,
+                               atol=1e-6)
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8])
+def test_fused_cols_wta_matches_pallas(n_dirs):
+    """The last column scan fused with the tie-last WTA and the r = 1 band
+    (`_make_fused_cols_wta`): idx equal, bands within 1e-4 on the slots
+    inside [0, D) (the others are never read)."""
+    cv = _cv(2, (10, 14, 6))
+    i_j, b_j = jp.sgm_fused_adj(jnp.asarray(cv), 0, 14, P1, P2, POUT, n_dirs,
+                                interpret=True, wta_radius=1)
+    i_t, b_t = lane.fused_adj(torch.from_numpy(cv), 0, 14, P1, P2, POUT,
+                              n_dirs, wta_radius=1)
+    i_j, i_t = np.asarray(i_j), i_t.numpy()
+    np.testing.assert_array_equal(i_t, i_j)
+    p = i_t[..., None] + np.arange(-1, 2)
+    ok = (p >= 0) & (p < 6)
+    np.testing.assert_allclose(b_t.numpy()[ok], np.asarray(b_j)[ok], **TOL)
+
+
+@pytest.mark.parametrize("reverse,shift_down,vertical,accumulate", [
+    (False, True, True, False), (True, True, True, True),
+    (False, False, False, True), (True, False, False, False)],
+    ids=["SE", "NE", "SW", "NW"])
+def test_chunked_pass_matches_pallas(reverse, shift_down, vertical,
+                                     accumulate):
+    """One K4d chunk (plain) against `_chunked_pass`: a random history in,
+    the boundary column's carries out, the corner line inside the chunk."""
+    H, W, D, c0, Wc = 9, 20, 6, 5, 7
+    cv = _cv(3, (H, W, D))
+    acc = _cv(4, (H, W, D))
+    hist = _cv(5, (H, D))
+    corner = (c0 + 2, 1) if shift_down else (c0 + Wc + 3, -1)
+    kw = dict(reverse=reverse, shift_down=shift_down, corner_c0=corner[0],
+              corner_slope=corner[1], with_vertical=vertical, with_diag=True)
+    chunk = _dp_pad(cv[:, c0:c0 + Wc], D)
+    a_j = _dp_pad(acc[:, c0:c0 + Wc], D) if accumulate else None
+    out_j, hout_j = jp._chunked_pass(
+        jnp.asarray(chunk), None if a_j is None else jnp.asarray(a_j),
+        jnp.asarray(_dp_pad(hist, D)), H1=H, Wc=Wc, c0=c0, ml=1, W_pout=W + 1,
+        P1=P1, P2=P2, Pout=POUT, rc=1, interpret=True, **kw)
+    adj = torch.from_numpy(acc.copy())
+    hout = lane.chunked_pass(
+        torch.from_numpy(cv), adj, torch.from_numpy(hist), c0, Wc, col0=1,
+        W_pout=W + 1, P1=P1, P2=P2, Pout=POUT, accumulate=accumulate, **kw)
+    np.testing.assert_allclose(adj.numpy()[:, c0:c0 + Wc],
+                               np.asarray(out_j)[..., :D], **TOL)
+    np.testing.assert_allclose(hout.numpy(), np.asarray(hout_j)[:, :D], **TOL)
+    np.testing.assert_array_equal(adj.numpy()[:, :c0], acc[:, :c0])
+
+
+@pytest.mark.parametrize("n_dirs,cw", [(8, 16), (8, 8), (4, 8)])
+def test_chunked_adj_matches_pallas(n_dirs, cw):
+    """K4d's four chunked sweeps and K4b's column scans (plain), forced
+    small chunks, against `sgm_chunked_adj` (and so the XLA groups)."""
+    cv = _cv(6, (12, 40, 6))
+    want = jp.sgm_chunked_adj(jnp.asarray(cv), 0, 40, P1, P2, POUT, n_dirs,
+                              interpret=True, cw_target=cw)
+    got = lane.chunked_adj(torch.from_numpy(cv), 0, 40, P1, P2, POUT, n_dirs,
+                           cw=cw)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("neg", [False, True])
+def test_shear_matches_pallas(neg):
+    """K4a (plain) behind shear / unshear against `pallas_shear` /
+    `pallas_unshear`: equal, and the round trip gives the input back."""
+    H, W, D = 10, 14, 5
+    cv = _dp_pad(_cv(7, (H, W, D)), D)
+    S_j = jp.pallas_shear(jnp.asarray(cv), H, W, neg=neg)
+    S_t = lane.shear(torch.from_numpy(cv), neg)
+    np.testing.assert_array_equal(S_t.numpy(), np.asarray(S_j))
+    back = lane.unshear(S_t, W, neg)
+    np.testing.assert_array_equal(
+        back.numpy(), np.asarray(jp.pallas_unshear(S_j, H, W, neg=neg)))
+    np.testing.assert_array_equal(back.numpy(), cv)
+
+
+def test_dense_sgm_stereo_past_d320_matches_jax():
+    """The D > 320 slice as a whole (K1 over d-slices, K4b passes and WTA,
+    plain on the CPU) against JAX's XLA path: idx equal off near-ties, the
+    band and the parabola disparity within 1e-4 where idx agrees."""
+    H, W, D, h, v = 12, 360, 330, 3, 3
+    rng = np.random.default_rng(8)
+    L = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    R = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    args = (h, v, D, 0.1, 0.5)
+    kw = dict(n_directions=8, refine_kernel=JInterp.PARABOLA)
+    dj, ij, tj = (np.asarray(x) for x in j_dense(
+        JMF.ZNCC, jnp.asarray(L), jnp.asarray(R), *args, backend="xla", **kw))
+    dt, it, tt = (x.numpy() for x in dense_sgm_stereo(
+        to_port(JMF.ZNCC), torch.from_numpy(L), torch.from_numpy(R), *args,
+        n_directions=8, refine_kernel=to_port(JInterp.PARABOLA)))
+    sgm = np.sort(np.asarray(j_sgm(-j_box(JMF.ZNCC, jnp.asarray(L),
+                                          jnp.asarray(R), h, v, D),
+                                   0.1, 0.5, n_directions=8,
+                                   backend="xla")), -1)
+    clear = (sgm[..., 1] - sgm[..., 0]) > 1e-4
+    np.testing.assert_array_equal(it[clear], ij[clear])
+    same = it == ij
+    assert same.mean() > 0.99
+    np.testing.assert_array_equal(np.isnan(tt[same]), np.isnan(tj[same]))
+    np.testing.assert_allclose(tt[same], tj[same], **TOL)
+    f = np.isfinite(dj) & same
+    np.testing.assert_allclose(dt[f], dj[f], **TOL)
+
+
+@pytest.mark.parametrize("route", ["fused", "chunked"])
+def test_sgm_entries_past_d320_match_xla(route, monkeypatch):
+    """`sgm_cost_volume` with margins and `sgm_wta_truncated` at D > 320
+    against the XLA path: K4b, or K4d where a card with less shared memory
+    per block (8000 bytes: one 1-column chunk) refuses K4b's carries."""
+    cv = _cv(9, (5, 9, 324))
+    if route == "chunked":
+        monkeypatch.setattr(lane, "SMEM_BLOCK", 8000)
+    assert sgm_route(324, 8, P1, P2, True) == "lane"
+    region = torch.from_numpy(cv)[1:, 2:8]
+    fits = lane.fused_adj(region, 2, 9, P1, P2, POUT, 8) is not None
+    assert fits == (route == "fused")
+    m = (2, 1, 1, 0)
+    want = np.asarray(j_sgm(jnp.asarray(cv), P1, P2, JMargins(*m), Pout=POUT,
+                            n_directions=8, backend="xla"))
+    got = sgm_cost_volume(torch.from_numpy(cv), P1, P2, Margins(*m),
+                          Pout=POUT, n_directions=8).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    adj = (lane.fused_adj(region, 2, 9, P1, P2, POUT, 8) if route == "fused"
+           else lane.chunked_adj(region, 2, 9, P1, P2, POUT, 8))
+    np.testing.assert_allclose(region.numpy() + adj.numpy(), want[1:, 2:8],
+                               **TOL)
+    kw = dict(Pout=POUT, n_directions=8, h_radius=1, v_radius=1)
+    i_j, t_j = (np.asarray(x) for x in j_wta(jnp.asarray(cv), P1, P2,
+                                             backend="xla", **kw))
+    i_t, t_t = (x.numpy() for x in sgm_wta_truncated(torch.from_numpy(cv),
+                                                     P1, P2, **kw))
+    full = np.sort(np.asarray(j_sgm(jnp.asarray(cv), P1, P2, Pout=POUT,
+                                    n_directions=8, backend="xla")), -1)
+    clear = (full[..., 1] - full[..., 0]) > 1e-4
+    np.testing.assert_array_equal(i_t[clear], i_j[clear])
+    same = i_t == i_j
+    np.testing.assert_array_equal(np.isnan(t_t[same]), np.isnan(t_j[same]))
+    np.testing.assert_allclose(t_t[same], t_j[same], **TOL)
+
+
+@pytest.mark.parametrize("n_dirs", [8, 16])
+def test_p2_below_p1_matches_jax(n_dirs):
+    """P2 < P1 (the dense D x D penalty step, no kernel) through
+    `dense_sgm_stereo` against the JAX XLA path."""
+    rng = np.random.default_rng(10)
+    L = rng.uniform(0, 1, (10, 14)).astype(np.float32)
+    R = rng.uniform(0, 1, (10, 14)).astype(np.float32)
+    args = (2, 2, 4, 0.5, 0.1)
+    _, ij, tj = (np.asarray(x) for x in j_dense(
+        JMF.ZNCC, jnp.asarray(L), jnp.asarray(R), *args, backend="xla",
+        n_directions=n_dirs))
+    _, it, tt = (x.numpy() for x in dense_sgm_stereo(
+        to_port(JMF.ZNCC), torch.from_numpy(L), torch.from_numpy(R), *args,
+        n_directions=n_dirs))
+    same = it == ij
+    assert same.mean() > 0.99
+    np.testing.assert_allclose(tt[same], tj[same], **TOL)
+
+
+@pytest.mark.parametrize("D,n_dirs,p1,p2,W,cuda,budget,want", [
+    (120, 8, 0.1, 0.5, 640, True, None, "scan"),
+    (320, 16, 0.1, 0.5, 1280, True, None, "scan"),
+    (384, 8, 0.1, 0.5, 640, True, None, "fused"),
+    (640, 8, 0.1, 0.5, 1280, True, None, "fused"),
+    (640, 8, 0.1, 0.5, 1280, True, 100_000, "chunked"),
+    (640, 4, 0.1, 0.5, 1280, True, 100_000, "fused"),
+    (384, 8, 0.1, 0.5, 3840, True, None, "chunked"),
+    (384, 16, 0.5, 0.1, 640, True, None, "dense"),
+    (24, 8, 0.5, 0.1, 96, True, None, "dense"),
+    (384, 16, 0.1, 0.5, 640, False, None, "scan"),
+])
+def test_sgm_route(D, n_dirs, p1, p2, W, cuda, budget, want):
+    """Which engine each configuration takes, decided without a device
+    (as JAX's `test_fused_dispatch_falls_back_when_carries_exceed_vmem`):
+    `sgm_route` picks the lane route by configuration, and inside it K4b's
+    fit rule (`fused_adj`'s None) picks K4d.  480x640 D=384 and 720x1280
+    D=640 fit K4b's carries on an H100 (48 and 155 KiB a block); a 4K-wide
+    frame or a smaller budget takes K4d."""
+    route = sgm_route(D, n_dirs, p1, p2, cuda)
+    if route == "lane":
+        route = ("fused" if lane.fused_fits(W, D, n_dirs, budget)
+                 else "chunked")
+    assert route == want
+
+
+def test_sixteen_directions_past_d320_raise_on_cuda_only():
+    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
+        sgm_route(384, 16, 0.1, 0.5, True)
+    cv = torch.from_numpy(_cv(11, (4, 5, 330)))
+    got = sgm_cost_volume(cv, 0.1, 0.5, n_directions=16)    # CPU: plain
+    assert got.shape == cv.shape and torch.isfinite(got).all()
+
+
+def test_fused_adj_returns_none_past_its_budget():
+    cv = torch.zeros(4, 20, 9)
+    assert lane.fused_adj(cv, 0, 20, 0.1, 0.5, 100.0, 8, budget=1) is None
+    assert not lane.fused_fits(2048, 640, 8)
+    assert lane.fused_fits(640, 384, 8) and lane.fused_fits(1280, 640, 8)
+    assert lane.chunk_width(640) == 22 and lane.chunk_width(384) == 37
+    with pytest.raises(ValueError):
+        lane.fused_adj(cv, 0, 20, 0.1, 0.5, 100.0, 8, wta_radius=1,
+                       separate=True)
