@@ -45,7 +45,19 @@ each with the launch counts set to 0 just before it and read just after:
   on the card at 1e-4;
 - the route cross-check: on the fixtures at D=120 f32, `fused_adj` and a
   forced `chunked_adj` equal K2's direction sum and give the K2/K3
-  route's idx off near-ties, each held to the `zncc_sgm8_f32` bars.
+  route's idx off near-ties, each held to the `zncc_sgm8_f32` bars;
+- the distributed paths (`libstevi_tpu_torch.parallel`) on 8 virtual
+  shards of the card, after K2s (on a 60x640x120 row shard and a
+  480x80x120 column shard), K4c (on a 120x640x384 row shard) and the
+  any-D K2k (480x640x384) are held to their plain versions bitwise: SGM-8
+  and SGM-16 over the flagship geometry's row shards (480x640x120, tile
+  8; K2s) and SGM-8 at 480x640x384 (tile 4; K4c), each volume equal to
+  the single-device route's bitwise; `distributed_full_step` on a (2, 2,
+  2) mesh and `distributed_dense_stereo_step` on (2, 4) over the two
+  fixtures as a batch of 2, indices held to the single-device route's at
+  >= 0.999 agreement; `entry.dryrun_multichip(8)`;
+- SGM-16 at D=384 (`dense_sgm_stereo`: K1, K4b and the any-D K2k) on a
+  random pair.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -199,6 +211,285 @@ def bf16_ulp(x):
     """One bfloat16 ulp of each f32 value (8 significant bits)."""
     _, e = torch.frexp(x)
     return torch.ldexp(torch.ones_like(x), (e - 8).int())
+
+
+def distributed(dev, pairs, smi):
+    """The distributed paths (`libstevi_tpu_torch.parallel`) on virtual
+    shards of the one card, and 16-direction SGM past D = 320.  Holds K2s,
+    K4c and the any-D K2k to their plain versions at the shapes these paths
+    give them; runs the paths with the launch counts set to 0 just before
+    and read just after, holds their SGM volumes to the single-device
+    route's with `torch.equal` and their indices to >= 0.999 agreement;
+    times them beside the single-device route.  Returns (max abs errors,
+    launches, (kernel ms, plain ms), bounds) for the kernel records."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import ExtractionStrategy, MatchingFunction
+    from libstevi_tpu_torch.ops import (dense_sgm_stereo,
+                                        extract_selected_index,
+                                        sgm_cost_volume,
+                                        unfold_based_cost_volume)
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    from libstevi_tpu_torch.ops.box_cuda import box_cv
+    from libstevi_tpu_torch.ops.sgm import _KNIGHT_DIRS, directions_for
+    from libstevi_tpu_torch.ops.sgm_cuda import (
+        sgm_knight_pass, sgm_knight_pass_plain, sgm_knight_shard_pass,
+        sgm_knight_shard_pass_plain, sgm_pass, sgm_shard_pass,
+        sgm_shard_pass_plain)
+    from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
+    from libstevi_tpu_torch.parallel.sgm_dist import (
+        _column_split, carry_relay, distributed_sgm_fused,
+        distributed_sgm_fused_dhw)
+    from libstevi_tpu_torch.parallel.stereo import (
+        distributed_dense_stereo_step, distributed_full_step)
+
+    ZNCC, SCORE = MatchingFunction.ZNCC, ExtractionStrategy.SCORE
+    H, W, D, DW = 480, 640, 120, 384
+    Q = (0.3, 1.1, 7.0)          # JAX's flagship-geometry test's P1, P2, Pout
+    err = {"K2s": 0.0, "K4c": 0.0, "K2k any-D": 0.0}
+    g = torch.Generator(device=dev).manual_seed(21)
+    cv = torch.rand((H, W, D), generator=g, device=dev) * 4
+    cvw = torch.rand((H, W, DW), generator=g, device=dev) * 4
+    devs8, devs4 = [dev] * 8, [dev] * 4
+    sh8, sh4 = list(cv.split(H // 8)), list(cvw.split(H // 4))
+    i8, i4 = [k * (H // 8) for k in range(8)], [k * (H // 4) for k in range(4)]
+    cols = _column_split(W, 8)
+    PRINC = [d for d in directions_for(8) if d.step[0] != 0]
+    VK = [d for d in _KNIGHT_DIRS if d.steps[0][0] != 0]
+    HK = [d for d in _KNIGHT_DIRS if d.steps[0][0] == 0]
+
+    # -- K2s, K4c and the any-D K2k against their plain versions -------------
+    # K2s on the flagship geometry's fourth shards (tile 8: rows 180-239 of
+    # 480, columns 240-319 of 640 for the left/right knights), from random
+    # carries; K4c on the second shard of the 480x640x384 volume (tile 4:
+    # rows 120-239)
+    r0, (c0, c1) = i8[3], cols[3]
+    blk, cblk = sh8[3], cv[:, c0:c1].contiguous()
+    for d in PRINC + _KNIGHT_DIRS:
+        a = torch.rand(blk.shape if d in PRINC + VK else cblk.shape,
+                       generator=g, device=dev)
+        a_p = a.clone()
+        if d in PRINC:
+            c = torch.rand((W, D), generator=g, device=dev)
+            out = (sgm_shard_pass(blk, a, d, *Q, True, c, r0, H),
+                   sgm_shard_pass_plain(blk, a_p, d, *Q, True, c, r0, H))
+        else:
+            vert = d in VK
+            c = torch.rand((2, W if vert else H, D), generator=g, device=dev)
+            kw = (dict(s0=r0, N_img=H) if vert
+                  else dict(s0=c0, N_img=W, col0=c0, W_pout=W))
+            x = blk if vert else cblk
+            out = (sgm_knight_shard_pass(x, a, d, *Q, c, **kw),
+                   sgm_knight_shard_pass_plain(x, a_p, d, *Q, c, **kw))
+        exact(a, a_p, ("K2s", d.name))
+        exact(out[0], out[1], ("K2s carries", d.name))
+    print(f"K2s {tuple(blk.shape)} row shard at row {r0} and "
+          f"{tuple(cblk.shape)} column shard at column {c0} f32: 6 principal "
+          f"and 8 knight directions from random carries, acc and carries "
+          f"out equal the plain versions bitwise", flush=True)
+    kw4 = dict(col0=0, W_pout=W, P1=Q[0], P2=Q[1], Pout=Q[2])
+    for rev in (False, True):
+        c = torch.rand((3, W, DW), generator=g, device=dev)
+        for acc in (None, torch.rand(sh4[1].shape, generator=g, device=dev)):
+            want = lane.fused_rows_shard_pass_plain(
+                sh4[1], None if acc is None else acc.clone(), c, i4[1], H,
+                rev, True, **kw4)
+            got = lane.fused_rows_shard_pass(sh4[1], acc, c, i4[1], H, rev,
+                                             True, **kw4)
+            exact(got[0], want[0], ("K4c", rev))
+            exact(got[1], want[1], ("K4c carries", rev))
+    print(f"K4c {tuple(sh4[1].shape)} row shard at row {i4[1]} f32: down "
+          f"and up sweeps, "
+          f"fresh and accumulating, from random carries: equal to the plain "
+          f"version bitwise", flush=True)
+    del want, got
+    e_kd = 0.0
+    for d in _KNIGHT_DIRS:
+        a, a_l = (torch.zeros_like(cvw) for _ in range(2))
+        sgm_knight_pass(cvw, a, d, *Q)
+        sgm_knight_shard_pass_plain(cvw, a_l, d, *Q)
+        exact(a, a_l, ("K2k any-D lane form", d.name))
+        e_kd = max(e_kd, close(a, sgm_knight_pass_plain(
+            cvw, torch.zeros_like(cvw), d, *Q)))
+    err["K2k any-D"] = e_kd
+    del a, a_l
+    print(f"K2k any-D {H}x{W}x{DW} f32, 8 directions: equal to the lane-form "
+          f"plain pass bitwise, within {e_kd:.3g} of `knight_adj`", flush=True)
+
+    # -- the distributed paths -------------------------------------------------
+    ref8 = sgm_cost_volume(cv, *Q[:2], Pout=Q[2], n_directions=8)
+    ref16 = sgm_cost_volume(cv, *Q[:2], Pout=Q[2], n_directions=16)
+    refw = sgm_cost_volume(cvw, *Q[:2], Pout=Q[2], n_directions=8)
+    ls = torch.stack([pairs[n][0][0] for n in ("warp", "occluded")])
+    rs = torch.stack([pairs[n][0][1] for n in ("warp", "occluded")])
+    F = dict(h_radius=3, v_radius=3, disp_width=D, P1=0.1, P2=0.5,
+             n_directions=8)
+
+    def single_idx(L, R):
+        """The same work on one device: K1, SGM-8 (K2), WTA."""
+        c = unfold_based_cost_volume(ZNCC, L, R, 3, 3, D)
+        return extract_selected_index(sgm_cost_volume(
+            c, 0.1, 0.5, n_directions=8, strategy=SCORE), SCORE)
+
+    ref_idx = torch.stack([single_idx(L, R) for L, R in zip(ls, rs)])
+    mesh222 = make_stereo_mesh(MeshSpec(batch=2, tile=2, dsh=2), devs8)
+    mesh24 = make_stereo_mesh(MeshSpec(batch=2, tile=4), devs8)
+    full = distributed_full_step(mesh222, ZNCC, **F)
+    dense = distributed_dense_stereo_step(mesh24, ZNCC, **F)
+    counters = (box_cv, sgm_pass, sgm_shard_pass, sgm_knight_shard_pass,
+                lane.fused_rows_shard_pass, lane.fused_cols_pass)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d8 = torch.cat(distributed_sgm_fused_dhw(sh8, *Q, 8))
+    d16 = torch.cat(distributed_sgm_fused_dhw(sh8, *Q, 16))
+    dw = torch.cat(distributed_sgm_fused(sh4, *Q, 8))
+    out_full, out_dense = full(ls, rs), dense(ls, rs)
+    dry = entry.dryrun_multichip(8, device=dev)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
+                "K2s": sgm_shard_pass.launches
+                + sgm_knight_shard_pass.launches,
+                "K4c": lane.fused_rows_shard_pass.launches,
+                "K4b cols": lane.fused_cols_pass.launches}
+    print(f"distributed path (8 virtual shards of the card): flagship "
+          f"geometry SGM-8 and SGM-16 (tile 8), K4c at {H}x{W}x{DW} (tile "
+          f"4), the full step (2, 2, 2) and the dense step (2, 4) on the two "
+          f"fixtures, dryrun_multichip(8): {wall:.3f} s host wall (first "
+          f"calls), launches {launches}", flush=True)
+    assert launches["K2s"] > 0 and launches["K4c"] > 0, launches
+    for tag, got, want in (("SGM-8 tile 8", d8, ref8),
+                           ("SGM-16 tile 8", d16, ref16),
+                           (f"K4c SGM-8 {H}x{W}x{DW} tile 4", dw, refw)):
+        exact(got, want, tag)
+        print(f"  {tag}: the distributed volume equals the single-device "
+              f"route's bitwise", flush=True)
+    del d8, d16, dw, ref8, ref16, refw
+    for tag, got in (("full step (2, 2, 2)", out_full),
+                     ("dense step (2, 4)", out_dense)):
+        assert got.shape == (2, H, W) and got.dtype == torch.int32
+        share = (got == ref_idx).float().mean().item()
+        print(f"  {tag} on the fixtures: idx agree with the single-device "
+              f"route {share:.6f}", flush=True)
+        assert share >= 0.999, (tag, share)
+    assert dry.shape == (4, 96, 256)
+    print(f"  dryrun_multichip(8): {tuple(dry.shape)} disparities, the "
+          f"(2, 2, 2) factoring", flush=True)
+
+    # -- 16-direction SGM past D = 320 (K4b and the any-D K2k) ---------------
+    L, R = pair(H, W, 22, dev)
+    cfg = dict(entry.SGM16, disp_width=DW)
+    for fn in (box_cv, lane.fused_rows_pass, sgm_knight_pass,
+               lane.fused_cols_wta):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    d384, i384, t384 = dense_sgm_stereo(ZNCC, L, R, **cfg)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    l16 = {"K1": box_cv.launches, "K4b rows": lane.fused_rows_pass.launches,
+           "K2k any-D": sgm_knight_pass.launches,
+           "K4b WTA": lane.fused_cols_wta.launches}
+    print(f"SGM-16 path {H}x{W}x{DW} f32: {wall:.3f} s host wall (first "
+          f"call), launches {l16}", flush=True)
+    assert all(n > 0 for n in l16.values()), l16
+    assert d384.shape == (H, W) and t384.shape == (H, W, 3)
+    check_random("SGM-16 D=384 random", d384, i384, DW)
+    launches["K2k any-D"] = l16["K2k any-D"]
+
+    # -- timing: the distributed frames beside the single-device route -------
+    frames = {
+        f"full step (2, 2, 2), 2 fixtures {H}x{W} D={D} SGM-8": (
+            lambda: full(ls, rs)),
+        "dense step (2, 4), 2 fixtures": lambda: dense(ls, rs),
+        "single device, the same 2 pairs (K1, SGM-8, WTA)": (
+            lambda: [single_idx(a, b) for a, b in zip(ls, rs)]),
+        f"distributed SGM-8 {H}x{W}x{D} tile 8": (
+            lambda: distributed_sgm_fused_dhw(sh8, *Q, 8)),
+        f"single-device SGM-8 {H}x{W}x{D}": (
+            lambda: sgm_cost_volume(cv, *Q[:2], Pout=Q[2], n_directions=8)),
+        f"distributed SGM-16 {H}x{W}x{D} tile 8": (
+            lambda: distributed_sgm_fused_dhw(sh8, *Q, 16)),
+        f"single-device SGM-16 {H}x{W}x{D}": (
+            lambda: sgm_cost_volume(cv, *Q[:2], Pout=Q[2], n_directions=16)),
+        f"distributed K4c SGM-8 {H}x{W}x{DW} tile 4": (
+            lambda: distributed_sgm_fused(sh4, *Q, 8)),
+        f"single-device lane SGM-8 {H}x{W}x{DW}": (
+            lambda: sgm_cost_volume(cvw, *Q[:2], Pout=Q[2], n_directions=8)),
+        f"SGM-16 frame {H}x{W} D={DW} f32": (
+            lambda: dense_sgm_stereo(ZNCC, L, R, **cfg)),
+        "dryrun_multichip(8)": lambda: entry.dryrun_multichip(8, dev),
+    }
+    for name, fn in frames.items():
+        print(f"time: {name}: {median_ms(fn):.3f} ms (median of 5; {smi})",
+              flush=True)
+
+    cv_c = [torch.cat([x[:, j0:j1] for x in sh8]) for j0, j1 in cols]
+
+    def k2s_job(shard_fn, knight_fn):
+        """The K2s passes of one 16-direction SGM over the tile-8 shards:
+        the 6 vertical and diagonal directions and the 4 down/up knights
+        relayed over row shards, the 4 left/right knights over column
+        shards (176 launches)."""
+        accs = [torch.zeros_like(x) for x in sh8]
+        acc_c = [torch.zeros_like(x) for x in cv_c]
+        for d in PRINC + VK:
+            def run(m, c, d=d):
+                if d in PRINC:
+                    return shard_fn(sh8[m], accs[m], d, *Q, True, c, i8[m], H)
+                return knight_fn(sh8[m], accs[m], d, *Q, c, i8[m], H)
+            carry_relay(devs8, run, reverse=d.steps[0][0] < 0)
+        for d in HK:
+            def run(m, c, d=d):
+                j0 = cols[m][0]
+                return knight_fn(cv_c[m], acc_c[m], d, *Q, c, j0, W, col0=j0,
+                                 W_pout=W)
+            carry_relay(devs8, run, reverse=d.steps[0][1] < 0)
+
+    def k4c_job(fn):
+        """K4c's down and up relays over the tile-4 shards (8 launches)."""
+        adj = [None] * 4
+        for rev in (False, True):
+            def run(m, c, rev=rev):
+                adj[m], co = fn(sh4[m], adj[m], c, i4[m], H, rev, True, **kw4)
+                return co
+            carry_relay(devs4, run, reverse=rev)
+
+    acc_w = torch.zeros_like(cvw)
+
+    def k2k_job(fn):
+        for d in _KNIGHT_DIRS:
+            fn(cvw, acc_w, d, *Q)
+
+    jobs = {
+        "K2s": (lambda: k2s_job(sgm_shard_pass, sgm_knight_shard_pass),
+                lambda: k2s_job(sgm_shard_pass_plain,
+                                sgm_knight_shard_pass_plain), 1),
+        "K4c": (lambda: k4c_job(lane.fused_rows_shard_pass),
+                lambda: k4c_job(lane.fused_rows_shard_pass_plain), 2),
+        "K2k any-D": (lambda: k2k_job(sgm_knight_pass),
+                      lambda: k2k_job(sgm_knight_pass_plain), 1),
+    }
+    ms = {}
+    for name, (kern, plain, n) in jobs.items():
+        w = 1 if n > 1 else 0
+        p1, k1, k2_, p2 = (median_ms(plain, n, w), median_ms(kern),
+                           median_ms(kern), median_ms(plain, n, w))
+        ms[name] = ((k1 + k2_) / 2, (p1 + p2) / 2)
+        print(f"time: {name} kernel {ms[name][0]:.3f} ms vs plain "
+              f"{ms[name][1]:.3f} ms (kernel median of 5, plain median of "
+              f"{n}, twice each; {smi})", flush=True)
+    N, NW = H * W * D, H * W * DW
+    bounds = {
+        # cv read once, acc read and written once; 14 directions' DP ops
+        "K2s": bound(3 * N * 4, SGM_OPS * 14 * N),
+        # cv read once, the adj volume written once; 6 directions' DP ops
+        "K4c": bound(2 * NW * 4, SGM_OPS * 6 * NW),
+        # cv read once, acc read and written once; 8 directions' DP ops
+        "K2k any-D": bound(3 * NW * 4, SGM_OPS * 8 * NW),
+    }
+    return err, launches, ms, bounds
 
 
 def main() -> int:
@@ -1053,6 +1344,10 @@ def main() -> int:
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
 
+    d_err, d_launches, d_ms, d_bounds = distributed(dev, pairs, smi)
+    err.update(d_err)
+    ms.update(d_ms)
+
     records = [
         ("K1 box_cv", "libstevi_tpu_torch/csrc/box_cv.cu",
          "libstevi_tpu/ops/box_pallas.py:99", "K1"),
@@ -1074,12 +1369,21 @@ def main() -> int:
          "libstevi_tpu/ops/sgm_pallas.py:147", "K4b"),
         ("K4d chunked_rows", "libstevi_tpu_torch/csrc/sgm_lane.cu",
          "libstevi_tpu/ops/sgm_pallas.py:586", "K4d"),
+        ("K2s sgm_shard_pass/sgm_knight_shard_pass",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
+         "libstevi_tpu/ops/sgm_pallas_dhw.py:1013", "K2s"),
+        ("K4c fused_rows_shard_pass", "libstevi_tpu_torch/csrc/sgm_lane.cu",
+         "libstevi_tpu/ops/sgm_pallas.py:496", "K4c"),
+        ("K2k any-D sgm_knight_smem_kernel",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
+         "libstevi_tpu/ops/sgm_pallas_dhw.py:107", "K2k any-D"),
     ]
     launches["K2k"] = launches16["K2k"]     # the SGM-16 path's run
     # K4a is on no path (the JAX package calls it only in a test): its
     # count is the wide path's, as K4b's; K4d's is the full-size K4d run's
     launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
                     K4d=k4d_launches["K4d"])
+    launches.update({k: d_launches[k] for k in ("K2s", "K4c", "K2k any-D")})
     # bounds from the timed calls' shapes: each input read once, each
     # output written once, and their f32 operations
     HW1, N1 = 480 * 640, 480 * 640 * 120
@@ -1096,6 +1400,7 @@ def main() -> int:
         "K4a": bound(2 * WH * (WW + WH - 1) * WD * 4, 0),
         "K4b": bound(NW * 4 + 4 * WH * WW * 4, (SGM_OPS * 8 + 3) * NW),
         "K4d": bound(2 * NW * 4, SGM_OPS * 8 * NW),
+        **d_bounds,
     }
     library = {"K4a": lib_ms}
     print(json.dumps({"kernels": [

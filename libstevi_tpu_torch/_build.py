@@ -41,9 +41,9 @@ SIGNATURES = {
     "sgm_lane": {
         # in, out, H, W_in, W_out, Dp, base, slope, stream
         "shift_rows_launch": [_P, _P] + [_I] * 6 + [_P],
-        # cv, acc, out, edge, H, W, D, ncols, col0, W_pout, P1, P2, Pout,
-        # reverse, diag, stream
-        "fused_rows_launch": [_P] * 4 + [_I] * 6 + [_F] * 3 + [_I] * 2
+        # cv, acc, out, edge, cin, cout, H, W, D, ncols, col0, W_pout, P1,
+        # P2, Pout, reverse, diag, i0, H_img, stream
+        "fused_rows_launch": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_I] * 4
                              + [_P],
         # cv, acc, out, idx, bands, H, W, D, col0, W_pout, P1, P2, Pout,
         # reverse, r, wta, stream
@@ -56,14 +56,14 @@ SIGNATURES = {
                                + [_P],
     },
     "sgm_scan": {
-        # cv, cv_bf16, acc, H, W, D, di, dj, P1, P2, Pout, accumulate, col0,
-        # W_pout, stream
-        "sgm_pass_launch": [_P, _I, _P] + [_I] * 5 + [_F] * 3 + [_I] * 3
-                           + [_P],
-        # cv, cv_bf16, acc, H, W, D, v0, v1, h0, h1, phase, P1, P2, Pout,
-        # col0, W_pout, stream
-        "sgm_knight_launch": [_P, _I, _P] + [_I] * 8 + [_F] * 3 + [_I] * 2
-                             + [_P],
+        # cv, cv_bf16, acc, cin, cout, H, W, D, di, dj, P1, P2, Pout,
+        # accumulate, col0, W_pout, i0, H_img, stream
+        "sgm_pass_launch": [_P, _I, _P, _P, _P] + [_I] * 5 + [_F] * 3
+                           + [_I] * 5 + [_P],
+        # cv, cv_bf16, acc, cin, cout, H, W, D, v0, v1, h0, h1, phase, P1,
+        # P2, Pout, col0, W_pout, s0, N_img, stream
+        "sgm_knight_launch": [_P, _I, _P, _P, _P] + [_I] * 8 + [_F] * 3
+                             + [_I] * 4 + [_P],
         # cv, cv_bf16, acc, idx, bands, disp, H, W, D, P1, P2, Pout, r,
         # h_radius, v_radius, stream
         "sgm_wta_launch": [_P, _I, _P, _P, _P, _P, _I, _I, _I, _F, _F, _F]

@@ -1,4 +1,5 @@
-// K4a, K4b and K4d: the lane-layout SGM kernels, for any disparity range.
+// K4a, K4b, K4c and K4d: the lane-layout SGM kernels, for any disparity
+// range.
 //
 // They replace the TPU kernels of libstevi_tpu/ops/sgm_pallas.py:
 //   K4a `shift_rows_kernel` <- `_shift_rows_kernel` (:43, launched by
@@ -7,6 +8,10 @@
 //   K4b `fused_rows_kernel` <- `_fused_rows_kernel` (:147): one sweep down
 //       (or up) that carries the vertical direction and both diagonal
 //       families at once, so the volume is read once for three directions;
+//   K4c `fused_rows_kernel` with carries in and out, a global row offset
+//       and the global height <- `sgm_rows_shard_pass` (:496, call :531);
+//       the column half of K4c (`sgm_cols_shard_pass` :542) is K4b's
+//       `fused_cols_kernel` on the shard's block, unchanged;
 //   K4b `fused_cols_kernel` <- `_fused_cols_kernel` (:269) and, with WTA,
 //       `_make_fused_cols_wta` (:297): the column scans, the reverse one
 //       optionally fused with C = acc + adj + cv, the tie-last argmin and
@@ -131,12 +136,23 @@ __global__ void shift_rows_kernel(const float* __restrict__ in,
 // (2, 2, W, D) buffer for the block-edge diagonal carries; each row the
 // block first stages the two neighbour-block carries it reads into shared
 // memory (`halo`), so no warp waits on a chain of global loads.
+//
+// K4c (`sgm_rows_shard_pass`, sgm_pallas.py:496; `_fused_rows_kernel` with
+// carries, :147-200) is the same sweep over one row shard: rows [i0, i0 +
+// H) of an image H_img rows high.  cin, (1 or 3, W, D), holds the previous
+// shard's post-step carries of its last scan row (null: a zero line start);
+// the first scan row reads them where a whole image reads nothing, the
+// diagonal ones shifted by one column as every row does.  The last scan
+// row writes its carries to cout (null: none).  The corner multipliers key
+// on the global row i0 + i and H_img.
 template <bool DIAG>
 __global__ void fused_rows_kernel(const float* __restrict__ cv,
                                   const float* acc, float* out, float* edge,
-                                  int H, int W, int D, int ncols, int col0,
-                                  int W_pout, float P1, float P2, float Pout,
-                                  int reverse) {
+                                  const float* __restrict__ cin,
+                                  float* __restrict__ cout, int H, int W,
+                                  int D, int ncols, int col0, int W_pout,
+                                  float P1, float P2, float Pout, int reverse,
+                                  int i0, int H_img) {
   extern __shared__ float sm[];
   constexpr int NC = DIAG ? 3 : 1;  // vertical, pos (j - i), neg (i + j)
   cg::grid_group grid = cg::this_grid();
@@ -159,9 +175,16 @@ __global__ void fused_rows_kernel(const float* __restrict__ cv,
     if (c >= c_lo && c < c_hi) return car(rb, f, c - c_lo);
     return halo + (size_t)(f - 1) * D;
   };
+  // the carry family f of column c that the first scan row continues
+  auto cin_at = [&](int f, int c) -> const float* {
+    if (cin == nullptr || c < 0 || c >= W) return nullptr;
+    return cin + ((size_t)f * W + c) * D;
+  };
   for (int t = 0; t < H; ++t) {
     const int i = reverse ? H - 1 - t : t;
+    const int ig = i0 + i;  // the global row
     const int wb = t & 1, rb = wb ^ 1;
+    const bool last = t == H - 1;
     if (DIAG && t) {
       for (int e = threadIdx.x; e < 2 * D; e += blockDim.x) {
         const int c = halo_c[e / D];
@@ -173,21 +196,23 @@ __global__ void fused_rows_kernel(const float* __restrict__ cv,
       const int lc = c - c_lo;
       const bool at_edge = c == c_lo || c == c_hi - 1;
       const size_t pix = ((size_t)i * W + c) * D;
-      const float* pv = t ? car(rb, 0, lc) : nullptr;
+      const float* pv = t ? car(rb, 0, lc) : cin_at(0, c);
       const float *pp = nullptr, *pn = nullptr;
       float mult_p = 1.f, mult_n = 1.f;
       if (DIAG) {
-        if (t) {  // pos: forward from column c-1, reverse from c+1; neg mirrored
-          pp = src(rb, 1, reverse ? c + 1 : c - 1);
-          pn = src(rb, 2, reverse ? c - 1 : c + 1);
-        }
-        if (c == (reverse ? W - H + i : i)) mult_p = 2.f;
-        if (c == (reverse ? H - 1 - i : W - 1 - i)) mult_n = 2.f;
+        // pos: forward from column c-1, reverse from c+1; neg mirrored
+        const int cp = reverse ? c + 1 : c - 1, cn = reverse ? c - 1 : c + 1;
+        pp = t ? src(rb, 1, cp) : cin_at(1, cp);
+        pn = t ? src(rb, 2, cn) : cin_at(2, cn);
+        if (c == (reverse ? W - H_img + ig : ig)) mult_p = 2.f;
+        if (c == (reverse ? H_img - 1 - ig : W - 1 - ig)) mult_n = 2.f;
       }
       const float mv = carry_min(pv, D, lane);
       const float mp = DIAG ? carry_min(pp, D, lane) : 0.f;
       const float mn = DIAG ? carry_min(pn, D, lane) : 0.f;
       float* cv_w = car(wb, 0, lc);
+      float* co = (last && cout) ? cout + (size_t)c * D : nullptr;
+      const size_t fs = (size_t)W * D;  // cout's family stride
       for (int d0 = lane; d0 < D; d0 += 32 * U) {
         float bs[U], as[U];  // issue U slices' loads before any store
 #pragma unroll
@@ -205,6 +230,7 @@ __global__ void fused_rows_kernel(const float* __restrict__ cv,
           float total = as[k];
           const float av = step_adj(pv, d, D, mv, P1, P2, pout);
           cv_w[d] = __fadd_rn(base, av);
+          if (co) co[d] = cv_w[d];
           total = __fadd_rn(total, av);
           if (DIAG) {
             const float ap = step_adj(pp, d, D, mp, P1, P2, pout);
@@ -215,6 +241,10 @@ __global__ void fused_rows_kernel(const float* __restrict__ cv,
             if (at_edge) {
               edg(wb, 1, c)[d] = cp;
               edg(wb, 2, c)[d] = cn;
+            }
+            if (co) {
+              co[fs + d] = cp;
+              co[2 * fs + d] = cn;
             }
             total = __fadd_rn(total, __fmul_rn(ap, mult_p));
             total = __fadd_rn(total, __fmul_rn(an, mult_n));
@@ -409,12 +439,16 @@ extern "C" int shift_rows_launch(const void* in, void* out, int H, int W_in,
   return (int)cudaGetLastError();
 }
 
+// cin / cout: null, or (1 or 3, W, D) carries in / out (K4c); the region
+// is rows [i0, i0 + H) of an image H_img rows high.
 extern "C" int fused_rows_launch(const void* cv, const void* acc, void* out,
-                                 void* edge, int H, int W, int D, int ncols,
-                                 int col0, int W_pout, float P1, float P2,
-                                 float Pout, int reverse, int diag,
+                                 void* edge, const void* cin, void* cout,
+                                 int H, int W, int D, int ncols, int col0,
+                                 int W_pout, float P1, float P2, float Pout,
+                                 int reverse, int diag, int i0, int H_img,
                                  void* stream) {
-  if (bad_region(H, W, D, col0, W_pout) || ncols < 1)
+  if (bad_region(H, W, D, col0, W_pout) || ncols < 1 || i0 < 0 ||
+      H_img < i0 + H)
     return (int)cudaErrorInvalidValue;
   const int blocks = (W + ncols - 1) / ncols;
   const int threads = 32 * min(ncols, 32);
@@ -439,8 +473,11 @@ extern "C" int fused_rows_launch(const void* cv, const void* acc, void* out,
   const float* a = static_cast<const float*>(acc);
   float* o = static_cast<float*>(out);
   float* g = static_cast<float*>(edge);
-  void* args[] = {&c, &a, &o, &g, &H, &W, &D, &ncols, &col0, &W_pout,
-                  &P1, &P2, &Pout, &reverse};
+  const float* ci = static_cast<const float*>(cin);
+  float* co = static_cast<float*>(cout);
+  void* args[] = {&c,    &a,   &o,      &g,  &ci, &co, &H,   &W,
+                  &D,    &ncols, &col0, &W_pout, &P1, &P2, &Pout, &reverse,
+                  &i0,   &H_img};
   e = cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(threads), args, smem,
                                   static_cast<cudaStream_t>(stream));
   if (e != cudaSuccess) return (int)e;

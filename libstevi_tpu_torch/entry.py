@@ -19,6 +19,12 @@ the HD row with its range doubled to D=640, at 720x1280.  Both run K1 over
 d-slices and the lane-layout SGM kernels (K4b, or K4d where K4b's carries
 do not fit on chip).
 
+`distributed_forward` is the flagship configuration (ZNCC 7x7, D=120,
+P1=0.1, P2=0.5, SGM-8) through `parallel.stereo.distributed_full_step` on a
+mesh; `dryrun_multichip(n)` is `__graft_entry__.dryrun_multichip`: the
+(batch, tile, dsh) factoring of n shards at its 96x256x32 shape, the n
+shards virtual on one device.
+
 `patchmatch_forward` is the PatchMatch matcher in the `BENCH_GRID_r05` /
 `PARITY_r05` configuration (NCC, 7x7 window, disparities [0, 119], 5
 iterations, 4 random candidates); `wta_forward` is the per-matching-function
@@ -47,6 +53,8 @@ HD_WIDE = dict(WIDE, disp_width=640)
 PATCHMATCH = dict(search=SearchOffset1(0, 119), h_radius=3, v_radius=3,
                   n_iter=5, n_random=4)
 WTA = dict(h_radius=3, v_radius=3, search=120)
+DIST = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
+            n_directions=8)
 HEIGHT, WIDTH = 480, 640
 HD_HEIGHT, HD_WIDTH = 720, 1280
 
@@ -107,6 +115,52 @@ def wta_forward(func: MatchingFunction, img_l: torch.Tensor,
     """WTA disparity index (H, W) int32 of ``func``'s cost volume."""
     cv = unfold_based_cost_volume(func, img_l, img_r, **WTA)
     return extract_selected_index(cv, MATCH_TRAITS[func].strategy)
+
+
+def distributed_forward(imgs_l: torch.Tensor, imgs_r: torch.Tensor,
+                        mesh) -> torch.Tensor:
+    """WTA disparities (B, H, W) int32 of gray pairs (B, H, W), the
+    flagship configuration over ``mesh`` (`parallel.make_stereo_mesh`)."""
+    from .parallel.stereo import distributed_full_step
+    return distributed_full_step(mesh, MatchingFunction.ZNCC, **DIST)(
+        imgs_l, imgs_r)
+
+
+def _factor(n: int):
+    """`__graft_entry__.dryrun_multichip`'s factoring of n shards into
+    (batch, tile, dsh): prefer tile, then batch and dsh."""
+    from .parallel import MeshSpec
+    if n % 8 == 0:
+        return MeshSpec(batch=2, tile=n // 4, dsh=2)
+    if n % 4 == 0:
+        return MeshSpec(batch=1, tile=n // 2, dsh=2)
+    if n % 2 == 0:
+        return (MeshSpec(batch=1, tile=n // 2, dsh=2) if n > 2
+                else MeshSpec(batch=1, tile=2, dsh=1))
+    return MeshSpec(batch=1, tile=n, dsh=1)
+
+
+def dryrun_multichip(n_devices: int, device="cuda") -> torch.Tensor:
+    """One step of the fully sharded pipeline (batch over pairs, row tiles
+    with halo rows and the SGM carry relay, the disparity range over dsh)
+    on ``n_devices`` virtual shards of ``device``, at
+    `__graft_entry__.dryrun_multichip`'s geometry: 2 pairs a batch group,
+    96x256, D=32, ZNCC 7x7, SGM-8.  Returns the (B, H, W) disparities."""
+    from .parallel import make_stereo_mesh
+    from .parallel.stereo import distributed_full_step
+    spec = _factor(n_devices)
+    mesh = make_stereo_mesh(spec, [torch.device(device)] * spec.n_devices)
+    B, H, W, D = 2 * spec.batch, 96, 256, 32
+    rng = np.random.default_rng(1)
+    ls, rs = (torch.from_numpy(rng.uniform(0, 1, (B, H, W))
+                               .astype(np.float32)).to(device)
+              for _ in range(2))
+    step = distributed_full_step(mesh, MatchingFunction.ZNCC, 3, 3, D,
+                                 P1=0.1, P2=0.5, n_directions=8)
+    out = step(ls, rs)
+    if out.shape != (B, H, W):
+        raise AssertionError(out.shape)
+    return out
 
 
 def entry(device="cuda"):

@@ -27,11 +27,12 @@ Pallas kernels and its XLA groups (`libstevi_tpu/ops/sgm.py:333-352, 387`):
   (the O(D) min-shift of the kernels is exact only for P2 >= P1);
 - D <= 320: K2, K2k and K3 on a CUDA tensor (`sgm_cuda.py`), their plain
   versions on the CPU;
-- D > 320 with 4 or 8 directions: the lane route, K4b
-  (`sgm_lane_cuda.fused_adj`), and K4d (`chunked_adj`) where `fused_adj`
-  returns None because its carries do not fit on chip, and their plain
-  versions on the CPU; 16 directions at D > 320 raise on CUDA (K2k keeps
-  its D in registers; queued in ROADMAP.md B) and run plain on the CPU.
+- D > 320: the lane route, K4b (`sgm_lane_cuda.fused_adj`), and K4d
+  (`chunked_adj`) where `fused_adj` returns None because its carries do
+  not fit on chip, and their plain versions on the CPU; with 16
+  directions the knight directions run through K2k's any-D instance
+  (`sgm_cuda.sgm_knight_pass`), as the JAX package runs them through
+  `_cost_mode_pass` beside `_pallas_adj` (`libstevi_tpu/ops/sgm.py:387-414`).
 """
 
 from __future__ import annotations
@@ -146,34 +147,54 @@ def direction_adj(cv: torch.Tensor, direction: SgmDirection, P1: float,
     the image column of the region's first column and ``W_pout`` the image
     width (default ``col0 + W``), for the Pout test ``j + d >= W``
     (non-zero margins)."""
+    return direction_shard_adj(cv, direction, P1, P2, Pout, col0, W_pout)[0]
+
+
+def direction_shard_adj(cv: torch.Tensor, direction: SgmDirection,
+                        P1: float, P2: float, Pout: float, col0: int = 0,
+                        W_pout: int | None = None,
+                        carry: torch.Tensor | None = None, i0: int = 0,
+                        H_img: int | None = None):
+    """`direction_adj` on rows [i0, i0 + H) of an image ``H_img`` rows
+    high (default: the whole image): a vertical or diagonal direction
+    starts from ``carry`` (W, D), the previous shard's post-step carries of
+    its last scan row (None: zeros, the line start), and the corner line
+    keys on the global row.  Returns (adj, the carry after the last scan
+    row); horizontal directions take no carry and return None for it."""
     H, W, D = cv.shape
     W_pout = col0 + W if W_pout is None else W_pout
+    H_img = i0 + H if H_img is None else H_img
     di, dj = direction.step
     dd = torch.arange(D, device=cv.device)
     adj = torch.empty_like(cv)
     if di == 0:                        # horizontal: scan columns
+        if carry is not None:
+            raise ValueError("a horizontal direction takes no row carry")
         carry = cv.new_zeros((H, D))
         for j in (range(W) if dj > 0 else range(W - 1, -1, -1)):
             pout = torch.where(col0 + j + dd >= W_pout, Pout, 0.0)
             carry, adj[:, j] = _dp_step(carry, cv[:, j], pout, P1, P2)
-        return adj
+        return adj, None
     jj = col0 + torch.arange(W, device=cv.device)
     pout = torch.where(jj[:, None] + dd >= W_pout, Pout, 0.0)
-    carry = cv.new_zeros((W, D))
+    carry = cv.new_zeros((W, D)) if carry is None else carry.float()
     zero = cv.new_zeros((1, D))
+    je = 0 if dj > 0 else W - 1
     for i in (range(H) if di > 0 else range(H - 1, -1, -1)):
         if dj > 0:                     # (i, j) continues the line of (i - di, j - 1)
             carry = torch.cat([zero, carry[:-1]])
         elif dj < 0:                   # ... of (i - di, j + 1)
             carry = torch.cat([carry[1:], zero])
         carry, adj[i] = _dp_step(carry, cv[i], pout, P1, P2)
-    if dj != 0:
-        # the line from the corner start is enumerated from both edges
-        t = torch.arange(min(H, W), device=cv.device)
-        ci = (0 if di > 0 else H - 1) + di * t
-        cj = (0 if dj > 0 else W - 1) + dj * t
-        adj[ci, cj] = adj[ci, cj] * 2.0
-    return adj
+        if dj != 0:
+            # the line from the corner start is enumerated from both edges:
+            # it passes global row ig at column je + dj * (steps from the
+            # global start row)
+            ig = i0 + i
+            cj = je + dj * (ig if di > 0 else H_img - 1 - ig)
+            if 0 <= cj < W:
+                adj[i, cj] = adj[i, cj] * 2.0
+    return adj, carry
 
 
 @lru_cache(maxsize=32)  # bounded: maps are O((H+W)*line_len) per key
@@ -287,8 +308,9 @@ def sgm_route(D: int, n_directions: int, P1: float, P2: float,
     """The engine that runs the principal directions of an SGM call (see
     the module docstring): 'dense' (P2 < P1, plain torch ops on either
     device, no kernel), 'scan' (K2/K2k/K3, or their plain versions on the
-    CPU) or 'lane' (K4b, else K4d: `_lane_adj`).  16 directions at D > 320
-    raise NotImplementedError for a CUDA tensor."""
+    CPU) or 'lane' (K4b, else K4d: `_lane_adj`; with 16 directions, K2k's
+    any-D instance for the knights).  The choice is the same on both
+    devices; ``cuda`` is kept for the callers' symmetry."""
     from .box_cuda import MAX_D
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
@@ -296,19 +318,14 @@ def sgm_route(D: int, n_directions: int, P1: float, P2: float,
         return "dense"
     if D <= MAX_D:
         return "scan"
-    if n_directions >= 16:
-        if cuda:
-            raise NotImplementedError(
-                f"16-direction SGM at D = {D} > {MAX_D} on CUDA: K2k keeps "
-                "ceil(D / 32) values a lane in registers; 'K2k over "
-                "d-slices' is queued in ROADMAP.md B")
-        return "scan"
     return "lane"
 
 
 def _lane_adj(region, col0, W_pout, P1, P2, Pout, n_directions):
     """K4b, and K4d where `fused_adj` refuses the width (as
-    `_pallas_adj` takes `sgm_fused_adj`, then `sgm_chunked_adj`)."""
+    `_pallas_adj` takes `sgm_fused_adj`, then `sgm_chunked_adj`); with 16
+    directions both add the knight directions (K2k) before their last
+    column scan."""
     from .sgm_lane_cuda import chunked_adj, fused_adj
     adj = fused_adj(region, col0, W_pout, P1, P2, Pout, n_directions)
     if adj is None:
@@ -334,9 +351,10 @@ def sgm_cost_volume(cv: torch.Tensor, P1: float, P2: float,
     and one K2k call per knight direction (`sgm_cuda.sgm_accumulate`), and
     is padded back.  On the CPU the sums follow the JAX XLA path: the
     principal directions grouped, then each knight pass in `_KNIGHT_DIRS`
-    order, each padded to the full volume.  At D > 320 (4 or 8
-    directions) both devices run `sgm_lane_cuda`'s K4b or K4d route, and
-    P2 < P1 runs the plain dense-penalty steps (`sgm_route`)."""
+    order, each padded to the full volume.  At D > 320 both devices run
+    `sgm_lane_cuda`'s K4b or K4d route (16 directions: with the knight
+    passes of K2k's any-D instance), and P2 < P1 runs the plain
+    dense-penalty steps (`sgm_route`)."""
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
     if strategy is ExtractionStrategy.SCORE:
@@ -406,7 +424,8 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
     inputs it holds the negated SGM scores).  Without margins the WTA and
     the band come out of the last SGM pass: on a CUDA tensor at D <= 320,
     K2 and K2k launches, then K3; at D > 320 (both devices), K4b's
-    `fused_cols_wta` where K4b takes the geometry.  Elsewhere (margins,
+    `fused_cols_wta` where K4b takes the geometry (16 directions: the
+    knight passes reach its accumulator before the WTA scan).  Elsewhere (margins,
     K4d's geometry, P2 < P1) both devices run the chain itself, as the JAX
     package does (`libstevi_tpu/ops/sgm.py:571-600`)."""
     from .cost_volume import extract_selected_index, truncated_cost_volume
@@ -447,16 +466,16 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     For a dot-family cost on gray images with P2 >= P1 and D <= 320 this
     runs the kernel path K1 -> K2 (one launch per principal direction but
     the last) -> K2k (16 directions) -> K3 (the last direction fused with
-    WTA, band and, for PARABOLA, the subpixel).  At D > 320 (4 or 8
-    directions) it runs K1 over d-slices -> ``sgm_wta_truncated`` (K4b's
-    passes and WTA, or K4d) -> refinement in torch.  Other costs,
+    WTA, band and, for PARABOLA, the subpixel).  At D > 320 it runs K1 over
+    d-slices -> ``sgm_wta_truncated`` (K4b's passes and WTA, or K4d; K2k
+    for 16 directions) -> refinement in torch.  Other costs,
     multichannel images and P2 < P1 take the JAX package's general route:
     ``unfold_based_cost_volume`` (the box route, or unfold with K5 where
     `aggregate_cost` launches it and the shifted-compare loop for CENSUS
     and Hamming) -> ``sgm_wta_truncated`` -> refinement.  On the CPU every
-    kernel wrapper runs its plain version.  16 directions at D > 320 on
-    CUDA raise NotImplementedError (`sgm_route`).  The volume is stored in
-    ``cv_dtype`` (float32 or
+    kernel wrapper runs its plain version.  16 directions at D > 320 add
+    the knight passes (K2k's any-D instance) to the lane route.  The
+    volume is stored in ``cv_dtype`` (float32 or
     bfloat16) and the DP runs in float32; a bfloat16 request with 16
     directions builds a float32 volume, the JAX package's TPU rule
     (`libstevi_tpu/ops/sgm.py:477-478`).

@@ -1,5 +1,5 @@
-"""K2, K2k and K3: the SGM scans as CUDA kernels (`csrc/sgm_scan.cu`), the
-port of `libstevi_tpu/ops/sgm_pallas_dhw.py`.
+"""K2, K2k, K2s and K3: the SGM scans as CUDA kernels (`csrc/sgm_scan.cu`),
+the port of `libstevi_tpu/ops/sgm_pallas_dhw.py`.
 
 K2 (`sgm_pass`) runs one principal direction and adds its adjustment into
 an f32 accumulator of the volume's shape; K2k (`sgm_knight_pass`) does the
@@ -9,7 +9,18 @@ runs the last direction, right to left, fused with C = cost + acc + adj,
 the tie-last WTA, the band C[idx - r .. idx + r] (+inf beyond [0, D)) and,
 optionally, the parabola subpixel with the SAME-mode NaN rules.  The
 flagship's 8 directions are 7 K2 launches and one K3 launch; 16 directions
-add the 8 knight directions between them (`sgm_wta_fused`).
+add the 8 knight directions between them (`sgm_wta_fused`).  K2k takes any
+D: past D = 320 it runs an instance that keeps its carry in shared memory.
+
+K2s (`sgm_shard_pass`, `sgm_knight_shard_pass`) is K2 and K2k on one shard
+of a distributed image, the port of `sgm_rows_shard_pass_dhw` and
+`sgm_cols_shard_pass_dhw`: carries in and out, the shard's global first
+scan row and the global extent (`parallel.sgm_dist` relays them).  The
+port has no DHW layout: the names of the JAX functions are kept only so a
+reader can find the counterpart.  Horizontal passes on a row shard are
+plain K2 on the block (the W axis is not sharded).  Their plain versions
+equal the kernels bit for bit, and run shard after shard they equal the
+whole-image plain pass bit for bit.
 
 K2 and K2k take the image column of the volume's first column (``col0``)
 and the image width (``W_pout``) for the Pout test ``j + d >= W``, so a
@@ -34,8 +45,9 @@ import torch
 
 from .. import _build
 from .box_cuda import MAX_D
-from .sgm import (SgmDirection, directions_for, direction_adj, knight_adj,
-                  wta_bands, _tcv_from_bands)
+from .sgm import (SgmDirection, directions_for, direction_adj,
+                  direction_shard_adj, knight_adj, wta_bands, _dp_step,
+                  _tcv_from_bands)
 
 
 def kernel_volume(cv: torch.Tensor) -> torch.Tensor:
@@ -46,7 +58,8 @@ def kernel_volume(cv: torch.Tensor) -> torch.Tensor:
     return cv.contiguous()
 
 
-def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str) -> None:
+def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str,
+                any_d: bool = False) -> None:
     if not cv.is_cuda or acc.device != cv.device:
         raise ValueError(f"{what}: cv and acc on one CUDA device")
     if cv.dtype not in (torch.float32, torch.bfloat16):
@@ -55,10 +68,23 @@ def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str) -> None:
         raise ValueError(f"{what}: acc must be float32 of cv's (H, W, D) shape")
     if not (cv.is_contiguous() and acc.is_contiguous()):
         raise ValueError(f"{what}: cv and acc must be contiguous")
-    if not 1 <= cv.shape[-1] <= MAX_D:
+    if cv.shape[-1] < 1 or (not any_d and cv.shape[-1] > MAX_D):
         # ceil(D / 32) <= 10 values a lane in registers; `sgm.sgm_route`
         # sends wider ranges to K4b / K4d
         raise NotImplementedError(f"{what}: 1 <= D <= {MAX_D}")
+
+
+def _check_carries(carries, shape, dev, what: str) -> None:
+    if carries is None:
+        return
+    if (carries.device != dev or carries.dtype != torch.float32
+            or tuple(carries.shape) != shape or not carries.is_contiguous()):
+        raise ValueError(f"{what}: carries must be contiguous float32 of "
+                         f"shape {shape} on cv's device")
+
+
+def _ptr(t):
+    return t.data_ptr() if t is not None else None
 
 
 def _pout_args(cv, col0, W_pout):
@@ -92,20 +118,76 @@ def sgm_pass(cv: torch.Tensor, acc: torch.Tensor, direction: SgmDirection,
                               col0, W_pout)
     _check_cuda(cv, acc, "sgm_pass")
     col0, W_pout = _pout_args(cv, col0, W_pout)
+    _pass_launch(cv, acc, None, None, direction, P1, P2, Pout, accumulate,
+                 col0, W_pout, 0, cv.shape[0])
+    sgm_pass.launches += 1
+    return acc
+
+
+sgm_pass.launches = 0
+
+
+def _pass_launch(cv, acc, cin, cout, direction, P1, P2, Pout, accumulate,
+                 col0, W_pout, i0, H_img):
     di, dj = direction.step
     H, W, D = cv.shape
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         err = lib.sgm_pass_launch(
             cv.data_ptr(), int(cv.dtype == torch.bfloat16), acc.data_ptr(),
-            H, W, D, di, dj, P1, P2, Pout, int(accumulate), col0, W_pout,
+            _ptr(cin), _ptr(cout), H, W, D, di, dj, P1, P2, Pout,
+            int(accumulate), col0, W_pout, i0, H_img,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_pass_launch")
-    sgm_pass.launches += 1
-    return acc
 
 
-sgm_pass.launches = 0
+# ---------------------------------------------------------------------------
+# K2s: one vertical or diagonal direction on one row shard
+# ---------------------------------------------------------------------------
+
+def sgm_shard_pass_plain(cv, acc, direction: SgmDirection, P1: float,
+                         P2: float, Pout: float, accumulate: bool = True,
+                         carry: torch.Tensor | None = None, i0: int = 0,
+                         H_img: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K2s, on any device: returns the carry
+    out."""
+    adj, cout = direction_shard_adj(cv.float(), direction, P1, P2, Pout,
+                                    carry=carry, i0=i0, H_img=H_img)
+    acc.add_(adj) if accumulate else acc.copy_(adj)
+    return cout
+
+
+def sgm_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
+                   direction: SgmDirection, P1: float, P2: float,
+                   Pout: float, accumulate: bool = True,
+                   carry: torch.Tensor | None = None, i0: int = 0,
+                   H_img: int | None = None) -> torch.Tensor:
+    """`sgm_pass` for a vertical or diagonal direction on rows [i0, i0 + H)
+    of an image ``H_img`` rows high (whole-image columns, so the Pout test
+    needs no offset): the lines continue from ``carry`` (W, D) float32,
+    the previous shard's post-step carries of its last scan row (None:
+    zeros, the line start).  Adds into ``acc`` in place and returns the
+    carries of this shard's last scan row (W, D)."""
+    H, W, D = cv.shape
+    H_img = i0 + H if H_img is None else H_img
+    if direction.knight or direction.step[0] == 0:
+        raise ValueError(f"sgm_shard_pass: {direction.name} is not a "
+                         "vertical or diagonal direction")
+    if not (0 <= i0 and i0 + H <= H_img):
+        raise ValueError("sgm_shard_pass: rows [i0, i0 + H) inside H_img")
+    if cv.device.type == "cpu":
+        return sgm_shard_pass_plain(cv, acc, direction, P1, P2, Pout,
+                                    accumulate, carry, i0, H_img)
+    _check_cuda(cv, acc, "sgm_shard_pass")
+    _check_carries(carry, (W, D), cv.device, "sgm_shard_pass")
+    cout = torch.empty((W, D), dtype=torch.float32, device=cv.device)
+    _pass_launch(cv, acc, carry, cout, direction, P1, P2, Pout, accumulate,
+                 0, W, i0, H_img)
+    sgm_shard_pass.launches += 1
+    return cout
+
+
+sgm_shard_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -133,8 +215,22 @@ def sgm_knight_pass(cv: torch.Tensor, acc: torch.Tensor,
     if cv.device.type == "cpu":
         return sgm_knight_pass_plain(cv, acc, direction, P1, P2, Pout, col0,
                                      W_pout)
-    _check_cuda(cv, acc, "sgm_knight_pass")
+    _check_cuda(cv, acc, "sgm_knight_pass", any_d=True)
     col0, W_pout = _pout_args(cv, col0, W_pout)
+    vert = direction.steps[0][0] != 0
+    _knight_launch(cv, acc, None, None, direction, P1, P2, Pout, col0,
+                   W_pout, 0, cv.shape[0 if vert else 1])
+    sgm_knight_pass.launches += 2
+    return acc
+
+
+sgm_knight_pass.launches = 0
+
+
+def _knight_launch(cv, acc, cin, cout, direction, P1, P2, Pout, col0,
+                   W_pout, s0, N_img):
+    """Both seed phases of one knight direction; ``cin`` / ``cout`` hold
+    phase 0's carries, then phase 1's."""
     (v0, h0), (v1, h1) = direction.steps
     H, W, D = cv.shape
     lib = _build.load("sgm_scan")
@@ -143,14 +239,110 @@ def sgm_knight_pass(cv: torch.Tensor, acc: torch.Tensor,
         for phase in (0, 1):
             err = lib.sgm_knight_launch(
                 cv.data_ptr(), int(cv.dtype == torch.bfloat16),
-                acc.data_ptr(), H, W, D, v0, v1, h0, h1, phase, P1, P2, Pout,
-                col0, W_pout, stream)
+                acc.data_ptr(), _ptr(cin[phase] if cin is not None else None),
+                _ptr(cout[phase] if cout is not None else None), H, W, D, v0,
+                v1, h0, h1, phase, P1, P2, Pout, col0, W_pout, s0, N_img,
+                stream)
             _build.check(lib, err, "sgm_knight_launch")
-            sgm_knight_pass.launches += 1
-    return acc
 
 
-sgm_knight_pass.launches = 0
+# ---------------------------------------------------------------------------
+# K2s: one knight direction on one row (or column) shard
+# ---------------------------------------------------------------------------
+
+def sgm_knight_shard_pass_plain(cv, acc, direction: SgmDirection,
+                                P1: float, P2: float, Pout: float,
+                                carries: torch.Tensor | None = None,
+                                s0: int = 0, N_img: int | None = None,
+                                col0: int = 0,
+                                W_pout: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K2s for a knight direction, on any
+    device: the TPU kernels' lane form (`_knight_row`,
+    `libstevi_tpu/ops/sgm_pallas_dhw.py:107`).  Per seed phase one carry
+    for each lateral position, shifted one position on the steps a line of
+    that phase drifts; phase 0 weighs the corner line (u == t // 2) twice,
+    phase 1 holds lines only where u <= (t - 1) // 2.  Adds phase 0's
+    adjustments into ``acc``, then phase 1's, as the kernel's two launches
+    do, and returns the carries out (2, lateral, D)."""
+    (v0, h0), (v1, h1) = direction.steps
+    vert = v0 == v1
+    x = cv.float() if vert else cv.float().transpose(0, 1)
+    N, X, D = x.shape
+    N_img = s0 + N if N_img is None else N_img
+    col0, W_pout = _pout_args(cv, col0, W_pout)
+    pstep, drift = (v0, h1) if vert else (h0, v1)
+    t0 = s0 if pstep > 0 else N_img - s0 - N
+    dev = cv.device
+    dd = torch.arange(D, device=dev)
+    lat = torch.arange(X, device=dev)
+    u = (lat if drift > 0 else X - 1 - lat)[:, None]
+    if vert:                       # lateral positions are image columns
+        pout_lat = torch.where(col0 + lat[:, None] + dd >= W_pout, Pout, 0.0)
+    zrow = x.new_zeros((1, D))
+    carry = [x.new_zeros((X, D)), x.new_zeros((X, D))]
+    if carries is not None:
+        carry = [carries[0].float(), carries[1].float()]
+    adj = [torch.empty_like(x), torch.empty_like(x)]
+    for k in range(N):
+        p = k if pstep > 0 else N - 1 - k
+        t = t0 + k
+        pout = (pout_lat if vert else
+                torch.where(col0 + p + dd >= W_pout, Pout, 0.0)[None])
+        for ph in (0, 1):
+            c = carry[ph]
+            if t % 2 == ph:        # a line of this phase drifts into step t
+                c = (torch.cat([zrow, c[:-1]]) if drift > 0
+                     else torch.cat([c[1:], zrow]))
+            cur, a = _dp_step(c, x[p], pout, P1, P2)
+            if ph == 0:
+                adj[0][p] = a * (1.0 + (u == t // 2).float())
+                carry[0] = cur
+            else:
+                live = u <= (t - 1) // 2
+                adj[1][p] = torch.where(live, a, 0.0)
+                carry[1] = torch.where(live, cur, 0.0)
+    for a in adj:
+        acc.add_(a if vert else a.transpose(0, 1))
+    return torch.stack(carry)
+
+
+def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
+                          direction: SgmDirection, P1: float, P2: float,
+                          Pout: float, carries: torch.Tensor | None = None,
+                          s0: int = 0, N_img: int | None = None,
+                          col0: int = 0,
+                          W_pout: int | None = None) -> torch.Tensor:
+    """`sgm_knight_pass` on one shard: scan rows [s0, s0 + N) of ``N_img``
+    along the direction's primary axis (image rows for the down/up knights,
+    which run on row shards; image columns for the left/right knights,
+    which run on column shards, where ``col0`` is the shard's first image
+    column and ``W_pout`` the image width).  ``carries`` (2, lateral, D)
+    float32 hold the previous shard's post-step carries of its last scan
+    row for each seed phase (lateral: W for row shards, H for column
+    shards; None: zeros, the line start).  Adds into ``acc`` in place (two
+    launches) and returns this shard's carries out."""
+    if not direction.knight:
+        raise ValueError(f"{direction.name} is not a knight-move direction")
+    H, W, D = cv.shape
+    vert = direction.steps[0][0] != 0
+    N, X = (H, W) if vert else (W, H)
+    N_img = s0 + N if N_img is None else N_img
+    if not (0 <= s0 and s0 + N <= N_img):
+        raise ValueError("sgm_knight_shard_pass: [s0, s0 + N) inside N_img")
+    if cv.device.type == "cpu":
+        return sgm_knight_shard_pass_plain(cv, acc, direction, P1, P2, Pout,
+                                           carries, s0, N_img, col0, W_pout)
+    _check_cuda(cv, acc, "sgm_knight_shard_pass", any_d=True)
+    _check_carries(carries, (2, X, D), cv.device, "sgm_knight_shard_pass")
+    col0, W_pout = _pout_args(cv, col0, W_pout)
+    cout = torch.zeros((2, X, D), dtype=torch.float32, device=cv.device)
+    _knight_launch(cv, acc, carries, cout, direction, P1, P2, Pout, col0,
+                   W_pout, s0, N_img)
+    sgm_knight_shard_pass.launches += 2
+    return cout
+
+
+sgm_knight_shard_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------

@@ -1,5 +1,5 @@
-"""K4a, K4b and K4d: the lane-layout SGM kernels (`csrc/sgm_lane.cu`), the
-port of `libstevi_tpu/ops/sgm_pallas.py` less its row-shard passes.
+"""K4a, K4b, K4c and K4d: the lane-layout SGM kernels (`csrc/sgm_lane.cu`),
+the port of `libstevi_tpu/ops/sgm_pallas.py`.
 
 These carry SGM past K2/K3's register limit (D <= 320): every carry lives
 in shared memory, so D is unbounded.
@@ -12,6 +12,11 @@ in shared memory, so D is unbounded.
   scans, the last one optionally fused with the tie-last WTA and the band.
   `fused_adj` returns None when `fused_fits` says the full-width carries do
   not fit on chip (the GPU form of `sgm_fused_adj`'s VMEM test).
+- K4c `fused_rows_shard_pass` (`sgm_rows_shard_pass`): K4b's row sweep on
+  one row shard of a distributed image, with 1 or 3 carries in and out, the
+  shard's global first row and the global height; its column half
+  (`sgm_cols_shard_pass`) is `fused_cols_pass` on the shard's block.
+  `parallel.sgm_dist.distributed_sgm_fused` relays it.
 - K4d `chunked_pass` (`_chunked_rows_kernel` / `_chunked_pass`), driven by
   `chunked_adj` (`sgm_chunked_adj`): W-chunks run one after another, the
   diagonal carry crossing each chunk edge through an (H, D) edge history.
@@ -168,19 +173,26 @@ def unshear(S: torch.Tensor, W: int, neg: bool) -> torch.Tensor:
 # K4b: fused row sweeps, column scans, column scan + WTA
 # ---------------------------------------------------------------------------
 
-def fused_rows_pass_plain(cv, acc, reverse: bool, diag: bool, col0: int,
-                          W_pout: int, P1: float, P2: float,
-                          Pout: float) -> torch.Tensor:
-    """The plain version of K4b's rows pass: returns the new adj volume
-    (``acc`` plus this sweep's directions; ``acc`` None means zeros)."""
+def fused_rows_shard_pass_plain(cv, acc, carries, i0: int, H_img: int,
+                                reverse: bool, diag: bool, col0: int,
+                                W_pout: int, P1: float, P2: float,
+                                Pout: float):
+    """The plain version of K4b's rows pass (K4c with ``carries``): returns
+    (the new adj volume, the carries out).  ``acc`` None means zeros;
+    ``carries`` (1 or 3, W, D) None means zero line starts."""
     H, W, D = cv.shape
     pout = _pout_row(W, D, col0, W_pout, Pout, cv.device)
     out = torch.empty_like(cv)
     zrow = cv.new_zeros((1, D))
     c_v = cv.new_zeros((W, D))
     c_p = c_n = c_v
+    if carries is not None:
+        c_v = carries[0]
+        if diag:
+            c_p, c_n = carries[1], carries[2]
     cols = torch.arange(W, device=cv.device)[:, None]
     for i in (range(H - 1, -1, -1) if reverse else range(H)):
+        ig = i0 + i
         base = cv[i]
         total = acc[i] if acc is not None else torch.zeros_like(base)
         c_v, adj = _step(c_v, base, pout, P1, P2)
@@ -189,15 +201,58 @@ def fused_rows_pass_plain(cv, acc, reverse: bool, diag: bool, col0: int,
             shift = (torch.cat([c_p[1:], zrow]) if reverse
                      else torch.cat([zrow, c_p[:-1]]))
             c_p, adj = _step(shift, base, pout, P1, P2)
-            cj = W - H + i if reverse else i
+            cj = W - H_img + ig if reverse else ig
             total = total + adj * (1.0 + (cols == cj).float())
             shift = (torch.cat([zrow, c_n[:-1]]) if reverse
                      else torch.cat([c_n[1:], zrow]))
             c_n, adj = _step(shift, base, pout, P1, P2)
-            cj = H - 1 - i if reverse else W - 1 - i
+            cj = H_img - 1 - ig if reverse else W - 1 - ig
             total = total + adj * (1.0 + (cols == cj).float())
         out[i] = total
-    return out
+    return out, torch.stack([c_v, c_p, c_n] if diag else [c_v])
+
+
+def fused_rows_pass_plain(cv, acc, reverse: bool, diag: bool, col0: int,
+                          W_pout: int, P1: float, P2: float,
+                          Pout: float) -> torch.Tensor:
+    """The plain version of K4b's rows pass: returns the new adj volume
+    (``acc`` plus this sweep's directions; ``acc`` None means zeros)."""
+    return fused_rows_shard_pass_plain(cv, acc, None, 0, cv.shape[0],
+                                       reverse, diag, col0, W_pout, P1, P2,
+                                       Pout)[0]
+
+
+def _rows_launch(cv, acc, carries, i0, H_img, reverse, diag, col0, W_pout,
+                 P1, P2, Pout, what, carries_out):
+    """Launch K4b's rows kernel (K4c with carries or an offset): returns
+    (out, the carries out, or None without ``carries_out``)."""
+    _check_cuda(what, cv, acc, carries)
+    H, W, D = cv.shape
+    n_sm = _sms(cv)
+    if not fused_fits(W, D, 8 if diag else 4, n_sm=n_sm):
+        raise NotImplementedError(f"{what}: the carries do not fit "
+                                  "(fused_fits); use chunked_adj")
+    n_car = 3 if diag else 1
+    if carries is not None and carries.shape != (n_car, W, D):
+        raise ValueError(f"{what}: carries of shape ({n_car}, W, D)")
+    if not (0 <= i0 and i0 + H <= H_img):
+        raise ValueError(f"{what}: rows [i0, i0 + H) inside H_img")
+    out = acc if acc is not None else torch.empty_like(cv)
+    edge = torch.empty((2, 2, W, D) if diag else (1,), dtype=torch.float32,
+                       device=cv.device)
+    couts = (torch.empty((n_car, W, D), dtype=torch.float32,
+                         device=cv.device) if carries_out else None)
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(cv.device):
+        err = lib.fused_rows_launch(
+            cv.data_ptr(), acc.data_ptr() if acc is not None else None,
+            out.data_ptr(), edge.data_ptr(),
+            carries.data_ptr() if carries is not None else None,
+            couts.data_ptr() if couts is not None else None, H, W, D,
+            _ceil_div(W, n_sm), col0, W_pout, P1, P2, Pout, int(reverse),
+            int(diag), i0, H_img, _stream())
+    _build.check(lib, err, "fused_rows_launch")
+    return out, couts
 
 
 def fused_rows_pass(cv: torch.Tensor, acc: torch.Tensor | None,
@@ -209,27 +264,36 @@ def fused_rows_pass(cv: torch.Tensor, acc: torch.Tensor | None,
     if cv.device.type == "cpu":
         return fused_rows_pass_plain(cv, acc, reverse, diag, col0, W_pout,
                                      P1, P2, Pout)
-    _check_cuda("fused_rows_pass", cv, acc)
-    H, W, D = cv.shape
-    n_sm = _sms(cv)
-    if not fused_fits(W, D, 8 if diag else 4, n_sm=n_sm):
-        raise NotImplementedError("fused_rows_pass: the carries do not fit "
-                                  "(fused_fits); use chunked_adj")
-    out = acc if acc is not None else torch.empty_like(cv)
-    edge = torch.empty((2, 2, W, D) if diag else (1,), dtype=torch.float32,
-                       device=cv.device)
-    lib = _build.load("sgm_lane")
-    with torch.cuda.device(cv.device):
-        err = lib.fused_rows_launch(
-            cv.data_ptr(), acc.data_ptr() if acc is not None else None,
-            out.data_ptr(), edge.data_ptr(), H, W, D, _ceil_div(W, n_sm),
-            col0, W_pout, P1, P2, Pout, int(reverse), int(diag), _stream())
-    _build.check(lib, err, "fused_rows_launch")
+    out, _ = _rows_launch(cv, acc, None, 0, cv.shape[0], reverse, diag, col0,
+                          W_pout, P1, P2, Pout, "fused_rows_pass", False)
     fused_rows_pass.launches += 1
     return out
 
 
 fused_rows_pass.launches = 0
+
+
+def fused_rows_shard_pass(cv: torch.Tensor, acc: torch.Tensor | None,
+                          carries: torch.Tensor | None, i0: int, H_img: int,
+                          reverse: bool, diag: bool, col0: int, W_pout: int,
+                          P1: float, P2: float, Pout: float):
+    """K4c: `fused_rows_pass` on rows [i0, i0 + H) of an image ``H_img``
+    rows high.  ``carries`` (1 or 3 with ``diag``, W, D) are the previous
+    shard's post-step carries of its last scan row (vertical, then the
+    down-right and down-left diagonal families; None: zero line starts).
+    Returns (the adj volume, as `fused_rows_pass`; the carries of this
+    shard's last scan row)."""
+    if cv.device.type == "cpu":
+        return fused_rows_shard_pass_plain(cv, acc, carries, i0, H_img,
+                                           reverse, diag, col0, W_pout, P1,
+                                           P2, Pout)
+    out = _rows_launch(cv, acc, carries, i0, H_img, reverse, diag, col0,
+                       W_pout, P1, P2, Pout, "fused_rows_shard_pass", True)
+    fused_rows_shard_pass.launches += 1
+    return out
+
+
+fused_rows_shard_pass.launches = 0
 
 
 def fused_cols_pass_plain(cv, acc, reverse: bool, col0: int, W_pout: int,
@@ -328,12 +392,14 @@ def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
               separate: bool = False):
     """All principal-direction adjustments of an (H, W, D) region through
     K4b: down, up (adding onto down's output, or with ``separate`` into a
-    volume of its own, added at the end), then the two column scans.  With
-    ``wta_radius`` the last scan is `fused_cols_wta` and the result is
-    (idx, bands).  Returns None when `fused_fits` refuses the width
-    (``budget`` overrides its shared-memory budget)."""
-    if n_directions not in (4, 8):
-        raise ValueError("fused_adj takes 4 or 8 directions")
+    volume of its own, added at the end), then the two column scans; 16
+    directions add the knight directions (K2k, `_add_knights`) between the
+    two column scans.  With ``wta_radius`` the last scan is
+    `fused_cols_wta` and the result is (idx, bands).  Returns None when
+    `fused_fits` refuses the width (``budget`` overrides its shared-memory
+    budget)."""
+    if n_directions not in (4, 8, 16):
+        raise ValueError("fused_adj takes 4, 8 or 16 directions")
     if separate and wta_radius is not None:
         raise ValueError("fused_adj: separate accumulation has no WTA pass")
     H, W, D = region.shape
@@ -349,10 +415,21 @@ def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
     else:
         adj = fused_rows_pass(cv, adj, True, diag, **kw)
     adj = fused_cols_pass(cv, adj, False, **kw)
+    if n_directions >= 16:
+        _add_knights(cv, adj, **kw)
     if wta_radius is not None:
         return fused_cols_wta(cv, adj, wta_radius, **kw)
     adj = fused_cols_pass(cv, adj, True, **kw)
     return adj + adj_up if separate else adj
+
+
+def _add_knights(cv, adj, col0, W_pout, P1, P2, Pout):
+    """The eight knight directions of 16-direction SGM, added into ``adj``
+    in place (K2k; its any-D instance past D = 320)."""
+    from .sgm import _KNIGHT_DIRS
+    from .sgm_cuda import sgm_knight_pass
+    for direction in _KNIGHT_DIRS:
+        sgm_knight_pass(cv, adj, direction, P1, P2, Pout, col0, W_pout)
 
 
 # ---------------------------------------------------------------------------
@@ -440,10 +517,11 @@ def chunked_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
                 cw: int | None = None) -> torch.Tensor:
     """All principal-direction adjustments of an (H, W, D) region through
     K4d (the four chunked sweeps of `sgm_chunked_adj`'s table, in their
-    chunk order) and K4b's two column scans.  ``cw`` forces the chunk
+    chunk order) and K4b's two column scans (16 directions: the knight
+    directions between them, as `fused_adj`).  ``cw`` forces the chunk
     width (default `chunk_width`)."""
-    if n_directions not in (4, 8):
-        raise ValueError("chunked_adj takes 4 or 8 directions")
+    if n_directions not in (4, 8, 16):
+        raise ValueError("chunked_adj takes 4, 8 or 16 directions")
     cv = _region_f32(region)
     H, W, D = cv.shape
     CW = min(W, cw if cw is not None else chunk_width(D))
@@ -481,4 +559,6 @@ def chunked_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
         run_pass(reversed(range(n_w)), True, False, (W - H, 1), False)
     kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
     adj = fused_cols_pass(cv, adj, False, **kw)
+    if n_directions >= 16:
+        _add_knights(cv, adj, **kw)
     return fused_cols_pass(cv, adj, True, **kw)

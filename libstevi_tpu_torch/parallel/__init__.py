@@ -1,0 +1,20 @@
+"""The distributed stereo pipelines (counterpart of `libstevi_tpu/parallel/`):
+a (batch, tile, dsh) mesh of torch devices driven by one controller, halo
+exchange, the SGM carry relay (kernels K2s and K4c) and the pipeline steps.
+`parallel/schur.py` (distributed Gauss-Newton) waits for `optim/`."""
+
+from .mesh import make_stereo_mesh, MeshSpec
+from .halo import halo_exchange_rows
+from .stereo import (
+    distributed_cost_volume_wta,
+    distributed_dense_stereo_step,
+    dshard_wta,
+)
+from .sgm_dist import distributed_sgm, distributed_sgm_fused
+
+__all__ = [
+    "make_stereo_mesh", "MeshSpec",
+    "halo_exchange_rows",
+    "distributed_cost_volume_wta", "distributed_dense_stereo_step",
+    "dshard_wta", "distributed_sgm", "distributed_sgm_fused",
+]

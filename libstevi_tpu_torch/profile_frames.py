@@ -4,7 +4,9 @@
         [--reps 5] [--top 8]
 
 Needs one CUDA device.  For each frame (a random pair from seed 3, at the
-frame's own size) it runs 3 warm-ups, times the frame with CUDA events
+frame's own size; ``dist`` is `entry.distributed_forward` on that pair and
+its mirror as a batch of 2, over a (batch=2, tile=2, dsh=2) mesh of 8
+virtual shards on the card) it runs 3 warm-ups, times the frame with CUDA events
 (median of 5), then profiles ``--reps`` frames and prints:
 - device busy ms a frame: the union of the device intervals of every
   kernel, memcpy and memset, over the profiled frames, divided by ``reps``;
@@ -38,7 +40,19 @@ FRAMES = {
     "patchmatch": ((entry.HEIGHT, entry.WIDTH), entry.patchmatch_forward),
     "wta_zsad": ((entry.HEIGHT, entry.WIDTH),
                  lambda L, R: entry.wta_forward(MatchingFunction.ZSAD, L, R)),
+    "dist": ((entry.HEIGHT, entry.WIDTH), lambda L, R: dist_frame(L, R)),
 }
+
+
+def dist_frame(L: torch.Tensor, R: torch.Tensor) -> torch.Tensor:
+    """The flagship configuration through `distributed_full_step` over a
+    (batch=2, tile=2, dsh=2) mesh of 8 virtual shards on L's device, the
+    pair and its mirror as a batch of 2."""
+    from .parallel import MeshSpec, make_stereo_mesh
+    mesh = make_stereo_mesh(MeshSpec(batch=2, tile=2, dsh=2),
+                            [L.device] * 8)
+    return entry.distributed_forward(torch.stack([L, R.flip(-1)]),
+                                     torch.stack([R, L.flip(-1)]), mesh)
 
 
 def short_name(name: str) -> str:

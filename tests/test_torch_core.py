@@ -137,6 +137,11 @@ assert d16.shape == (12, 16) and d16.dtype == torch.float32
 dc = entry.census_sgm_forward(L, R)
 assert dc.shape == (12, 16)
 from libstevi_tpu_torch.cli import stereo_match
+from libstevi_tpu_torch import parallel
+from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
+mesh = make_stereo_mesh(MeshSpec(batch=2, tile=2, dsh=2), ["cpu"] * 8)
+dd = entry.distributed_forward(torch.stack([L, R]), torch.stack([R, L]), mesh)
+assert dd.shape == (2, 12, 16) and dd.dtype == torch.int32
 assert not [m for m, v in sys.modules.items()
             if v is not None and (m == "jax" or m.startswith("jax."))]
 print("ran without jax")
@@ -145,9 +150,9 @@ print("ran without jax")
 
 def test_port_imports_and_runs_without_jax():
     """With jax and libstevi_tpu made unimportable, the port imports and
-    runs the dense SGM (8 and 16 directions, ZNCC and census), PatchMatch
-    and WTA paths end to end on the CPU, and imports its CLI (the card has
-    no JAX)."""
+    runs the dense SGM (8 and 16 directions, ZNCC and census), PatchMatch,
+    WTA and distributed paths end to end on the CPU, and imports its CLI
+    (the card has no JAX)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)

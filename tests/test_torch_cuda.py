@@ -17,7 +17,10 @@ from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
 from libstevi_tpu_torch.ops.sgm_cuda import (sgm_knight_pass,
                                              sgm_knight_pass_plain, sgm_pass,
                                              sgm_pass_plain, sgm_wta,
-                                             sgm_wta_plain)
+                                             sgm_wta_plain, sgm_shard_pass,
+                                             sgm_shard_pass_plain,
+                                             sgm_knight_shard_pass,
+                                             sgm_knight_shard_pass_plain)
 from libstevi_tpu_torch.core import SearchOffset1
 from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
                                                fused_fv_cost_volume_plain)
@@ -132,12 +135,21 @@ def test_sgm_cost_volume_runs_the_kernel(dev):
 
 
 def test_unsupported_configurations_raise(dev):
-    """16 directions at D > 320 are the one SGM configuration the card
-    still refuses (K2k keeps D in registers; queued in ROADMAP.md)."""
+    """Distributed 16-direction SGM at D > 320 is the one SGM configuration
+    the card refuses (ValueError, as the JAX package refuses a shard volume
+    too wide for its fused pass); on one device it runs (K4b and K2k's
+    any-D instance)."""
+    from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
     L, R = _pair(dev, 8, 340)
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 330, 0.1, 0.5,
-                         n_directions=16)
+    counts = (lane.fused_rows_pass.launches, sgm_knight_pass.launches)
+    disp, idx, _ = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 330,
+                                    0.1, 0.5, n_directions=16)
+    assert (lane.fused_rows_pass.launches, sgm_knight_pass.launches) == \
+        (counts[0] + 2, counts[1] + 16)
+    assert idx.shape == (8, 340)
+    cv = torch.rand(8, 20, 330, device=dev)
+    with pytest.raises(ValueError, match="D <= 320"):
+        distributed_sgm_routed(list(cv.split(4)), 0.1, 0.5, n_directions=16)
 
 
 @pytest.mark.parametrize("n_dirs", [4, 8, 16])
@@ -494,3 +506,157 @@ def test_cv_patchmatch_matches_cpu_with_one_draw_stream(dev):
                                                 counts[1] + 6)
     want = run(cv.cpu(), "cpu")
     assert torch.equal(got.cpu(), want)
+
+
+# -- K2s, K4c, the any-D K2k and the distributed paths -----------------------
+
+K2S_SHAPES = [(13, 37, 24), (9, 20, 300), (6, 11, 5)]
+PRINCIPAL = [d for d in directions_for(8) if d.step[0] != 0]
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K2S_SHAPES)
+@pytest.mark.parametrize("direction", PRINCIPAL, ids=lambda d: d.name)
+def test_k2s_equals_plain(dev, direction, shape, dtype):
+    """K2s on a shard at an odd global row (rows [5, 5 + H) of H + 12),
+    from random carries, accumulating and not: acc and the carries out
+    equal the plain version's to the bit."""
+    H, W, D = shape
+    g = torch.Generator(device=dev).manual_seed(H * W)
+    cv = (torch.rand(shape, generator=g, device=dev) * 3).to(dtype)
+    carry = torch.rand((W, D), generator=g, device=dev) * 2
+    for accumulate in (True, False):
+        acc = torch.rand(shape, generator=g, device=dev)
+        acc_p = acc.clone()
+        before = sgm_shard_pass.launches
+        co = sgm_shard_pass(cv, acc, direction, 0.3, 1.1, 7.0, accumulate,
+                            carry, 5, H + 12)
+        assert sgm_shard_pass.launches == before + 1
+        co_p = sgm_shard_pass_plain(cv, acc_p, direction, 0.3, 1.1, 7.0,
+                                    accumulate, carry, 5, H + 12)
+        assert torch.equal(acc, acc_p) and torch.equal(co, co_p)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", K2S_SHAPES + [(12, 30, 384)])
+@pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
+def test_k2s_knight_equals_plain(dev, direction, shape, dtype):
+    """K2s for a knight direction on a block at an odd global offset along
+    its primary axis (rows [5, 5 + H) of H + 12, or columns [3, 3 + W) of
+    W + 10 with the Pout test at that offset), from random carries of both
+    seed phases; D = 384 runs the any-D instance.  acc and the carries out
+    equal the lane-form plain version's to the bit."""
+    H, W, D = shape
+    vert = direction.steps[0][0] != 0
+    g = torch.Generator(device=dev).manual_seed(H + W)
+    cv = (torch.rand(shape, generator=g, device=dev) * 3).to(dtype)
+    X = W if vert else H
+    carries = torch.rand((2, X, D), generator=g, device=dev) * 2
+    kw = (dict(s0=5, N_img=H + 12) if vert
+          else dict(s0=3, N_img=W + 10, col0=3, W_pout=W + 10))
+    acc = torch.rand(shape, generator=g, device=dev)
+    acc_p = acc.clone()
+    before = sgm_knight_shard_pass.launches
+    co = sgm_knight_shard_pass(cv, acc, direction, 0.3, 1.1, 7.0, carries,
+                               **kw)
+    assert sgm_knight_shard_pass.launches == before + 2
+    co_p = sgm_knight_shard_pass_plain(cv, acc_p, direction, 0.3, 1.1, 7.0,
+                                       carries, **kw)
+    assert torch.equal(acc, acc_p) and torch.equal(co, co_p)
+
+
+@pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
+def test_k2k_any_d_matches_plain(dev, direction):
+    """K2k past D = 320 (the shared-memory instance) on a whole image: equal
+    to the lane-form plain pass bitwise, and to `knight_adj`'s line form
+    within 1e-4 (another sum order where lines overlap)."""
+    cv = _volume(dev, (24, 60, 384), torch.float32)
+    acc = torch.rand(cv.shape, device=dev)
+    want = sgm_knight_pass_plain(cv, acc.clone(), direction, 0.1, 0.5, 100.0)
+    lane_form = acc.clone()
+    sgm_knight_shard_pass_plain(cv, lane_form, direction, 0.1, 0.5, 100.0)
+    got = sgm_knight_pass(cv, acc, direction, 0.1, 0.5, 100.0)
+    assert torch.equal(got, lane_form)
+    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("shape", LANE_SHAPES)
+@pytest.mark.parametrize("diag", [False, True])
+@pytest.mark.parametrize("reverse", [False, True])
+def test_k4c_equals_plain(dev, shape, diag, reverse):
+    """K4c: K4b's row sweep on rows [3, 3 + H) of H + 9 from random carries,
+    fresh and accumulating: the adj volume and the carries out equal the
+    plain version's to the bit."""
+    H, W, D = shape
+    g = torch.Generator(device=dev).manual_seed(W)
+    cv = torch.rand(shape, generator=g, device=dev) * 3
+    carries = torch.rand((3 if diag else 1, W, D), generator=g,
+                         device=dev) * 2
+    kw = dict(col0=0, W_pout=W, P1=0.3, P2=1.1, Pout=7.0)
+    for acc in (None, torch.rand(shape, generator=g, device=dev)):
+        want = lane.fused_rows_shard_pass_plain(
+            cv, None if acc is None else acc.clone(), carries, 3, H + 9,
+            reverse, diag, **kw)
+        before = lane.fused_rows_shard_pass.launches
+        got = lane.fused_rows_shard_pass(cv, acc, carries, 3, H + 9, reverse,
+                                         diag, **kw)
+        assert lane.fused_rows_shard_pass.launches == before + 1
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _shards(x, sizes):
+    return list(x.split(sizes))
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8, 16])
+def test_distributed_sgm_equals_single_device(dev, n_dirs):
+    """Distributed SGM on 4 virtual shards of the card (odd and unequal
+    shard heights, an odd width) equals the single-device
+    `sgm_cost_volume` bit for bit: K2s relayed (D <= 320), and for 4 and 8
+    directions at D = 330 K4c relayed."""
+    from libstevi_tpu_torch.parallel.sgm_dist import (
+        distributed_sgm_fused, distributed_sgm_fused_dhw,
+        distributed_sgm_routed)
+    g = torch.Generator(device=dev).manual_seed(n_dirs)
+    cv = torch.rand((29, 37, 24), generator=g, device=dev) * 4
+    sizes = [7, 9, 5, 8]
+    want = sgm_cost_volume(cv, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
+    before = (sgm_shard_pass.launches, sgm_knight_shard_pass.launches)
+    got = torch.cat(distributed_sgm_fused_dhw(_shards(cv, sizes), 0.3, 1.1,
+                                              7.0, n_dirs))
+    assert sgm_shard_pass.launches > before[0]
+    assert (sgm_knight_shard_pass.launches > before[1]) == (n_dirs == 16)
+    assert torch.equal(got, want)
+    if n_dirs == 16:
+        return
+    wide = torch.rand((21, 30, 330), generator=g, device=dev) * 4
+    want = sgm_cost_volume(wide, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
+    before = lane.fused_rows_shard_pass.launches
+    for fn in (distributed_sgm_fused, distributed_sgm_routed):
+        got = torch.cat(fn(_shards(wide, [5, 6, 4, 6]), 0.3, 1.1, 7.0,
+                           n_dirs))
+        assert torch.equal(got, want)
+    assert lane.fused_rows_shard_pass.launches == before + 16
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8, 16])
+def test_distributed_steps_match_cpu(dev, n_dirs):
+    """`distributed_full_step` (batch 2, tile 2, dsh 2) and
+    `distributed_dense_stereo_step` (batch 2, tile 4) on 8 virtual shards
+    of the card against the same steps on the CPU."""
+    from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
+    from libstevi_tpu_torch.parallel.stereo import (
+        distributed_dense_stereo_step, distributed_full_step)
+    g = torch.Generator(device=dev).manual_seed(3)
+    ls = torch.rand((2, 32, 48), generator=g, device=dev)
+    rs = torch.rand((2, 32, 48), generator=g, device=dev)
+    for step, spec in ((distributed_full_step, MeshSpec(2, 2, 2)),
+                       (distributed_dense_stereo_step, MeshSpec(2, 4))):
+        outs = []
+        for d in (dev, torch.device("cpu")):
+            mesh = make_stereo_mesh(spec, [d] * 8)
+            fn = step(mesh, MatchingFunction.ZNCC, 2, 2, 12, 0.1, 0.5,
+                      n_directions=n_dirs)
+            outs.append(fn(ls.to(d), rs.to(d)).cpu())
+        assert outs[0].shape == (2, 32, 48)
+        assert (outs[0] == outs[1]).float().mean().item() > 0.999

@@ -1,0 +1,133 @@
+"""The port's distributed SGM engines (`libstevi_tpu_torch/parallel/
+sgm_dist.py`, plain versions of K2, K2s and K4c on the CPU) against the JAX
+package's same functions in `shard_map` over 4 or 8 virtual CPU devices,
+Pallas in interpret mode, at JAX's own test shapes."""
+
+import numpy as np
+import jax
+import jax.numpy as jnp
+import pytest
+import torch
+from jax.sharding import PartitionSpec as P
+
+from libstevi_tpu.ops import sgm_cost_volume as j_sgm
+from libstevi_tpu.parallel import MeshSpec as JMeshSpec
+from libstevi_tpu.parallel import make_stereo_mesh as j_mesh
+from libstevi_tpu.parallel.sgm_dist import (
+    distributed_sgm as j_dist_sgm,
+    distributed_sgm_fused as j_dist_fused,
+    distributed_sgm_fused_dhw as j_dist_dhw)
+from libstevi_tpu_torch.ops import sgm_cost_volume
+from libstevi_tpu_torch.parallel.sgm_dist import (distributed_sgm,
+                                                  distributed_sgm_fused,
+                                                  distributed_sgm_fused_dhw,
+                                                  distributed_sgm_routed)
+
+torch.set_num_threads(2)
+pytestmark = pytest.mark.skipif(len(jax.devices()) < 8,
+                                reason="needs 8 virtual devices")
+TOL = dict(rtol=1e-4, atol=1e-4)
+
+
+def _jax_tiles(fn, cv, n=4):
+    """fn over ``n`` row shards in `shard_map`, on the virtual devices."""
+    mesh = j_mesh(JMeshSpec(tile=n), jax.devices()[:n])
+    f = jax.shard_map(fn, mesh=mesh, in_specs=P("tile"), out_specs=P("tile"),
+                      check_vma=False)
+    return np.asarray(jax.jit(f)(jnp.asarray(cv)))
+
+
+def _port_tiles(fn, cv, n=4):
+    shards = list(torch.from_numpy(cv).split(cv.shape[0] // n))
+    return torch.cat(fn(shards)).numpy()
+
+
+def test_distributed_sgm_matches_jax(rng):
+    """4 directions, 32x24x8 on 4 shards: K2 and K2s (plain) against JAX's
+    `lax.scan` relay."""
+    cv = rng.uniform(0, 1, (32, 24, 8)).astype(np.float32)
+    want = _jax_tiles(lambda c: j_dist_sgm(c, 0.1, 0.4, axis_name="tile"),
+                      cv)
+    got = _port_tiles(lambda s: distributed_sgm(s, 0.1, 0.4), cv)
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-6)
+
+
+@pytest.mark.parametrize("shape,nd", [((32, 20, 7), 8), ((36, 13, 5), 8),
+                                      ((36, 13, 5), 4)])
+def test_distributed_sgm_fused_matches_jax(rng, shape, nd):
+    """K4c (plain) relayed down and up + K4b's column scans against JAX's
+    lane-layout shard kernels; H_loc = 9 puts padded kernel rows into the
+    JAX relay."""
+    cv = rng.uniform(0, 4, shape).astype(np.float32)
+    want = _jax_tiles(lambda c: j_dist_fused(
+        c, 0.3, 1.1, 7.0, n_directions=nd, interpret=True), cv)
+    got = _port_tiles(lambda s: distributed_sgm_fused(s, 0.3, 1.1, 7.0, nd),
+                      cv)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+DHW_CASES = [((32, 20, 7), 8), ((36, 13, 5), 8), ((36, 13, 5), 4),
+             ((32, 24, 7), 16), ((16, 24, 5), 16),
+             # H_loc = 9 (odd), W % 4 != 0, both
+             ((36, 24, 5), 16), ((32, 22, 5), 16), ((36, 28, 5), 16)]
+
+
+@pytest.mark.parametrize("shape,nd", DHW_CASES)
+def test_distributed_sgm_fused_dhw_matches_jax(rng, shape, nd):
+    """K2 and K2s (plain) against JAX's DHW shard kernels: 4 and 8
+    directions, and 16 with the knight relay across row shards and the
+    column-shard stage for the left/right knights, at odd shard heights
+    and widths that do not split evenly."""
+    cv = rng.uniform(0, 4, shape).astype(np.float32)
+    want = _jax_tiles(lambda c: j_dist_dhw(
+        c, 0.3, 1.1, 7.0, n_directions=nd, interpret=True), cv)
+    got = _port_tiles(lambda s: distributed_sgm_fused_dhw(s, 0.3, 1.1, 7.0,
+                                                          nd), cv)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_distributed_sgm_fused_dhw_8_shards_matches_jax(rng):
+    """48x96x16 over all 8 virtual devices (H_loc = 6)."""
+    cv = rng.uniform(0, 4, (48, 96, 16)).astype(np.float32)
+    want = _jax_tiles(lambda c: j_dist_dhw(
+        c, 0.3, 1.1, 7.0, n_directions=8, interpret=True), cv, 8)
+    got = _port_tiles(lambda s: distributed_sgm_fused_dhw(s, 0.3, 1.1, 7.0,
+                                                          8), cv, 8)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("nd", [4, 8, 16])
+def test_unequal_shards_equal_single_device(rng, nd):
+    """Shards of unequal, odd heights (no JAX counterpart: `shard_map`
+    splits evenly) against the single-device plain `sgm_cost_volume`."""
+    cv = torch.from_numpy(rng.uniform(0, 4, (29, 17, 6)).astype(np.float32))
+    want = sgm_cost_volume(cv, 0.3, 1.1, Pout=7.0, n_directions=nd)
+    got = torch.cat(distributed_sgm_fused_dhw(list(cv.split([8, 3, 11, 7])),
+                                              0.3, 1.1, 7.0, nd))
+    torch.testing.assert_close(got, want, **TOL)
+    if nd < 16:
+        got = torch.cat(distributed_sgm_fused(list(cv.split([8, 3, 11, 7])),
+                                              0.3, 1.1, 7.0, nd))
+        torch.testing.assert_close(got, want, **TOL)
+
+
+@pytest.mark.parametrize("nd", [4, 8, 16])
+def test_routed_engine_and_p2_below_p1(rng, nd):
+    """The pipelines' rule: P2 < P1 runs the plain dense-penalty passes
+    (against JAX's XLA path), D > 320 with 4 or 8 directions K4c, and 16
+    directions at D > 320 raise."""
+    cv = rng.uniform(0, 4, (20, 11, 6)).astype(np.float32)
+    want = np.asarray(j_sgm(jnp.asarray(cv), 0.9, 0.2, Pout=7.0,
+                            n_directions=nd, backend="xla"))
+    got = torch.cat(distributed_sgm_routed(
+        list(torch.from_numpy(cv).split(5)), 0.9, 0.2, 7.0, nd)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    wide = torch.from_numpy(rng.uniform(0, 4, (8, 5, 330)).astype(np.float32))
+    if nd >= 16:
+        with pytest.raises(ValueError, match="D <= 320"):
+            distributed_sgm_routed(list(wide.split(2)), 0.1, 0.5, 7.0, nd)
+        return
+    want = sgm_cost_volume(wide, 0.1, 0.5, Pout=7.0, n_directions=nd)
+    got = torch.cat(distributed_sgm_routed(list(wide.split(2)), 0.1, 0.5,
+                                           7.0, nd))
+    assert torch.equal(got, want)         # K4c's plain version, same order

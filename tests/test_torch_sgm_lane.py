@@ -248,7 +248,7 @@ def test_p2_below_p1_matches_jax(n_dirs):
     (384, 8, 0.1, 0.5, 3840, True, None, "chunked"),
     (384, 16, 0.5, 0.1, 640, True, None, "dense"),
     (24, 8, 0.5, 0.1, 96, True, None, "dense"),
-    (384, 16, 0.1, 0.5, 640, False, None, "scan"),
+    (384, 16, 0.1, 0.5, 640, False, None, "fused"),
 ])
 def test_sgm_route(D, n_dirs, p1, p2, W, cuda, budget, want):
     """Which engine each configuration takes, decided without a device
@@ -265,11 +265,46 @@ def test_sgm_route(D, n_dirs, p1, p2, W, cuda, budget, want):
 
 
 def test_sixteen_directions_past_d320_raise_on_cuda_only():
-    with pytest.raises(NotImplementedError, match="ROADMAP.md"):
-        sgm_route(384, 16, 0.1, 0.5, True)
+    """16 directions past D = 320 once raised for a CUDA tensor (K2k kept D
+    in registers).  They take the lane route on both devices now, with
+    K2k's any-D instance for the knights; only the distributed engine
+    refuses them (`parallel.sgm_dist.distributed_sgm_routed`)."""
+    from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
+    assert sgm_route(384, 16, 0.1, 0.5, True) == "lane"
+    assert sgm_route(384, 16, 0.1, 0.5, False) == "lane"
     cv = torch.from_numpy(_cv(11, (4, 5, 330)))
     got = sgm_cost_volume(cv, 0.1, 0.5, n_directions=16)    # CPU: plain
     assert got.shape == cv.shape and torch.isfinite(got).all()
+    with pytest.raises(ValueError, match="D <= 320"):
+        distributed_sgm_routed(list(cv.split(2)), 0.1, 0.5, n_directions=16)
+
+
+@pytest.mark.parametrize("route", ["fused", "chunked"])
+def test_sixteen_directions_d330_match_jax(monkeypatch, route):
+    """The 16-direction lane route at D = 330 (K4b, or K4d, with the knight
+    passes before the last column scan) against JAX's XLA path: the volume
+    at 1e-4, and `sgm_wta_truncated`'s WTA (knights in the accumulator
+    before the WTA scan) off near-ties."""
+    cv = _cv(13, (9, 14, 330))
+    if route == "chunked":
+        monkeypatch.setattr(lane, "SMEM_BLOCK", 8000)
+    assert (lane.fused_adj(torch.from_numpy(cv), 0, 14, P1, P2, POUT, 16)
+            is not None) == (route == "fused")
+    want = np.asarray(j_sgm(jnp.asarray(cv), P1, P2, Pout=POUT,
+                            n_directions=16, backend="xla"))
+    got = sgm_cost_volume(torch.from_numpy(cv), P1, P2, Pout=POUT,
+                          n_directions=16).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    ij, tj = j_wta(jnp.asarray(cv), P1, P2, Pout=POUT, n_directions=16,
+                   h_radius=1, v_radius=1, backend="xla")
+    it, tt = sgm_wta_truncated(torch.from_numpy(cv), P1, P2, Pout=POUT,
+                               n_directions=16, h_radius=1, v_radius=1)
+    ij, tj, it, tt = (np.asarray(ij), np.asarray(tj), it.numpy(), tt.numpy())
+    two = np.sort(want, -1)[..., :2]
+    clear = (two[..., 1] - two[..., 0]) > 1e-3
+    np.testing.assert_array_equal(it[clear], ij[clear])
+    same = it == ij
+    np.testing.assert_allclose(tt[same], tj[same], equal_nan=True, **TOL)
 
 
 def test_fused_adj_returns_none_past_its_budget():
