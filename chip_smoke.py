@@ -7,8 +7,12 @@ each kernel against its plain PyTorch version: K1 box cost volume, K2 SGM
 pass, K2k knight-direction SGM pass (all 8 directions, run twice: the same
 acc both times) and K3 SGM pass + WTA at the flagship shape, at an odd
 shape and at D=300 (40x360), in float32 and bfloat16, and at the HD path's
-shape (720x1280, D=320) in bfloat16; the SGM entries with margins against
-the CPU; K5 feature-volume cost volume at the WTA path's
+shape (720x1280, D=320) in bfloat16, and at each the WTA path's one-launch
+form (the 7 K2 directions in one launch, a volume each, K3 summing them in
+order) bitwise against the sequential accumulator and against the plain
+versions; the
+SGM entries with margins against the CPU; K5 feature-volume cost volume at
+the WTA path's
 shape (480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset
 search, an RGB F=147 input); K6 PatchMatch sweep and K7 probe, exactly, on
 the 480x640x120 NCC volume; the lane-layout SGM kernels past D = 320,
@@ -48,23 +52,31 @@ each with the launch counts set to 0 just before it and read just after:
   route's idx off near-ties, each held to the `zncc_sgm8_f32` bars;
 - the distributed paths (`libstevi_tpu_torch.parallel`) on 8 virtual
   shards of the card, after K2s (on a 60x640x120 row shard and a
-  480x80x120 column shard), K4c (on a 120x640x384 row shard) and the
-  any-D K2k (480x640x384) are held to their plain versions bitwise: SGM-8
-  and SGM-16 over the flagship geometry's row shards (480x640x120, tile
-  8; K2s) and SGM-8 at 480x640x384 (tile 4; K4c), each volume equal to
-  the single-device route's bitwise; `distributed_full_step` on a (2, 2,
-  2) mesh and `distributed_dense_stereo_step` on (2, 4) over the two
+  480x80x120 column shard), K4c (on a 120x640x384 row shard), the any-D
+  K2k (480x640x384), the any-D K2 (120x160x330, 7 passes, f32 and bf16,
+  at 1e-4) and K2s at D=330 (bitwise) are held to their plain versions:
+  SGM-8 and SGM-16 over the flagship geometry's row shards (480x640x120,
+  tile 8; K2s), SGM-8 at 480x640x384 (tile 4; K4c) and SGM-16 there (K4c
+  and the knight relays through K2s), each volume equal to the
+  single-device route's bitwise; `distributed_full_step` on a (2, 2, 2)
+  mesh and `distributed_dense_stereo_step` on (2, 4) over the two
   fixtures as a batch of 2, indices held to the single-device route's at
-  >= 0.999 agreement; `entry.dryrun_multichip(8)`;
+  >= 0.999 agreement; `entry.dryrun_multichip(8)`; SGM-4/8/16 at
+  48x64x330 (tile 4; K2 and K2s past D = 320) against the CPU at 1e-4;
 - SGM-16 at D=384 (`dense_sgm_stereo`: K1, K4b and the any-D K2k) on a
-  random pair.
+  random pair;
+- `aggregate_cost` 'auto' with ZSAD r=5 (F=121) over D=448, past K5's
+  tile: the shifted-compare loop on the card, against the CPU.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
 SGM-16 bars, and again with ``-d 384``.  P2 < P1 runs small on the card
 against the CPU.  It checks that each kernel was launched in its path,
 times the frames and each kernel against its plain version (CUDA events,
-median of 5), and prints one JSON line of kernel records (each with its
+median of 5), measures the flagship and HD frames' peak device memory,
+times K2's two forms with K3 (one launch, or 7 launches into one
+accumulator) from 480x640 to 2160x3840 with their peak memory and equal
+outputs, and prints one JSON line of kernel records (each with its
 least time on the card, ``bound_ms``, from this run's shapes), the card's
 name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
 failed check raises: the exit code is then non-zero and no result line is
@@ -198,6 +210,44 @@ def exact(got, want, tag):
     return 0.0
 
 
+def k3_vs_plain(cv, acc, tag):
+    """K3 over ``acc`` (one volume or a stack of direction volumes) against
+    its plain version: idx equal away from near-ties (gap > 1e-4) and on
+    >= 0.999 of the pixels, bands, the truncated volume's NaNs and disp
+    within 1e-4 where idx agrees.  Returns the max abs error."""
+    from libstevi_tpu_torch.ops.sgm import (SgmDirection, direction_adj,
+                                            _tcv_from_bands)
+    from libstevi_tpu_torch.ops.sgm_cuda import _acc_sum, sgm_wta, sgm_wta_plain
+    H, W, D = cv.shape
+    idx, bands, disp = sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True)
+    idx_p, bands_p, disp_p = sgm_wta_plain(cv, acc, P1, P2, POUT, 1, 3, 3,
+                                           True)
+    C = (_acc_sum(acc) + direction_adj(cv.float(), SgmDirection.RIGHT2LEFT,
+                                       P1, P2, POUT) + cv.float())
+    two = torch.topk(C, 2, dim=-1, largest=False).values
+    clear = (two[..., 1] - two[..., 0]) > 1e-4
+    del C, two
+    torch.cuda.synchronize()
+    same = idx == idx_p
+    assert torch.equal(idx[clear], idx_p[clear]), tag
+    agree = same.float().mean().item()
+    assert agree >= 0.999, (tag, agree)
+    torch.testing.assert_close(bands[same], bands_p[same], rtol=1e-4,
+                               atol=1e-4)
+    _, tcv = _tcv_from_bands(idx, bands, H, W, D, 3, 3, 1)
+    _, tcv_p = _tcv_from_bands(idx_p, bands_p, H, W, D, 3, 3, 1)
+    assert torch.equal(torch.isnan(tcv[same]), torch.isnan(tcv_p[same]))
+    assert torch.equal(torch.isnan(disp[same]), torch.isnan(disp_p[same]))
+    f = same & torch.isfinite(disp_p)
+    torch.testing.assert_close(disp[f], disp_p[f], rtol=1e-4, atol=1e-4)
+    fin = same[..., None] & torch.isfinite(bands_p)
+    e3 = max((bands - bands_p).abs()[fin].max().item(),
+             (disp - disp_p).abs()[f].max().item())
+    print(f"{tag}: idx agree {agree:.6f}, max |kernel - plain| = {e3:.3g}",
+          flush=True)
+    return e3
+
+
 def shift_rows_gather(x, W_out, base, slope):
     """K4a's function as one `torch.gather` (the library yardstick; the
     port does not call it)."""
@@ -211,6 +261,68 @@ def bf16_ulp(x):
     """One bfloat16 ulp of each f32 value (8 significant bits)."""
     _, e = torch.frexp(x)
     return torch.ldexp(torch.ones_like(x), (e - 8).int())
+
+
+def peak_bytes(fn):
+    """The peak device memory ``fn()`` allocates above what was allocated
+    before it, in bytes."""
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    return torch.cuda.max_memory_allocated() - base
+
+
+# K2's two forms across frame sizes (bf16 volumes): the flagship, HD, full
+# HD and 4K, whose directions have 1119 to 5999 lines at most
+FORM_SHAPES = ((480, 640, 120), (720, 1280, 320), (1080, 1920, 256),
+               (2160, 3840, 128))
+
+
+def k2_forms(dev, k2_dirs, smi):
+    """K2's two forms with K3 after each, at each of FORM_SHAPES: the 7
+    directions in one launch, a volume each (`direction_volumes`), and 7
+    launches into one accumulator (`sgm_accumulate`).  Holds K3's outputs
+    of the two equal bitwise, times K2 and K3 of each (CUDA events, median
+    of 5), measures the peak memory of K2 + K3 of each, and prints the form
+    `sgm_wta_fused` takes there."""
+    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.ops.box_cuda import box_cv
+    from libstevi_tpu_torch.ops.sgm_cuda import (_one_launch,
+                                                 direction_volumes,
+                                                 sgm_accumulate, sgm_wta)
+    for H, W, D in FORM_SHAPES:
+        L, R = pair(H, W, 5, dev)
+        cv = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, D, torch.bfloat16,
+                    negate=True)
+        del L, R
+        chosen = "one launch" if _one_launch(cv, k2_dirs) else "in series"
+        row, outs = {}, {}
+        for form, k2 in (("one launch", direction_volumes),
+                         ("in series", sgm_accumulate)):
+            def both():
+                acc = k2(cv, k2_dirs, P1, P2, POUT)
+                outs[form] = sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True)
+
+            torch.cuda.empty_cache()
+            peak = peak_bytes(both)
+            k2_ms = median_ms(lambda: k2(cv, k2_dirs, P1, P2, POUT))
+            acc = k2(cv, k2_dirs, P1, P2, POUT)
+            k3_ms = median_ms(lambda: sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3,
+                                              True))
+            del acc
+            row[form] = f"K2 {k2_ms:.3f} ms + K3 {k3_ms:.3f} ms, peak " \
+                        f"{peak / 1e9:.3f} GB"
+        for a, b in zip(outs["one launch"], outs["in series"]):
+            exact(torch.nan_to_num(a, 9.0), torch.nan_to_num(b, 9.0),
+                  ("K2 forms", H, W, D))
+        print(f"K2 forms {H}x{W}x{D} bf16: one launch {row['one launch']}; "
+              f"in series {row['in series']}; K3's outputs equal bitwise; "
+              f"sgm_wta_fused takes {chosen} (median of 5; {smi})",
+              flush=True)
+        del cv, outs
+        torch.cuda.empty_cache()
 
 
 def distributed(dev, pairs, smi):
@@ -230,22 +342,24 @@ def distributed(dev, pairs, smi):
                                         unfold_based_cost_volume)
     from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
     from libstevi_tpu_torch.ops.box_cuda import box_cv
-    from libstevi_tpu_torch.ops.sgm import _KNIGHT_DIRS, directions_for
+    from libstevi_tpu_torch.ops.sgm import (_KNIGHT_DIRS, SgmDirection,
+                                            directions_for)
     from libstevi_tpu_torch.ops.sgm_cuda import (
         sgm_knight_pass, sgm_knight_pass_plain, sgm_knight_shard_pass,
-        sgm_knight_shard_pass_plain, sgm_pass, sgm_shard_pass,
-        sgm_shard_pass_plain)
+        sgm_knight_shard_pass_plain, sgm_pass, sgm_pass_plain,
+        sgm_shard_pass, sgm_shard_pass_plain)
     from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
     from libstevi_tpu_torch.parallel.sgm_dist import (
-        _column_split, carry_relay, distributed_sgm_fused,
-        distributed_sgm_fused_dhw)
+        _column_split, carry_relay, distributed_sgm, distributed_sgm_fused,
+        distributed_sgm_fused_dhw, distributed_sgm_routed)
     from libstevi_tpu_torch.parallel.stereo import (
         distributed_dense_stereo_step, distributed_full_step)
 
     ZNCC, SCORE = MatchingFunction.ZNCC, ExtractionStrategy.SCORE
     H, W, D, DW = 480, 640, 120, 384
     Q = (0.3, 1.1, 7.0)          # JAX's flagship-geometry test's P1, P2, Pout
-    err = {"K2s": 0.0, "K4c": 0.0, "K2k any-D": 0.0}
+    DA = 330                     # past K2's register instance (D <= 320)
+    err = {"K2s": 0.0, "K4c": 0.0, "K2k any-D": 0.0, "K2 any-D": 0.0}
     g = torch.Generator(device=dev).manual_seed(21)
     cv = torch.rand((H, W, D), generator=g, device=dev) * 4
     cvw = torch.rand((H, W, DW), generator=g, device=dev) * 4
@@ -314,11 +428,36 @@ def distributed(dev, pairs, smi):
     del a, a_l
     print(f"K2k any-D {H}x{W}x{DW} f32, 8 directions: equal to the lane-form "
           f"plain pass bitwise, within {e_kd:.3g} of `knight_adj`", flush=True)
+    # K2 past D = 320 (the shared-memory instance): 7 passes on a whole
+    # 120x160x330 volume in f32 and bf16, then K2s on rows 40-79 of it
+    # from random carries, bitwise
+    cva = torch.rand((120, 160, DA), generator=g, device=dev) * 4
+    for dt in (torch.float32, torch.bfloat16):
+        x = cva.to(dt)
+        a, a_p = (torch.empty(cva.shape, device=dev) for _ in range(2))
+        for k, d in enumerate(PRINC + [SgmDirection.LEFT2RIGHT]):
+            sgm_pass(x, a, d, *Q, accumulate=k > 0)
+            sgm_pass_plain(x, a_p, d, *Q, accumulate=k > 0)
+        err["K2 any-D"] = max(err["K2 any-D"], close(a, a_p))
+    blk = cva[40:80].contiguous()
+    for d in PRINC:
+        a = torch.rand(blk.shape, generator=g, device=dev)
+        a_p = a.clone()
+        c = torch.rand((160, DA), generator=g, device=dev)
+        out = (sgm_shard_pass(blk, a, d, *Q, True, c, 40, 120),
+               sgm_shard_pass_plain(blk, a_p, d, *Q, True, c, 40, 120))
+        exact(a, a_p, ("K2s D=330", d.name))
+        exact(out[0], out[1], ("K2s D=330 carries", d.name))
+    print(f"K2 any-D 120x160x{DA} f32 and bf16, 7 passes: within "
+          f"{err['K2 any-D']:.3g} of the plain passes; K2s on rows 40-79 from "
+          f"random carries: equal to the plain version bitwise", flush=True)
+    del a, a_p, blk
 
     # -- the distributed paths -------------------------------------------------
     ref8 = sgm_cost_volume(cv, *Q[:2], Pout=Q[2], n_directions=8)
     ref16 = sgm_cost_volume(cv, *Q[:2], Pout=Q[2], n_directions=16)
     refw = sgm_cost_volume(cvw, *Q[:2], Pout=Q[2], n_directions=8)
+    refw16 = sgm_cost_volume(cvw, *Q[:2], Pout=Q[2], n_directions=16)
     ls = torch.stack([pairs[n][0][0] for n in ("warp", "occluded")])
     rs = torch.stack([pairs[n][0][1] for n in ("warp", "occluded")])
     F = dict(h_radius=3, v_radius=3, disp_width=D, P1=0.1, P2=0.5,
@@ -331,6 +470,8 @@ def distributed(dev, pairs, smi):
             c, 0.1, 0.5, n_directions=8, strategy=SCORE), SCORE)
 
     ref_idx = torch.stack([single_idx(L, R) for L, R in zip(ls, rs)])
+    cv_a = torch.rand((48, 64, DA), generator=g, device=dev) * 4
+    sha = list(cv_a.split(12))
     mesh222 = make_stereo_mesh(MeshSpec(batch=2, tile=2, dsh=2), devs8)
     mesh24 = make_stereo_mesh(MeshSpec(batch=2, tile=4), devs8)
     full = distributed_full_step(mesh222, ZNCC, **F)
@@ -344,6 +485,7 @@ def distributed(dev, pairs, smi):
     d8 = torch.cat(distributed_sgm_fused_dhw(sh8, *Q, 8))
     d16 = torch.cat(distributed_sgm_fused_dhw(sh8, *Q, 16))
     dw = torch.cat(distributed_sgm_fused(sh4, *Q, 8))
+    dw16 = torch.cat(distributed_sgm_routed(sh4, *Q, 16))
     out_full, out_dense = full(ls, rs), dense(ls, rs)
     dry = entry.dryrun_multichip(8, device=dev)
     torch.cuda.synchronize()
@@ -355,17 +497,46 @@ def distributed(dev, pairs, smi):
                 "K4b cols": lane.fused_cols_pass.launches}
     print(f"distributed path (8 virtual shards of the card): flagship "
           f"geometry SGM-8 and SGM-16 (tile 8), K4c at {H}x{W}x{DW} (tile "
-          f"4), the full step (2, 2, 2) and the dense step (2, 4) on the two "
-          f"fixtures, dryrun_multichip(8): {wall:.3f} s host wall (first "
-          f"calls), launches {launches}", flush=True)
+          f"4; SGM-16: with the knight relays), the full step (2, 2, 2) and "
+          f"the dense step (2, 4) on the two fixtures, dryrun_multichip(8): "
+          f"{wall:.3f} s host wall (first calls), launches {launches}",
+          flush=True)
     assert launches["K2s"] > 0 and launches["K4c"] > 0, launches
     for tag, got, want in (("SGM-8 tile 8", d8, ref8),
                            ("SGM-16 tile 8", d16, ref16),
-                           (f"K4c SGM-8 {H}x{W}x{DW} tile 4", dw, refw)):
+                           (f"K4c SGM-8 {H}x{W}x{DW} tile 4", dw, refw),
+                           (f"K4c + K2s knights SGM-16 {H}x{W}x{DW} tile 4",
+                            dw16, refw16)):
         exact(got, want, tag)
         print(f"  {tag}: the distributed volume equals the single-device "
               f"route's bitwise", flush=True)
-    del d8, d16, dw, ref8, ref16, refw
+    del d8, d16, dw, dw16, ref8, ref16, refw, refw16
+    # SGM-4/8/16 past D = 320 over row shards: K2 and K2s take any D (their
+    # shared-memory instances), against the same engines on the CPU
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    da = [torch.cat(distributed_sgm(sha, *Q))]
+    da += [torch.cat(distributed_sgm_fused_dhw(sha, *Q, n))
+           for n in (8, 16)]
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches["K2 any-D"] = sgm_pass.launches + sgm_shard_pass.launches
+    print(f"distributed SGM-4/8/16 at {tuple(cv_a.shape)} (tile 4): "
+          f"{wall:.3f} s host wall (first calls), launches K2 "
+          f"{sgm_pass.launches}, K2s {sgm_shard_pass.launches} (principal), "
+          f"{sgm_knight_shard_pass.launches} (knights)", flush=True)
+    assert sgm_pass.launches > 0 and sgm_shard_pass.launches > 0
+    sha_c = [x.cpu() for x in sha]
+    want = [torch.cat(distributed_sgm(sha_c, *Q))]
+    want += [torch.cat(distributed_sgm_fused_dhw(sha_c, *Q, n))
+             for n in (8, 16)]
+    for n, got, w in zip((4, 8, 16), da, want):
+        e = close(got.cpu(), w)
+        print(f"  SGM-{n} {tuple(cv_a.shape)} tile 4 (K2 and K2s past D = "
+              f"320): within {e:.3g} of the CPU run", flush=True)
+    del da, want, sha_c
     for tag, got in (("full step (2, 2, 2)", out_full),
                      ("dense step (2, 4)", out_dense)):
         assert got.shape == (2, H, W) and got.dtype == torch.int32
@@ -462,7 +633,15 @@ def distributed(dev, pairs, smi):
         for d in _KNIGHT_DIRS:
             fn(cvw, acc_w, d, *Q)
 
+    def k2a_job(fn):
+        """7 K2 passes past D = 320 (the shared-memory instance) on the
+        480x640x384 volume."""
+        for k, d in enumerate(PRINC + [SgmDirection.LEFT2RIGHT]):
+            fn(cvw, acc_w, d, *Q, accumulate=k > 0)
+
     jobs = {
+        "K2 any-D": (lambda: k2a_job(sgm_pass),
+                     lambda: k2a_job(sgm_pass_plain), 1),
         "K2s": (lambda: k2s_job(sgm_shard_pass, sgm_knight_shard_pass),
                 lambda: k2s_job(sgm_shard_pass_plain,
                                 sgm_knight_shard_pass_plain), 1),
@@ -488,6 +667,8 @@ def distributed(dev, pairs, smi):
         "K4c": bound(2 * NW * 4, SGM_OPS * 6 * NW),
         # cv read once, acc read and written once; 8 directions' DP ops
         "K2k any-D": bound(3 * NW * 4, SGM_OPS * 8 * NW),
+        # cv read once, acc written once; 7 directions' DP ops
+        "K2 any-D": bound(2 * NW * 4, SGM_OPS * 7 * NW),
     }
     return err, launches, ms, bounds
 
@@ -525,7 +706,8 @@ def main() -> int:
     from libstevi_tpu_torch.ops.refinement import (
         InterpolationKernel, refine_disp_cost_interpolation)
     from libstevi_tpu_torch.ops.sgm import _grouped_adj, wta_bands
-    from libstevi_tpu_torch.ops.sgm_cuda import sgm_accumulate, sgm_wta_fused
+    from libstevi_tpu_torch.ops.sgm_cuda import (_acc_sum, direction_volumes,
+                                                 sgm_accumulate, sgm_wta_fused)
     from libstevi_tpu_torch.statistics import prop_good, inlier_mae
 
     dev = torch.device("cuda")
@@ -552,7 +734,8 @@ def main() -> int:
     ZNCC = MatchingFunction.ZNCC
     R2L = SgmDirection.RIGHT2LEFT
     k2_dirs = [d for d in directions_for(8) if d is not R2L]
-    err = {"K1": 0.0, "K2": 0.0, "K2k": 0.0, "K3": 0.0}
+    err = {"K1": 0.0, "K2": 0.0, "K2k": 0.0, "K3": 0.0, "K2x7": 0.0,
+           "K3x7": 0.0}
 
     # -- kernel phases: each kernel against its plain version ----------------
     # D=300 takes K = 10 values a lane in K1, K2, K2k and K3; the HD path's
@@ -593,6 +776,7 @@ def main() -> int:
             err["K2"] = max(err["K2"], e2)
             print(f"K2 {tag}: 7 passes, max |kernel - plain| = {e2:.3g}",
                   flush=True)
+            acc_k2p = acc_p.clone()             # the plain 7-direction sum
 
             # K2k: the 8 knight directions on top, twice from one acc
             acc2 = acc.clone()
@@ -608,33 +792,26 @@ def main() -> int:
             print(f"K2k {tag}: 8 directions, two runs equal, max |kernel - "
                   f"plain| = {ek:.3g}", flush=True)
 
-            idx, bands, disp = sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True)
-            idx_p, bands_p, disp_p = sgm_wta_plain(cv, acc, P1, P2, POUT, 1,
-                                                   3, 3, True)
-            C = acc + direction_adj(cv.float(), R2L, P1, P2, POUT) + cv.float()
-            two = torch.topk(C, 2, dim=-1, largest=False).values
-            clear = (two[..., 1] - two[..., 0]) > 1e-4
-            torch.cuda.synchronize()
-            same = idx == idx_p
-            assert torch.equal(idx[clear], idx_p[clear]), tag
-            agree = same.float().mean().item()
-            assert agree >= 0.999, (tag, agree)
-            torch.testing.assert_close(bands[same], bands_p[same], rtol=1e-4,
-                                       atol=1e-4)
-            _, tcv = _tcv_from_bands(idx, bands, H, W, D, 3, 3, 1)
-            _, tcv_p = _tcv_from_bands(idx_p, bands_p, H, W, D, 3, 3, 1)
-            assert torch.equal(torch.isnan(tcv[same]), torch.isnan(tcv_p[same]))
-            assert torch.equal(torch.isnan(disp[same]),
-                               torch.isnan(disp_p[same]))
-            f = same & torch.isfinite(disp_p)
-            torch.testing.assert_close(disp[f], disp_p[f], rtol=1e-4,
-                                       atol=1e-4)
-            fin = same[..., None] & torch.isfinite(bands_p)
-            e3 = max((bands - bands_p).abs()[fin].max().item(),
-                     (disp - disp_p).abs()[f].max().item())
+            e3 = k3_vs_plain(cv, acc, f"K3 {tag}")
             err["K3"] = max(err["K3"], e3)
-            print(f"K3 {tag}: idx agree {agree:.6f}, max |kernel - plain| "
-                  f"= {e3:.3g}", flush=True)
+            # the one-launch form: the 7 directions in one K2 launch, a
+            # volume each, summed in order by K3: the same bits as the
+            # sequence, and K3 over the stack against its plain version
+            stack = direction_volumes(cv, k2_dirs, P1, P2, POUT)
+            seq = sgm_accumulate(cv, k2_dirs, P1, P2, POUT)
+            exact(_acc_sum(stack), seq, ("K2 stack", tag))
+            for a, b in zip(sgm_wta(cv, stack, P1, P2, POUT, 1, 3, 3, True),
+                            sgm_wta(cv, seq, P1, P2, POUT, 1, 3, 3, True)):
+                exact(torch.nan_to_num(a, 9.0), torch.nan_to_num(b, 9.0),
+                      ("K3 stack", tag))
+            err["K2x7"] = max(err["K2x7"],
+                              close(_acc_sum(stack), acc_k2p))
+            err["K3x7"] = max(err["K3x7"],
+                              k3_vs_plain(cv, stack, f"K3 over 7 {tag}"))
+            print(f"K2 {tag}: one launch into 7 volumes sums to the "
+                  f"sequential accumulator bitwise; K3 over them equals K3 "
+                  f"over it bitwise", flush=True)
+            del stack, seq, acc_k2p
 
     # SGM margins: the region runs contiguous (image column offset and
     # width for Pout) and is padded back; against the plain path on the CPU
@@ -864,7 +1041,8 @@ def main() -> int:
         pairs[name] = (imgs, gt)
     _, (Lr, Rr) = entry.entry(dev)
     pairs["random"] = ([Lr, Rr], None)
-    K2K_COUNTERS = (box_cv, sgm_pass, sgm_knight_pass, sgm_wta)
+    K2K_COUNTERS = (box_cv, sgm_pass, direction_volumes, sgm_knight_pass,
+                    sgm_wta)
 
     def reset(*fns):
         for fn in fns:
@@ -877,10 +1055,12 @@ def main() -> int:
            for name, (imgs, _) in pairs.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
-                "K3": sgm_wta.launches}
+    launches = {"K1": box_cv.launches, "K2x7": direction_volumes.launches,
+                "K3x7": sgm_wta.launches}
     print(f"main path: 3 pairs in {wall:.3f} s host wall (first calls), "
-          f"launches {launches}", flush=True)
+          f"launches {launches}, K2 one direction {sgm_pass.launches}",
+          flush=True)
+    # the flagship takes the one-launch form (its 7 volumes, 1.03 GB, fit)
     assert all(n > 0 for n in launches.values()), launches
     for name, (disp, idx, tcv) in out.items():
         assert disp.shape == idx.shape == (480, 640)
@@ -925,12 +1105,13 @@ def main() -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     cs_launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
+                   "K2x7": direction_volumes.launches,
                    "K2k": sgm_knight_pass.launches, "K3": sgm_wta.launches,
                    "K5": fused_fv_cost_volume.launches}
     print(f"census SGM-8 path: 2 pairs in {wall:.3f} s host wall, launches "
           f"{cs_launches} (the census volume runs on the shifted-compare "
           f"loop)", flush=True)
-    assert cs_launches["K2"] > 0 and cs_launches["K3"] > 0, cs_launches
+    assert cs_launches["K2x7"] > 0 and cs_launches["K3"] > 0, cs_launches
     for name, disp in out_cs.items():
         assert disp.shape == (480, 640) and disp.dtype == torch.float32
         check_bars(name, disp, pairs[name][1], CENSUS_BARS[name])
@@ -942,10 +1123,11 @@ def main() -> int:
     dh, ih, th = dense_sgm_stereo(ZNCC, Lh, Rh, **entry.HD_BF16)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    hd_launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
+    hd_launches = {"K1": box_cv.launches, "K2x7": direction_volumes.launches,
                    "K3": sgm_wta.launches}
     print(f"HD path 720x1280x320 bf16: {wall:.3f} s host wall (first call), "
-          f"launches {hd_launches}", flush=True)
+          f"launches {hd_launches}, K2 one direction {sgm_pass.launches}",
+          flush=True)
     assert all(n > 0 for n in hd_launches.values()), hd_launches
     assert dh.shape == (720, 1280) and th.shape == (720, 1280, 3)
     check_random("HD random", dh, ih, 320)
@@ -1169,6 +1351,21 @@ def main() -> int:
         assert 0 <= disp.min().item() and disp.max().item() <= 119
         check_bars(name, disp.float(), pairs[name][1], PM_BARS[name])
 
+    # -- aggregate_cost 'auto' past K5's tile: ZSAD r = 5 (F = 121), D = 448 --
+    # K5's block would need 249,600 bytes of shared memory, so 'auto' takes
+    # the shifted-compare loop on the card (no K5 launch), as JAX's 'auto'
+    # falls back past its VMEM budget; against the CPU
+    Lz, Rz = pair(24, 470, 19, dev)
+    k5_before = fused_fv_cost_volume.launches
+    cv_z = unfold_based_cost_volume(ZSAD, Lz, Rz, 5, 5, 448)
+    assert fused_fv_cost_volume.launches == k5_before
+    e_z = close(cv_z.cpu(), unfold_based_cost_volume(ZSAD, Lz.cpu(), Rz.cpu(),
+                                                     5, 5, 448), 1e-5)
+    print(f"aggregate_cost 'auto' ZSAD r=5 (F=121) D=448 24x470: the "
+          f"shifted-compare loop on the card, within {e_z:.3g} of the CPU",
+          flush=True)
+    del cv_z
+
     # -- the WTA path with ZSAD: both fixtures --------------------------------
     # small, against the plain route on the CPU: volumes within float
     # tolerance, indices equal away from near-ties
@@ -1227,16 +1424,26 @@ def main() -> int:
         frame_times[name] = median_ms(fn)
         print(f"time: {name}: {frame_times[name]:.3f} ms (median of 5; "
               f"{smi})", flush=True)
+    # peak device memory a frame, above what was allocated before it
+    for name, fn in (("flagship", lambda: entry.flagship_forward(L, R)),
+                     ("HD D=320 bf16", lambda: entry.hd_forward(Lh, Rh))):
+        print(f"memory: {name} frame peak {peak_bytes(fn) / 1e9:.3f} GB "
+              f"above the inputs ({smi})", flush=True)
+    k2_forms(dev, k2_dirs, smi)
+
     cv = box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16, negate=True)
-    acc = torch.empty(cv.shape, device=dev)
-    acc_p = torch.empty(cv.shape, device=dev)
+    stack = direction_volumes(cv, k2_dirs, P1, P2, POUT)
+    seq = sgm_accumulate(cv, k2_dirs, P1, P2, POUT)
+    stack_p, acc_p = torch.empty_like(stack), torch.empty_like(seq)
 
-    def k2(fn, a):
+    def k2_plain():                     # 7 directions into one accumulator
         for k, d in enumerate(k2_dirs):
-            fn(cv, a, d, P1, P2, POUT, accumulate=k > 0)
+            sgm_pass_plain(cv, acc_p, d, P1, P2, POUT, accumulate=k > 0)
 
-    for k, d in enumerate(k2_dirs):
-        sgm_pass(cv, acc, d, P1, P2, POUT, accumulate=k > 0)
+    def k2x7_plain():                   # 7 directions, a volume each
+        for d, a in zip(k2_dirs, stack_p):
+            sgm_pass_plain(cv, a, d, P1, P2, POUT, accumulate=False)
+
     cv32 = box_cv(ZNCC, L, R, 3, 3, 120, torch.float32, negate=True)
     acc_k = torch.zeros(cv32.shape, device=dev)
 
@@ -1248,11 +1455,20 @@ def main() -> int:
         "K1": (lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16, True),
                lambda: box_cv_plain(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
                                     True)),
-        "K2": (lambda: k2(sgm_pass, acc_p), lambda: k2(sgm_pass_plain, acc_p)),
+        # K2 as earlier PRs timed it: 7 launches one after another into one
+        # accumulator (SGM-16's form, and SGM-8's where one launch does not
+        # fit); K2x7 the main path's form: the 7 in one launch, a volume
+        # each
+        "K2": (lambda: sgm_accumulate(cv, k2_dirs, P1, P2, POUT), k2_plain),
+        "K2x7": (lambda: direction_volumes(cv, k2_dirs, P1, P2, POUT),
+                 k2x7_plain),
         "K2k": (lambda: k2k(sgm_knight_pass),
                 lambda: k2k(sgm_knight_pass_plain)),
-        "K3": (lambda: sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True),
-               lambda: sgm_wta_plain(cv, acc, P1, P2, POUT, 1, 3, 3, True)),
+        "K3": (lambda: sgm_wta(cv, seq, P1, P2, POUT, 1, 3, 3, True),
+               lambda: sgm_wta_plain(cv, seq, P1, P2, POUT, 1, 3, 3, True)),
+        "K3x7": (lambda: sgm_wta(cv, stack, P1, P2, POUT, 1, 3, 3, True),
+                 lambda: sgm_wta_plain(cv, stack, P1, P2, POUT, 1, 3, 3,
+                                       True)),
     }
     fs, ft = features(ZSAD, R), features(ZSAD, L)
     jobs.update({
@@ -1309,7 +1525,7 @@ def main() -> int:
           f"(median of 5; {smi})", flush=True)
     # the plain knight passes take ~1 s a run, the plain chunked sweeps
     # several
-    plain_reps = {"K2k": 2, "K4b": 2, "K4d": 1}
+    plain_reps = {"K2x7": 3, "K2k": 2, "K4b": 2, "K4d": 1}
     ms = {}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
@@ -1353,10 +1569,16 @@ def main() -> int:
          "libstevi_tpu/ops/box_pallas.py:99", "K1"),
         ("K2 sgm_pass", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2"),
+        ("K2x7 direction_volumes (7 directions in one launch)",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
+         "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2x7"),
         ("K2k sgm_knight_pass", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:107", "K2k"),
         ("K3 sgm_wta", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3"),
+        ("K3x7 sgm_wta over 7 direction volumes",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
+         "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3x7"),
         ("K5 fv_cv", "libstevi_tpu_torch/csrc/fv_cv.cu",
          "libstevi_tpu/ops/fv_backend.py:38", "K5"),
         ("K6 pm_sweep", "libstevi_tpu_torch/csrc/patchmatch.cu",
@@ -1377,22 +1599,34 @@ def main() -> int:
         ("K2k any-D sgm_knight_smem_kernel",
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:107", "K2k any-D"),
+        ("K2 any-D sgm_pass_smem_kernel",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
+         "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2 any-D"),
     ]
-    launches["K2k"] = launches16["K2k"]     # the SGM-16 path's run
+    # the SGM-16 path's run: K2k, and K2 and K3 in their one-accumulator
+    # form (the main path runs K2x7 and K3x7)
+    launches.update({k: launches16[k] for k in ("K2", "K2k", "K3")})
     # K4a is on no path (the JAX package calls it only in a test): its
     # count is the wide path's, as K4b's; K4d's is the full-size K4d run's
     launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
                     K4d=k4d_launches["K4d"])
-    launches.update({k: d_launches[k] for k in ("K2s", "K4c", "K2k any-D")})
+    launches.update({k: d_launches[k]
+                     for k in ("K2s", "K4c", "K2k any-D", "K2 any-D")})
     # bounds from the timed calls' shapes: each input read once, each
     # output written once, and their f32 operations
     HW1, N1 = 480 * 640, 480 * 640 * 120
     NW = WH * WW * WD
     bounds = {
         "K1": bound(2 * HW1 * 4 + N1 * 2, 2 * 49 * N1),
+        # K2's function, in either form: cv read once, the 7 directions'
+        # adjustments written as one f32 volume (K2x7's 7 volumes are its
+        # form's, not the function's)
         "K2": bound(N1 * 2 + N1 * 4, SGM_OPS * 7 * N1),
+        "K2x7": bound(N1 * 2 + N1 * 4, SGM_OPS * 7 * N1),
         "K2k": bound(N1 * 4 + 2 * N1 * 4, SGM_OPS * 8 * N1),
-        "K3": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3) * N1),
+        # cv and one accumulator read once; idx, bands and disp written
+        "K3": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
+        "K3x7": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
         "K5": bound(2 * HW1 * 49 * 4 + N1 * 4, 3 * 49 * N1),
         "K6": bound(5 * HW1 * 4, 4 * HW1),
         "K7": bound(12 * HW1 * 4, 4 * 4 * HW1),

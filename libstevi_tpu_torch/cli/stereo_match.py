@@ -8,14 +8,15 @@ report accuracy against ground truth: the proportion of pixels with
 |err| <= 2.0 ("prop good", `main.cpp:234-258`) and the inlier MAE
 (`main.cpp:275-303`).  The arguments and the JSON report keys are the JAX
 tool's, plus ``--device`` (default ``cuda``; without a GPU that is an
-error, never a silent CPU run).  Images are ``.stevimg`` files.  On the
-card SGM takes any ``-d`` with 4 or 8 directions (past D = 320 through the
-lane-layout kernels K4b / K4d) and ``-d`` up to 320 with 16 directions.
+error, never a silent CPU run).  Images and the ground truth are
+``.stevimg``, ``.pfm``, ``.flo`` or ``.exr`` files.  On the card SGM takes
+any ``-d`` with 4, 8 or 16 directions (past D = 320 through the
+lane-layout kernels K4b / K4d, with K2k's any-D instance for the knights).
 
 Usage:
   python -m libstevi_tpu_torch.cli.stereo_match LEFT RIGHT -o disp.stevimg \\
       -d 120 -m zncc --matcher sgm --sgm-dirs 16 --refine parabola \\
-      [--gt GT.stevimg] [--radius 3] [--device cuda]
+      [--gt GT.pfm] [--radius 3] [--device cuda]
 """
 
 from __future__ import annotations
@@ -50,7 +51,8 @@ def _args(argv):
     ap.add_argument("--precision", default="f32", choices=["f32", "bf16"],
                     help="cost-volume storage type (the SGM DP runs in f32; "
                          "16 directions always store f32)")
-    ap.add_argument("--gt", help="ground-truth disparity (.stevimg)")
+    ap.add_argument("--gt", help="ground-truth disparity (.stevimg, "
+                    ".pfm, .flo or .exr)")
     ap.add_argument("--device", default="cuda",
                     help="torch device: 'cuda' (default), 'cuda:N' or 'cpu'")
     args = ap.parse_args(argv)

@@ -32,8 +32,9 @@
 // rounds the same).  The plain versions in ops/sgm_lane_cuda.py repeat these
 // operations in this order, so kernel and plain version agree to the bit.
 //
-// Unbounded D: K2/K3 (sgm_scan.cu) keep ceil(D/32) <= 10 values a lane in
-// registers.  Here every carry lives in shared memory (D floats per column
+// Unbounded D: K3 (sgm_scan.cu) keeps ceil(D/32) <= 10 values a lane in
+// registers, and K2's any-D instance walks one line a warp.  Here every
+// carry lives in shared memory (D floats per column
 // and direction, double-buffered by row parity so no read of row i-1 races
 // a write of row i); a warp walks one column (or one row, for the column
 // scans), its lanes loop over d in 32-wide slices, the min over d is a loop

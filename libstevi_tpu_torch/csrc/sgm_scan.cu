@@ -3,8 +3,11 @@
 //
 // K2 `sgm_pass_kernel` replaces the TPU kernel `_dhw_rows_kernel` with its DP
 // step `_dw_step` (libstevi_tpu/ops/sgm_pallas_dhw.py:164, :84), launched by
-// `_rows_call` (:581).  One launch runs ONE scan direction and adds that
-// direction's adjustment into the f32 accumulator acc (H, W, D):
+// `_rows_call` (:581).  One launch runs one scan direction, or up to
+// MAX_DIRS of them side by side (the grid's second axis picks the
+// direction, and direction y uses volume y of acc), and adds each
+// direction's adjustment into its f32 accumulator (H, W, D), or writes it
+// there (accumulate = 0):
 //   adj = min(prev[d], prev[d +- 1] + P1, min(prev) + P2) - min(prev)
 //         (+ Pout where j + d >= W, j the image column),  carry = cost + adj,
 // with lines starting from a zero carry and enumerated as `addDirectionalCost`
@@ -37,68 +40,109 @@
 // on which the corner weights and the knight drift parity key.  The
 // parity is a run-time integer, so shards of any height give the whole
 // image's result; the carries relay exactly, so shard after shard equals
-// the whole-image pass bit for bit.  K2k past D = 320 runs
-// `sgm_knight_smem_kernel`, the same lines with the carry in shared memory.
+// the whole-image pass bit for bit.
 //
 // K3 `sgm_wta_kernel` replaces `_dhw_wta_kernel` (sgm_pallas_dhw.py:374,
 // launched at :975): the last direction (right to left) fused with
-// C = cost + acc + adj, the tie-last argmin (the largest d among equal
+// C = acc + adj + cost, the tie-last argmin (the largest d among equal
 // minima), the band C[idx - r .. idx + r] (+inf outside [0, D)) and the
 // parabola subpixel with the SAME-mode NaN rules of `truncated_cost_volume`.
+// acc may come as n volumes, the other directions' adjustments one a
+// volume: K3 sums them in their order, (((a_0 + a_1) + a_2) + ...), which is
+// the sum K2 launches accumulating one after another would leave in one
+// volume, bit for bit (the adjustments are computed alike and added in the
+// same order; only the sign of a zero may differ).
 //
 // Layout and mapping: one warp per scanline; lane l owns d = l + 32k
 // (k < K = ceil(D / 32), so D = 120 takes 4 values a lane), lanes with
-// d >= D hold +inf.  d +- 1 comes from warp shuffles across the k slices and
-// min over d is a shuffle reduction, so the carry never leaves registers and
-// the DP runs in f32 whatever the volume's type.  The volume's D axis is
-// contiguous, so each step reads one pixel's D values with consecutive lanes.
-// For K2 every pixel lies on exactly one line of a direction, so a launch
-// needs no atomics and is deterministic; directions run one launch after
-// another on the caller's stream.  K2 and K2k take the image column of the
-// volume's first column (col0) and the image width (W_pout) for the Pout
-// test, so a region inside SGM margins runs as a volume of its own; K3
-// takes whole images (with margins the caller runs WTA and band itself).
-// D <= 320: K = ceil(D / 32) <= 10 values a lane (K2k: any D, above).  The TPU path needed a
-// (W, D, H) transpose of the volume and of the accumulator for the
-// horizontal passes; this one reads (H, W, D) for every direction.
+// d >= D hold +inf.  d +- 1 come from two warp shuffles a slice (a rotation
+// by one lane each way; lanes 0 and 31 take the neighbouring slice's value),
+// min over d is one `redux.sync` on the order-preserving integer image of
+// the floats (min is exact, so the value is the shuffle tree's), so the
+// carry never leaves registers and the DP runs in f32 whatever the volume's
+// type.  Every pixel lies on exactly one line of a principal direction, so a
+// K2 launch needs no atomics and is deterministic.  K2 and K2k take the
+// image column of the volume's first column (col0) and the image width
+// (W_pout) for the Pout test, so a region inside SGM margins runs as a
+// volume of its own; K3 takes whole images (with margins the caller runs WTA
+// and band itself).  K2 and K2k take any D: past K = 10 register slices
+// (D > 320) they run an instance with the carry in shared memory
+// (`sgm_pass_smem_kernel`, `sgm_knight_smem_kernel`); K3 takes D <= 320.
+// The TPU path needed a (W, D, H) transpose of the volume and of the
+// accumulator for the horizontal passes; this one reads (H, W, D) for every
+// direction.
 //
-// What bounds it on an H100: at 480x640x120 the bf16 volume is 73.7 MB and
-// the f32 acc 147 MB, so one pass moves ~370 MB (~0.11 ms at 3.35 TB/s).  But
-// a scan has only H, W or H + W - 1 lines (480 to 1119 warps for 132 SMs), and
-// each step is a dependent chain of shuffles, so the DP is latency and issue
-// bound, not bandwidth bound.  The next pixel's cost and acc are loaded
-// before the current step's shuffles to hide part of the load latency.  A
-// K2k direction is two such launches in a row, each as long as its longest
-// line, and its phase-1 launch has only H / 2 or W / 2 lines.
-// Left for later PRs: tiles of d per warp with coalesced 16-byte loads, a
-// fused multi-direction pass (fewer acc round trips; for K2k, one phase of
-// one direction beside another direction's), deeper prefetch, and CUDA
-// graphs over the launches.
+// What bounds K2 and K3 on an H100, and what the design does about it.  At
+// 480x640x120 the bf16 volume is 73.7 MB and the f32 acc 147 MB, so one
+// pass moves ~370 MB (~0.11 ms at 3.35 TB/s).  But a scan has only H, W or
+// H + W - 1 lines (480 to 1119 warps for 132 SMs, 528 warp schedulers), and
+// each step of a line waits on the one before.
+// - Loads.  A step that loads its pixel when it needs it waits an HBM round
+//   trip.  So each warp keeps a ring of up to RING stages in shared memory,
+//   fed by the Tensor Memory Accelerator: for the pixel S steps ahead, lane
+//   0 issues one bulk copy of its cost D-vector and lane 1 one of its acc
+//   D-vector (`cp.async.bulk`, completing on the stage's mbarrier), and a
+//   step waits only on its own stage.  A pixel's D-vector is contiguous, so
+//   a stage is one contiguous read a volume (the 16-byte-aligned cover of
+//   the vector: where D * elt % 16 != 0, e.g. D = 300 bf16, it starts
+//   mid-chunk and the step reads from the cover's offset).  The depth S
+//   shrinks where the launch's lines would not all fit the card's shared
+//   memory at once.  Measured on an H100: with TMA feeding the ring the
+//   depth stopped mattering, and bf16 runs as fast as f32; per-lane 16-byte
+//   `cp.async` copies were slower (the warp stalled issuing them).
+// - The step's own chain.  With the loads hidden, a step costs its
+//   instruction chain (the redux, the shuffles, the f32 min/add chain and
+//   the stores, in order on one warp), and a pass has fewer lines than the
+//   card has schedulers, so one direction cannot hide it.  So the WTA path
+//   may run its K2 directions in one launch, one adjustment volume each
+//   (accumulate = 0), and K3 sums those volumes in direction order as it
+//   stages them: the directions' lines together fill the card, and no pass
+//   re-reads an accumulator (the bytes moved are the same as in series).
+//   This costs one f32 volume a direction of device memory, so the caller
+//   takes this form only where the volumes fit (`ops/sgm_cuda.py`).
+// Left for later PRs: several directions in one sweep (the TPU kernel's
+// layout: fewer bytes and no direction volumes), a producer warp that
+// feeds the rings, and CUDA graphs over the launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
 #include <math.h>
+#include <stdint.h>
 
 namespace {
 
-constexpr int WARPS = 4;  // scanlines (warps) per block
+constexpr int WARPS = 4;        // knight scanlines (warps) per block
+constexpr int LINE_WARPS = 2;   // K2 / K3 scanlines (warps) per block
+constexpr int RING = 8;         // K2 / K3 pixels staged ahead of the step
+constexpr int REG_K = 10;       // register slices: D <= 320
+// directions of one K2 launch, and acc volumes K3 sums: SGM-8's
+// directions but K3's own
+constexpr int MAX_DIRS = 7;
 constexpr unsigned FULL = 0xffffffffu;
+
+// The directions of one K2 launch, (di, dj) each; blockIdx.y picks one.
+struct Dirs {
+  int di[MAX_DIRS], dj[MAX_DIRS];
+};
 
 __device__ __forceinline__ float load(const float* p) { return *p; }
 __device__ __forceinline__ float load(const __nv_bfloat16* p) {
   return __bfloat162float(*p);
 }
 
+// min over the warp, exact: the order-preserving integer image of a float
+// (negative values with their magnitude bits flipped) reduced by one
+// redux.sync.  NaN counts as +inf, as fminf treats it beside a number.
 __device__ __forceinline__ float warp_min(float x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = fminf(x, __shfl_xor_sync(FULL, x, o));
-  return x;
+  int i = __float_as_int(isnan(x) ? INFINITY : x);
+  i ^= (i >> 31) & 0x7fffffff;
+  i = __reduce_min_sync(FULL, i);
+  i ^= (i >> 31) & 0x7fffffff;
+  return __int_as_float(i);
 }
 
 __device__ __forceinline__ int warp_max(int x) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) x = max(x, __shfl_xor_sync(FULL, x, o));
-  return x;
+  return __reduce_max_sync(FULL, x);
 }
 
 // One step of the cost-mode recurrence (correlation/sgm.h:230-300; the JAX
@@ -108,31 +152,155 @@ template <int K>
 __device__ __forceinline__ void dp_step(const float (&prev)[K], float (&adj)[K],
                                         int lane, int j, int W, float P1,
                                         float P2, float Pout) {
-  float p[K];
+  float p[K], ru[K], rd[K];
   float lm = INFINITY;
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     p[k] = isfinite(prev[k]) ? prev[k] : INFINITY;
     lm = fminf(lm, p[k]);
   }
+#pragma unroll
+  for (int k = 0; k < K; ++k) {  // lane - 1's and lane + 1's value, cyclic
+    ru[k] = __shfl_sync(FULL, p[k], (lane + 31) & 31);
+    rd[k] = __shfl_sync(FULL, p[k], (lane + 1) & 31);
+  }
   const float m = warp_min(lm);
 #pragma unroll
   for (int k = 0; k < K; ++k) {
-    float up = __shfl_up_sync(FULL, p[k], 1);  // prev[d - 1]
-    const float up_wrap =
-        __shfl_sync(FULL, k > 0 ? p[k > 0 ? k - 1 : 0] : INFINITY, 31);
-    if (lane == 0) up = up_wrap;
-    float dn = __shfl_down_sync(FULL, p[k], 1);  // prev[d + 1]
-    const float dn_wrap =
-        __shfl_sync(FULL, k + 1 < K ? p[k + 1 < K ? k + 1 : k] : INFINITY, 0);
-    if (lane == 31) dn = dn_wrap;
+    // prev[d - 1]: lane 0 takes lane 31's value of the slice below
+    const float up =
+        lane > 0 ? ru[k] : (k > 0 ? ru[k > 0 ? k - 1 : 0] : INFINITY);
+    // prev[d + 1]: lane 31 takes lane 0's value of the slice above
+    const float dn =
+        lane < 31 ? rd[k] : (k + 1 < K ? rd[k + 1 < K ? k + 1 : k] : INFINITY);
     float agg = fminf(fminf(p[k], m + P2), fminf(up + P1, dn + P1));
     if (j + lane + 32 * k >= W) agg += Pout;  // disparity leaves the image
     adj[k] = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
   }
 }
 
-// K2: one scan direction (di, dj) in {-1, 0, 1}^2 \ {(0, 0)}.
+__device__ __forceinline__ float finite_or_inf(float x) {
+  return isfinite(x) ? x : INFINITY;
+}
+
+// ---------------------------------------------------------------------------
+// The staging ring of K2 and K3
+// ---------------------------------------------------------------------------
+// A stage holds one pixel: the 16-byte-aligned cover of its cost D-vector
+// (cb bytes), then that of each staged acc D-vector (ab bytes each).  A
+// vector starts at its address's offset inside the first 16-byte chunk.
+// The cover never leaves the memory pages the vector lies on, so reading it
+// cannot fault.  One lane a vector issues a stage's bulk copies; each stage
+// has an mbarrier that completes when their bytes have landed, once per
+// use, so a stage's k-th use waits on parity k & 1.
+
+__device__ __forceinline__ unsigned smem_u32(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint64_t* bar, unsigned count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(
+                   smem_u32(bar)),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
+  asm volatile(
+      "{\n .reg .pred p;\n WAIT_%=:\n"
+      " mbarrier.try_wait.parity.shared::cta.b64 p, [%0], %1;\n"
+      " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
+      "r"(parity)
+      : "memory");
+}
+
+__device__ __forceinline__ const char* down16(const void* p) {
+  return reinterpret_cast<const char*>(reinterpret_cast<uintptr_t>(p) &
+                                       ~static_cast<uintptr_t>(15));
+}
+
+// where a vector that starts at global address g sits in its stage slot
+template <typename V>
+__device__ __forceinline__ const V* staged(const unsigned char* slot,
+                                           const V* g) {
+  return reinterpret_cast<const V*>(
+      slot + (reinterpret_cast<uintptr_t>(g) & 15));
+}
+
+// the bytes of the 16-byte-aligned cover of n elements at g
+template <typename V>
+__device__ __forceinline__ unsigned cover(const V* g, int n) {
+  return static_cast<unsigned>(
+      (reinterpret_cast<const char*>(g + n) - down16(g) + 15) & ~15);
+}
+
+__device__ __forceinline__ void bulk_copy(void* dst, const void* src,
+                                          unsigned bytes, uint64_t* bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(smem_u32(dst)),
+      "l"(down16(src)), "r"(bytes), "r"(smem_u32(bar))
+      : "memory");
+}
+
+// Stage pixel `pix` (element offset pix * D) into `st`: lane 0 copies the
+// cost vector, lane q (1 <= q <= n) that of acc volume q - 1 (acc_stride
+// floats apart), each arriving on the stage's barrier with its bytes, so
+// the n + 1 copies issue side by side.  Lanes past n do nothing.
+template <typename T>
+__device__ __forceinline__ void stage_pixel(unsigned char* st, int cb, int ab,
+                                            const T* cv, const float* acc,
+                                            int n, long long acc_stride,
+                                            long long pix, int D,
+                                            uint64_t* bar, int lane) {
+  if (lane > n) return;
+  const void* src;
+  unsigned char* dst;
+  unsigned bytes;
+  if (lane == 0) {
+    const T* c = cv + pix * D;
+    src = c;
+    dst = st;
+    bytes = cover(c, D);
+  } else {
+    const float* a = acc + (lane - 1) * acc_stride + pix * D;
+    src = a;
+    dst = st + cb + (lane - 1) * ab;
+    bytes = cover(a, D);
+  }
+  // the stage was read by the warp's generic loads: order them before the
+  // async proxy's writes
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+          smem_u32(bar)),
+      "r"(bytes)
+      : "memory");
+  bulk_copy(dst, src, bytes, bar);
+}
+
+// The warp: lane 0 initialises the S stage barriers (n + 1 arrivals a
+// phase), then lanes 0..n stage the first min(S, len) pixels of the line
+// (pix0, pix0 + step, ...).  Ends with the warp converged.
+template <typename T>
+__device__ __forceinline__ void ring_start(unsigned char* ring, uint64_t* bar,
+                                           int S, int stage, int cb, int ab,
+                                           const T* cv, const float* acc,
+                                           int n, long long acc_stride,
+                                           long long pix0, long long step,
+                                           int len, int D, int lane) {
+  if (lane == 0) {
+    for (int s = 0; s < S; ++s) mbar_init(&bar[s], n + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncwarp();
+  for (int s = 0; s < S && s < len; ++s)
+    stage_pixel(ring + s * stage, cb, ab, cv, acc, n, acc_stride,
+                pix0 + s * step, D, &bar[s], lane);
+  __syncwarp();
+}
+
+// The line one warp of a K2 launch walks.
 //
 // K2s (a vertical or diagonal direction on one row shard of an image; the
 // TPU kernel's `with_carries` mode, sgm_pallas_dhw.py:164, :201-213,
@@ -145,76 +313,107 @@ __device__ __forceinline__ void dp_step(const float (&prev)[K], float (&adj)[K],
 // the shard start at the side edge.  The corner line is the one through
 // the global corner row, so its weight keys on the global row.  A whole
 // image is the shard i0 = 0, H_img = H with no carries.
+struct PassLine {
+  int si, sj, len;
+  float w;           // 2 on the corner line
+  const float* src;  // the carry the line starts from (null: zero)
+  bool ok;
+};
+
+__device__ __forceinline__ PassLine pass_line(int line, int H, int W, int D,
+                                              int di, int dj,
+                                              const float* cin, int i0,
+                                              int H_img) {
+  PassLine L;
+  L.w = 1.f;
+  L.src = nullptr;
+  L.ok = true;
+  if (di == 0) {  // horizontal: one line per row
+    L.ok = line < H;
+    L.si = line;
+    L.sj = dj > 0 ? 0 : W - 1;
+    L.len = W;
+    return L;
+  }
+  // W lines cross the shard's first scan row; a diagonal direction adds
+  // H - 1 lines that start at the side edge of the shard's other rows
+  const int ir = di > 0 ? 0 : H - 1, je = dj > 0 ? 0 : W - 1;
+  if (line < W) {
+    L.si = ir;
+    L.sj = line;
+    const int pc = L.sj - dj;
+    if (cin != nullptr && pc >= 0 && pc < W) L.src = cin + (size_t)pc * D;
+    // the corner line, enumerated from both edges: it passes global row
+    // ig at column je + dj * (steps from the global start row)
+    const int ig = i0 + ir;
+    if (dj != 0 && L.sj == je + dj * (di > 0 ? ig : H_img - 1 - ig)) L.w = 2.f;
+  } else {
+    if (dj == 0 || line >= W + H - 1) {
+      L.ok = false;
+      return L;
+    }
+    const int t = line - W + 1;
+    L.si = di > 0 ? t : H - 1 - t;
+    L.sj = je;
+  }
+  L.len = dj == 0 ? H
+                  : min(di > 0 ? H - L.si : L.si + 1,
+                        dj > 0 ? W - L.sj : L.sj + 1);
+  return L;
+}
+
+// K2: the scan direction (di, dj) in {-1, 0, 1}^2 \ {(0, 0)} that blockIdx.y
+// picks, into volume blockIdx.y of acc; D <= 32 K, the carry in registers.
+// Each warp's ring is S stages of `stage` bytes at smem + warp * S * stage;
+// its barriers are static.
 template <int K, typename T>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * LINE_WARPS)
 sgm_pass_kernel(const T* __restrict__ cv, float* __restrict__ acc,
                 const float* __restrict__ cin, float* __restrict__ cout,
-                int H, int W, int D, int di, int dj, float P1, float P2,
+                int H, int W, int D, Dirs dirs, float P1, float P2,
                 float Pout, int accumulate, int col0, int W_pout, int i0,
-                int H_img) {
-  const int lane = threadIdx.x & 31;
-  const int line = blockIdx.x * WARPS + (threadIdx.x >> 5);
-  int si, sj, len;
-  float w = 1.f;
-  const float* src = nullptr;  // the carry the line starts from (null: zero)
-  if (di == 0) {  // horizontal: one line per row
-    if (line >= H) return;
-    si = line;
-    sj = dj > 0 ? 0 : W - 1;
-    len = W;
-  } else {
-    // W lines cross the shard's first scan row; a diagonal direction adds
-    // H - 1 lines that start at the side edge of the shard's other rows
-    const int ir = di > 0 ? 0 : H - 1, je = dj > 0 ? 0 : W - 1;
-    if (line < W) {
-      si = ir;
-      sj = line;
-      const int pc = sj - dj;
-      if (cin != nullptr && pc >= 0 && pc < W) src = cin + (size_t)pc * D;
-      // the corner line, enumerated from both edges: it passes global row
-      // ig at column je + dj * (steps from the global start row)
-      const int ig = i0 + ir;
-      if (dj != 0 && sj == je + dj * (di > 0 ? ig : H_img - 1 - ig)) w = 2.f;
-    } else {
-      if (dj == 0 || line >= W + H - 1) return;
-      const int t = line - W + 1;
-      si = di > 0 ? t : H - 1 - t;
-      sj = je;
-    }
-    len = dj == 0 ? H
-                  : min(di > 0 ? H - si : si + 1, dj > 0 ? W - sj : sj + 1);
-  }
+                int H_img, int S, int cb, int stage) {
+  extern __shared__ __align__(16) unsigned char pass_smem[];
+  __shared__ __align__(8) uint64_t bars[LINE_WARPS][RING];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int line = blockIdx.x * (blockDim.x >> 5) + wid;
+  const int di = dirs.di[blockIdx.y], dj = dirs.dj[blockIdx.y];
+  acc += (size_t)blockIdx.y * H * W * D;
+  const PassLine L = pass_line(line, H, W, D, di, dj, cin, i0, H_img);
+  if (!L.ok) return;
+  unsigned char* ring = pass_smem + (size_t)wid * S * stage;
+  uint64_t* bar = bars[wid];
+  const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
   const long long step = (long long)di * W + dj;
-  long long pix = (long long)si * W + sj;
+  long long pix = (long long)L.si * W + L.sj;
+  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0, pix, step, L.len,
+             D, lane);
   const int i_last = di > 0 ? H - 1 : 0;  // the shard's last scan row
+  const float w = L.w;
 
-  float carry[K], bn[K], an[K];
+  float carry[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int d = lane + 32 * k;
-    carry[k] = d < D ? (src ? src[d] : 0.f) : INFINITY;
-    bn[k] = d < D ? load(cv + pix * D + d) : INFINITY;
-    an[k] = (accumulate && d < D) ? acc[pix * D + d] : 0.f;
+    carry[k] = d < D ? (L.src ? L.src[d] : 0.f) : INFINITY;
   }
-  int i = si, j = sj;
-  for (int t = 0; t < len; ++t) {
+  int i = L.si, j = L.sj, slot = 0;
+  for (int t = 0; t < L.len; ++t) {
+    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);  // this pixel's stage
+    unsigned char* st = ring + slot * stage;
+    const T* cs = staged(st, cv + pix * D);
+    const float* as = staged(st + cb, acc + pix * D);
     float b[K], a[K], adj[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      b[k] = bn[k];
-      a[k] = an[k];
+      const int d = lane + 32 * k;
+      b[k] = d < D ? load(cs + d) : INFINITY;
+      a[k] = (accumulate && d < D) ? as[d] : 0.f;
     }
-    if (t + 1 < len) {  // prefetch the next pixel of the line
-      const long long nxt = pix + step;
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int d = lane + 32 * k;
-        if (d < D) {
-          bn[k] = load(cv + nxt * D + d);
-          an[k] = accumulate ? acc[nxt * D + d] : 0.f;
-        }
-      }
-    }
+    __syncwarp();  // the stage is read: refill it with the pixel S ahead
+    if (t + S < L.len)
+      stage_pixel(st, cb, ab, cv, acc, n_acc, 0, pix + S * step, D,
+                  &bar[slot], lane);
     dp_step<K>(carry, adj, lane, col0 + j, W_pout, P1, P2, Pout);
     const bool out = cout != nullptr && di != 0 && i == i_last;
 #pragma unroll
@@ -229,6 +428,83 @@ sgm_pass_kernel(const T* __restrict__ cv, float* __restrict__ acc,
     pix += step;
     i += di;
     j += dj;
+    slot = slot + 1 == S ? 0 : slot + 1;
+  }
+}
+
+// K2 for any D: `sgm_pass_kernel` with the carry in shared memory in place
+// of registers (K = ceil(D / 32) > 10 would not fit them).  Each warp keeps
+// two D-float carries after its ring (the previous and the current step,
+// swapped every step); lanes loop over 32-wide d-slices, the min over d is
+// a loop plus the warp reduction and d +- 1 are shared-memory reads, as in
+// `sgm_knight_smem_kernel`.  The lines, the ring, the DP step (`dp_step`'s
+// operations in its order, the isfinite guards included) and the
+// accumulation are `sgm_pass_kernel`'s.
+template <typename T>
+__global__ void __launch_bounds__(32 * LINE_WARPS)
+sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
+                     const float* __restrict__ cin, float* __restrict__ cout,
+                     int H, int W, int D, Dirs dirs, float P1, float P2,
+                     float Pout, int accumulate, int col0, int W_pout, int i0,
+                     int H_img, int S, int cb, int stage) {
+  extern __shared__ __align__(16) unsigned char pass_smem_d[];
+  __shared__ __align__(8) uint64_t bars_d[LINE_WARPS][RING];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int line = blockIdx.x * (blockDim.x >> 5) + wid;
+  const int di = dirs.di[blockIdx.y], dj = dirs.dj[blockIdx.y];
+  acc += (size_t)blockIdx.y * H * W * D;
+  const PassLine L = pass_line(line, H, W, D, di, dj, cin, i0, H_img);
+  if (!L.ok) return;
+  // each warp's area stays 16-byte aligned: the carries are rounded up
+  const size_t carry_bytes = (2 * sizeof(float) * D + 15) & ~(size_t)15;
+  unsigned char* ring =
+      pass_smem_d + (size_t)wid * ((size_t)S * stage + carry_bytes);
+  float* bufs = reinterpret_cast<float*>(ring + (size_t)S * stage);
+  uint64_t* bar = bars_d[wid];
+  const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
+  const long long step = (long long)di * W + dj;
+  long long pix = (long long)L.si * W + L.sj;
+  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0, pix, step, L.len,
+             D, lane);
+  const int i_last = di > 0 ? H - 1 : 0;
+  const float w = L.w;
+  for (int d = lane; d < D; d += 32) bufs[d] = L.src ? L.src[d] : 0.f;
+  int i = L.si, j = L.sj, slot = 0, cur = 0;
+  for (int t = 0; t < L.len; ++t) {
+    __syncwarp();  // the carry written at the last step
+    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
+    unsigned char* st = ring + slot * stage;
+    const T* cs = staged(st, cv + pix * D);
+    const float* as = staged(st + cb, acc + pix * D);
+    const float* prev = bufs + cur * D;
+    float* next = bufs + (cur ^ 1) * D;
+    float lm = INFINITY;
+    for (int d = lane; d < D; d += 32) lm = fminf(lm, finite_or_inf(prev[d]));
+    const float m = warp_min(lm);
+    float* co = (cout != nullptr && di != 0 && i == i_last)
+                    ? cout + (size_t)j * D
+                    : nullptr;
+    for (int d = lane; d < D; d += 32) {
+      const float p = finite_or_inf(prev[d]);
+      const float up = d > 0 ? finite_or_inf(prev[d - 1]) : INFINITY;
+      const float dn = d + 1 < D ? finite_or_inf(prev[d + 1]) : INFINITY;
+      float agg = fminf(fminf(p, m + P2), fminf(up + P1, dn + P1));
+      if (col0 + j + d >= W_pout) agg += Pout;  // disparity leaves the image
+      const float adj = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
+      const float nc = load(cs + d) + adj;
+      next[d] = nc;
+      acc[pix * D + d] = (accumulate ? as[d] : 0.f) + w * adj;
+      if (co) co[d] = nc;
+    }
+    __syncwarp();  // the stage is read and `next` complete
+    if (t + S < L.len)
+      stage_pixel(st, cb, ab, cv, acc, n_acc, 0, pix + S * step, D,
+                  &bar[slot], lane);
+    pix += step;
+    i += di;
+    j += dj;
+    slot = slot + 1 == S ? 0 : slot + 1;
+    cur ^= 1;
   }
 }
 
@@ -395,10 +671,6 @@ sgm_knight_kernel(const T* __restrict__ cv, float* __restrict__ acc,
 // it computes, so a step pays the load latency once per 32 * U disparities.
 constexpr int U = 8;
 
-__device__ __forceinline__ float finite_or_inf(float x) {
-  return isfinite(x) ? x : INFINITY;
-}
-
 template <typename T>
 __global__ void __launch_bounds__(32 * WARPS)
 sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
@@ -465,47 +737,63 @@ sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
 }
 
 // K3: the right-to-left direction fused with WTA, band and subpixel.  One
-// warp per image row of a whole image.  disp may be null (no subpixel).
+// warp per image row of a whole image, D <= 32 K; the ring of
+// `sgm_pass_kernel` with n_acc acc vectors a stage (summed in their order),
+// then 32 K floats of C a warp (the band's source).  disp may be null (no
+// subpixel).
 template <int K, typename T>
-__global__ void __launch_bounds__(32 * WARPS)
+__global__ void __launch_bounds__(32 * LINE_WARPS)
 sgm_wta_kernel(const T* __restrict__ cv, const float* __restrict__ acc,
-               int* __restrict__ idx_out, float* __restrict__ bands,
-               float* __restrict__ disp, int H, int W, int D, float P1,
-               float P2, float Pout, int r, int hr, int vr) {
-  __shared__ float cbuf[WARPS][32 * K];
+               int n_acc, int* __restrict__ idx_out,
+               float* __restrict__ bands, float* __restrict__ disp, int H,
+               int W, int D, float P1, float P2, float Pout, int r, int hr,
+               int vr, int S, int cb, int stage) {
+  extern __shared__ __align__(16) unsigned char wta_smem[];
+  __shared__ __align__(8) uint64_t bars_w[LINE_WARPS][RING];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int i = blockIdx.x * WARPS + wid;
+  const int i = blockIdx.x * (blockDim.x >> 5) + wid;
   if (i >= H) return;
-  float* c_s = cbuf[wid];
+  unsigned char* ring =
+      wta_smem + (size_t)wid * ((size_t)S * stage + sizeof(float) * 32 * K);
+  float* c_s = reinterpret_cast<float*>(ring + (size_t)S * stage);
+  uint64_t* bar = bars_w[wid];
+  const int ab = (stage - cb) / n_acc;
+  const long long acc_stride = (long long)H * W * D;
   const int nb = 2 * r + 1;
   const bool row_ok = i >= vr && i + vr < H;
 
   long long pix = (long long)i * W + (W - 1);
-  float carry[K], bn[K], an[K];
+  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, acc_stride, pix, -1,
+             W, D, lane);
+  float carry[K];
 #pragma unroll
-  for (int k = 0; k < K; ++k) {
-    const int d = lane + 32 * k;
-    carry[k] = d < D ? 0.f : INFINITY;
-    bn[k] = d < D ? load(cv + pix * D + d) : INFINITY;
-    an[k] = d < D ? acc[pix * D + d] : 0.f;
-  }
+  for (int k = 0; k < K; ++k) carry[k] = lane + 32 * k < D ? 0.f : INFINITY;
+  int slot = 0;
   for (int j = W - 1; j >= 0; --j, --pix) {
+    __syncwarp();  // c_s is free again (the last pixel's band is written)
+    mbar_wait(&bar[slot], (unsigned)((W - 1 - j) / S) & 1u);
+    unsigned char* st = ring + slot * stage;
+    const T* cs = staged(st, cv + pix * D);
     float b[K], a[K], adj[K], C[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      b[k] = bn[k];
-      a[k] = an[k];
+      const int d = lane + 32 * k;
+      b[k] = d < D ? load(cs + d) : INFINITY;
+      a[k] = 0.f;
     }
-    if (j > 0) {
+    for (int q = 0; q < n_acc; ++q) {  // the acc volumes in their order
+      const float* as =
+          staged(st + cb + q * ab, acc + q * acc_stride + pix * D);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int d = lane + 32 * k;
-        if (d < D) {
-          bn[k] = load(cv + (pix - 1) * D + d);
-          an[k] = acc[(pix - 1) * D + d];
-        }
+        if (d < D) a[k] = q == 0 ? as[d] : a[k] + as[d];
       }
     }
+    __syncwarp();  // the stage is read: refill it with the pixel S ahead
+    if (j >= S)
+      stage_pixel(st, cb, ab, cv, acc, n_acc, acc_stride, pix - S, D,
+                  &bar[slot], lane);
     dp_step<K>(carry, adj, lane, j, W, P1, P2, Pout);
     float lm = INFINITY;
 #pragma unroll
@@ -525,7 +813,7 @@ sgm_wta_kernel(const T* __restrict__ cv, const float* __restrict__ acc,
     for (int k = 0; k < K; ++k)  // slices ascend in d: keep the last hit
       if (lane + 32 * k < D && C[k] == m) best = lane + 32 * k;
     best = warp_max(best);  // ties go to the LAST index (correlation_base.h:446)
-    __syncwarp();
+    __syncwarp();  // c_s complete
     for (int s = lane; s < nb; s += 32) {
       const int p = best + s - r;
       bands[pix * nb + s] = (p >= 0 && p < D) ? c_s[p] : INFINITY;
@@ -535,32 +823,101 @@ sgm_wta_kernel(const T* __restrict__ cv, const float* __restrict__ acc,
       if (disp != nullptr) {
         // SAME-mode slot validity (correlation_base.h:582-674): NaN slots
         // make the refined disparity NaN, as the composed chain does
-        auto slot = [&](int off) {
+        auto slotv = [&](int off) {
           const int p = best + off;
           const bool ok = p >= 0 && p < D && j >= hr && j + p + hr < W && row_ok;
           return ok ? c_s[p] : NAN;
         };
-        const float cm1 = slot(-1), c0 = slot(0), c1 = slot(1);
+        const float cm1 = slotv(-1), c0 = slotv(0), c1 = slotv(1);
         disp[pix] = (float)best + (cm1 - c1) / (2.f * (c1 - 2.f * c0 + cm1));
       }
     }
-    __syncwarp();  // c_s is rewritten at the next pixel
+    slot = slot + 1 == S ? 0 : slot + 1;
   }
 }
 
+// How a K2 / K3 launch lays out its shared memory: each warp holds S stages
+// of `stage` bytes (the cost cover, cb bytes, then n_acc acc covers), then
+// `extra` bytes (a multiple of 16); a block holds up to LINE_WARPS warps.
+// The ring is RING stages deep, or shallower where the launch's lines would
+// not all fit the card's shared memory at once (a line that waits for a
+// slot costs a whole line's time; 4 stages already hide the loads).
+// 227 KB, the most a block can opt into, less room for static barriers
+constexpr int SMEM_MAX = 232448 - 1024;
+constexpr double SMEM_SM = 0.9 * 233472;  // of an SM's 228 KB
+
+struct Layout {
+  int S, cb, stage, warps;
+  size_t smem;
+};
+
+int round16(int x) { return (x + 15) & ~15; }
+
+int sm_count() {
+  int dev = 0, n = 132;
+  if (cudaGetDevice(&dev) == cudaSuccess)
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+  return n;
+}
+
+bool ring_layout(int D, int elt, int n_acc, int extra, int lines,
+                 Layout& r) {
+  r.cb = round16(D * elt + 15);
+  r.stage = r.cb + n_acc * round16(D * 4 + 15);
+  const double per_line = SMEM_SM * sm_count() / (lines > 0 ? lines : 1);
+  r.S = (int)((per_line - extra) / r.stage);
+  r.S = r.S > RING ? RING : (r.S < 2 ? 2 : r.S);
+  auto area = [&] { return (size_t)r.S * r.stage + extra; };
+  while (area() > (size_t)SMEM_MAX && r.S > 2) --r.S;
+  if (area() > (size_t)SMEM_MAX) return false;
+  r.warps = LINE_WARPS;
+  while (r.warps > 1 && r.warps * area() > (size_t)SMEM_MAX) --r.warps;
+  r.smem = r.warps * area();
+  return true;
+}
+
+cudaError_t allow_smem(const void* fn, size_t smem) {
+  if (smem <= 48 * 1024) return cudaSuccess;
+  return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              (int)smem);
+}
+
 template <typename T>
-cudaError_t pass_t(int K, const void* cv, float* acc, const float* cin,
-                   float* cout, int H, int W, int D, int di, int dj, float P1,
+cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
+                   int H, int W, int D, const Dirs& dirs, int n, float P1,
                    float P2, float Pout, int accumulate, int col0, int W_pout,
                    int i0, int H_img, cudaStream_t s) {
-  const int lines = di == 0 ? H : (dj == 0 ? W : H + W - 1);
-  const int blocks = (lines + WARPS - 1) / WARPS;
+  const int K = (D + 31) / 32;
+  const bool regs = K <= REG_K;
+  int lines = 0, most = 0;  // all directions' lines, and one's most
+  for (int y = 0; y < n; ++y) {
+    const int l =
+        dirs.di[y] == 0 ? H : (dirs.dj[y] == 0 ? W : H + W - 1);
+    lines += l;
+    most = l > most ? l : most;
+  }
+  Layout ly;
+  if (!ring_layout(D, sizeof(T), accumulate ? 1 : 0, regs ? 0 : round16(8 * D),
+                   lines, ly))
+    return cudaErrorInvalidValue;
+  const dim3 grid((most + ly.warps - 1) / ly.warps, n);
   const T* v = static_cast<const T*>(cv);
+  cudaError_t e;
+  if (!regs) {  // any D: the carries in shared memory
+    e = allow_smem((const void*)sgm_pass_smem_kernel<T>, ly.smem);
+    if (e != cudaSuccess) return e;
+    sgm_pass_smem_kernel<T><<<grid, 32 * ly.warps, ly.smem, s>>>(
+        v, acc, cin, cout, H, W, D, dirs, P1, P2, Pout, accumulate, col0,
+        W_pout, i0, H_img, ly.S, ly.cb, ly.stage);
+    return cudaGetLastError();
+  }
 #define SGM_PASS_CASE(k)                                                   \
   case k:                                                                  \
-    sgm_pass_kernel<k, T><<<blocks, 32 * WARPS, 0, s>>>(                   \
-        v, acc, cin, cout, H, W, D, di, dj, P1, P2, Pout, accumulate,      \
-        col0, W_pout, i0, H_img);                                          \
+    e = allow_smem((const void*)sgm_pass_kernel<k, T>, ly.smem);           \
+    if (e != cudaSuccess) return e;                                        \
+    sgm_pass_kernel<k, T><<<grid, 32 * ly.warps, ly.smem, s>>>(            \
+        v, acc, cin, cout, H, W, D, dirs, P1, P2, Pout, accumulate, col0,  \
+        W_pout, i0, H_img, ly.S, ly.cb, ly.stage);                         \
     break;
   switch (K) {
     SGM_PASS_CASE(1) SGM_PASS_CASE(2) SGM_PASS_CASE(3) SGM_PASS_CASE(4)
@@ -571,8 +928,6 @@ cudaError_t pass_t(int K, const void* cv, float* acc, const float* cin,
 #undef SGM_PASS_CASE
   return cudaGetLastError();
 }
-
-constexpr int SMEM_MAX = 232448;  // 227 KB, the most a block can opt into
 
 template <typename T>
 cudaError_t knight_t(int K, const void* cv, float* acc, const float* cin,
@@ -616,16 +971,24 @@ cudaError_t knight_t(int K, const void* cv, float* acc, const float* cin,
 }
 
 template <typename T>
-cudaError_t wta_t(int K, const void* cv, const float* acc, int* idx,
+cudaError_t wta_t(const void* cv, const float* acc, int n_acc, int* idx,
                   float* bands, float* disp, int H, int W, int D, float P1,
                   float P2, float Pout, int r, int hr, int vr,
                   cudaStream_t s) {
-  const int blocks = (H + WARPS - 1) / WARPS;
+  const int K = (D + 31) / 32;
+  Layout ly;
+  if (!ring_layout(D, sizeof(T), n_acc, 4 * 32 * K, H, ly))
+    return cudaErrorInvalidValue;
+  const int blocks = (H + ly.warps - 1) / ly.warps;
   const T* v = static_cast<const T*>(cv);
+  cudaError_t e;
 #define SGM_WTA_CASE(k)                                                    \
   case k:                                                                  \
-    sgm_wta_kernel<k, T><<<blocks, 32 * WARPS, 0, s>>>(                    \
-        v, acc, idx, bands, disp, H, W, D, P1, P2, Pout, r, hr, vr);       \
+    e = allow_smem((const void*)sgm_wta_kernel<k, T>, ly.smem);            \
+    if (e != cudaSuccess) return e;                                        \
+    sgm_wta_kernel<k, T><<<blocks, 32 * ly.warps, ly.smem, s>>>(           \
+        v, acc, n_acc, idx, bands, disp, H, W, D, P1, P2, Pout, r, hr, vr, \
+        ly.S, ly.cb, ly.stage);                                            \
     break;
   switch (K) {
     SGM_WTA_CASE(1) SGM_WTA_CASE(2) SGM_WTA_CASE(3) SGM_WTA_CASE(4)
@@ -637,38 +1000,44 @@ cudaError_t wta_t(int K, const void* cv, const float* acc, int* idx,
   return cudaGetLastError();
 }
 
-constexpr int MAX_D = 320;  // K = ceil(D / 32) <= 10 values a lane
-
 bool bad_region(int H, int W, int D, int col0, int W_pout) {
   return H < 1 || W < 1 || D < 1 || col0 < 0 || W_pout < col0 + W;
 }
 
-bool bad_geometry(int H, int W, int D, int col0, int W_pout) {
-  return bad_region(H, W, D, col0, W_pout) || D > MAX_D;
-}
-
 }  // namespace
 
-// cin / cout may be null (a zero line start / no carries out); with carries
-// the block is rows [i0, i0 + H) of an image H_img rows high (K2s).
+// Any D (the shared-memory instance past D = 320).  steps holds n
+// directions (di, dj), 1 <= n <= MAX_DIRS; direction y uses volume y of acc
+// (H * W * D floats apart).  cin / cout may be null (a zero line start / no
+// carries out); with carries (one direction only) the block is rows
+// [i0, i0 + H) of an image H_img rows high (K2s).
 extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
-                               const void* cin, void* cout, int H, int W,
-                               int D, int di, int dj, float P1, float P2,
-                               float Pout, int accumulate, int col0,
-                               int W_pout, int i0, int H_img, void* stream) {
-  if (bad_geometry(H, W, D, col0, W_pout) || di < -1 || di > 1 || dj < -1 ||
-      dj > 1 || (di == 0 && dj == 0) || i0 < 0 || H_img < i0 + H ||
-      (di == 0 && (cin != nullptr || cout != nullptr)))
+                               const void* cin, void* cout, int n,
+                               const int* steps, int H, int W, int D,
+                               float P1, float P2, float Pout, int accumulate,
+                               int col0, int W_pout, int i0, int H_img,
+                               void* stream) {
+  const bool carries = cin != nullptr || cout != nullptr;
+  if (bad_region(H, W, D, col0, W_pout) || n < 1 || n > MAX_DIRS ||
+      (n > 1 && carries) || i0 < 0 || H_img < i0 + H)
     return (int)cudaErrorInvalidValue;
-  const int K = (D + 31) / 32;
+  Dirs dirs = {};
+  for (int y = 0; y < n; ++y) {
+    const int di = steps[2 * y], dj = steps[2 * y + 1];
+    if (di < -1 || di > 1 || dj < -1 || dj > 1 || (di == 0 && dj == 0) ||
+        (di == 0 && carries))
+      return (int)cudaErrorInvalidValue;
+    dirs.di[y] = di;
+    dirs.dj[y] = dj;
+  }
   float* a = static_cast<float*>(acc);
   const float* ci = static_cast<const float*>(cin);
   float* co = static_cast<float*>(cout);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(cv_bf16 ? pass_t<__nv_bfloat16>(K, cv, a, ci, co, H, W, D, di,
-                                               dj, P1, P2, Pout, accumulate,
+  return (int)(cv_bf16 ? pass_t<__nv_bfloat16>(cv, a, ci, co, H, W, D, dirs,
+                                               n, P1, P2, Pout, accumulate,
                                                col0, W_pout, i0, H_img, s)
-                       : pass_t<float>(K, cv, a, ci, co, H, W, D, di, dj, P1,
+                       : pass_t<float>(cv, a, ci, co, H, W, D, dirs, n, P1,
                                        P2, Pout, accumulate, col0, W_pout, i0,
                                        H_img, s));
 }
@@ -706,23 +1075,27 @@ extern "C" int sgm_knight_launch(const void* cv, int cv_bf16, void* acc,
                                          W_pout, s0, N_img, s));
 }
 
+// D <= 320 (K = ceil(D / 32) <= 10 register slices); whole images.  acc is
+// n_acc <= MAX_DIRS volumes of H * W * D floats, one after another, summed
+// in order.
 extern "C" int sgm_wta_launch(const void* cv, int cv_bf16, const void* acc,
-                              void* idx, void* bands, void* disp, int H, int W,
-                              int D, float P1, float P2, float Pout, int r,
-                              int hr, int vr, void* stream) {
-  if (bad_geometry(H, W, D, 0, W) || r < 0 || hr < 0 || vr < 0 ||
+                              int n_acc, void* idx, void* bands, void* disp,
+                              int H, int W, int D, float P1, float P2,
+                              float Pout, int r, int hr, int vr,
+                              void* stream) {
+  if (bad_region(H, W, D, 0, W) || D > 32 * REG_K || n_acc < 1 ||
+      n_acc > MAX_DIRS || r < 0 || hr < 0 || vr < 0 ||
       (disp != nullptr && r < 1))
     return (int)cudaErrorInvalidValue;
-  const int K = (D + 31) / 32;
   const float* a = static_cast<const float*>(acc);
   int* ix = static_cast<int*>(idx);
   float* bd = static_cast<float*>(bands);
   float* dp = static_cast<float*>(disp);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(cv_bf16 ? wta_t<__nv_bfloat16>(K, cv, a, ix, bd, dp, H, W, D,
-                                              P1, P2, Pout, r, hr, vr, s)
-                       : wta_t<float>(K, cv, a, ix, bd, dp, H, W, D, P1, P2,
-                                      Pout, r, hr, vr, s));
+  return (int)(cv_bf16 ? wta_t<__nv_bfloat16>(cv, a, n_acc, ix, bd, dp, H, W,
+                                              D, P1, P2, Pout, r, hr, vr, s)
+                       : wta_t<float>(cv, a, n_acc, ix, bd, dp, H, W, D, P1,
+                                      P2, Pout, r, hr, vr, s));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -27,7 +27,7 @@ from .filters import box_filter_2d
 
 _KIND = {MatchingFunction.CC: 0, MatchingFunction.NCC: 1,
          MatchingFunction.ZCC: 2, MatchingFunction.ZNCC: 3}
-MAX_D = 320        # K1 and K2/K3 keep ceil(D / 32) <= 10 values per lane
+MAX_D = 320        # K1 and K3 keep ceil(D / 32) <= 10 values per lane
 
 
 def _prep_inputs(func, img_l, img_r, h_radius, v_radius):

@@ -19,7 +19,9 @@ Reference parity:
 
 Dispatch follows the JAX package, with "the tensors are on CUDA" in place
 of "the default backend is the TPU": `aggregate_cost` 'auto' launches K5
-(`fv_backend`) for dot/ssd/sad on CUDA, and `unfold_based_cost_volume`
+(`fv_backend`) for dot/ssd/sad on CUDA where its tile fits on chip and
+takes the shifted-compare loop where it does not (`auto_backend`, as the
+JAX package falls back past its VMEM budget), and `unfold_based_cost_volume`
 'auto' launches K1 (`box_cuda`) for a dot-family cost on gray images,
 RIGHT_TO_LEFT over [0, D).  2-D searches are not ported yet (ROADMAP.md A8).
 """
@@ -36,7 +38,8 @@ from ..core.search import SearchOffset1, SearchOffset2
 from .box_backend import (DOT_FAMILY, box_cost_volume, disparities,
                           supports_box)
 from .census import census_features
-from .fv_backend import FUSABLE_KERNELS, fused_fv_cost_volume, shifted_compare
+from .fv_backend import (FUSABLE_KERNELS, fused_fits,
+                         fused_fv_cost_volume, shifted_compare)
 from .matching import feature_comparison
 from .unfold import unfold
 
@@ -111,6 +114,19 @@ def _shifted_compare_scan(func: MatchingFunction, source_fv: torch.Tensor,
                            source_fv, target_fv, shifts, cv_dtype)
 
 
+def auto_backend(kernel: str, cuda: bool, shape, shifts) -> str:
+    """'auto''s choice for source volumes of ``shape`` (on a CUDA device
+    when ``cuda``): 'fused' (K5) for a dot/SSD/SAD family over (H, W, F)
+    volumes whose K5 tile fits one block's shared memory
+    (`fv_backend.fused_fits`), else 'scan' (the JAX package's 'auto' falls
+    back to its scan past its VMEM budget, `libstevi_tpu/ops/
+    cost_volume.py:181-191`)."""
+    if (cuda and kernel in FUSABLE_KERNELS and len(shape) == 3
+            and fused_fits(shape[-1], shifts)):
+        return "fused"
+    return "scan"
+
+
 def aggregate_cost(func: MatchingFunction, fv_l: torch.Tensor,
                    fv_r: torch.Tensor, search,
                    direction: DispDirection = DispDirection.RIGHT_TO_LEFT,
@@ -120,8 +136,10 @@ def aggregate_cost(func: MatchingFunction, fv_l: torch.Tensor,
     `cross_correlations.h:195,252`).
 
     ``backend='auto'`` launches K5 for the dot/SSD/SAD families on CUDA
-    tensors and takes the shifted-compare loop otherwise; 'scan' forces the
-    loop, 'fused' forces K5 (its plain version on CPU tensors)."""
+    tensors where its tile fits on chip and takes the shifted-compare loop
+    otherwise (`auto_backend`); 'scan' forces the loop, 'fused' forces K5
+    (its plain version on CPU tensors; it raises where the tile does not
+    fit)."""
     if isinstance(search, SearchOffset2):
         raise NotImplementedError(_NO_2D)
     if backend not in ("auto", "scan", "fused"):
@@ -130,8 +148,8 @@ def aggregate_cost(func: MatchingFunction, fv_l: torch.Tensor,
     shifts = [direction.delta_sign * d for d in disparities(search)]
     kernel = MATCH_TRAITS[func].kernel
     if backend == "auto":
-        backend = ("fused" if source_fv.is_cuda and kernel in FUSABLE_KERNELS
-                   and source_fv.ndim == 3 else "scan")
+        backend = auto_backend(kernel, source_fv.is_cuda,
+                               source_fv.shape, shifts)
     if backend == "fused":
         return fused_fv_cost_volume(kernel, source_fv, target_fv, shifts,
                                     cv_dtype)

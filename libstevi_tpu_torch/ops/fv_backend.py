@@ -61,6 +61,13 @@ def smem_bytes(F: int, D: int, span: int) -> int:
     return 4 * (F * ((WT | 1) + ((WT + span) | 1)) + D)
 
 
+def fused_fits(F: int, shifts) -> bool:
+    """Whether K5 takes F features over ``shifts``: its block's tile fits
+    one block's shared memory (`smem_bytes` <= `MAX_SMEM`)."""
+    shifts = [int(s) for s in shifts]
+    return smem_bytes(F, len(shifts), max(shifts) - min(shifts)) <= MAX_SMEM
+
+
 def fused_fv_cost_volume(kernel: str, source_fv: torch.Tensor,
                          target_fv: torch.Tensor, shifts,
                          cv_dtype=torch.float32,
@@ -91,7 +98,7 @@ def fused_fv_cost_volume(kernel: str, source_fv: torch.Tensor,
         raise ValueError("fused_fv_cost_volume: no shifts")
     lo = min(shifts)
     span = max(shifts) - lo
-    if smem_bytes(F, D, span) > MAX_SMEM:
+    if not fused_fits(F, shifts):
         raise NotImplementedError(
             f"fused_fv_cost_volume: F={F} with a shift span of {span} needs "
             f"{smem_bytes(F, D, span)} bytes of shared memory per block, over "

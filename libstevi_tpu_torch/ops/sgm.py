@@ -464,9 +464,11 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     dense hot loop of `examples/stereo-match/main.cpp:234-258`).
 
     For a dot-family cost on gray images with P2 >= P1 and D <= 320 this
-    runs the kernel path K1 -> K2 (one launch per principal direction but
-    the last) -> K2k (16 directions) -> K3 (the last direction fused with
-    WTA, band and, for PARABOLA, the subpixel).  At D > 320 it runs K1 over
+    runs the kernel path K1 -> K2 (every principal direction but the last:
+    with 4 or 8 directions one launch, a volume each, where they fit,
+    else a launch each) -> K2k (16 directions) -> K3 (the last direction
+    fused with the in-order sum of those volumes, WTA, band and, for
+    PARABOLA, the subpixel).  At D > 320 it runs K1 over
     d-slices -> ``sgm_wta_truncated`` (K4b's passes and WTA, or K4d; K2k
     for 16 directions) -> refinement in torch.  Other costs,
     multichannel images and P2 < P1 take the JAX package's general route:

@@ -8,9 +8,15 @@ launches (the two seed phases, see `csrc/sgm_scan.cu`); K3 (`sgm_wta`)
 runs the last direction, right to left, fused with C = cost + acc + adj,
 the tie-last WTA, the band C[idx - r .. idx + r] (+inf beyond [0, D)) and,
 optionally, the parabola subpixel with the SAME-mode NaN rules.  The
-flagship's 8 directions are 7 K2 launches and one K3 launch; 16 directions
-add the 8 knight directions between them (`sgm_wta_fused`).  K2k takes any
-D: past D = 320 it runs an instance that keeps its carry in shared memory.
+flagship's 8 directions are 7 K2 directions and one K3 launch: the 7 in
+one launch, a volume each, where they fit (`direction_volumes`), else 7
+launches into one accumulator; 16 directions add the 8 knight directions
+between them (`sgm_wta_fused`).  K2, K2k and
+K2s take any D: past D = 320 they run instances that keep the carry in
+shared memory.  K3 takes D <= 320 (`ops.sgm.sgm_route` sends wider ranges
+to the lane route, K4b / K4d).  K2 and K3 stage the pixels ahead of each
+line's step in a shared-memory ring filled by asynchronous copies, so a
+step does not wait on device memory.
 
 K2s (`sgm_shard_pass`, `sgm_knight_shard_pass`) is K2 and K2k on one shard
 of a distributed image, the port of `sgm_rows_shard_pass_dhw` and
@@ -31,8 +37,8 @@ chain of `sgm_cost_volume`, WTA and band, as the JAX package does.
 The TPU path baked Pout into the cost stream and restored the multiplicity
 in its WTA pass (`box_pallas.py:226-238`, `_bake_mult_plane`); the CUDA DP
 adds Pout in its step, as `_line_recurrence` does, which gives the same
-idx, bands and disparity.  The DP runs in f32 registers for f32 and bf16
-volumes alike, as the JAX XLA path does (it casts the volume to f32).
+idx, bands and disparity.  The DP runs in f32 for f32 and bf16 volumes
+alike, as the JAX XLA path does (it casts the volume to f32).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
 version (`*_plain`, built on `sgm.direction_adj` and `sgm.knight_adj`) for
@@ -40,6 +46,8 @@ CPU tensors.
 """
 
 from __future__ import annotations
+
+import ctypes
 
 import torch
 
@@ -58,8 +66,7 @@ def kernel_volume(cv: torch.Tensor) -> torch.Tensor:
     return cv.contiguous()
 
 
-def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str,
-                any_d: bool = False) -> None:
+def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str) -> None:
     if not cv.is_cuda or acc.device != cv.device:
         raise ValueError(f"{what}: cv and acc on one CUDA device")
     if cv.dtype not in (torch.float32, torch.bfloat16):
@@ -68,10 +75,8 @@ def _check_cuda(cv: torch.Tensor, acc: torch.Tensor, what: str,
         raise ValueError(f"{what}: acc must be float32 of cv's (H, W, D) shape")
     if not (cv.is_contiguous() and acc.is_contiguous()):
         raise ValueError(f"{what}: cv and acc must be contiguous")
-    if cv.shape[-1] < 1 or (not any_d and cv.shape[-1] > MAX_D):
-        # ceil(D / 32) <= 10 values a lane in registers; `sgm.sgm_route`
-        # sends wider ranges to K4b / K4d
-        raise NotImplementedError(f"{what}: 1 <= D <= {MAX_D}")
+    if cv.shape[-1] < 1:
+        raise ValueError(f"{what}: D >= 1")
 
 
 def _check_carries(carries, shape, dev, what: str) -> None:
@@ -118,7 +123,7 @@ def sgm_pass(cv: torch.Tensor, acc: torch.Tensor, direction: SgmDirection,
                               col0, W_pout)
     _check_cuda(cv, acc, "sgm_pass")
     col0, W_pout = _pout_args(cv, col0, W_pout)
-    _pass_launch(cv, acc, None, None, direction, P1, P2, Pout, accumulate,
+    _pass_launch(cv, acc, None, None, [direction], P1, P2, Pout, accumulate,
                  col0, W_pout, 0, cv.shape[0])
     sgm_pass.launches += 1
     return acc
@@ -127,16 +132,19 @@ def sgm_pass(cv: torch.Tensor, acc: torch.Tensor, direction: SgmDirection,
 sgm_pass.launches = 0
 
 
-def _pass_launch(cv, acc, cin, cout, direction, P1, P2, Pout, accumulate,
+def _pass_launch(cv, acc, cin, cout, directions, P1, P2, Pout, accumulate,
                  col0, W_pout, i0, H_img):
-    di, dj = direction.step
+    """One K2 launch over ``directions``; direction y uses volume y of
+    ``acc``."""
+    steps = [s for d in directions for s in d.step]
+    steps = (ctypes.c_int * len(steps))(*steps)
     H, W, D = cv.shape
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         err = lib.sgm_pass_launch(
             cv.data_ptr(), int(cv.dtype == torch.bfloat16), acc.data_ptr(),
-            _ptr(cin), _ptr(cout), H, W, D, di, dj, P1, P2, Pout,
-            int(accumulate), col0, W_pout, i0, H_img,
+            _ptr(cin), _ptr(cout), len(directions), ctypes.addressof(steps),
+            H, W, D, P1, P2, Pout, int(accumulate), col0, W_pout, i0, H_img,
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_pass_launch")
 
@@ -181,7 +189,7 @@ def sgm_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
     _check_cuda(cv, acc, "sgm_shard_pass")
     _check_carries(carry, (W, D), cv.device, "sgm_shard_pass")
     cout = torch.empty((W, D), dtype=torch.float32, device=cv.device)
-    _pass_launch(cv, acc, carry, cout, direction, P1, P2, Pout, accumulate,
+    _pass_launch(cv, acc, carry, cout, [direction], P1, P2, Pout, accumulate,
                  0, W, i0, H_img)
     sgm_shard_pass.launches += 1
     return cout
@@ -215,7 +223,7 @@ def sgm_knight_pass(cv: torch.Tensor, acc: torch.Tensor,
     if cv.device.type == "cpu":
         return sgm_knight_pass_plain(cv, acc, direction, P1, P2, Pout, col0,
                                      W_pout)
-    _check_cuda(cv, acc, "sgm_knight_pass", any_d=True)
+    _check_cuda(cv, acc, "sgm_knight_pass")
     col0, W_pout = _pout_args(cv, col0, W_pout)
     vert = direction.steps[0][0] != 0
     _knight_launch(cv, acc, None, None, direction, P1, P2, Pout, col0,
@@ -332,7 +340,7 @@ def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
     if cv.device.type == "cpu":
         return sgm_knight_shard_pass_plain(cv, acc, direction, P1, P2, Pout,
                                            carries, s0, N_img, col0, W_pout)
-    _check_cuda(cv, acc, "sgm_knight_shard_pass", any_d=True)
+    _check_cuda(cv, acc, "sgm_knight_shard_pass")
     _check_carries(carries, (2, X, D), cv.device, "sgm_knight_shard_pass")
     col0, W_pout = _pout_args(cv, col0, W_pout)
     cout = torch.zeros((2, X, D), dtype=torch.float32, device=cv.device)
@@ -349,13 +357,26 @@ sgm_knight_shard_pass.launches = 0
 # K3: right-to-left direction + WTA + band + subpixel
 # ---------------------------------------------------------------------------
 
+def _acc_sum(acc: torch.Tensor) -> torch.Tensor:
+    """An (H, W, D) accumulator, or the in-order sum of an (n, H, W, D)
+    stack of adjustment volumes, (((a_0 + a_1) + a_2) + ...): the volume
+    that K2 launches accumulating one after another leave."""
+    if acc.ndim == 3:
+        return acc
+    total = acc[0]
+    for a in acc[1:]:
+        total = total + a
+    return total
+
+
 def sgm_wta_plain(cv, acc, P1: float, P2: float, Pout: float, r: int,
                   h_radius: int, v_radius: int, refine: bool):
     """The plain PyTorch version of K3, on any device: returns (idx int32,
     bands (H, W, 2r+1) float32, disp or None)."""
     from .refinement import InterpolationKernel, refine_disp_cost_interpolation
     cvf = cv.float()
-    C = acc + direction_adj(cvf, SgmDirection.RIGHT2LEFT, P1, P2, Pout) + cvf
+    C = (_acc_sum(acc) + direction_adj(cvf, SgmDirection.RIGHT2LEFT, P1, P2,
+                                       Pout) + cvf)
     H, W, D = C.shape
     idx, bands = wta_bands(C, r)
     disp = None
@@ -371,13 +392,23 @@ def sgm_wta(cv: torch.Tensor, acc: torch.Tensor, P1: float, P2: float,
             refine: bool):
     """The right-to-left SGM direction over the whole image ``cv`` with
     ``acc`` holding the other directions' adjustments, then tie-last WTA,
-    the 2r+1 band and (``refine``) the parabola subpixel.  Returns
-    (idx (H, W) int32, bands (H, W, 2r+1) float32, disp (H, W) float32 or
-    None)."""
+    the 2r+1 band and (``refine``) the parabola subpixel.  ``acc`` is one
+    (H, W, D) volume or an (n, H, W, D) stack of up to 7 of them (one a
+    direction, `direction_volumes`), which K3 sums in order as it reads
+    them (`_acc_sum`).  Returns (idx (H, W) int32, bands (H, W, 2r+1)
+    float32, disp (H, W) float32 or None)."""
     if cv.device.type == "cpu":
         return sgm_wta_plain(cv, acc, P1, P2, Pout, r, h_radius, v_radius,
                              refine)
-    _check_cuda(cv, acc, "sgm_wta")
+    stack = acc if acc.ndim == 4 else acc[None]
+    for a in stack:
+        _check_cuda(cv, a, "sgm_wta")
+    if cv.shape[-1] > MAX_D:
+        # K3 keeps ceil(D / 32) <= 10 values a lane in registers;
+        # `sgm.sgm_route` sends wider ranges to K4b / K4d
+        raise NotImplementedError(f"sgm_wta: 1 <= D <= {MAX_D}")
+    if not stack.is_contiguous():
+        raise ValueError("sgm_wta: acc must be contiguous")
     if r < 0 or (refine and r < 1):
         raise ValueError("sgm_wta: band radius r >= 0, and >= 1 to refine")
     H, W, D = cv.shape
@@ -389,8 +420,8 @@ def sgm_wta(cv: torch.Tensor, acc: torch.Tensor, P1: float, P2: float,
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         err = lib.sgm_wta_launch(
-            cv.data_ptr(), int(cv.dtype == torch.bfloat16), acc.data_ptr(),
-            idx.data_ptr(), bands.data_ptr(),
+            cv.data_ptr(), int(cv.dtype == torch.bfloat16), stack.data_ptr(),
+            stack.shape[0], idx.data_ptr(), bands.data_ptr(),
             disp.data_ptr() if refine else None, H, W, D, P1, P2, Pout, r,
             h_radius, v_radius, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_wta_launch")
@@ -422,14 +453,72 @@ def sgm_accumulate(cv: torch.Tensor, directions, P1: float, P2: float,
     return acc
 
 
+def direction_volumes(cv: torch.Tensor, directions, P1: float, P2: float,
+                      Pout: float) -> torch.Tensor:
+    """Each of up to 7 principal directions' adjustment in a volume of its
+    own, (n, H, W, D) float32: ONE K2 launch, whose grid's second axis picks
+    the direction, so the directions' lines fill the card together (one
+    direction has fewer lines than the card has schedulers up to 480x640,
+    and few a scheduler beyond).  `_acc_sum` of the stack is
+    `sgm_accumulate`'s volume bit for bit (the same adjustments, added in
+    the same order)."""
+    cv = kernel_volume(cv)
+    if any(d.knight for d in directions):
+        raise ValueError("direction_volumes takes principal directions")
+    adj = torch.empty((len(directions),) + tuple(cv.shape),
+                      dtype=torch.float32, device=cv.device)
+    if cv.device.type == "cpu":
+        for d, a in zip(directions, adj):
+            sgm_pass_plain(cv, a, d, P1, P2, Pout, accumulate=False)
+        return adj
+    _check_cuda(cv, adj[0], "direction_volumes")
+    H, W, _ = cv.shape
+    _pass_launch(cv, adj, None, None, directions, P1, P2, Pout, False, 0, W,
+                 0, H)
+    direction_volumes.launches += 1
+    return adj
+
+
+direction_volumes.launches = 0
+
+def one_launch_fits(stack_bytes: int, free_bytes: int) -> bool:
+    """Whether `sgm_wta_fused` takes `direction_volumes` (one K2 launch, one
+    volume a direction, ``stack_bytes`` in all) over `sgm_accumulate` (one
+    launch a direction into one accumulator): where the stack takes at most
+    half of the ``free_bytes`` the device has left.  Both forms give the
+    same bits; with K3 after it the one launch was the faster form from
+    480x640 to 2160x3840 on an H100 (`chip_smoke.k2_forms`, PERF.md), so
+    memory alone decides."""
+    return 2 * stack_bytes <= free_bytes
+
+
+def _one_launch(cv: torch.Tensor, directions) -> bool:
+    """`one_launch_fits` for ``cv`` on its card; False on the CPU."""
+    if cv.device.type != "cuda":
+        return False
+    free, _ = torch.cuda.mem_get_info(cv.device)
+    # the caching allocator's reserved but unused blocks are free to it
+    free += (torch.cuda.memory_reserved(cv.device)
+             - torch.cuda.memory_allocated(cv.device))
+    return one_launch_fits(len(directions) * cv.numel() * 4, free)
+
+
 def sgm_wta_fused(cv: torch.Tensor, P1: float, P2: float, Pout: float,
                   n_directions: int, r: int, h_radius: int, v_radius: int,
                   refine: bool):
-    """SGM over a whole-image COST volume + WTA + band (+ subpixel): K2 for every
-    principal direction but RIGHT2LEFT, K2k for the knight directions, then
-    K3.  Returns what `sgm_wta` returns."""
+    """SGM over a whole-image COST volume + WTA + band (+ subpixel): K2 for
+    every principal direction but RIGHT2LEFT, then K3.  With 4 or 8
+    directions, where `one_launch_fits` (the volumes fit), K2 runs once into
+    a volume a direction (`direction_volumes`) and K3 sums them in order;
+    else, and
+    with 16 directions, the K2 launches accumulate into one volume, one
+    after another, with the knight directions (K2k) after them.  Returns
+    what `sgm_wta` returns."""
     cv = kernel_volume(cv)
     dirs = [d for d in directions_for(n_directions)
             if d is not SgmDirection.RIGHT2LEFT]
-    acc = sgm_accumulate(cv, dirs, P1, P2, Pout)
+    if n_directions < 16 and _one_launch(cv, dirs):
+        acc = direction_volumes(cv, dirs, P1, P2, Pout)
+    else:
+        acc = sgm_accumulate(cv, dirs, P1, P2, Pout)
     return sgm_wta(cv, acc, P1, P2, Pout, r, h_radius, v_radius, refine)

@@ -1,8 +1,9 @@
 """K4a, K4b, K4c and K4d: the lane-layout SGM kernels (`csrc/sgm_lane.cu`),
 the port of `libstevi_tpu/ops/sgm_pallas.py`.
 
-These carry SGM past K2/K3's register limit (D <= 320): every carry lives
-in shared memory, so D is unbounded.
+These carry single-device SGM past K3's register limit (D <= 320): every
+carry lives in shared memory, so D is unbounded.  (K2 and K2s take any D
+too, one warp a line; the distributed K2s engine uses them past D = 320.)
 - K4a `shift_rows` (`_shift_rows`): the per-row window copy, and `shear` /
   `unshear` on it (`pallas_shear` / `pallas_unshear`).
 - K4b `fused_rows_pass`, `fused_cols_pass`, `fused_cols_wta`

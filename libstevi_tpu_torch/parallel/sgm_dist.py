@@ -12,12 +12,12 @@ across shards, as the JAX package's `ppermute` relay does.
 
 Each shard runs the directions in the single-device order
 (`ops.sgm_cuda.sgm_accumulate`: `directions_for` order, each pass adding
-into one accumulator; `sgm_lane_cuda.fused_adj`: down, up, then the column
-scans), so a distributed volume equals the single-device route's bit for
-bit.  Engines:
+into one accumulator; `sgm_lane_cuda.fused_adj`: down, up, the left to
+right column scan, the knights, then the right to left one), so a
+distributed volume equals the single-device route's bit for bit.  Engines:
 
-  * `distributed_sgm_fused_dhw` (4, 8 or 16 directions, D <= 320 on CUDA):
-    K2 for the horizontal directions, K2s relayed for the others
+  * `distributed_sgm_fused_dhw` (4, 8 or 16 directions, any D): K2 for the
+    horizontal directions, K2s relayed for the others
     (`sgm_cuda.sgm_shard_pass`, `sgm_knight_shard_pass`).  The left/right
     knights drift one row every two columns, so they cross row shards in
     mid-line; they run after an all-to-all to column shards, where they
@@ -27,15 +27,16 @@ bit.  Engines:
     the parity for odd heights).  The name is the JAX function's; the port
     has no DHW layout.
   * `distributed_sgm` (4 directions): the same engine.
-  * `distributed_sgm_fused` (4 or 8 directions, any D): K4c relayed down and
-    up (`sgm_lane_cuda.fused_rows_shard_pass`), then K4b's column scans on
-    each shard.
+  * `distributed_sgm_fused` (4, 8 or 16 directions, any D): K4c relayed
+    down and up (`sgm_lane_cuda.fused_rows_shard_pass`), then K4b's column
+    scans on each shard; 16 directions add the knights before the last
+    column scan, the down/up ones relayed over the row shards and the
+    left/right ones over column shards, both through K2s.
   * `distributed_sgm_routed`: the single-device rule of `ops.sgm.sgm_route`,
     used by the pipelines of `parallel.stereo`: D <= 320 (or P2 < P1, on
-    the plain dense-penalty passes) the K2s engine, D > 320 with 4 or 8
-    directions K4c, and 16 directions at D > 320 raise ValueError, as the
-    JAX package refuses a shard volume too wide for its fused pass
-    (`sgm_pallas_dhw.py:1047-1048`).
+    the plain dense-penalty passes) the K2s engine, D > 320 K4c where its
+    carries fit (`sgm_lane_cuda.fused_fits`), else the K2s engine, which
+    takes any D.
 
 Every function takes and returns lists of shards; the result is float32.
 """
@@ -45,7 +46,7 @@ from __future__ import annotations
 import torch
 
 from ..ops import sgm_lane_cuda as lane
-from ..ops.sgm import directions_for, sgm_route
+from ..ops.sgm import _KNIGHT_DIRS, directions_for, sgm_route
 from ..ops.sgm_cuda import (kernel_volume, sgm_knight_shard_pass,
                             sgm_knight_shard_pass_plain, sgm_pass,
                             sgm_pass_plain, sgm_shard_pass,
@@ -102,18 +103,10 @@ def distributed_sgm_fused_dhw(shards, P1: float, P2: float,
     i0s, H_img = _row_offsets(cvs)
     accs = [torch.empty(x.shape, dtype=torch.float32, device=x.device)
             for x in cvs]
-    dirs = directions_for(n_directions)
-    # the left/right knights (primary axis: columns) come last in this order
-    col_knights = [d for d in dirs if d.knight and d.steps[0][0] == 0]
-    for k, d in enumerate(dirs):
-        if d in col_knights:
-            continue
-        if d.knight:
-            def run(m, carries, d=d):
-                return knight_pass(cvs[m], accs[m], d, P1, P2, Pout, carries,
-                                   i0s[m], H_img)
-            carry_relay(devs, run, reverse=d.steps[0][0] < 0)
-        elif d.step[0] == 0:
+    # `directions_for` lists the knights after the principal directions
+    principal = [d for d in directions_for(n_directions) if not d.knight]
+    for k, d in enumerate(principal):
+        if d.step[0] == 0:
             for m in range(len(cvs)):
                 h_pass(cvs[m], accs[m], d, P1, P2, Pout, k > 0)
         else:
@@ -121,9 +114,8 @@ def distributed_sgm_fused_dhw(shards, P1: float, P2: float,
                 return shard_pass(cvs[m], accs[m], d, P1, P2, Pout, k > 0,
                                   carry, i0s[m], H_img)
             carry_relay(devs, run, reverse=d.step[0] < 0)
-    if col_knights:
-        accs = _column_knight_stage(cvs, accs, col_knights, P1, P2, Pout,
-                                    knight_pass)
+    if n_directions >= 16:
+        accs = _knight_stage(cvs, accs, P1, P2, Pout, knight_pass)
     return [x.float() + a for x, a in zip(cvs, accs)]
 
 
@@ -177,14 +169,15 @@ def _column_knight_stage(cvs, accs, dirs, P1, P2, Pout, knight_pass):
 
 def distributed_sgm_fused(shards, P1: float, P2: float, Pout: float = 100.0,
                           n_directions: int = 8) -> list:
-    """4- or 8-direction SGM over row shards on the lane-layout kernels, any
-    D: K4c down (relayed from the first shard) and up (relayed from the
-    last), each carrying the vertical and both diagonal directions, then
-    K4b's two column scans on each shard.  Equals the single-device lane
-    route (`sgm_lane_cuda.fused_adj`) bit for bit on the same device."""
-    if n_directions not in (4, 8):
-        raise ValueError("distributed_sgm_fused takes 4 or 8 directions")
+    """4-, 8- or 16-direction SGM over row shards on the lane-layout
+    kernels, any D: K4c down (relayed from the first shard) and up (relayed
+    from the last), each carrying the vertical and both diagonal
+    directions, then K4b's column scans on each shard; 16 directions add
+    the knight directions (K2s) before the last column scan, as `fused_adj`
+    adds them.  Equals the single-device lane route (`sgm_lane_cuda.
+    fused_adj`) bit for bit on the same device."""
     _check_shards(shards)
+    directions_for(n_directions)
     P1, P2, Pout = float(P1), float(P2), float(Pout)
     diag = n_directions >= 8
     cvs = [x.float().contiguous() for x in shards]
@@ -205,8 +198,31 @@ def distributed_sgm_fused(shards, P1: float, P2: float, Pout: float = 100.0,
     sweep(True)
     for m, x in enumerate(cvs):
         lane.fused_cols_pass(x, adj[m], False, **kw)
+    if n_directions >= 16:
+        adj = _knight_stage(cvs, adj, P1, P2, Pout, sgm_knight_shard_pass)
+    for m, x in enumerate(cvs):
         lane.fused_cols_pass(x, adj[m], True, **kw)
     return [x + a for x, a in zip(cvs, adj)]
+
+
+def _knight_stage(cvs, accs, P1, P2, Pout, knight_pass):
+    """The eight knight directions in `_KNIGHT_DIRS` order, added into the
+    row shards' accumulators ``accs``: the down/up knights relayed over the
+    row shards, then the left/right ones over column shards
+    (`_column_knight_stage`).  Returns the accumulators."""
+    devs = [x.device for x in cvs]
+    i0s, H_img = _row_offsets(cvs)
+    for d in _KNIGHT_DIRS:
+        if d.steps[0][0] == 0:
+            continue
+
+        def run(m, carries, d=d):
+            return knight_pass(cvs[m], accs[m], d, P1, P2, Pout, carries,
+                               i0s[m], H_img)
+        carry_relay(devs, run, reverse=d.steps[0][0] < 0)
+    return _column_knight_stage(
+        cvs, accs, [d for d in _KNIGHT_DIRS if d.steps[0][0] == 0], P1, P2,
+        Pout, knight_pass)
 
 
 def distributed_sgm_routed(shards, P1: float, P2: float, Pout: float = 100.0,
@@ -214,13 +230,13 @@ def distributed_sgm_routed(shards, P1: float, P2: float, Pout: float = 100.0,
     """The engine of the distributed pipelines, chosen by the single-device
     rule (`ops.sgm.sgm_route`): the K2s engine where the single device runs
     K2/K2k (or the plain dense-penalty passes), K4c where it runs the lane
-    route.  16 directions at D > 320 raise ValueError."""
-    D = shards[0].shape[-1]
+    route and K4c's carries fit (`sgm_lane_cuda.fused_fits`, as
+    `fused_adj` decides on one device), else the K2s engine, which takes
+    any D."""
+    _check_shards(shards)
+    W, D = shards[0].shape[1:]
     route = sgm_route(D, n_directions, P1, P2, shards[0].is_cuda)
-    if route != "lane":
-        return distributed_sgm_fused_dhw(shards, P1, P2, Pout, n_directions)
-    if n_directions >= 16:
-        raise ValueError(f"distributed 16-direction SGM takes D <= 320 "
-                         f"(D = {D}): the shard volume is too wide for the "
-                         "K2s knight relay, as in the JAX package")
-    return distributed_sgm_fused(shards, P1, P2, Pout, n_directions)
+    if route == "lane" and lane.fused_fits(W, D, n_directions,
+                                           n_sm=lane._sms(shards[0])):
+        return distributed_sgm_fused(shards, P1, P2, Pout, n_directions)
+    return distributed_sgm_fused_dhw(shards, P1, P2, Pout, n_directions)

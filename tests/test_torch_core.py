@@ -92,11 +92,14 @@ def test_read_write_image_dispatch_stevimg(tmp_path):
     got = read_image(str(DATA / "left_small.stevimg"), np.float64)
     np.testing.assert_array_equal(
         got, j_read_image(str(DATA / "left_small.stevimg"), np.float64))
-    for bad in ("a.png", "a.flo"):
+    for bad in ("a.png", "a.jpg"):       # these need an image library
         with pytest.raises(ValueError):
             read_image(str(tmp_path / bad))
         with pytest.raises(ValueError):
             write_image(str(tmp_path / bad), img)
+    flow = np.stack([img, -img], -1)     # .flo is numpy, as in JAX
+    assert write_image(str(tmp_path / "a.flo"), flow)
+    np.testing.assert_array_equal(j_read_image(str(tmp_path / "a.flo")), flow)
 
 
 @pytest.mark.parametrize("threshold", [0.5, 1.0, 2.0])

@@ -14,7 +14,8 @@ from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
 from libstevi_tpu_torch.ops import sgm_wta_truncated
 from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
                                         _KNIGHT_DIRS)
-from libstevi_tpu_torch.ops.sgm_cuda import (sgm_knight_pass,
+from libstevi_tpu_torch.ops.sgm_cuda import (_acc_sum, direction_volumes,
+                                             sgm_accumulate, sgm_knight_pass,
                                              sgm_knight_pass_plain, sgm_pass,
                                              sgm_pass_plain, sgm_wta,
                                              sgm_wta_plain, sgm_shard_pass,
@@ -89,6 +90,30 @@ def test_k2_matches_plain(dev, shape, dtype):
     torch.testing.assert_close(acc, acc2, rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("offset", [0, 1])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(37, 101, 13), (23, 57, 331),
+                                   (12, 40, 330), (9, 30, 300)])
+def test_k2_any_d_and_unaligned_match_plain(dev, shape, dtype, offset):
+    """K2 past D = 320 (the shared-memory instance) and on volumes whose
+    pixels are not 16-byte aligned (odd D, or a view one element into its
+    storage): the ring stages the aligned cover of each vector."""
+    H, W, D = shape
+    g = torch.Generator(device=dev).manual_seed(D)
+    flat = (torch.rand(H * W * D + 1, generator=g, device=dev) * 2 - 1).to(
+        dtype)
+    cv = flat[offset:offset + H * W * D].view(H, W, D)
+    acc = torch.empty(cv.shape, device=dev)
+    acc2 = torch.empty(cv.shape, device=dev)
+    before = sgm_pass.launches
+    for k, d in enumerate(directions_for(8)):
+        sgm_pass(cv, acc, d, 0.1, 0.5, 100.0, accumulate=k > 0)
+        sgm_pass_plain(cv, acc2, d, 0.1, 0.5, 100.0, accumulate=k > 0)
+    assert sgm_pass.launches == before + 8
+    torch.cuda.synchronize()
+    torch.testing.assert_close(acc, acc2, rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("shape", SHAPES)
 def test_k3_matches_plain(dev, shape, dtype):
@@ -108,15 +133,46 @@ def test_k3_matches_plain(dev, shape, dtype):
     torch.testing.assert_close(d1[f], d2[f], rtol=1e-4, atol=1e-4)
 
 
+def _path_counts():
+    """The launch counts of K1, K2 (one direction a launch), K2 (up to 7
+    directions in one launch), K2k and K3."""
+    return (box_cv.launches, sgm_pass.launches, direction_volumes.launches,
+            sgm_knight_pass.launches, sgm_wta.launches)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + [(9, 30, 300)])
+def test_k2_one_launch_matches_plain(dev, shape, dtype):
+    """`direction_volumes`: the 7 directions of the WTA path in one K2
+    launch, a volume each, against each direction's plain volume at 1e-4,
+    summed in order equal to 7 launches into one accumulator bitwise; more
+    than 7 directions in one launch raise."""
+    cv = _volume(dev, shape, dtype)
+    dirs = [d for d in directions_for(8) if d is not SgmDirection.RIGHT2LEFT]
+    before = (sgm_pass.launches, direction_volumes.launches)
+    stack = direction_volumes(cv, dirs, 0.1, 0.5, 100.0)
+    assert (sgm_pass.launches, direction_volumes.launches) == \
+        (before[0], before[1] + 1)
+    for d, a in zip(dirs, stack):
+        want = sgm_pass_plain(cv, torch.empty_like(a), d, 0.1, 0.5, 100.0,
+                              accumulate=False)
+        torch.testing.assert_close(a, want, rtol=1e-4, atol=1e-4)
+    seq = sgm_accumulate(cv, dirs, 0.1, 0.5, 100.0)
+    assert torch.equal(_acc_sum(stack), seq)
+    with pytest.raises(RuntimeError):
+        direction_volumes(cv, directions_for(8), 0.1, 0.5, 100.0)
+
+
 def test_dense_path_matches_cpu(dev):
     """The kernel path on the card against the plain path on the CPU."""
     L, R = _pair(dev, 48, 80, seed=2)
     kw = dict(refine_kernel=InterpolationKernel.PARABOLA)
-    counts = (box_cv.launches, sgm_pass.launches, sgm_wta.launches)
+    counts = _path_counts()
     dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 3, 3, 20,
                                   0.1, 0.5, **kw)
-    assert (box_cv.launches, sgm_pass.launches, sgm_wta.launches) == \
-        (counts[0] + 1, counts[1] + 7, counts[2] + 1)
+    # K1, the 7 K2 directions in one launch (the volumes fit), K3
+    assert _path_counts() == (counts[0] + 1, counts[1], counts[2] + 1,
+                              counts[3], counts[4] + 1)
     dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(),
                                   3, 3, 20, 0.1, 0.5, **kw)
     same = ig.cpu() == ic
@@ -135,10 +191,12 @@ def test_sgm_cost_volume_runs_the_kernel(dev):
 
 
 def test_unsupported_configurations_raise(dev):
-    """Distributed 16-direction SGM at D > 320 is the one SGM configuration
-    the card refuses (ValueError, as the JAX package refuses a shard volume
-    too wide for its fused pass); on one device it runs (K4b and K2k's
-    any-D instance)."""
+    """Distributed 16-direction SGM at D > 320 was the one SGM
+    configuration the card refused; it runs now (K4c relayed, then the
+    knights through K2s) and equals the single-device route (K4b and K2k's
+    any-D instance) bit for bit and the CPU run at 1e-4.  What the card
+    still refuses: K3 past D = 320 (`sgm_route` sends it to the lane
+    route)."""
     from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
     L, R = _pair(dev, 8, 340)
     counts = (lane.fused_rows_pass.launches, sgm_knight_pass.launches)
@@ -148,8 +206,62 @@ def test_unsupported_configurations_raise(dev):
         (counts[0] + 2, counts[1] + 16)
     assert idx.shape == (8, 340)
     cv = torch.rand(8, 20, 330, device=dev)
-    with pytest.raises(ValueError, match="D <= 320"):
-        distributed_sgm_routed(list(cv.split(4)), 0.1, 0.5, n_directions=16)
+    before = (lane.fused_rows_shard_pass.launches,
+              sgm_knight_shard_pass.launches)
+    got = torch.cat(distributed_sgm_routed(list(cv.split(4)), 0.1, 0.5,
+                                           n_directions=16))
+    assert lane.fused_rows_shard_pass.launches == before[0] + 4
+    assert sgm_knight_shard_pass.launches == before[1] + 32
+    assert torch.equal(got, sgm_cost_volume(cv, 0.1, 0.5, n_directions=16))
+    want = torch.cat(distributed_sgm_routed(list(cv.cpu().split(4)), 0.1,
+                                            0.5, n_directions=16))
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+    with pytest.raises(NotImplementedError, match="D <= 320"):
+        sgm_wta(cv, torch.zeros_like(cv), 0.1, 0.5, 100.0, 1, 1, 1, False)
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8, 16])
+def test_distributed_sgm_past_d320_matches_cpu(dev, n_dirs):
+    """`distributed_sgm` (4 directions) and `distributed_sgm_fused_dhw` at
+    D = 330 on 3 virtual shards of the card (K2 and K2s, any D) against
+    the same engines on the CPU at 1e-4, and against the single-device
+    K2/K2k sum (`sgm_accumulate`) bit for bit."""
+    from libstevi_tpu_torch.ops.sgm_cuda import sgm_accumulate
+    from libstevi_tpu_torch.parallel.sgm_dist import (
+        distributed_sgm, distributed_sgm_fused_dhw)
+    g = torch.Generator(device=dev).manual_seed(33)
+    cv = torch.rand((17, 23, 330), generator=g, device=dev) * 4
+    sizes = [6, 4, 7]
+    fns = [lambda s: distributed_sgm_fused_dhw(s, 0.3, 1.1, 7.0, n_dirs)]
+    if n_dirs == 4:
+        fns.append(lambda s: distributed_sgm(s, 0.3, 1.1, 7.0))
+    ref = cv + sgm_accumulate(cv, directions_for(n_dirs), 0.3, 1.1, 7.0)
+    for fn in fns:
+        before = sgm_shard_pass.launches
+        got = torch.cat(fn(_shards(cv, sizes)))
+        assert sgm_shard_pass.launches > before
+        assert torch.equal(got, ref)
+        want = torch.cat(fn(_shards(cv.cpu(), sizes)))
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
+
+
+def test_aggregate_cost_auto_past_k5_tile_matches_cpu(dev):
+    """ZSAD at r = 5 (F = 121) over D = 448: K5's tile needs 249,600 bytes
+    of shared memory, so 'auto' takes the shifted-compare loop (no K5
+    launch) and equals the CPU; 'fused' still raises."""
+    from libstevi_tpu_torch.ops import unfold_based_cost_volume
+    from libstevi_tpu_torch.ops.cost_volume import aggregate_cost
+    L, R = _pair(dev, 14, 470, seed=5)
+    before = fused_fv_cost_volume.launches
+    got = unfold_based_cost_volume(MatchingFunction.ZSAD, L, R, 5, 5, 448)
+    assert fused_fv_cost_volume.launches == before
+    want = unfold_based_cost_volume(MatchingFunction.ZSAD, L.cpu(), R.cpu(),
+                                    5, 5, 448)
+    assert got.is_cuda and got.shape == (14, 470, 448)
+    torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    fv = torch.zeros(4, 5, 121, device=dev)
+    with pytest.raises(NotImplementedError):
+        aggregate_cost(MatchingFunction.ZSAD, fv, fv, 448, backend="fused")
 
 
 @pytest.mark.parametrize("n_dirs", [4, 8, 16])
@@ -386,13 +498,15 @@ def test_dense_routes_match_cpu(dev, func, n_dirs):
     L, R = _pair(dev, 40, 72, seed=6)
     P1, P2 = (1.0, 4.0) if func == "CENSUS" else (0.1, 0.5)
     kw = dict(n_directions=n_dirs, refine_kernel=InterpolationKernel.PARABOLA)
-    counts = (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches)
+    counts = _path_counts()
     f = MatchingFunction[func]
     dg, ig, tg = dense_sgm_stereo(f, L, R, 3, 3, 16, P1, P2, **kw)
-    assert (sgm_pass.launches, sgm_knight_pass.launches,
-            sgm_wta.launches) == (counts[0] + 7,
-                                  counts[1] + (16 if n_dirs == 16 else 0),
-                                  counts[2] + 1)
+    # 8 directions: K2 in one launch; 16: 7 K2 launches, then the knights
+    sixteen = n_dirs == 16
+    assert _path_counts()[1:] == (counts[1] + (7 if sixteen else 0),
+                                  counts[2] + (0 if sixteen else 1),
+                                  counts[3] + (16 if sixteen else 0),
+                                  counts[4] + 1)
     dc, ic, tc = dense_sgm_stereo(f, L.cpu(), R.cpu(), 3, 3, 16, P1, P2, **kw)
     same = ig.cpu() == ic
     assert same.float().mean().item() > 0.999
@@ -510,7 +624,7 @@ def test_cv_patchmatch_matches_cpu_with_one_draw_stream(dev):
 
 # -- K2s, K4c, the any-D K2k and the distributed paths -----------------------
 
-K2S_SHAPES = [(13, 37, 24), (9, 20, 300), (6, 11, 5)]
+K2S_SHAPES = [(13, 37, 24), (9, 20, 300), (6, 11, 5), (7, 19, 330)]
 PRINCIPAL = [d for d in directions_for(8) if d.step[0] != 0]
 
 

@@ -223,3 +223,27 @@ def test_two_d_searches_are_not_ported_yet():
     with pytest.raises(NotImplementedError):
         unfold_based_cost_volume(to_port(JMF.SSD), fv[..., 0], fv[..., 0],
                                  1, 1, SearchOffset2(-1, 1, -1, 1))
+
+
+def test_auto_backend_takes_the_scan_past_k5s_tile():
+    """'auto' launches K5 on CUDA only where its tile fits a block's shared
+    memory: ZSAD at r = 5 (F = 121) over D = 448 needs 249,600 bytes, so it
+    takes the shifted-compare loop, as JAX's 'auto' falls back past its
+    VMEM budget; the flagship WTA shape (F = 49, D = 120) takes K5."""
+    from libstevi_tpu_torch.ops.cost_volume import auto_backend
+    from libstevi_tpu_torch.ops.fv_backend import MAX_SMEM, smem_bytes
+    assert smem_bytes(121, 448, 447) == 249600 > MAX_SMEM
+    assert auto_backend("sad", True, (480, 640, 121), range(448)) == "scan"
+    assert auto_backend("sad", True, (480, 640, 49), range(120)) == "fused"
+    assert auto_backend("dot", True, (480, 640, 121), range(200)) == "fused"
+    assert auto_backend("sad", False, (480, 640, 49), range(120)) == "scan"
+    assert auto_backend("medad", True, (480, 640, 49), range(120)) == "scan"
+    assert auto_backend("sad", True, (2, 480, 640, 49), range(120)) == "scan"
+    # on the CPU 'auto' runs the loop, equal to JAX's scan at the shape
+    L, R = _pair(0, (9, 40))
+    f = JMF.ZSAD
+    got = unfold_based_cost_volume(to_port(f), torch.from_numpy(L),
+                                   torch.from_numpy(R), 5, 5, 24).numpy()
+    want = np.asarray(j_unfold_cv(f, jnp.asarray(L), jnp.asarray(R), 5, 5,
+                                  24))
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)

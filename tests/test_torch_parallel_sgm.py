@@ -114,20 +114,61 @@ def test_unequal_shards_equal_single_device(rng, nd):
 @pytest.mark.parametrize("nd", [4, 8, 16])
 def test_routed_engine_and_p2_below_p1(rng, nd):
     """The pipelines' rule: P2 < P1 runs the plain dense-penalty passes
-    (against JAX's XLA path), D > 320 with 4 or 8 directions K4c, and 16
-    directions at D > 320 raise."""
+    (against JAX's XLA path), and D > 320 K4c (with 16 directions, the
+    knight relays before the last column scan), against JAX's
+    single-device XLA path."""
     cv = rng.uniform(0, 4, (20, 11, 6)).astype(np.float32)
     want = np.asarray(j_sgm(jnp.asarray(cv), 0.9, 0.2, Pout=7.0,
                             n_directions=nd, backend="xla"))
     got = torch.cat(distributed_sgm_routed(
         list(torch.from_numpy(cv).split(5)), 0.9, 0.2, 7.0, nd)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
-    wide = torch.from_numpy(rng.uniform(0, 4, (8, 5, 330)).astype(np.float32))
-    if nd >= 16:
-        with pytest.raises(ValueError, match="D <= 320"):
-            distributed_sgm_routed(list(wide.split(2)), 0.1, 0.5, 7.0, nd)
-        return
-    want = sgm_cost_volume(wide, 0.1, 0.5, Pout=7.0, n_directions=nd)
-    got = torch.cat(distributed_sgm_routed(list(wide.split(2)), 0.1, 0.5,
-                                           7.0, nd))
-    assert torch.equal(got, want)         # K4c's plain version, same order
+    wide = rng.uniform(0, 4, (8, 5, 330)).astype(np.float32)
+    want = np.asarray(j_sgm(jnp.asarray(wide), 0.1, 0.5, Pout=7.0,
+                            n_directions=nd, backend="xla"))
+    got = torch.cat(distributed_sgm_routed(
+        list(torch.from_numpy(wide).split(2)), 0.1, 0.5, 7.0, nd))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    if nd < 16:     # K4c's plain version, the single-device order
+        assert torch.equal(got, sgm_cost_volume(torch.from_numpy(wide), 0.1,
+                                                0.5, Pout=7.0,
+                                                n_directions=nd))
+
+
+@pytest.mark.parametrize("nd", [4, 8, 16])
+def test_distributed_sgm_past_d320_matches_jax(rng, nd):
+    """`distributed_sgm` (4 directions) and the K2s engine at D = 330 on
+    4 row shards against JAX's single-device `sgm_cost_volume`: K2 and
+    K2s take any D."""
+    cv = rng.uniform(0, 4, (12, 7, 330)).astype(np.float32)
+    want = np.asarray(j_sgm(jnp.asarray(cv), 0.3, 1.1, Pout=7.0,
+                            n_directions=nd, backend="xla"))
+    if nd == 4:
+        got = _port_tiles(lambda s: distributed_sgm(s, 0.3, 1.1, 7.0), cv)
+        np.testing.assert_allclose(got, want, **TOL)
+    got = _port_tiles(lambda s: distributed_sgm_fused_dhw(s, 0.3, 1.1, 7.0,
+                                                          nd), cv)
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+def test_routed_falls_back_to_k2s_where_k4c_does_not_fit(rng, monkeypatch):
+    """Past D = 320, where K4c's carries do not fit a block's shared memory,
+    the routed engine takes the K2s engine (any D) and still matches JAX's
+    single-device volume."""
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    from libstevi_tpu_torch.ops import sgm_cuda
+    monkeypatch.setattr(lane, "SMEM_BLOCK", 8000)
+    cv = rng.uniform(0, 4, (8, 9, 330)).astype(np.float32)
+    calls = []
+    real = sgm_cuda.sgm_shard_pass_plain
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(sgm_cuda, "sgm_shard_pass_plain", spy)
+    want = np.asarray(j_sgm(jnp.asarray(cv), 0.3, 1.1, Pout=7.0,
+                            n_directions=16, backend="xla"))
+    got = torch.cat(distributed_sgm_routed(
+        list(torch.from_numpy(cv).split(2)), 0.3, 1.1, 7.0, 16))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    assert calls                                  # the K2s engine ran

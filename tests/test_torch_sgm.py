@@ -210,3 +210,57 @@ def test_k3_wrapper_on_cpu_is_the_plain_version():
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     sgm_pass(cv, acc.clone(), SgmDirection.UP2DOWN, 0.1, 0.5, 100.0)
     assert (sgm_pass.launches, sgm_wta.launches) == before
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8])
+def test_direction_volumes_sum_to_the_sequential_accumulator(n_dirs):
+    """The WTA path's K2 form that writes one adjustment volume a direction
+    (`direction_volumes`, one launch on the card); summed in direction
+    order they equal `sgm_accumulate`'s accumulator bit for bit, and K3
+    over the stack equals K3 over that accumulator.  Both against JAX's XLA
+    SGM volume at 1e-4."""
+    from libstevi_tpu_torch.ops.sgm import directions_for
+    from libstevi_tpu_torch.ops.sgm_cuda import (_acc_sum, direction_volumes,
+                                                 sgm_accumulate)
+    cv = torch.from_numpy(_cv(9, (11, 17, 6), 3.0))
+    dirs = [d for d in directions_for(n_dirs)
+            if d is not SgmDirection.RIGHT2LEFT]
+    before = (sgm_pass.launches, direction_volumes.launches)
+    stack = direction_volumes(cv, dirs, 0.1, 0.5, 100.0)
+    assert stack.shape == (len(dirs), 11, 17, 6)
+    # the CPU runs the plain passes
+    assert (sgm_pass.launches, direction_volumes.launches) == before
+    seq = sgm_accumulate(cv, dirs, 0.1, 0.5, 100.0)
+    assert torch.equal(_acc_sum(stack), seq)
+    for got, want in zip(sgm_wta(cv, stack, 0.1, 0.5, 100.0, 1, 1, 1, True),
+                         sgm_wta(cv, seq, 0.1, 0.5, 100.0, 1, 1, 1, True)):
+        np.testing.assert_array_equal(got.numpy(), want.numpy())
+    want = np.asarray(j_sgm(jnp.asarray(cv.numpy()), 0.1, 0.5, Pout=100.0,
+                            n_directions=n_dirs, backend="xla"))
+    from libstevi_tpu_torch.ops.sgm import direction_adj
+    got = cv + _acc_sum(stack) + direction_adj(cv, SgmDirection.RIGHT2LEFT,
+                                              0.1, 0.5, 100.0)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+
+
+@pytest.mark.parametrize("shape, one_launch", [
+    ((480, 640, 120), True),         # 1.03 GB of direction volumes
+    ((720, 1280, 320), True),        # 8.26 GB
+    ((2160, 3840, 128), True),       # 29.7 GB
+    ((2160, 3840, 320), False),      # 74.3 GB
+])
+def test_one_launch_form_needs_the_stack_to_fit(shape, one_launch):
+    """`sgm_wta_fused`'s choice of K2 form with 80 GB free: one launch for
+    the 7 directions, a volume each, where the volumes take at most half
+    the free memory, else 7 launches into one accumulator."""
+    from libstevi_tpu_torch.ops.sgm_cuda import one_launch_fits
+    H, W, D = shape
+    assert one_launch_fits(7 * H * W * D * 4, 80 * 10 ** 9) is one_launch
+
+
+def test_one_launch_form_is_not_taken_on_the_cpu():
+    """On the CPU `sgm_wta_fused` runs the plain accumulating form, and
+    both forms give the same bits there
+    (`test_direction_volumes_sum_to_the_sequential_accumulator`)."""
+    from libstevi_tpu_torch.ops.sgm_cuda import _one_launch
+    assert not _one_launch(torch.zeros(2, 3, 4), [SgmDirection.UP2DOWN])

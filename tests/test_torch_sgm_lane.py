@@ -266,17 +266,23 @@ def test_sgm_route(D, n_dirs, p1, p2, W, cuda, budget, want):
 
 def test_sixteen_directions_past_d320_raise_on_cuda_only():
     """16 directions past D = 320 once raised for a CUDA tensor (K2k kept D
-    in registers).  They take the lane route on both devices now, with
-    K2k's any-D instance for the knights; only the distributed engine
-    refuses them (`parallel.sgm_dist.distributed_sgm_routed`)."""
+    in registers), and later in the distributed engine.  They take the
+    lane route on both devices now, with K2k's any-D instance for the
+    knights, and the distributed engine relays them
+    (`parallel.sgm_dist.distributed_sgm_routed`: K4c, then the knights
+    through K2s): both against JAX's XLA path at 1e-4."""
     from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
     assert sgm_route(384, 16, 0.1, 0.5, True) == "lane"
     assert sgm_route(384, 16, 0.1, 0.5, False) == "lane"
-    cv = torch.from_numpy(_cv(11, (4, 5, 330)))
-    got = sgm_cost_volume(cv, 0.1, 0.5, n_directions=16)    # CPU: plain
-    assert got.shape == cv.shape and torch.isfinite(got).all()
-    with pytest.raises(ValueError, match="D <= 320"):
-        distributed_sgm_routed(list(cv.split(2)), 0.1, 0.5, n_directions=16)
+    cv = _cv(11, (4, 5, 330))
+    want = np.asarray(j_sgm(jnp.asarray(cv), 0.1, 0.5, Pout=100.0,
+                            n_directions=16, backend="xla"))
+    got = sgm_cost_volume(torch.from_numpy(cv), 0.1, 0.5,
+                          n_directions=16)                  # CPU: plain
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
+    got = torch.cat(distributed_sgm_routed(
+        list(torch.from_numpy(cv).split(2)), 0.1, 0.5, n_directions=16))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("route", ["fused", "chunked"])
