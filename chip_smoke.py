@@ -1,9 +1,11 @@
 """Drive the PyTorch port's main paths once on one NVIDIA GPU.
 
-    python3 chip_smoke.py
+    python3 chip_smoke.py [--parent DIR]
 
 Builds the port's CUDA kernels from ``libstevi_tpu_torch/csrc`` and holds
-each kernel against its plain PyTorch version: K1 box cost volume, K2 SGM
+each kernel against its plain PyTorch version: K1's window statistics and
+box cost volume bit for bit (every dot-family cost at the flagship shape,
+and on a pair with flat patches, where ZNCC cancels), K2 SGM
 pass, K2k knight-direction SGM pass (all 8 directions, run twice: the same
 acc both times) and K3 SGM pass + WTA at the flagship shape, at an odd
 shape and at D=300 (40x360), in float32 and bfloat16, and at the HD path's
@@ -20,7 +22,8 @@ bitwise: K4a shear / unshear (both signs), K4b's row sweeps, column scans
 and WTA scan at the wide path's 480x640x384 f32 volume, at 37x101x333 and
 (after the HD wide path) at its 720x1280x640 volume, with the
 separate-accumulation mode within 1e-4, and K4d's four chunked sweeps at
-40x300x352 with 32-column chunks; and K1 at D=640.  Then it runs its paths,
+40x300x352 with 32-column chunks; and K1 at D=640, bit for bit.  Then it
+runs its paths,
 each with the launch counts set to 0 just before it and read just after:
 - the flagship stereo path (`entry.flagship_forward`: 480x640, D=120,
   ZNCC 7x7, bf16 volume, SGM-8, parabola subpixel) on the two committed
@@ -39,7 +42,7 @@ each with the launch counts set to 0 just before it and read just after:
 - the WTA matcher with ZSAD (`entry.wta_forward`), which K5 carries, on the
   fixtures (no bar: the JAX package's parity record has no ZSAD row);
 - wide (`entry.wide_forward`: 480x640, D=384, f32 volume, SGM-8), the path
-  of K1 over d-slices and K4b, on the fixtures and a random pair, its idx
+  of K4b, on the fixtures and a random pair, its idx
   held to the plain route's on the card (no bar: no PARITY row at D=384);
 - HD wide (`entry.hd_wide_forward`: 720x1280, D=640), K4b again, since its
   carries fit on chip too (155 KiB a block), on a random pair;
@@ -76,7 +79,9 @@ times the frames and each kernel against its plain version (CUDA events,
 median of 5), measures the flagship and HD frames' peak device memory,
 times K2's two forms with K3 (one launch, or 7 launches into one
 accumulator) from 480x640 to 2160x3840 with their peak memory and equal
-outputs, and prints one JSON line of kernel records (each with its
+outputs, times K1's call and the flagship frame with its device items (and,
+with ``--parent DIR``, a checkout of another commit, that one's too, in
+turns: parent, change, change, parent), and prints one JSON line of kernel records (each with its
 least time on the card, ``bound_ms``, from this run's shapes), the card's
 name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
 failed check raises: the exit code is then non-zero and no result line is
@@ -673,8 +678,85 @@ def distributed(dev, pairs, smi):
     return err, launches, ms, bounds
 
 
-def main() -> int:
+# K1's call and the flagship frame as a checkout's own code runs them, in a
+# process started at the checkout's root (so another commit's tree is
+# timed the same way): CUDA events, median of 5 after 3 warm-ups, and the
+# frame's device items (kernels, copies, sets) under torch.profiler
+CHECKOUT_TIMING = r"""
+import json, statistics, sys
+import numpy as np, torch
+sys.path.insert(0, ".")
+from libstevi_tpu_torch import entry
+from libstevi_tpu_torch.core import MatchingFunction
+from libstevi_tpu_torch.ops.box_cuda import box_cv
+from libstevi_tpu_torch.profile_frames import profile_frame
+rng = np.random.default_rng(3)
+L, R = (torch.from_numpy(rng.uniform(0, 1, (480, 640)).astype(np.float32))
+        .cuda() for _ in range(2))
+
+def med(fn):
+    for _ in range(3):
+        fn()
+    torch.cuda.synchronize()
+    ts = []
+    for _ in range(5):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        ts.append(a.elapsed_time(b))
+    return statistics.median(ts)
+
+k1 = med(lambda: box_cv(MatchingFunction.ZNCC, L, R, 3, 3, 120,
+                        torch.bfloat16, True))
+frame = med(lambda: entry.flagship_forward(L, R))
+busy, items = profile_frame(lambda: entry.flagship_forward(L, R), 5)
+print(json.dumps({"k1_ms": k1, "frame_ms": frame, "busy_ms": busy / 1e3,
+                  "device_items": sum(n for _, n in items.values())}))
+"""
+
+
+def time_checkout(root):
+    """CHECKOUT_TIMING run from ``root``: its dict."""
+    run = subprocess.run([sys.executable, "-c", CHECKOUT_TIMING], cwd=root,
+                         capture_output=True, text=True, timeout=900)
+    if run.returncode != 0:
+        raise RuntimeError(f"timing {root} failed:\n{run.stderr[-3000:]}")
+    return json.loads(run.stdout.strip().splitlines()[-1])
+
+
+def parent_and_change(parent, smi):
+    """K1 and the flagship frame of this checkout and, where ``parent``
+    names another commit's checkout, of that one too, in turns (parent,
+    change, change, parent); prints each one's mean."""
+    order = ([("parent", parent), ("change", ROOT), ("change", ROOT),
+              ("parent", parent)] if parent else [("change", ROOT)])
+    runs = {}
+    for name, root in order:
+        runs.setdefault(name, []).append(time_checkout(root))
+    for name, rs in runs.items():
+        mean = {k: statistics.mean(r[k] for r in rs) for k in rs[0]}
+        print(f"time: {name} ({len(rs)} run(s)): K1 box_cv 480x640x120 bf16 "
+              f"{mean['k1_ms']:.4f} ms, flagship frame {mean['frame_ms']:.3f}"
+              f" ms, device busy {mean['busy_ms']:.3f} ms, "
+              f"{mean['device_items']:.1f} device items a frame (CUDA "
+              f"events, median of 5 a run; {smi})", flush=True)
+    if not parent:
+        print("time: parent not given (--parent DIR, a checkout of the "
+              "parent commit)", flush=True)
+
+
+def main(argv=None) -> int:
     t_script = time.perf_counter()
+    args = sys.argv[1:] if argv is None else argv
+    parent = None
+    if args[:1] == ["--parent"] and len(args) == 2:
+        parent = str(Path(args[1]).resolve())
+    elif args:
+        print("usage: chip_smoke.py [--parent DIR]", file=sys.stderr)
+        return 2
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; the port's main path runs only "
               "on a GPU", file=sys.stderr)
@@ -688,7 +770,8 @@ def main() -> int:
                                         normalize_feature_volume,
                                         sgm_cost_volume, sgm_wta_truncated,
                                         unfold, unfold_based_cost_volume)
-    from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
+    from libstevi_tpu_torch.ops.box_cuda import (box_cv, box_cv_plain,
+                                                 window_stats, _prep_inputs)
     from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
                                                    fused_fv_cost_volume_plain)
     from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
@@ -734,37 +817,57 @@ def main() -> int:
     ZNCC = MatchingFunction.ZNCC
     R2L = SgmDirection.RIGHT2LEFT
     k2_dirs = [d for d in directions_for(8) if d is not R2L]
-    err = {"K1": 0.0, "K2": 0.0, "K2k": 0.0, "K3": 0.0, "K2x7": 0.0,
-           "K3x7": 0.0}
+    err = {"K1": 0.0, "K1 stats": 0.0, "K2": 0.0, "K2k": 0.0, "K3": 0.0,
+           "K2x7": 0.0, "K3x7": 0.0}
+
+    def k1_exact(L, R, D, dts, tag, funcs=(ZNCC,), h=3, v=3):
+        """K1's statistics kernel against `_prep_inputs` and its volume
+        against `box_cv_plain`, bit for bit: f32 equal, bf16 equal to the
+        plain f32 rounded once."""
+        for f in funcs:
+            got = window_stats(f, L, R, h, v)
+            for a, b in zip(got[2:6], _prep_inputs(f, L, R, h, v)[2:6]):
+                exact(a, b, ("K1 stats", f, tag))
+            want = box_cv_plain(f, L, R, h, v, D, torch.float32, negate=True)
+            for dt in dts:
+                exact(box_cv(f, L, R, h, v, D, dt, negate=True),
+                      want.to(dt), ("K1", f, tag, dt))
+            del want
+        print(f"K1 {tag} {[f.name for f in funcs]} "
+              f"{[str(dt).split('.')[-1] for dt in dts]}: statistics equal "
+              f"_prep_inputs and the volume box_cv_plain bit for bit",
+              flush=True)
 
     # -- kernel phases: each kernel against its plain version ----------------
-    # D=300 takes K = 10 values a lane in K1, K2, K2k and K3; the HD path's
-    # shape (720x1280, D=320, bf16) fills every slice of every lane and K1's
-    # largest shared tile
+    # D=300 takes K = 10 values a lane in K2, K2k and K3; the HD path's
+    # shape (720x1280, D=320, bf16) fills every slice of every lane
     both = (torch.float32, torch.bfloat16)
+    # K1 on every kind, and on a pair with flat patches of 200/255 (ZNCC
+    # cancels in windows wholly inside one, see ops/box_cuda.py)
+    Lf, Rf = pair(480, 640, 2, dev)
+    for i in range(0, 480, 96):
+        for j in range(0, 640, 128):
+            Lf[i:i + 40, j:j + 60] = 200 / 255
+            Rf[i + 6:i + 46, j + 9:j + 69] = 200 / 255
+    kinds = (MatchingFunction.CC, MatchingFunction.NCC, MatchingFunction.ZCC,
+             ZNCC)
+    k1_exact(Lf, Rf, 120, both, "480x640x120 flat patches", kinds)
+    # the instances other windows take: one row a thread (2v + 1 < 4), and
+    # the vertical sums recomputed (h = 0, 2h + 1 > 11)
+    for h, v in ((2, 1), (0, 2), (6, 1)):
+        k1_exact(Lf[:50, :200], Rf[:50, :200], 37, both,
+                 f"50x200x37 h={h} v={v} flat patches", kinds, h, v)
+    del Lf, Rf
     for (H, W, D), dts in (((480, 640, 120), both), ((37, 101, 13), both),
                            ((40, 360, 300), both),
                            ((entry.HD_HEIGHT, entry.HD_WIDTH, 320),
                             (torch.bfloat16,))):
         L, R = pair(H, W, 1, dev)
+        k1_exact(L, R, D, dts, f"{H}x{W}x{D}",
+                 kinds if (H, W) == (480, 640) else (ZNCC,))
         for dt in dts:
             tag = f"{H}x{W}x{D} {str(dt).split('.')[-1]}"
             cv = box_cv(ZNCC, L, R, 3, 3, D, dt, negate=True)
-            want = box_cv_plain(ZNCC, L, R, 3, 3, D, torch.float32,
-                                negate=True)
-            torch.cuda.synchronize()
-            e1 = (cv.float() - want).abs()
-            if dt == torch.float32:
-                torch.testing.assert_close(cv, want, rtol=1e-4, atol=1e-4)
-                if (H, W) == (480, 640):
-                    err["K1"] = e1.max().item()
-            else:
-                # one bf16 ulp of the f32 value, plus 1e-5 for the f32
-                # sum-order noise between the two versions
-                assert (e1 <= bf16_ulp(want) + 1e-5).all(), tag
-            print(f"K1 {tag}: max |kernel - plain| = {e1.max().item():.3g}",
-                  flush=True)
-
             acc = torch.empty(cv.shape, device=dev)
             acc_p = torch.empty(cv.shape, device=dev)
             for k, d in enumerate(k2_dirs):
@@ -1041,8 +1144,8 @@ def main() -> int:
         pairs[name] = (imgs, gt)
     _, (Lr, Rr) = entry.entry(dev)
     pairs["random"] = ([Lr, Rr], None)
-    K2K_COUNTERS = (box_cv, sgm_pass, direction_volumes, sgm_knight_pass,
-                    sgm_wta)
+    K2K_COUNTERS = (window_stats, box_cv, sgm_pass, direction_volumes,
+                    sgm_knight_pass, sgm_wta)
 
     def reset(*fns):
         for fn in fns:
@@ -1055,8 +1158,8 @@ def main() -> int:
            for name, (imgs, _) in pairs.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": box_cv.launches, "K2x7": direction_volumes.launches,
-                "K3x7": sgm_wta.launches}
+    launches = {"K1 stats": window_stats.launches, "K1": box_cv.launches,
+                "K2x7": direction_volumes.launches, "K3x7": sgm_wta.launches}
     print(f"main path: 3 pairs in {wall:.3f} s host wall (first calls), "
           f"launches {launches}, K2 one direction {sgm_pass.launches}",
           flush=True)
@@ -1213,10 +1316,8 @@ def main() -> int:
     del dhw, ihw, thw
     # K4b at this path's shape: 10 columns a block and 155 KiB of shared
     # memory (the opt-in attribute past 48 KiB), on this pair's volume
+    k1_exact(Lh, Rh, HD, (torch.float32,), f"{HH}x{HW}x{HD}")
     cv_hd = box_cv(ZNCC, Lh, Rh, 3, 3, HD, torch.float32, negate=True)
-    err["K1"] = max(err["K1"], close(
-        cv_hd, box_cv_plain(ZNCC, Lh, Rh, 3, 3, HD, torch.float32,
-                            negate=True)))
     k4b_check(cv_hd, f"{HH}x{HW}x{HD} f32")
 
     # -- K4d at full size: chunked_adj on the HD D=640 volume ----------------
@@ -1452,9 +1553,12 @@ def main() -> int:
             fn(cv32, acc_k, d, P1, P2, POUT)
 
     jobs = {
+        # the whole box_cv call: the statistics launch and the volume's
         "K1": (lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16, True),
                lambda: box_cv_plain(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
                                     True)),
+        "K1 stats": (lambda: window_stats(ZNCC, L, R, 3, 3),
+                     lambda: _prep_inputs(ZNCC, L, R, 3, 3)),
         # K2 as earlier PRs timed it: 7 launches one after another into one
         # accumulator (SGM-16's form, and SGM-8's where one launch does not
         # fit); K2x7 the main path's form: the 7 in one launch, a volume
@@ -1560,13 +1664,19 @@ def main() -> int:
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
 
+    parent_and_change(parent, smi)
+
     d_err, d_launches, d_ms, d_bounds = distributed(dev, pairs, smi)
     err.update(d_err)
     ms.update(d_ms)
 
     records = [
-        ("K1 box_cv", "libstevi_tpu_torch/csrc/box_cv.cu",
+        ("K1 box_cv (statistics + volume launch)",
+         "libstevi_tpu_torch/csrc/box_cv.cu",
          "libstevi_tpu/ops/box_pallas.py:99", "K1"),
+        ("K1 stats box_stats_kernel (window_stats)",
+         "libstevi_tpu_torch/csrc/box_cv.cu",
+         "libstevi_tpu/ops/box_pallas.py:378", "K1 stats"),
         ("K2 sgm_pass", "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2"),
         ("K2x7 direction_volumes (7 directions in one launch)",
@@ -1617,7 +1727,14 @@ def main() -> int:
     HW1, N1 = 480 * 640, 480 * 640 * 120
     NW = WH * WW * WD
     bounds = {
-        "K1": bound(2 * HW1 * 4 + N1 * 2, 2 * 49 * N1),
+        # K1: the two images read, the bf16 volume written; separable sums
+        # (7 products, 6 vertical and 6 horizontal adds an entry at 7x7)
+        # and ZNCC's normalization (5 operations)
+        "K1": bound(2 * HW1 * 4 + N1 * 2, 24 * N1),
+        # the images read, 4 planes written; per image and pixel the
+        # square, 2 x 6 vertical and 2 x 6 horizontal adds, the variance,
+        # the root and the inverse (5)
+        "K1 stats": bound(6 * HW1 * 4, 2 * 30 * HW1),
         # K2's function, in either form: cv read once, the 7 directions'
         # adjustments written as one f32 volume (K2x7's 7 volumes are its
         # form's, not the function's)

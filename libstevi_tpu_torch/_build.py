@@ -34,9 +34,11 @@ _P, _I, _F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signature of every launch function, per source file.
 SIGNATURES = {
     "box_cv": {
-        # src, tgt, sum_s, den_s, sum_t, den_t, out, H, W, D, d0, D_slice,
-        # h, v, kind, inv_n, negate, out_bf16, stream
-        "box_cv_launch": [_P] * 7 + [_I] * 8 + [_F, _I, _I, _P],
+        # src, tgt, stats, H, W, h, v, ncc, n, stream
+        "box_stats_launch": [_P] * 3 + [_I] * 5 + [_F, _P],
+        # src, tgt, sum_s, inv_s, sum_t, inv_t, out, H, W, D, h, v, kind,
+        # inv_n, negate, out_bf16, stream
+        "box_cv_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     },
     "sgm_lane": {
         # in, out, H, W_in, W_out, Dp, base, slope, stream

@@ -311,7 +311,7 @@ def sgm_route(D: int, n_directions: int, P1: float, P2: float,
     CPU) or 'lane' (K4b, else K4d: `_lane_adj`; with 16 directions, K2k's
     any-D instance for the knights).  The choice is the same on both
     devices; ``cuda`` is kept for the callers' symmetry."""
-    from .box_cuda import MAX_D
+    from .sgm_cuda import MAX_D
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
     if P2 < P1:

@@ -52,10 +52,11 @@ import ctypes
 import torch
 
 from .. import _build
-from .box_cuda import MAX_D
 from .sgm import (SgmDirection, directions_for, direction_adj,
                   direction_shard_adj, knight_adj, wta_bands, _dp_step,
                   _tcv_from_bands)
+
+MAX_D = 320        # K3 keeps ceil(D / 32) <= 10 values per lane
 
 
 def kernel_volume(cv: torch.Tensor) -> torch.Tensor:

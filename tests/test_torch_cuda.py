@@ -10,7 +10,8 @@ import torch
 from libstevi_tpu_torch.core import MatchingFunction, Margins
 from libstevi_tpu_torch.ops import (dense_sgm_stereo, sgm_cost_volume,
                                     InterpolationKernel)
-from libstevi_tpu_torch.ops.box_cuda import box_cv, box_cv_plain
+from libstevi_tpu_torch.ops.box_cuda import (box_cv, box_cv_plain,
+                                             window_stats, _prep_inputs)
 from libstevi_tpu_torch.ops import sgm_wta_truncated
 from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
                                         _KNIGHT_DIRS)
@@ -53,22 +54,47 @@ def _pair(dev, H, W, seed=0):
                  for _ in range(2))
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-@pytest.mark.parametrize("shape", SHAPES)
+def _flat_pair(dev, H, W, seed=0):
+    """A random pair with a flat patch of 200/255 in both images, offset
+    between them: windows wholly inside it cancel in ZNCC."""
+    L, R = _pair(dev, H, W, seed)
+    L[H // 8:H // 8 + H // 2 + 2, W // 8:W // 2] = 200 / 255
+    R[H // 6:H // 6 + H // 2 + 2, W // 6:W // 2 + 9] = 200 / 255
+    return L, R
+
+
+@pytest.mark.parametrize("pair", ["random", "flat"])
+@pytest.mark.parametrize("shape", SHAPES + [(12, 700, 640)])
 @pytest.mark.parametrize("func", ["CC", "NCC", "ZCC", "ZNCC"])
-def test_k1_matches_plain(dev, func, shape, dtype):
+def test_k1_matches_plain(dev, func, shape, pair):
+    """K1's two kernels against their plain versions, bit for bit: the
+    statistics kernel against `_prep_inputs`, the f32 volume against
+    `box_cv_plain`, the bf16 volume against the plain f32 rounded once;
+    one statistics launch and one volume launch a call, any D (640 too)."""
     H, W, D = shape
-    L, R = _pair(dev, H, W)
+    L, R = (_flat_pair if pair == "flat" else _pair)(dev, H, W)
     f = MatchingFunction[func]
-    got = box_cv(f, L, R, 3, 2, D, dtype, negate=True).float()
+    before = (box_cv.launches, window_stats.launches)
+    got = window_stats(f, L, R, 3, 2)
+    for a, b in zip(got, _prep_inputs(f, L, R, 3, 2)):
+        assert a == b if isinstance(a, float) else torch.equal(a, b)
     want = box_cv_plain(f, L, R, 3, 2, D, torch.float32, negate=True)
-    torch.cuda.synchronize()
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    else:   # one bf16 ulp of the f32 value
-        _, e = torch.frexp(torch.maximum(got.abs(), want.abs()))
-        ulp = torch.ldexp(torch.ones_like(want), (e - 8).int())
-        assert ((got - want).abs() <= ulp + 1e-4).all()
+    assert torch.equal(box_cv(f, L, R, 3, 2, D, negate=True), want)
+    assert torch.equal(box_cv(f, L, R, 3, 2, D, torch.bfloat16, negate=True),
+                       want.to(torch.bfloat16))
+    assert (box_cv.launches, window_stats.launches) == (before[0] + 2,
+                                                        before[1] + 3)
+
+
+@pytest.mark.parametrize("hv", [(0, 2), (1, 0), (5, 4), (6, 1)])
+def test_k1_window_widths_match_plain(dev, hv):
+    """K1 at window widths its ring is unrolled for (3, 11) and not (1,
+    13), bitwise."""
+    h, v = hv
+    L, R = _flat_pair(dev, 40, 150, 2)
+    for f in MatchingFunction.CC, MatchingFunction.ZNCC:
+        assert torch.equal(box_cv(f, L, R, h, v, 37),
+                           box_cv_plain(f, L, R, h, v, 37))
 
 
 def _volume(dev, shape, dtype, seed=1):
@@ -284,21 +310,6 @@ def test_p2_below_p1_runs_plain_on_the_card(dev, n_dirs):
                                atol=1e-4, equal_nan=True)
 
 
-@pytest.mark.parametrize("dtype", DTYPES)
-def test_k1_d640_matches_plain(dev, dtype):
-    """K1 over two d-slices (0-319, 320-639) from one set of statistics."""
-    L, R = _pair(dev, 12, 700, 4)
-    before = box_cv.launches
-    got = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, 640, dtype, negate=True)
-    assert box_cv.launches == before + 2
-    want = box_cv_plain(MatchingFunction.ZNCC, L, R, 3, 3, 640, torch.float32,
-                        negate=True)
-    if dtype == torch.float32:
-        torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    else:
-        _ulp_close(got.float(), want)
-
-
 # (6, 1400, 360): 11 columns a K4b block, 96 KiB of shared memory (past the
 # 48 KiB a block gets without opting in)
 LANE_SHAPES = [(37, 101, 333), (18, 7, 5), (5, 21, 40), (30, 300, 352),
@@ -387,7 +398,7 @@ def test_k4d_pass_equals_plain(dev, shift_down, reverse):
 
 
 def test_wide_path_matches_cpu(dev):
-    """D > 320 through `dense_sgm_stereo` on the card (K1 over two slices,
+    """D > 320 through `dense_sgm_stereo` on the card (K1 in one launch,
     K4b with WTA) against the CPU run."""
     L, R = _pair(dev, 20, 400, seed=8)
     kw = dict(n_directions=8, refine_kernel=InterpolationKernel.PARABOLA)
@@ -396,7 +407,7 @@ def test_wide_path_matches_cpu(dev):
     dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 3, 3, 330,
                                   0.1, 0.5, **kw)
     assert (box_cv.launches, lane.fused_rows_pass.launches,
-            lane.fused_cols_wta.launches) == (counts[0] + 2, counts[1] + 2,
+            lane.fused_cols_wta.launches) == (counts[0] + 1, counts[1] + 2,
                                               counts[2] + 1)
     dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(),
                                   3, 3, 330, 0.1, 0.5, **kw)
@@ -434,17 +445,14 @@ def test_k2k_is_deterministic(dev):
 @pytest.mark.parametrize("dtype", DTYPES)
 @pytest.mark.parametrize("D", [300, 320])
 def test_d300_kernels_match_plain(dev, D, dtype):
-    """K1, K2, K2k and K3 at D = 300 and 320 (K = 10 values a lane; at 320
-    every slice of every lane is full and K1 stages its largest tile)."""
+    """K1 (bitwise), K2, K2k and K3 at D = 300 and 320 (K = 10 values a
+    lane in K2, K2k and K3; at 320 every slice of every lane is full)."""
     H, W = 24, 340
     L, R = _pair(dev, H, W, 3)
     cv = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, D, dtype, negate=True)
     want = box_cv_plain(MatchingFunction.ZNCC, L, R, 3, 3, D, torch.float32,
                         negate=True)
-    if dtype == torch.float32:
-        torch.testing.assert_close(cv, want, rtol=1e-4, atol=1e-4)
-    else:
-        _ulp_close(cv.float(), want)
+    assert torch.equal(cv, want.to(dtype))
     acc = torch.empty(cv.shape, device=dev)
     acc2 = torch.empty(cv.shape, device=dev)
     for k, d in enumerate(directions_for(16)):
