@@ -6,13 +6,15 @@ Builds the port's CUDA kernels from ``libstevi_tpu_torch/csrc`` and holds
 each kernel against its plain PyTorch version: K1's window statistics and
 box cost volume bit for bit (every dot-family cost at the flagship shape,
 and on a pair with flat patches, where ZNCC cancels), K2 SGM
-pass, K2k knight-direction SGM pass (all 8 directions, run twice: the same
-acc both times) and K3 SGM pass + WTA at the flagship shape, at an odd
+pass, K2k knight-direction volumes (all 8 directions in two launches, run
+twice, bit for bit against the plain lane form; added in order onto the
+7 directions' accumulator, and through the one-direction memory fallback,
+bit for bit) and K3 SGM pass + WTA at the flagship shape, at an odd
 shape and at D=300 (40x360), in float32 and bfloat16, and at the HD path's
 shape (720x1280, D=320) in bfloat16, and at each the WTA path's one-launch
-form (the 7 K2 directions in one launch, a volume each, K3 summing them in
-order) bitwise against the sequential accumulator and against the plain
-versions; the
+forms (the 7 K2 directions in one launch, a volume each, K3 summing them in
+order; SGM-16's 15 volumes, the 8 knight volumes after them) bitwise
+against the sequential accumulator and against the plain versions; the
 SGM entries with margins against the CPU; K5 feature-volume cost volume at
 the WTA path's
 shape (480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset
@@ -30,7 +32,8 @@ each with the launch counts set to 0 just before it and read just after:
   parity fixtures, held to accuracy bars against their ground truth, and a
   random pair;
 - SGM-16 (`entry.sgm16_forward`: the same with 16 directions and an f32
-  volume), the path of K2k, on the same three pairs, held to the
+  volume; K1, K2x7, K2k's knight volumes and K3 over the 15 volumes), on
+  the same three pairs, held to the
   `PARITY_r05` `zncc_sgm16_f32` bars; a bfloat16 request must give the
   float32 result;
 - census + SGM-8 (`entry.census_sgm_forward`) on the fixtures, held to the
@@ -56,7 +59,8 @@ each with the launch counts set to 0 just before it and read just after:
 - the distributed paths (`libstevi_tpu_torch.parallel`) on 8 virtual
   shards of the card, after K2s (on a 60x640x120 row shard and a
   480x80x120 column shard), K4c (on a 120x640x384 row shard), the any-D
-  K2k (480x640x384), the any-D K2 (120x160x330, 7 passes, f32 and bf16,
+  K2k (480x640x384, the 8 knight volumes bitwise, and their ordered sum),
+  the any-D K2 (120x160x330, 7 passes, f32 and bf16,
   at 1e-4) and K2s at D=330 (bitwise) are held to their plain versions:
   SGM-8 and SGM-16 over the flagship geometry's row shards (480x640x120,
   tile 8; K2s), SGM-8 at 480x640x384 (tile 4; K4c) and SGM-16 there (K4c
@@ -79,9 +83,12 @@ times the frames and each kernel against its plain version (CUDA events,
 median of 5), measures the flagship and HD frames' peak device memory,
 times K2's two forms with K3 (one launch, or 7 launches into one
 accumulator) from 480x640 to 2160x3840 with their peak memory and equal
-outputs, times K1's call and the flagship frame with its device items (and,
-with ``--parent DIR``, a checkout of another commit, that one's too, in
-turns: parent, change, change, parent), and prints one JSON line of kernel records (each with its
+outputs, and K3's two forms on SGM-16 (over the 15 volumes, or over their
+sum), times K1's call, the flagship frame with its device items, the two
+SGM-16 frames with theirs, K2k, K3 and the distributed SGM-16 frame as
+the checkout runs them (and, with ``--parent DIR``, a checkout of another
+commit, that one's too, in turns: parent, change, change, parent), and
+prints one JSON line of kernel records (each with its
 least time on the card, ``bound_ms``, from this run's shapes), the card's
 name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
 failed check raises: the exit code is then non-zero and no result line is
@@ -302,7 +309,8 @@ def k2_forms(dev, k2_dirs, smi):
         cv = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, D, torch.bfloat16,
                     negate=True)
         del L, R
-        chosen = "one launch" if _one_launch(cv, k2_dirs) else "in series"
+        chosen = ("one launch" if _one_launch(cv, len(k2_dirs))
+                  else "in series")
         row, outs = {}, {}
         for form, k2 in (("one launch", direction_volumes),
                          ("in series", sgm_accumulate)):
@@ -349,10 +357,11 @@ def distributed(dev, pairs, smi):
     from libstevi_tpu_torch.ops.box_cuda import box_cv
     from libstevi_tpu_torch.ops.sgm import (_KNIGHT_DIRS, SgmDirection,
                                             directions_for)
+    from libstevi_tpu_torch.ops.sgm import knight_adj
     from libstevi_tpu_torch.ops.sgm_cuda import (
-        sgm_knight_pass, sgm_knight_pass_plain, sgm_knight_shard_pass,
-        sgm_knight_shard_pass_plain, sgm_pass, sgm_pass_plain,
-        sgm_shard_pass, sgm_shard_pass_plain)
+        add_knight_volumes, knight_volumes, knight_volumes_plain,
+        sgm_knight_shard_pass, sgm_knight_shard_pass_plain, sgm_pass,
+        sgm_pass_plain, sgm_shard_pass, sgm_shard_pass_plain)
     from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
     from libstevi_tpu_torch.parallel.sgm_dist import (
         _column_split, carry_relay, distributed_sgm, distributed_sgm_fused,
@@ -421,18 +430,27 @@ def distributed(dev, pairs, smi):
           f"fresh and accumulating, from random carries: equal to the plain "
           f"version bitwise", flush=True)
     del want, got
-    e_kd = 0.0
+    # the any-D K2k: the 8 knight volumes of the 480x640x384 volume in two
+    # launches against the plain lane form, and added in order onto a
+    # random accumulator against the shard pass's plain version applied
+    # direction by direction, bitwise; `knight_adj`'s line form (another
+    # sum order where lines overlap) within 1e-4
+    vols = knight_volumes(cvw, _KNIGHT_DIRS, *Q)
+    err["K2k any-D"] = exact(vols, knight_volumes_plain(cvw, _KNIGHT_DIRS,
+                                                        *Q), "K2k any-D")
+    a = torch.rand(cvw.shape, generator=g, device=dev)
+    a_l = a.clone()
     for d in _KNIGHT_DIRS:
-        a, a_l = (torch.zeros_like(cvw) for _ in range(2))
-        sgm_knight_pass(cvw, a, d, *Q)
         sgm_knight_shard_pass_plain(cvw, a_l, d, *Q)
-        exact(a, a_l, ("K2k any-D lane form", d.name))
-        e_kd = max(e_kd, close(a, sgm_knight_pass_plain(
-            cvw, torch.zeros_like(cvw), d, *Q)))
-    err["K2k any-D"] = e_kd
-    del a, a_l
-    print(f"K2k any-D {H}x{W}x{DW} f32, 8 directions: equal to the lane-form "
-          f"plain pass bitwise, within {e_kd:.3g} of `knight_adj`", flush=True)
+    exact(add_knight_volumes(cvw, a, _KNIGHT_DIRS, *Q), a_l,
+          "K2k any-D ordered sum")
+    e_kd = max(close(v, knight_adj(cvw, d, *Q))
+               for d, v in zip(_KNIGHT_DIRS, vols))
+    del a, a_l, vols
+    print(f"K2k any-D {H}x{W}x{DW} f32, 8 directions in two launches: equal "
+          f"to the plain lane form bitwise, the ordered sum equal to the "
+          f"shard pass's plain version bitwise, within {e_kd:.3g} of "
+          f"`knight_adj`", flush=True)
     # K2 past D = 320 (the shared-memory instance): 7 passes on a whole
     # 120x160x330 volume in f32 and bf16, then K2s on rows 40-79 of it
     # from random carries, bitwise
@@ -556,7 +574,7 @@ def distributed(dev, pairs, smi):
     # -- 16-direction SGM past D = 320 (K4b and the any-D K2k) ---------------
     L, R = pair(H, W, 22, dev)
     cfg = dict(entry.SGM16, disp_width=DW)
-    for fn in (box_cv, lane.fused_rows_pass, sgm_knight_pass,
+    for fn in (box_cv, lane.fused_rows_pass, knight_volumes,
                lane.fused_cols_wta):
         fn.launches = 0
     torch.cuda.synchronize()
@@ -565,7 +583,7 @@ def distributed(dev, pairs, smi):
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     l16 = {"K1": box_cv.launches, "K4b rows": lane.fused_rows_pass.launches,
-           "K2k any-D": sgm_knight_pass.launches,
+           "K2k any-D": knight_volumes.launches,
            "K4b WTA": lane.fused_cols_wta.launches}
     print(f"SGM-16 path {H}x{W}x{DW} f32: {wall:.3f} s host wall (first "
           f"call), launches {l16}", flush=True)
@@ -633,10 +651,13 @@ def distributed(dev, pairs, smi):
             carry_relay(devs4, run, reverse=rev)
 
     acc_w = torch.zeros_like(cvw)
+    kv_p = torch.empty((8,) + tuple(cvw.shape), device=dev)
 
-    def k2k_job(fn):
-        for d in _KNIGHT_DIRS:
-            fn(cvw, acc_w, d, *Q)
+    def k2k_plain():
+        """The lane route's knights in their plain version: the volumes,
+        added in order."""
+        for v in knight_volumes_plain(cvw, _KNIGHT_DIRS, *Q, out=kv_p):
+            acc_w.add_(v)
 
     def k2a_job(fn):
         """7 K2 passes past D = 320 (the shared-memory instance) on the
@@ -652,8 +673,9 @@ def distributed(dev, pairs, smi):
                                 sgm_knight_shard_pass_plain), 1),
         "K4c": (lambda: k4c_job(lane.fused_rows_shard_pass),
                 lambda: k4c_job(lane.fused_rows_shard_pass_plain), 2),
-        "K2k any-D": (lambda: k2k_job(sgm_knight_pass),
-                      lambda: k2k_job(sgm_knight_pass_plain), 1),
+        # as the lane route runs it: two launches, the 8 ordered adds
+        "K2k any-D": (lambda: add_knight_volumes(cvw, acc_w, _KNIGHT_DIRS,
+                                                 *Q), k2k_plain, 1),
     }
     ms = {}
     for name, (kern, plain, n) in jobs.items():
@@ -678,21 +700,34 @@ def distributed(dev, pairs, smi):
     return err, launches, ms, bounds
 
 
-# K1's call and the flagship frame as a checkout's own code runs them, in a
-# process started at the checkout's root (so another commit's tree is
-# timed the same way): CUDA events, median of 5 after 3 warm-ups, and the
-# frame's device items (kernels, copies, sets) under torch.profiler
+# K1's call, the flagship frame and SGM-16 as a checkout's own code runs
+# them, in a process started at the checkout's root (so another commit's
+# tree is timed the same way): CUDA events, median of 5 after 3 warm-ups;
+# the flagship's and the two SGM-16 frames' device items (kernels, copies,
+# sets) and busy time under torch.profiler; K2k (the 8 knight directions
+# added to an accumulator at 480x640x120 and 480x640x384 f32) and K3 as
+# SGM-16 runs them in that tree (this tree: the knight volumes, K3 over
+# the 15-volume stack; a tree before them: two launches a direction into
+# one accumulator, K3 over it); the distributed SGM-16 frame over the
+# 480x640x120 row shards, tile 8, and its K2s relays alone
 CHECKOUT_TIMING = r"""
 import json, statistics, sys
 import numpy as np, torch
 sys.path.insert(0, ".")
 from libstevi_tpu_torch import entry
 from libstevi_tpu_torch.core import MatchingFunction
+from libstevi_tpu_torch.ops import dense_sgm_stereo
+from libstevi_tpu_torch.ops import sgm_cuda as sc
 from libstevi_tpu_torch.ops.box_cuda import box_cv
+from libstevi_tpu_torch.ops.sgm import (SgmDirection, _KNIGHT_DIRS,
+                                        directions_for)
+from libstevi_tpu_torch.parallel.sgm_dist import (
+    _column_split, carry_relay, distributed_sgm_fused_dhw)
 from libstevi_tpu_torch.profile_frames import profile_frame
 rng = np.random.default_rng(3)
 L, R = (torch.from_numpy(rng.uniform(0, 1, (480, 640)).astype(np.float32))
         .cuda() for _ in range(2))
+ZNCC, Q = MatchingFunction.ZNCC, (0.1, 0.5, 100.0)
 
 def med(fn):
     for _ in range(3):
@@ -709,12 +744,76 @@ def med(fn):
         ts.append(a.elapsed_time(b))
     return statistics.median(ts)
 
-k1 = med(lambda: box_cv(MatchingFunction.ZNCC, L, R, 3, 3, 120,
-                        torch.bfloat16, True))
-frame = med(lambda: entry.flagship_forward(L, R))
-busy, items = profile_frame(lambda: entry.flagship_forward(L, R), 5)
-print(json.dumps({"k1_ms": k1, "frame_ms": frame, "busy_ms": busy / 1e3,
-                  "device_items": sum(n for _, n in items.values())}))
+def frame(fn):
+    ms = med(fn)
+    busy, items = profile_frame(fn, 5)
+    top = sorted(items.items(), key=lambda kv: -kv[1][0])[:5]
+    return ms, busy / 1e3, sum(n for _, n in items.values()), [
+        [name, round(us, 1), round(n, 1)] for name, (us, n) in top]
+
+out = {}
+out["k1_ms"] = med(lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
+                                  True))
+(out["frame_ms"], out["busy_ms"], out["device_items"],
+ _) = frame(lambda: entry.flagship_forward(L, R))
+for key, D in (("sgm16", 120), ("sgm16_d384", 384)):
+    cfg = dict(entry.SGM16, disp_width=D)
+    out[key] = frame(lambda: dense_sgm_stereo(ZNCC, L, R, **cfg))
+cv = box_cv(ZNCC, L, R, 3, 3, 120, torch.float32, True)
+cvw = box_cv(ZNCC, L, R, 3, 3, 384, torch.float32, True)
+dirs = [d for d in directions_for(16) if d is not SgmDirection.RIGHT2LEFT]
+acc, acc_w = torch.zeros_like(cv), torch.zeros_like(cvw)
+if hasattr(sc, "knight_volumes"):
+    k2k = lambda: sc.add_knight_volumes(cv, acc, _KNIGHT_DIRS, *Q)
+    k2k_any = lambda: sc.add_knight_volumes(cvw, acc_w, _KNIGHT_DIRS, *Q)
+    stack = torch.empty((15,) + tuple(cv.shape), device=cv.device)
+    sc.direction_volumes(cv, dirs[:7], *Q, out=stack[:7])
+    sc.knight_volumes(cv, dirs[7:], *Q, out=stack[7:])
+    out["k2k_volumes_ms"] = med(lambda: sc.knight_volumes(
+        cv, _KNIGHT_DIRS, *Q, out=stack[7:]))
+else:
+    k2k = lambda: [sc.sgm_knight_pass(cv, acc, d, *Q) for d in _KNIGHT_DIRS]
+    k2k_any = lambda: [sc.sgm_knight_pass(cvw, acc_w, d, *Q)
+                       for d in _KNIGHT_DIRS]
+    stack = sc.sgm_accumulate(cv, dirs, *Q)
+out["k2k_ms"], out["k2k_any_ms"] = med(k2k), med(k2k_any)
+out["k3_ms"] = med(lambda: sc.sgm_wta(cv, stack, *Q, 1, 3, 3, True))
+del stack, acc, acc_w, cvw
+g = torch.Generator(device="cuda").manual_seed(21)
+sh8 = list((torch.rand((480, 640, 120), generator=g, device="cuda") * 4)
+           .split(60))
+out["dist16_ms"] = med(lambda: distributed_sgm_fused_dhw(sh8, 0.3, 1.1, 7.0,
+                                                         16))
+cols = _column_split(640, 8)
+cv_c = [torch.cat([x[:, j0:j1] for x in sh8]) for j0, j1 in cols]
+princ = [d for d in directions_for(8) if d.step[0] != 0]
+vk = [d for d in _KNIGHT_DIRS if d.steps[0][0] != 0]
+hk = [d for d in _KNIGHT_DIRS if d.steps[0][0] == 0]
+
+def k2s():
+    # the K2s passes of that frame: the vertical and diagonal directions
+    # and the down/up knights relayed over the row shards, the left/right
+    # knights over column shards
+    accs = [torch.zeros_like(x) for x in sh8]
+    acc_c = [torch.zeros_like(x) for x in cv_c]
+    for d in princ + vk:
+        def run(m, c, d=d):
+            if d in princ:
+                return sc.sgm_shard_pass(sh8[m], accs[m], d, 0.3, 1.1, 7.0,
+                                         True, c, 60 * m, 480)
+            return sc.sgm_knight_shard_pass(sh8[m], accs[m], d, 0.3, 1.1,
+                                            7.0, c, 60 * m, 480)
+        carry_relay(["cuda"] * 8, run, reverse=d.steps[0][0] < 0)
+    for d in hk:
+        def run(m, c, d=d):
+            j0 = cols[m][0]
+            return sc.sgm_knight_shard_pass(cv_c[m], acc_c[m], d, 0.3, 1.1,
+                                            7.0, c, j0, 640, col0=j0,
+                                            W_pout=640)
+        carry_relay(["cuda"] * 8, run, reverse=d.steps[0][1] < 0)
+
+out["k2s_ms"] = med(k2s)
+print(json.dumps(out))
 """
 
 
@@ -728,21 +827,36 @@ def time_checkout(root):
 
 
 def parent_and_change(parent, smi):
-    """K1 and the flagship frame of this checkout and, where ``parent``
-    names another commit's checkout, of that one too, in turns (parent,
-    change, change, parent); prints each one's mean."""
+    """CHECKOUT_TIMING of this checkout and, where ``parent`` names another
+    commit's checkout, of that one too, in turns (parent, change, change,
+    parent); prints each run's numbers and each one's mean."""
+    torch.cuda.empty_cache()
     order = ([("parent", parent), ("change", ROOT), ("change", ROOT),
               ("parent", parent)] if parent else [("change", ROOT)])
     runs = {}
     for name, root in order:
-        runs.setdefault(name, []).append(time_checkout(root))
+        r = time_checkout(root)
+        runs.setdefault(name, []).append(r)
+        print(f"time run: {name}: {json.dumps(r)} ({smi})", flush=True)
     for name, rs in runs.items():
-        mean = {k: statistics.mean(r[k] for r in rs) for k in rs[0]}
+        mean = {k: statistics.mean(r[k] for r in rs)
+                for k in rs[0] if isinstance(rs[0][k], (int, float))}
+        for key in ("sgm16", "sgm16_d384"):
+            mean[key] = statistics.mean(r[key][0] for r in rs)
+            mean[key + "_busy"] = statistics.mean(r[key][1] for r in rs)
         print(f"time: {name} ({len(rs)} run(s)): K1 box_cv 480x640x120 bf16 "
               f"{mean['k1_ms']:.4f} ms, flagship frame {mean['frame_ms']:.3f}"
               f" ms, device busy {mean['busy_ms']:.3f} ms, "
-              f"{mean['device_items']:.1f} device items a frame (CUDA "
-              f"events, median of 5 a run; {smi})", flush=True)
+              f"{mean['device_items']:.1f} device items a frame; SGM-16 "
+              f"frame D=120 {mean['sgm16']:.3f} ms (busy "
+              f"{mean['sgm16_busy']:.3f}), D=384 {mean['sgm16_d384']:.3f} ms "
+              f"(busy {mean['sgm16_d384_busy']:.3f}); K2k 8 directions into "
+              f"an accumulator 480x640x120 f32 {mean['k2k_ms']:.3f} ms, "
+              f"480x640x384 {mean['k2k_any_ms']:.3f} ms; K3 as SGM-16 runs it "
+              f"{mean['k3_ms']:.3f} ms; distributed SGM-16 tile 8 "
+              f"{mean['dist16_ms']:.3f} ms, its K2s passes "
+              f"{mean['k2s_ms']:.3f} ms (CUDA events, median of 5 a run; "
+              f"{smi})", flush=True)
     if not parent:
         print("time: parent not given (--parent DIR, a checkout of the "
               "parent commit)", flush=True)
@@ -781,8 +895,9 @@ def main(argv=None) -> int:
     from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
                                             direction_adj, _KNIGHT_DIRS,
                                             _tcv_from_bands)
-    from libstevi_tpu_torch.ops.sgm_cuda import (sgm_knight_pass,
-                                                 sgm_knight_pass_plain,
+    from libstevi_tpu_torch.ops.sgm_cuda import (add_knight_volumes,
+                                                 knight_volumes,
+                                                 knight_volumes_plain,
                                                  sgm_pass, sgm_pass_plain,
                                                  sgm_wta, sgm_wta_plain)
     from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
@@ -819,6 +934,7 @@ def main(argv=None) -> int:
     k2_dirs = [d for d in directions_for(8) if d is not R2L]
     err = {"K1": 0.0, "K1 stats": 0.0, "K2": 0.0, "K2k": 0.0, "K3": 0.0,
            "K2x7": 0.0, "K3x7": 0.0}
+    KD = _KNIGHT_DIRS
 
     def k1_exact(L, R, D, dts, tag, funcs=(ZNCC,), h=3, v=3):
         """K1's statistics kernel against `_prep_inputs` and its volume
@@ -881,21 +997,35 @@ def main(argv=None) -> int:
                   flush=True)
             acc_k2p = acc_p.clone()             # the plain 7-direction sum
 
-            # K2k: the 8 knight directions on top, twice from one acc
-            acc2 = acc.clone()
-            for d in _KNIGHT_DIRS:
-                sgm_knight_pass(cv, acc, d, P1, P2, POUT)
-                sgm_knight_pass(cv, acc2, d, P1, P2, POUT)
-                sgm_knight_pass_plain(cv, acc_p, d, P1, P2, POUT)
-            torch.cuda.synchronize()
-            assert torch.equal(acc, acc2), f"K2k {tag}: two runs differ"
-            torch.testing.assert_close(acc, acc_p, rtol=1e-4, atol=1e-4)
-            ek = (acc - acc_p).abs().max().item()
-            err["K2k"] = max(err["K2k"], ek)
-            print(f"K2k {tag}: 8 directions, two runs equal, max |kernel - "
-                  f"plain| = {ek:.3g}", flush=True)
+            # K2k: the 8 knight directions in one pair of launches, a
+            # volume each, run twice, against the plain lane form bitwise;
+            # added in order onto the 7 directions' accumulator, the
+            # one-launch form and the memory fallback (one direction at a
+            # time through one scratch volume) bitwise
+            vols = knight_volumes(cv, KD, P1, P2, POUT)
+            exact(knight_volumes(cv, KD, P1, P2, POUT), vols,
+                  ("K2k two runs", tag))
+            vols_p = knight_volumes_plain(cv, KD, P1, P2, POUT)
+            err["K2k"] = max(err["K2k"], exact(vols, vols_p, ("K2k", tag)))
+            del vols_p
+            acc_k = acc.clone()
+            for v in vols:
+                acc_k.add_(v)
+                acc_p.add_(v)
+            exact(add_knight_volumes(cv, acc.clone(), KD, P1, P2, POUT,
+                                     one_launch=True), acc_k,
+                  ("K2k ordered sum", tag))
+            exact(add_knight_volumes(cv, acc.clone(), KD, P1, P2, POUT,
+                                     one_launch=False), acc_k,
+                  ("K2k n = 1 fallback", tag))
+            e16 = close(acc_k, acc_p)
+            print(f"K2k {tag}: 8 directions in two launches equal the plain "
+                  f"lane form bitwise, two runs equal, the ordered sum and "
+                  f"the n = 1 fallback equal bitwise; 16-direction sum "
+                  f"within {e16:.3g} of the plain passes'", flush=True)
+            del acc_p
 
-            e3 = k3_vs_plain(cv, acc, f"K3 {tag}")
+            e3 = k3_vs_plain(cv, acc_k, f"K3 {tag}")
             err["K3"] = max(err["K3"], e3)
             # the one-launch form: the 7 directions in one K2 launch, a
             # volume each, summed in order by K3: the same bits as the
@@ -914,13 +1044,32 @@ def main(argv=None) -> int:
             print(f"K2 {tag}: one launch into 7 volumes sums to the "
                   f"sequential accumulator bitwise; K3 over them equals K3 "
                   f"over it bitwise", flush=True)
-            del stack, seq, acc_k2p
+            del seq, acc_k2p
+            # SGM-16's one-launch form: the 7 K2 volumes and the 8 knight
+            # volumes in one stack, which K3 sums in order: the sequential
+            # 16-direction accumulator's bits
+            stack15 = torch.empty((15,) + tuple(cv.shape), device=dev)
+            stack15[:7] = stack
+            stack15[7:] = vols
+            del stack, vols
+            exact(_acc_sum(stack15), acc_k, ("K2 + K2k stack", tag))
+            for a, b in zip(sgm_wta(cv, stack15, P1, P2, POUT, 1, 3, 3,
+                                    True),
+                            sgm_wta(cv, acc_k, P1, P2, POUT, 1, 3, 3, True)):
+                exact(torch.nan_to_num(a, 9.0), torch.nan_to_num(b, 9.0),
+                      ("K3 over 15", tag))
+            err["K3"] = max(err["K3"], k3_vs_plain(cv, stack15,
+                                                   f"K3 over 15 {tag}"))
+            print(f"K3 {tag}: over the 15 volumes of SGM-16 equal to K3 over "
+                  f"the sequential accumulator bitwise", flush=True)
+            del stack15, acc_k, acc
 
     # SGM margins: the region runs contiguous (image column offset and
     # width for Pout) and is padded back; against the plain path on the CPU
     L, R = pair(37, 101, 11, dev)
     cv = box_cv(ZNCC, L, R, 3, 3, 13, torch.float32, negate=True)
     m = Margins(2, 1, 3, 2)
+    sgm_pass.launches = knight_volumes.launches = 0
     for nd in (8, 16):
         got = sgm_cost_volume(cv, P1, P2, m, n_directions=nd)
         want = sgm_cost_volume(cv.cpu(), P1, P2, m, n_directions=nd)
@@ -936,6 +1085,13 @@ def main(argv=None) -> int:
         print(f"margins {m} 37x101x13 SGM-{nd}: volume and WTA equal the "
               f"CPU within 1e-4, idx agree {same.float().mean().item():.6f}",
               flush=True)
+    # `sgm_cost_volume`'s path (with margins, also `sgm_wta_truncated`'s):
+    # K2 a direction a launch into one accumulator, the knight volumes
+    margin_launches = {"K2": sgm_pass.launches,
+                       "K2k": knight_volumes.launches}
+    print(f"margins path SGM-8 and SGM-16: launches {margin_launches}",
+          flush=True)
+    assert all(n > 0 for n in margin_launches.values()), margin_launches
 
     # the path glue on a small input: the kernel path against the plain
     # path run on the CPU (f32 volume: a bf16 volume built by two routes
@@ -1145,7 +1301,7 @@ def main(argv=None) -> int:
     _, (Lr, Rr) = entry.entry(dev)
     pairs["random"] = ([Lr, Rr], None)
     K2K_COUNTERS = (window_stats, box_cv, sgm_pass, direction_volumes,
-                    sgm_knight_pass, sgm_wta)
+                    knight_volumes, sgm_wta)
 
     def reset(*fns):
         for fn in fns:
@@ -1180,11 +1336,11 @@ def main(argv=None) -> int:
              for name, (imgs, _) in pairs.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches16 = {"K1": box_cv.launches, "K2": sgm_pass.launches,
-                  "K2k": sgm_knight_pass.launches, "K3": sgm_wta.launches}
+    launches16 = {"K1": box_cv.launches, "K2x7": direction_volumes.launches,
+                  "K2k": knight_volumes.launches, "K3": sgm_wta.launches}
     print(f"SGM-16 path: 3 pairs in {wall:.3f} s host wall (first calls), "
-          f"launches {launches16}, K5 {fused_fv_cost_volume.launches}",
-          flush=True)
+          f"launches {launches16}, K2 one direction {sgm_pass.launches}, K5 "
+          f"{fused_fv_cost_volume.launches}", flush=True)
     assert all(n > 0 for n in launches16.values()), launches16
     for name, (disp, idx, tcv) in out16.items():
         assert disp.shape == idx.shape == (480, 640)
@@ -1209,7 +1365,7 @@ def main(argv=None) -> int:
     wall = time.perf_counter() - t0
     cs_launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
                    "K2x7": direction_volumes.launches,
-                   "K2k": sgm_knight_pass.launches, "K3": sgm_wta.launches,
+                   "K2k": knight_volumes.launches, "K3": sgm_wta.launches,
                    "K5": fused_fv_cost_volume.launches}
     print(f"census SGM-8 path: 2 pairs in {wall:.3f} s host wall, launches "
           f"{cs_launches} (the census volume runs on the shifted-compare "
@@ -1545,12 +1701,28 @@ def main(argv=None) -> int:
         for d, a in zip(k2_dirs, stack_p):
             sgm_pass_plain(cv, a, d, P1, P2, POUT, accumulate=False)
 
+    # SGM-16's volume (f32) and its one-launch stack: the 7 K2 volumes,
+    # then the 8 knight volumes K2k writes
     cv32 = box_cv(ZNCC, L, R, 3, 3, 120, torch.float32, negate=True)
+    stack15 = torch.empty((15,) + tuple(cv32.shape), device=dev)
+    direction_volumes(cv32, k2_dirs, P1, P2, POUT, out=stack15[:7])
+    knight_volumes(cv32, KD, P1, P2, POUT, out=stack15[7:])
     acc_k = torch.zeros(cv32.shape, device=dev)
-
-    def k2k(fn):
-        for d in _KNIGHT_DIRS:
-            fn(cv32, acc_k, d, P1, P2, POUT)
+    kv_p = torch.empty_like(stack15[7:])
+    # K3's two forms on SGM-16: over the 15 volumes (the path's), or over
+    # their in-order sum built in torch first; and K2k with the ordered
+    # adds (`sgm_cost_volume`'s and the lane route's form)
+    k3_forms = {
+        "over the 15 volumes": lambda: sgm_wta(cv32, stack15, P1, P2, POUT,
+                                               1, 3, 3, True),
+        "torch sum, then over one": lambda: sgm_wta(
+            cv32, _acc_sum(stack15), P1, P2, POUT, 1, 3, 3, True),
+        "K2k with the 8 ordered adds": lambda: add_knight_volumes(
+            cv32, acc_k, KD, P1, P2, POUT),
+    }
+    for name, fn in k3_forms.items():
+        print(f"time: SGM-16 480x640x120 f32 {name}: {median_ms(fn):.3f} ms "
+              f"(median of 5; {smi})", flush=True)
 
     jobs = {
         # the whole box_cv call: the statistics launch and the volume's
@@ -1566,10 +1738,15 @@ def main(argv=None) -> int:
         "K2": (lambda: sgm_accumulate(cv, k2_dirs, P1, P2, POUT), k2_plain),
         "K2x7": (lambda: direction_volumes(cv, k2_dirs, P1, P2, POUT),
                  k2x7_plain),
-        "K2k": (lambda: k2k(sgm_knight_pass),
-                lambda: k2k(sgm_knight_pass_plain)),
-        "K3": (lambda: sgm_wta(cv, seq, P1, P2, POUT, 1, 3, 3, True),
-               lambda: sgm_wta_plain(cv, seq, P1, P2, POUT, 1, 3, 3, True)),
+        # K2k as SGM-16's path runs it: the 8 knight volumes into its
+        # stack in two launches; K3 over the 15 volumes
+        "K2k": (lambda: knight_volumes(cv32, KD, P1, P2, POUT,
+                                       out=stack15[7:]),
+                lambda: knight_volumes_plain(cv32, KD, P1, P2, POUT,
+                                             out=kv_p)),
+        "K3": (lambda: sgm_wta(cv32, stack15, P1, P2, POUT, 1, 3, 3, True),
+               lambda: sgm_wta_plain(cv32, stack15, P1, P2, POUT, 1, 3, 3,
+                                     True)),
         "K3x7": (lambda: sgm_wta(cv, stack, P1, P2, POUT, 1, 3, 3, True),
                  lambda: sgm_wta_plain(cv, stack, P1, P2, POUT, 1, 3, 3,
                                        True)),
@@ -1629,7 +1806,7 @@ def main(argv=None) -> int:
           f"(median of 5; {smi})", flush=True)
     # the plain knight passes take ~1 s a run, the plain chunked sweeps
     # several
-    plain_reps = {"K2x7": 3, "K2k": 2, "K4b": 2, "K4d": 1}
+    plain_reps = {"K2x7": 3, "K2k": 2, "K3": 3, "K4b": 2, "K4d": 1}
     ms = {}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
@@ -1682,9 +1859,11 @@ def main(argv=None) -> int:
         ("K2x7 direction_volumes (7 directions in one launch)",
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2x7"),
-        ("K2k sgm_knight_pass", "libstevi_tpu_torch/csrc/sgm_scan.cu",
+        ("K2k knight_volumes (8 directions, two launches)",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:107", "K2k"),
-        ("K3 sgm_wta", "libstevi_tpu_torch/csrc/sgm_scan.cu",
+        ("K3 sgm_wta over 15 direction volumes (SGM-16)",
+         "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3"),
         ("K3x7 sgm_wta over 7 direction volumes",
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
@@ -1713,9 +1892,10 @@ def main(argv=None) -> int:
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2 any-D"),
     ]
-    # the SGM-16 path's run: K2k, and K2 and K3 in their one-accumulator
-    # form (the main path runs K2x7 and K3x7)
-    launches.update({k: launches16[k] for k in ("K2", "K2k", "K3")})
+    # the SGM-16 path's run: K2k, and K3 over the 15 volumes (the main path
+    # runs K2x7 and K3x7); K2 a direction a launch: the margins path's run
+    launches.update({k: launches16[k] for k in ("K2k", "K3")})
+    launches["K2"] = margin_launches["K2"]
     # K4a is on no path (the JAX package calls it only in a test): its
     # count is the wide path's, as K4b's; K4d's is the full-size K4d run's
     launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
@@ -1740,9 +1920,12 @@ def main(argv=None) -> int:
         # form's, not the function's)
         "K2": bound(N1 * 2 + N1 * 4, SGM_OPS * 7 * N1),
         "K2x7": bound(N1 * 2 + N1 * 4, SGM_OPS * 7 * N1),
+        # cv read once, acc read and written once (the function's work;
+        # the 8 volumes are K2k's form)
         "K2k": bound(N1 * 4 + 2 * N1 * 4, SGM_OPS * 8 * N1),
-        # cv and one accumulator read once; idx, bands and disp written
-        "K3": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
+        # cv (f32 on SGM-16) and one accumulator read once; idx, bands and
+        # disp written (the 15 volumes are the form's)
+        "K3": bound(N1 * 4 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
         "K3x7": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
         "K5": bound(2 * HW1 * 49 * 4 + N1 * 4, 3 * 49 * N1),
         "K6": bound(5 * HW1 * 4, 4 * HW1),

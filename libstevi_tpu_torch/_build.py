@@ -62,10 +62,10 @@ SIGNATURES = {
         # P1, P2, Pout, accumulate, col0, W_pout, i0, H_img, stream
         "sgm_pass_launch": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 3
                            + [_F] * 3 + [_I] * 5 + [_P],
-        # cv, cv_bf16, acc, cin, cout, H, W, D, v0, v1, h0, h1, phase, P1,
-        # P2, Pout, col0, W_pout, s0, N_img, stream
-        "sgm_knight_launch": [_P, _I, _P, _P, _P] + [_I] * 8 + [_F] * 3
-                             + [_I] * 4 + [_P],
+        # cv, cv_bf16, vol, cin, cout, n, steps (4n ints: v0, v1, h0, h1),
+        # H, W, D, phase, P1, P2, Pout, col0, W_pout, s0, N_img, stream
+        "sgm_knight_launch": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 4
+                             + [_F] * 3 + [_I] * 4 + [_P],
         # cv, cv_bf16, acc, n_acc, idx, bands, disp, H, W, D, P1, P2, Pout,
         # r, h_radius, v_radius, stream
         "sgm_wta_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F,

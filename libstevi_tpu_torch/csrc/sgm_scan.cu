@@ -27,11 +27,30 @@
 // primary axis, so lines whose seeds lie at the same parity never meet:
 // phase 0 holds the start-edge seeds (offset 0) and the side seeds at even
 // offsets, phase 1 the side seeds at odd offsets.  One launch runs one
-// phase, one warp a line; inside a launch every pixel lies on at most one
-// line, except the corner line, enumerated from both edges, which one warp
-// walks with weight 2.  Two launches a direction on one stream: no
-// atomics, and the same acc on every run.
-//
+// phase of up to 8 directions side by side (the grid's second axis picks
+// the direction), one warp a line, each direction into a volume of its
+// own: phase 0 has a line at every pixel and writes w * adj there (the
+// corner line, enumerated from both edges, is one warp with weight 2),
+// phase 1 adds its lines' adj, so volume y ends as p0 + p1 of direction y
+// with no zero fill, no atomics and the same bits on every run.  Callers
+// add the volumes to the principal sum one after another, acc + (p0 + p1)
+// per direction, the JAX XLA path's order (`sgm + pad(knight_adj)`).
+// What bounds K2k on an H100: one direction's phase has X + N / 2 lines
+// (~880 at 480x640, fewer than the card's 528 schedulers can hide a step's
+// chain with) and a step waits on its pixel's loads; in series, 16 launches
+// of ~0.36 ms each at 480x640x120 read-modified-wrote one accumulator.  So
+// the 8 directions share a launch (~7000 lines, the card full), each line
+// stages its pixels S steps ahead through K2's TMA ring (a knight line's
+// pixel k steps on is known from its first pixel and parity), and no
+// launch re-reads an accumulator (phase 0 writes, phase 1 re-reads only
+// where its lines live, about a quarter of the pixels).  At 480x640x120
+// f32 the form moves ~3.3 GB (each direction reads cv and writes its
+// volume, phase 1 re-reads and rewrites a quarter), ~1 ms at 3.35 TB/s;
+// the function's own work (cv read, acc read and written) bounds it at
+// 0.132 ms.  This costs 8 f32 volumes of device memory; where they do not
+// fit, the caller runs one direction a launch pair into one scratch volume
+// (`ops/sgm_cuda.py`, `add_knight_volumes`).
+
 // K2s is K2 and K2k on one shard of a distributed image, the TPU kernel's
 // `with_carries` mode (`sgm_rows_shard_pass_dhw` :1013, called at :1078;
 // `sgm_cols_shard_pass_dhw` :1088): carries in and out (one D-vector per
@@ -67,7 +86,8 @@
 // volume of its own; K3 takes whole images (with margins the caller runs WTA
 // and band itself).  K2 and K2k take any D: past K = 10 register slices
 // (D > 320) they run an instance with the carry in shared memory
-// (`sgm_pass_smem_kernel`, `sgm_knight_smem_kernel`); K3 takes D <= 320.
+// (`sgm_pass_smem_kernel`, `sgm_knight_smem_kernel`); K3 takes D <= 320
+// and sums up to MAX_ACC volumes (SGM-16's 7 principal and 8 knight ones).
 // The TPU path needed a (W, D, H) transpose of the volume and of the
 // accumulator for the horizontal passes; this one reads (H, W, D) for every
 // direction.
@@ -100,9 +120,12 @@
 //   re-reads an accumulator (the bytes moved are the same as in series).
 //   This costs one f32 volume a direction of device memory, so the caller
 //   takes this form only where the volumes fit (`ops/sgm_cuda.py`).
+// The knights (K2k) take the same two measures: their 8 directions share
+// a launch, a volume each, and each line stages through the ring.
 // Left for later PRs: several directions in one sweep (the TPU kernel's
-// layout: fewer bytes and no direction volumes), a producer warp that
-// feeds the rings, and CUDA graphs over the launches.
+// layout: fewer bytes and no direction volumes; for the knights, both
+// phases of a direction in one sweep), a producer warp that feeds the
+// rings, and CUDA graphs over the launches.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -111,13 +134,15 @@
 
 namespace {
 
-constexpr int WARPS = 4;        // knight scanlines (warps) per block
-constexpr int LINE_WARPS = 2;   // K2 / K3 scanlines (warps) per block
-constexpr int RING = 8;         // K2 / K3 pixels staged ahead of the step
+constexpr int LINE_WARPS = 2;   // scanlines (warps) per block
+constexpr int RING = 8;         // pixels staged ahead of the step
 constexpr int REG_K = 10;       // register slices: D <= 320
-// directions of one K2 launch, and acc volumes K3 sums: SGM-8's
-// directions but K3's own
+// directions of one K2 launch: SGM-8's directions but K3's own
 constexpr int MAX_DIRS = 7;
+// directions of one K2k launch: the knight directions of SGM-16
+constexpr int MAX_KNIGHTS = 8;
+// acc volumes K3 sums: SGM-16's directions but K3's own
+constexpr int MAX_ACC = MAX_DIRS + MAX_KNIGHTS;
 constexpr unsigned FULL = 0xffffffffu;
 
 // The directions of one K2 launch, (di, dj) each; blockIdx.y picks one.
@@ -281,22 +306,22 @@ __device__ __forceinline__ void stage_pixel(unsigned char* st, int cb, int ab,
 
 // The warp: lane 0 initialises the S stage barriers (n + 1 arrivals a
 // phase), then lanes 0..n stage the first min(S, len) pixels of the line
-// (pix0, pix0 + step, ...).  Ends with the warp converged.
-template <typename T>
+// (pix_at(0), pix_at(1), ...).  Ends with the warp converged.
+template <typename T, typename PixAt>
 __device__ __forceinline__ void ring_start(unsigned char* ring, uint64_t* bar,
                                            int S, int stage, int cb, int ab,
                                            const T* cv, const float* acc,
                                            int n, long long acc_stride,
-                                           long long pix0, long long step,
-                                           int len, int D, int lane) {
+                                           PixAt pix_at, int len, int D,
+                                           int lane) {
   if (lane == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&bar[s], n + 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
   }
   __syncwarp();
   for (int s = 0; s < S && s < len; ++s)
-    stage_pixel(ring + s * stage, cb, ab, cv, acc, n, acc_stride,
-                pix0 + s * step, D, &bar[s], lane);
+    stage_pixel(ring + s * stage, cb, ab, cv, acc, n, acc_stride, pix_at(s),
+                D, &bar[s], lane);
   __syncwarp();
 }
 
@@ -386,8 +411,8 @@ sgm_pass_kernel(const T* __restrict__ cv, float* __restrict__ acc,
   const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
   const long long step = (long long)di * W + dj;
   long long pix = (long long)L.si * W + L.sj;
-  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0, pix, step, L.len,
-             D, lane);
+  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0,
+             [=](int s) { return pix + s * step; }, L.len, D, lane);
   const int i_last = di > 0 ? H - 1 : 0;  // the shard's last scan row
   const float w = L.w;
 
@@ -464,8 +489,8 @@ sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
   const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
   const long long step = (long long)di * W + dj;
   long long pix = (long long)L.si * W + L.sj;
-  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0, pix, step, L.len,
-             D, lane);
+  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0,
+             [=](int s) { return pix + s * step; }, L.len, D, lane);
   const int i_last = di > 0 ? H - 1 : 0;
   const float w = L.w;
   for (int d = lane; d < D; d += 32) bufs[d] = L.src ? L.src[d] : 0.f;
@@ -520,14 +545,24 @@ sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
 // later steps t with t % 2 == p.  At t0 phase 0 covers every lateral
 // position, and phase 1 the positions u <= (t0 - 1) / 2 (u the distance
 // from the side edge: phase-1 lines are the odd side seeds, and each
-// drift lets one more in).  A crossing line starts from cin at the
-// lateral position it left (null, or off the block: a zero carry); the
-// corner line (phase 0, u == t / 2) has weight 2.  A whole image is the
-// block s0 = 0, N_img = N with no carries, which gives `addDirectionalCost`'s
-// enumeration: the start-edge seeds, then the side seeds by offset.
+// drift lets one more in).  Phase 0 thus has a line at every pixel of the
+// block: the side seed at u = 0 fills the position each drift leaves.  A
+// crossing line starts from cin at the lateral position it left (null, or
+// off the block: a zero carry); the corner line (phase 0, u == t / 2) has
+// weight 2.  A whole image is the block s0 = 0, N_img = N with no carries,
+// which gives `addDirectionalCost`'s enumeration: the start-edge seeds,
+// then the side seeds by offset.
+//
+// The line's pixels are known up front: step c of the line takes
+// steps[c % 2], and the second step is the one that drifts, so after k
+// steps from a first step of parity c the line has drifted
+// ((c + k) >> 1) times and taken steps[0] the other times.  It ends where
+// either coordinate leaves the block: after its primary extent, or after
+// 2 * room + 2 - c pixels, room being the drifts left before the far side.
 struct KnightLine {
   int i, j;   // first pixel
   int c;      // parity of the first step's index along the line
+  int len;    // pixels on the line inside the block
   int src;    // lateral position of the carry it starts from, or -1
   float w;    // 2 on the corner line
   bool ok;
@@ -569,6 +604,8 @@ __device__ __forceinline__ KnightLine knight_line(int line, int H, int W,
   L.i = vert ? p : x;
   L.j = vert ? x : p;
   L.c = (t + phase) & 1;
+  const int room = drift > 0 ? X - 1 - x : x;
+  L.len = min(pstep > 0 ? N - p : p + 1, 2 * room + 2 - L.c);
   return L;
 }
 
@@ -584,62 +621,91 @@ __host__ __device__ inline int knight_lines(int H, int W, int v0, int h0,
   return n_entry + (t_first < t0 + N ? (t0 + N - t_first + 1) / 2 : 0);
 }
 
-// K2k: one seed phase of one knight direction with steps (v0, h0), (v1, h1),
-// on a whole image or (K2s) on one block of scan rows with carries in and
-// out (`knight_line`).  Vertical-primary directions (v0 == v1) seed at
+// pixel k of the line (k steps from its first pixel)
+__device__ __forceinline__ long long knight_pix(const KnightLine& L, int k,
+                                                int W, int v0, int v1,
+                                                int h0, int h1) {
+  const int odd = (L.c + k) >> 1, even = k - odd;
+  return (long long)(L.i + v0 * even + v1 * odd) * W +
+         (L.j + h0 * even + h1 * odd);
+}
+
+// The knight directions of one K2k launch, steps (v0, h0) and (v1, h1),
+// and the global extent along the primary axis; blockIdx.y picks one.
+struct KDirs {
+  int v0[MAX_KNIGHTS], v1[MAX_KNIGHTS], h0[MAX_KNIGHTS], h1[MAX_KNIGHTS];
+  int n_img[MAX_KNIGHTS];
+};
+
+// K2k: one seed phase of the knight direction that blockIdx.y picks, into
+// volume blockIdx.y of vol; D <= 32 K, the carry in registers.  Phase 0
+// writes w * adj (it has a line at every pixel, so it writes every entry of
+// the volume), phase 1 adds its lines' adj to what phase 0 left: the volume
+// ends as p0 + p1, one direction's adjustment.  Inside a launch the lines
+// of one direction are disjoint (the corner line is one line of weight 2),
+// and each direction has a volume of its own: no atomics, the same bits on
+// every run.  Each warp stages its line's pixels S ahead in a ring, as K2
+// does (phase 0 stages the cost vector, phase 1 also the volume's vector
+// that phase 0 wrote).  With carries (K2s, one direction) the block is
+// scan rows [s0, s0 + N) of n_img and cin / cout hold one D-vector per
+// lateral position (`knight_line`).  Vertical-primary directions seed at
 // every column of the top or bottom row and at every row of one side
-// column; horizontal-primary ones the other way round.  The start edge is
-// the one whose seeds sit at offset 0 along the primary axis; the corner
-// seed belongs to both edges.  cin and cout hold one D-vector per lateral
-// position (W x D for vertical-primary directions, H x D otherwise).
+// column; horizontal-primary ones the other way round.
 template <int K, typename T>
-__global__ void __launch_bounds__(32 * WARPS)
-sgm_knight_kernel(const T* __restrict__ cv, float* __restrict__ acc,
+__global__ void __launch_bounds__(32 * LINE_WARPS)
+sgm_knight_kernel(const T* __restrict__ cv, float* __restrict__ vol,
                   const float* __restrict__ cin, float* __restrict__ cout,
-                  int H, int W, int D, int v0, int v1, int h0, int h1,
-                  int phase, float P1, float P2, float Pout, int col0,
-                  int W_pout, int s0, int N_img) {
-  const int lane = threadIdx.x & 31;
-  const int line = blockIdx.x * WARPS + (threadIdx.x >> 5);
+                  int H, int W, int D, KDirs dirs, int phase, float P1,
+                  float P2, float Pout, int col0, int W_pout, int s0, int S,
+                  int cb, int stage) {
+  extern __shared__ __align__(16) unsigned char knight_smem[];
+  __shared__ __align__(8) uint64_t bars_k[LINE_WARPS][RING];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int line = blockIdx.x * (blockDim.x >> 5) + wid;
+  const int y = blockIdx.y;
+  const int v0 = dirs.v0[y], v1 = dirs.v1[y], h0 = dirs.h0[y],
+            h1 = dirs.h1[y];
+  vol += (size_t)y * H * W * D;
   const KnightLine L =
-      knight_line(line, H, W, v0, v1, h0, h1, phase, s0, N_img);
+      knight_line(line, H, W, v0, v1, h0, h1, phase, s0, dirs.n_img[y]);
   if (!L.ok) return;
+  unsigned char* ring = knight_smem + (size_t)wid * S * stage;
+  uint64_t* bar = bars_k[wid];
+  const int ab = stage - cb;
+  ring_start(ring, bar, S, stage, cb, ab, cv, vol, phase, 0,
+             [=](int k) { return knight_pix(L, k, W, v0, v1, h0, h1); },
+             L.len, D, lane);
   const bool vert = v0 == v1;
   const int last = vert ? (v0 > 0 ? H - 1 : 0) : (h0 > 0 ? W - 1 : 0);
   const float w = L.w;
   const float* src =
       (cin != nullptr && L.src >= 0) ? cin + (size_t)L.src * D : nullptr;
-  long long pix = (long long)L.i * W + L.j;
 
-  float carry[K], bn[K], an[K];
+  float carry[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) {
     const int d = lane + 32 * k;
     carry[k] = d < D ? (src ? src[d] : 0.f) : INFINITY;
-    bn[k] = d < D ? load(cv + pix * D + d) : INFINITY;
-    an[k] = d < D ? acc[pix * D + d] : 0.f;
   }
-  int i = L.i, j = L.j;
-  for (int c = L.c;; ++c) {
+  int i = L.i, j = L.j, slot = 0;
+  long long pix = (long long)i * W + j;
+  for (int t = 0; t < L.len; ++t) {
+    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);  // this pixel's stage
+    unsigned char* st = ring + slot * stage;
+    const T* cs = staged(st, cv + pix * D);
+    const float* vs = staged(st + cb, vol + pix * D);
     float b[K], a[K], adj[K];
 #pragma unroll
     for (int k = 0; k < K; ++k) {
-      b[k] = bn[k];
-      a[k] = an[k];
+      const int d = lane + 32 * k;
+      b[k] = d < D ? load(cs + d) : INFINITY;
+      a[k] = (phase && d < D) ? vs[d] : 0.f;
     }
-    const int ni = i + ((c & 1) ? v1 : v0), nj = j + ((c & 1) ? h1 : h0);
-    const bool more = ni >= 0 && ni < H && nj >= 0 && nj < W;
-    const long long nxt = (long long)ni * W + nj;
-    if (more) {  // prefetch the next pixel of the line
-#pragma unroll
-      for (int k = 0; k < K; ++k) {
-        const int d = lane + 32 * k;
-        if (d < D) {
-          bn[k] = load(cv + nxt * D + d);
-          an[k] = acc[nxt * D + d];
-        }
-      }
-    }
+    __syncwarp();  // the stage is read: refill it with the pixel S ahead
+    if (t + S < L.len)
+      stage_pixel(st, cb, ab, cv, vol, phase, 0,
+                  knight_pix(L, t + S, W, v0, v1, h0, h1), D, &bar[slot],
+                  lane);
     dp_step<K>(carry, adj, lane, col0 + j, W_pout, P1, P2, Pout);
     float* co = nullptr;
     if (cout != nullptr && (vert ? i : j) == last)
@@ -649,89 +715,99 @@ sgm_knight_kernel(const T* __restrict__ cv, float* __restrict__ acc,
       const int d = lane + 32 * k;
       if (d < D) {
         carry[k] = b[k] + adj[k];
-        acc[pix * D + d] = a[k] + w * adj[k];
+        vol[pix * D + d] = phase ? a[k] + adj[k] : w * adj[k];
         if (co) co[d] = carry[k];
       }
     }
-    if (!more) break;
-    pix = nxt;
-    i = ni;
-    j = nj;
+    const bool drift = (L.c + t) & 1;  // this step's index is odd
+    i += drift ? v1 : v0;
+    j += drift ? h1 : h0;
+    pix = (long long)i * W + j;
+    slot = slot + 1 == S ? 0 : slot + 1;
   }
 }
 
 // K2k for any D: `sgm_knight_kernel` with the carry in shared memory in
 // place of registers (K = ceil(D / 32) > 10 would not fit them).  Each warp
-// keeps two D-float carries (the previous and the current step, swapped
-// every step); lanes loop over 32-wide d-slices, the min over d is a loop
-// plus a warp reduction and d +- 1 are shared-memory reads, as in
-// sgm_lane.cu.  The lines, the DP step (`dp_step`'s operations in its
-// order, the isfinite guards included) and the accumulation are
-// `sgm_knight_kernel`'s.  Each lane issues the loads of U d-slices before
-// it computes, so a step pays the load latency once per 32 * U disparities.
-constexpr int U = 8;
-
+// keeps two D-float carries after its ring (the previous and the current
+// step, swapped every step); lanes loop over 32-wide d-slices, the min
+// over d is a loop plus the warp reduction and d +- 1 are shared-memory
+// reads, as in `sgm_pass_smem_kernel`.  The lines, the ring, the DP step
+// (`dp_step`'s operations in its order, the isfinite guards included) and
+// the volume writes are `sgm_knight_kernel`'s.
 template <typename T>
-__global__ void __launch_bounds__(32 * WARPS)
-sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
+__global__ void __launch_bounds__(32 * LINE_WARPS)
+sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
                        const float* __restrict__ cin,
-                       float* __restrict__ cout, int H, int W, int D, int v0,
-                       int v1, int h0, int h1, int phase, float P1, float P2,
-                       float Pout, int col0, int W_pout, int s0, int N_img) {
-  extern __shared__ float sm[];
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int line = blockIdx.x * WARPS + warp;
+                       float* __restrict__ cout, int H, int W, int D,
+                       KDirs dirs, int phase, float P1, float P2, float Pout,
+                       int col0, int W_pout, int s0, int S, int cb,
+                       int stage) {
+  extern __shared__ __align__(16) unsigned char knight_smem_d[];
+  __shared__ __align__(8) uint64_t bars_kd[LINE_WARPS][RING];
+  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
+  const int line = blockIdx.x * (blockDim.x >> 5) + wid;
+  const int y = blockIdx.y;
+  const int v0 = dirs.v0[y], v1 = dirs.v1[y], h0 = dirs.h0[y],
+            h1 = dirs.h1[y];
+  vol += (size_t)y * H * W * D;
   const KnightLine L =
-      knight_line(line, H, W, v0, v1, h0, h1, phase, s0, N_img);
+      knight_line(line, H, W, v0, v1, h0, h1, phase, s0, dirs.n_img[y]);
   if (!L.ok) return;
+  // each warp's area stays 16-byte aligned: the carries are rounded up
+  const size_t carry_bytes = (2 * sizeof(float) * D + 15) & ~(size_t)15;
+  unsigned char* ring =
+      knight_smem_d + (size_t)wid * ((size_t)S * stage + carry_bytes);
+  float* bufs = reinterpret_cast<float*>(ring + (size_t)S * stage);
+  uint64_t* bar = bars_kd[wid];
+  const int ab = stage - cb;
+  ring_start(ring, bar, S, stage, cb, ab, cv, vol, phase, 0,
+             [=](int k) { return knight_pix(L, k, W, v0, v1, h0, h1); },
+             L.len, D, lane);
   const bool vert = v0 == v1;
   const int last = vert ? (v0 > 0 ? H - 1 : 0) : (h0 > 0 ? W - 1 : 0);
   const float w = L.w;
-  float* bufs = sm + (size_t)warp * 2 * D;
   const float* src =
       (cin != nullptr && L.src >= 0) ? cin + (size_t)L.src * D : nullptr;
   for (int d = lane; d < D; d += 32) bufs[d] = src ? src[d] : 0.f;
-  __syncwarp();
-  int i = L.i, j = L.j, cur = 0;
-  for (int c = L.c;; ++c) {
+  int i = L.i, j = L.j, slot = 0, cur = 0;
+  long long pix = (long long)i * W + j;
+  for (int t = 0; t < L.len; ++t) {
+    __syncwarp();  // the carry written at the last step
+    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
+    unsigned char* st = ring + slot * stage;
+    const T* cs = staged(st, cv + pix * D);
+    const float* vs = staged(st + cb, vol + pix * D);
     const float* prev = bufs + cur * D;
     float* next = bufs + (cur ^ 1) * D;
-    const long long pix = (long long)i * W + j;
     float lm = INFINITY;
     for (int d = lane; d < D; d += 32) lm = fminf(lm, finite_or_inf(prev[d]));
     const float m = warp_min(lm);
-    float* co = nullptr;
-    if (cout != nullptr && (vert ? i : j) == last)
-      co = cout + (size_t)(vert ? j : i) * D;
-    for (int d0 = lane; d0 < D; d0 += 32 * U) {
-      float bs[U], as[U];  // issue U slices' loads before any store
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        const int d = d0 + 32 * k;
-        bs[k] = d < D ? load(cv + pix * D + d) : 0.f;
-        as[k] = d < D ? acc[pix * D + d] : 0.f;
-      }
-#pragma unroll
-      for (int k = 0; k < U; ++k) {
-        const int d = d0 + 32 * k;
-        if (d >= D) break;
-        const float p = finite_or_inf(prev[d]);
-        const float up = d > 0 ? finite_or_inf(prev[d - 1]) : INFINITY;
-        const float dn = d + 1 < D ? finite_or_inf(prev[d + 1]) : INFINITY;
-        float agg = fminf(fminf(p, m + P2), fminf(up + P1, dn + P1));
-        if (col0 + j + d >= W_pout) agg += Pout;  // disparity leaves the image
-        const float adj = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
-        const float nc = bs[k] + adj;
-        next[d] = nc;
-        acc[pix * D + d] = as[k] + w * adj;
-        if (co) co[d] = nc;
-      }
+    float* co = (cout != nullptr && (vert ? i : j) == last)
+                    ? cout + (size_t)(vert ? j : i) * D
+                    : nullptr;
+    for (int d = lane; d < D; d += 32) {
+      const float p = finite_or_inf(prev[d]);
+      const float up = d > 0 ? finite_or_inf(prev[d - 1]) : INFINITY;
+      const float dn = d + 1 < D ? finite_or_inf(prev[d + 1]) : INFINITY;
+      float agg = fminf(fminf(p, m + P2), fminf(up + P1, dn + P1));
+      if (col0 + j + d >= W_pout) agg += Pout;  // disparity leaves the image
+      const float adj = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
+      const float nc = load(cs + d) + adj;
+      next[d] = nc;
+      vol[pix * D + d] = phase ? vs[d] + adj : w * adj;
+      if (co) co[d] = nc;
     }
-    __syncwarp();  // `next` is complete before it is read as `prev`
-    const int ni = i + ((c & 1) ? v1 : v0), nj = j + ((c & 1) ? h1 : h0);
-    if (ni < 0 || ni >= H || nj < 0 || nj >= W) break;
-    i = ni;
-    j = nj;
+    __syncwarp();  // the stage is read and `next` complete
+    if (t + S < L.len)
+      stage_pixel(st, cb, ab, cv, vol, phase, 0,
+                  knight_pix(L, t + S, W, v0, v1, h0, h1), D, &bar[slot],
+                  lane);
+    const bool drift = (L.c + t) & 1;
+    i += drift ? v1 : v0;
+    j += drift ? h1 : h0;
+    pix = (long long)i * W + j;
+    slot = slot + 1 == S ? 0 : slot + 1;
     cur ^= 1;
   }
 }
@@ -763,8 +839,8 @@ sgm_wta_kernel(const T* __restrict__ cv, const float* __restrict__ acc,
   const bool row_ok = i >= vr && i + vr < H;
 
   long long pix = (long long)i * W + (W - 1);
-  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, acc_stride, pix, -1,
-             W, D, lane);
+  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, acc_stride,
+             [=](int s) { return pix - s; }, W, D, lane);
   float carry[K];
 #pragma unroll
   for (int k = 0; k < K; ++k) carry[k] = lane + 32 * k < D ? 0.f : INFINITY;
@@ -930,34 +1006,42 @@ cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
 }
 
 template <typename T>
-cudaError_t knight_t(int K, const void* cv, float* acc, const float* cin,
-                     float* cout, int H, int W, int D, int v0, int v1, int h0,
-                     int h1, int phase, float P1, float P2, float Pout,
-                     int col0, int W_pout, int s0, int N_img,
-                     cudaStream_t s) {
-  const int lines = knight_lines(H, W, v0, h0, phase, s0, N_img, v0 == v1);
-  if (lines == 0) return cudaSuccess;
-  const int blocks = (lines + WARPS - 1) / WARPS;
+cudaError_t knight_t(const void* cv, float* vol, const float* cin,
+                     float* cout, int H, int W, int D, const KDirs& dirs,
+                     int n, int phase, float P1, float P2, float Pout,
+                     int col0, int W_pout, int s0, cudaStream_t s) {
+  const int K = (D + 31) / 32;
+  const bool regs = K <= REG_K;
+  int lines = 0, most = 0;  // all directions' lines, and one's most
+  for (int y = 0; y < n; ++y) {
+    const int l = knight_lines(H, W, dirs.v0[y], dirs.h0[y], phase, s0,
+                               dirs.n_img[y], dirs.v0[y] == dirs.v1[y]);
+    lines += l;
+    most = l > most ? l : most;
+  }
+  if (most == 0) return cudaSuccess;
+  Layout ly;  // phase 1 also stages the volume's vector
+  if (!ring_layout(D, sizeof(T), phase, regs ? 0 : round16(8 * D), lines,
+                   ly))
+    return cudaErrorInvalidValue;
+  const dim3 grid((most + ly.warps - 1) / ly.warps, n);
   const T* v = static_cast<const T*>(cv);
-  if (K > 10) {  // any D: the carries in shared memory
-    const size_t smem = sizeof(float) * WARPS * 2 * (size_t)D;
-    if (smem > (size_t)SMEM_MAX) return cudaErrorInvalidValue;
-    if (smem > 48 * 1024) {
-      const cudaError_t e = cudaFuncSetAttribute(
-          (const void*)sgm_knight_smem_kernel<T>,
-          cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-      if (e != cudaSuccess) return e;
-    }
-    sgm_knight_smem_kernel<T><<<blocks, 32 * WARPS, smem, s>>>(
-        v, acc, cin, cout, H, W, D, v0, v1, h0, h1, phase, P1, P2, Pout,
-        col0, W_pout, s0, N_img);
+  cudaError_t e;
+  if (!regs) {  // any D: the carries in shared memory
+    e = allow_smem((const void*)sgm_knight_smem_kernel<T>, ly.smem);
+    if (e != cudaSuccess) return e;
+    sgm_knight_smem_kernel<T><<<grid, 32 * ly.warps, ly.smem, s>>>(
+        v, vol, cin, cout, H, W, D, dirs, phase, P1, P2, Pout, col0, W_pout,
+        s0, ly.S, ly.cb, ly.stage);
     return cudaGetLastError();
   }
 #define SGM_KNIGHT_CASE(k)                                                 \
   case k:                                                                  \
-    sgm_knight_kernel<k, T><<<blocks, 32 * WARPS, 0, s>>>(                 \
-        v, acc, cin, cout, H, W, D, v0, v1, h0, h1, phase, P1, P2, Pout,   \
-        col0, W_pout, s0, N_img);                                          \
+    e = allow_smem((const void*)sgm_knight_kernel<k, T>, ly.smem);         \
+    if (e != cudaSuccess) return e;                                        \
+    sgm_knight_kernel<k, T><<<grid, 32 * ly.warps, ly.smem, s>>>(          \
+        v, vol, cin, cout, H, W, D, dirs, phase, P1, P2, Pout, col0,       \
+        W_pout, s0, ly.S, ly.cb, ly.stage);                                \
     break;
   switch (K) {
     SGM_KNIGHT_CASE(1) SGM_KNIGHT_CASE(2) SGM_KNIGHT_CASE(3)
@@ -1042,41 +1126,57 @@ extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
                                        H_img, s));
 }
 
-// Any D (the shared-memory instance past D = 320).  With carries the block
-// is scan rows [s0, s0 + N) of N_img along the primary axis (rows for
-// vertical-primary directions, columns otherwise), and cin / cout hold one
-// D-vector per position along the other axis (K2s).
-extern "C" int sgm_knight_launch(const void* cv, int cv_bf16, void* acc,
-                                 const void* cin, void* cout, int H, int W,
-                                 int D, int v0, int v1, int h0, int h1,
+// One seed phase (0: write, 1: add) of n knight directions, any D (the
+// shared-memory instance past D = 320).  steps holds (v0, v1, h0, h1) for
+// each, 1 <= n <= MAX_KNIGHTS; direction y writes volume y of vol (H * W * D
+// floats apart).  cin / cout may be null (a zero line start / no carries
+// out); with carries (one direction) the block is scan rows [s0, s0 + N) of
+// N_img along the primary axis (rows for vertical-primary directions,
+// columns otherwise), and cin / cout hold one D-vector per position along
+// the other axis (K2s).  N_img = 0 takes each direction's own extent (a
+// whole image).
+extern "C" int sgm_knight_launch(const void* cv, int cv_bf16, void* vol,
+                                 const void* cin, void* cout, int n,
+                                 const int* steps, int H, int W, int D,
                                  int phase, float P1, float P2, float Pout,
                                  int col0, int W_pout, int s0, int N_img,
                                  void* stream) {
-  // a knight direction: one axis steps every time (+-1), the other
-  // alternates 0 and +-1
-  const bool vert = v0 == v1 && (v0 == 1 || v0 == -1) && h0 == 0 &&
-                    (h1 == 1 || h1 == -1);
-  const bool horz = h0 == h1 && (h0 == 1 || h0 == -1) && v0 == 0 &&
-                    (v1 == 1 || v1 == -1);
-  if (bad_region(H, W, D, col0, W_pout) || !(vert || horz) || phase < 0 ||
-      phase > 1 || s0 < 0 || N_img < s0 + (vert ? H : W))
+  const bool carries = cin != nullptr || cout != nullptr;
+  if (bad_region(H, W, D, col0, W_pout) || n < 1 || n > MAX_KNIGHTS ||
+      (n > 1 && (carries || s0 != 0)) || phase < 0 || phase > 1 || s0 < 0)
     return (int)cudaErrorInvalidValue;
-  const int K = (D + 31) / 32;
-  float* a = static_cast<float*>(acc);
+  KDirs dirs = {};
+  for (int y = 0; y < n; ++y) {
+    const int v0 = steps[4 * y], v1 = steps[4 * y + 1], h0 = steps[4 * y + 2],
+              h1 = steps[4 * y + 3];
+    // a knight direction: one axis steps every time (+-1), the other
+    // alternates 0 and +-1
+    const bool vert = v0 == v1 && (v0 == 1 || v0 == -1) && h0 == 0 &&
+                      (h1 == 1 || h1 == -1);
+    const bool horz = h0 == h1 && (h0 == 1 || h0 == -1) && v0 == 0 &&
+                      (v1 == 1 || v1 == -1);
+    const int N = vert ? H : W, n_img = N_img > 0 ? N_img : N;
+    if (!(vert || horz) || n_img < s0 + N) return (int)cudaErrorInvalidValue;
+    dirs.v0[y] = v0;
+    dirs.v1[y] = v1;
+    dirs.h0[y] = h0;
+    dirs.h1[y] = h1;
+    dirs.n_img[y] = n_img;
+  }
+  float* a = static_cast<float*>(vol);
   const float* ci = static_cast<const float*>(cin);
   float* co = static_cast<float*>(cout);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(cv_bf16 ? knight_t<__nv_bfloat16>(K, cv, a, ci, co, H, W, D,
-                                                 v0, v1, h0, h1, phase, P1,
-                                                 P2, Pout, col0, W_pout, s0,
-                                                 N_img, s)
-                       : knight_t<float>(K, cv, a, ci, co, H, W, D, v0, v1,
-                                         h0, h1, phase, P1, P2, Pout, col0,
-                                         W_pout, s0, N_img, s));
+  return (int)(cv_bf16 ? knight_t<__nv_bfloat16>(cv, a, ci, co, H, W, D, dirs,
+                                                 n, phase, P1, P2, Pout, col0,
+                                                 W_pout, s0, s)
+                       : knight_t<float>(cv, a, ci, co, H, W, D, dirs, n,
+                                         phase, P1, P2, Pout, col0, W_pout,
+                                         s0, s));
 }
 
 // D <= 320 (K = ceil(D / 32) <= 10 register slices); whole images.  acc is
-// n_acc <= MAX_DIRS volumes of H * W * D floats, one after another, summed
+// n_acc <= MAX_ACC volumes of H * W * D floats, one after another, summed
 // in order.
 extern "C" int sgm_wta_launch(const void* cv, int cv_bf16, const void* acc,
                               int n_acc, void* idx, void* bands, void* disp,
@@ -1084,7 +1184,7 @@ extern "C" int sgm_wta_launch(const void* cv, int cv_bf16, const void* acc,
                               float Pout, int r, int hr, int vr,
                               void* stream) {
   if (bad_region(H, W, D, 0, W) || D > 32 * REG_K || n_acc < 1 ||
-      n_acc > MAX_DIRS || r < 0 || hr < 0 || vr < 0 ||
+      n_acc > MAX_ACC || r < 0 || hr < 0 || vr < 0 ||
       (disp != nullptr && r < 1))
     return (int)cudaErrorInvalidValue;
   const float* a = static_cast<const float*>(acc);

@@ -31,8 +31,10 @@ Pallas kernels and its XLA groups (`libstevi_tpu/ops/sgm.py:333-352, 387`):
   (`chunked_adj`) where `fused_adj` returns None because its carries do
   not fit on chip, and their plain versions on the CPU; with 16
   directions the knight directions run through K2k's any-D instance
-  (`sgm_cuda.sgm_knight_pass`), as the JAX package runs them through
+  (`sgm_cuda.knight_volumes`), as the JAX package runs them through
   `_cost_mode_pass` beside `_pallas_adj` (`libstevi_tpu/ops/sgm.py:387-414`).
+Every route adds a knight direction's adjustment to the principal sum once,
+in `_KNIGHT_DIRS` order, as the JAX XLA path does.
 """
 
 from __future__ import annotations
@@ -348,8 +350,8 @@ def sgm_cost_volume(cv: torch.Tensor, P1: float, P2: float,
     outside them is returned unchanged.  Returns float32.  SCORE volumes
     run the cost-mode engine on the negated volume.  On a CUDA tensor the
     region runs contiguous through one K2 launch per principal direction
-    and one K2k call per knight direction (`sgm_cuda.sgm_accumulate`), and
-    is padded back.  On the CPU the sums follow the JAX XLA path: the
+    and the knight directions' volumes (two K2k launches), added after them
+    one by one (`sgm_cuda.sgm_accumulate`), and is padded back.  On the CPU the sums follow the JAX XLA path: the
     principal directions grouped, then each knight pass in `_KNIGHT_DIRS`
     order, each padded to the full volume.  At D > 320 both devices run
     `sgm_lane_cuda`'s K4b or K4d route (16 directions: with the knight
@@ -465,8 +467,8 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
 
     For a dot-family cost on gray images with P2 >= P1 and D <= 320 this
     runs the kernel path K1 -> K2 (every principal direction but the last:
-    with 4 or 8 directions one launch, a volume each, where they fit,
-    else a launch each) -> K2k (16 directions) -> K3 (the last direction
+    one launch, a volume each, where they fit, else a launch each) -> K2k
+    (16 directions: two launches, a volume each) -> K3 (the last direction
     fused with the in-order sum of those volumes, WTA, band and, for
     PARABOLA, the subpixel).  At D > 320 it runs K1 over
     d-slices -> ``sgm_wta_truncated`` (K4b's passes and WTA, or K4d; K2k

@@ -2,19 +2,22 @@
 the port of `libstevi_tpu/ops/sgm_pallas_dhw.py`.
 
 K2 (`sgm_pass`) runs one principal direction and adds its adjustment into
-an f32 accumulator of the volume's shape; K2k (`sgm_knight_pass`) does the
-same for one knight-move direction of the 16-direction set, in two
-launches (the two seed phases, see `csrc/sgm_scan.cu`); K3 (`sgm_wta`)
-runs the last direction, right to left, fused with C = cost + acc + adj,
-the tie-last WTA, the band C[idx - r .. idx + r] (+inf beyond [0, D)) and,
-optionally, the parabola subpixel with the SAME-mode NaN rules.  The
-flagship's 8 directions are 7 K2 directions and one K3 launch: the 7 in
-one launch, a volume each, where they fit (`direction_volumes`), else 7
-launches into one accumulator; 16 directions add the 8 knight directions
-between them (`sgm_wta_fused`).  K2, K2k and
-K2s take any D: past D = 320 they run instances that keep the carry in
-shared memory.  K3 takes D <= 320 (`ops.sgm.sgm_route` sends wider ranges
-to the lane route, K4b / K4d).  K2 and K3 stage the pixels ahead of each
+an f32 accumulator of the volume's shape; K2k (`knight_volumes`) runs up
+to 8 knight-move directions of the 16-direction set side by side, each
+into a volume of its own, in two launches (the two seed phases, see
+`csrc/sgm_scan.cu`); K3 (`sgm_wta`) runs the last direction, right to
+left, fused with C = cost + acc + adj, the tie-last WTA, the band
+C[idx - r .. idx + r] (+inf beyond [0, D)) and, optionally, the parabola
+subpixel with the SAME-mode NaN rules.  The flagship's 8 directions are 7
+K2 directions and one K3 launch: the 7 in one launch, a volume each, where
+they fit (`direction_volumes`), else 7 launches into one accumulator; 16
+directions add the 8 knight volumes after them (`sgm_wta_fused`: K3 sums
+the 15 volumes in order, or they are added to the accumulator in order,
+`add_knight_volumes`).  Every path adds a knight direction's volume
+p0 + p1 once, acc + (p0 + p1), the JAX XLA path's order.  K2, K2k and K2s
+take any D: past D = 320 they run instances that keep the carry in shared
+memory.  K3 takes D <= 320 (`ops.sgm.sgm_route` sends wider ranges to the
+lane route, K4b / K4d).  K2, K2k and K3 stage the pixels ahead of each
 line's step in a shared-memory ring filled by asynchronous copies, so a
 step does not wait on device memory.
 
@@ -41,8 +44,11 @@ idx, bands and disparity.  The DP runs in f32 for f32 and bf16 volumes
 alike, as the JAX XLA path does (it casts the volume to f32).
 
 Each wrapper launches its kernel for CUDA tensors and runs its plain
-version (`*_plain`, built on `sgm.direction_adj` and `sgm.knight_adj`) for
-CPU tensors.
+version (`*_plain`, built on `sgm.direction_adj` and the knights' lane form
+`_knight_lane`) for CPU tensors.  The knight kernels equal their plain
+versions bit for bit; `sgm.knight_adj` (the line form the CPU's
+`sgm_cost_volume` runs, which sums a pixel's overlapping lines with
+`index_put_`) agrees with them within 1e-4.
 """
 
 from __future__ import annotations
@@ -53,8 +59,7 @@ import torch
 
 from .. import _build
 from .sgm import (SgmDirection, directions_for, direction_adj,
-                  direction_shard_adj, knight_adj, wta_bands, _dp_step,
-                  _tcv_from_bands)
+                  direction_shard_adj, wta_bands, _dp_step, _tcv_from_bands)
 
 MAX_D = 320        # K3 keeps ceil(D / 32) <= 10 values per lane
 
@@ -200,79 +205,20 @@ sgm_shard_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# K2k: one knight-move direction
+# K2k: the knight-move directions, one volume each
 # ---------------------------------------------------------------------------
 
-def sgm_knight_pass_plain(cv, acc, direction: SgmDirection, P1: float,
-                          P2: float, Pout: float, col0: int = 0,
-                          W_pout: int | None = None) -> torch.Tensor:
-    """The plain PyTorch version of K2k, on any device."""
-    return acc.add_(knight_adj(cv.float(), direction, P1, P2, Pout,
-                               col0=col0, W_pout=W_pout))
-
-
-def sgm_knight_pass(cv: torch.Tensor, acc: torch.Tensor,
-                    direction: SgmDirection, P1: float, P2: float,
-                    Pout: float, col0: int = 0,
-                    W_pout: int | None = None) -> torch.Tensor:
-    """Add one knight direction's adjustment into ``acc`` IN PLACE and
-    return ``acc``: two K2k launches, one per seed phase, so no pixel is
-    written by two lines of one launch.  The result is the same on every
-    run (no atomics)."""
-    if not direction.knight:
-        raise ValueError(f"{direction.name} is not a knight-move direction")
-    if cv.device.type == "cpu":
-        return sgm_knight_pass_plain(cv, acc, direction, P1, P2, Pout, col0,
-                                     W_pout)
-    _check_cuda(cv, acc, "sgm_knight_pass")
-    col0, W_pout = _pout_args(cv, col0, W_pout)
-    vert = direction.steps[0][0] != 0
-    _knight_launch(cv, acc, None, None, direction, P1, P2, Pout, col0,
-                   W_pout, 0, cv.shape[0 if vert else 1])
-    sgm_knight_pass.launches += 2
-    return acc
-
-
-sgm_knight_pass.launches = 0
-
-
-def _knight_launch(cv, acc, cin, cout, direction, P1, P2, Pout, col0,
-                   W_pout, s0, N_img):
-    """Both seed phases of one knight direction; ``cin`` / ``cout`` hold
-    phase 0's carries, then phase 1's."""
-    (v0, h0), (v1, h1) = direction.steps
-    H, W, D = cv.shape
-    lib = _build.load("sgm_scan")
-    with torch.cuda.device(cv.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        for phase in (0, 1):
-            err = lib.sgm_knight_launch(
-                cv.data_ptr(), int(cv.dtype == torch.bfloat16),
-                acc.data_ptr(), _ptr(cin[phase] if cin is not None else None),
-                _ptr(cout[phase] if cout is not None else None), H, W, D, v0,
-                v1, h0, h1, phase, P1, P2, Pout, col0, W_pout, s0, N_img,
-                stream)
-            _build.check(lib, err, "sgm_knight_launch")
-
-
-# ---------------------------------------------------------------------------
-# K2s: one knight direction on one row (or column) shard
-# ---------------------------------------------------------------------------
-
-def sgm_knight_shard_pass_plain(cv, acc, direction: SgmDirection,
-                                P1: float, P2: float, Pout: float,
-                                carries: torch.Tensor | None = None,
-                                s0: int = 0, N_img: int | None = None,
-                                col0: int = 0,
-                                W_pout: int | None = None) -> torch.Tensor:
-    """The plain PyTorch version of K2s for a knight direction, on any
-    device: the TPU kernels' lane form (`_knight_row`,
-    `libstevi_tpu/ops/sgm_pallas_dhw.py:107`).  Per seed phase one carry
-    for each lateral position, shifted one position on the steps a line of
-    that phase drifts; phase 0 weighs the corner line (u == t // 2) twice,
-    phase 1 holds lines only where u <= (t - 1) // 2.  Adds phase 0's
-    adjustments into ``acc``, then phase 1's, as the kernel's two launches
-    do, and returns the carries out (2, lateral, D)."""
+def _knight_lane(cv, direction: SgmDirection, P1: float, P2: float,
+                 Pout: float, carries: torch.Tensor | None = None,
+                 s0: int = 0, N_img: int | None = None, col0: int = 0,
+                 W_pout: int | None = None):
+    """One knight direction's adjustment p0 + p1 over rows [s0, s0 + N)
+    of ``N_img`` along its primary axis, in the TPU kernels' lane form
+    (`_knight_row`, `libstevi_tpu/ops/sgm_pallas_dhw.py:107`).  Per seed
+    phase one carry for each lateral position, shifted one position on the
+    steps a line of that phase drifts; phase 0 weighs the corner line
+    (u == t // 2) twice, phase 1 holds lines only where u <= (t - 1) // 2.
+    Returns (p0 + p1 in ``cv``'s layout, the carries out (2, lateral, D))."""
     (v0, h0), (v1, h1) = direction.steps
     vert = v0 == v1
     x = cv.float() if vert else cv.float().transpose(0, 1)
@@ -310,9 +256,131 @@ def sgm_knight_shard_pass_plain(cv, acc, direction: SgmDirection,
                 live = u <= (t - 1) // 2
                 adj[1][p] = torch.where(live, a, 0.0)
                 carry[1] = torch.where(live, cur, 0.0)
-    for a in adj:
-        acc.add_(a if vert else a.transpose(0, 1))
-    return torch.stack(carry)
+    vol = adj[0] + adj[1]
+    return (vol if vert else vol.transpose(0, 1)), torch.stack(carry)
+
+
+def _knight_out(cv, directions, out, what: str) -> torch.Tensor:
+    """``out``, or a new (n, H, W, D) float32 stack, checked."""
+    if not directions or not all(d.knight for d in directions):
+        raise ValueError(f"{what} takes one or more knight directions")
+    shape = (len(directions),) + tuple(cv.shape)
+    if out is None:
+        return torch.empty(shape, dtype=torch.float32, device=cv.device)
+    if (tuple(out.shape) != shape or out.dtype != torch.float32
+            or out.device != cv.device or not out.is_contiguous()):
+        raise ValueError(f"{what}: out must be contiguous float32 of shape "
+                         f"{shape} on cv's device")
+    return out
+
+
+def knight_volumes_plain(cv, directions, P1: float, P2: float, Pout: float,
+                         col0: int = 0, W_pout: int | None = None,
+                         out: torch.Tensor | None = None) -> torch.Tensor:
+    """The plain PyTorch version of `knight_volumes`, on any device: each
+    direction's p0 + p1 in the lane form (`_knight_lane`)."""
+    out = _knight_out(cv, directions, out, "knight_volumes")
+    for d, v in zip(directions, out):
+        v.copy_(_knight_lane(cv, d, P1, P2, Pout, col0=col0,
+                             W_pout=W_pout)[0])
+    return out
+
+
+def knight_volumes(cv: torch.Tensor, directions, P1: float, P2: float,
+                   Pout: float, col0: int = 0, W_pout: int | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
+    """Each of up to 8 knight directions' adjustment in a volume of its
+    own, (n, H, W, D) float32 (into ``out`` if given): TWO K2k launches for
+    all n, one a seed phase, whose grid's second axis picks the direction.
+    Phase 0 has a line at every pixel and writes each volume whole (no
+    zero fill); phase 1 adds its lines' adjustment.  Each volume is p0 + p1
+    of its direction, so adding the volumes to an accumulator one after
+    another gives acc + (p0 + p1) per direction, the JAX XLA path's order
+    (`sgm.sgm_cost_volume`).  The same bits on every run (no atomics).
+    ``col0`` and ``W_pout`` as in `sgm_pass`."""
+    cv = kernel_volume(cv)
+    out = _knight_out(cv, directions, out, "knight_volumes")
+    if cv.device.type == "cpu":
+        return knight_volumes_plain(cv, directions, P1, P2, Pout, col0,
+                                    W_pout, out)
+    _check_cuda(cv, out[0], "knight_volumes")
+    col0, W_pout = _pout_args(cv, col0, W_pout)
+    _knight_launch(cv, out, None, None, directions, P1, P2, Pout, col0,
+                   W_pout, 0, 0)
+    knight_volumes.launches += 2
+    return out
+
+
+knight_volumes.launches = 0
+
+
+def _knight_launch(cv, vol, cin, cout, directions, P1, P2, Pout, col0,
+                   W_pout, s0, N_img):
+    """Both seed phases of ``directions`` into ``vol`` (volume y for
+    direction y): phase 0 writes, then phase 1 adds.  ``cin`` / ``cout``
+    (one direction only) hold phase 0's carries, then phase 1's; N_img = 0
+    takes each direction's own extent."""
+    steps = [s for d in directions
+             for s in (d.steps[0][0], d.steps[1][0], d.steps[0][1],
+                       d.steps[1][1])]
+    steps = (ctypes.c_int * len(steps))(*steps)
+    H, W, D = cv.shape
+    lib = _build.load("sgm_scan")
+    with torch.cuda.device(cv.device):
+        stream = torch.cuda.current_stream().cuda_stream
+        for phase in (0, 1):
+            err = lib.sgm_knight_launch(
+                cv.data_ptr(), int(cv.dtype == torch.bfloat16),
+                vol.data_ptr(), _ptr(cin[phase] if cin is not None else None),
+                _ptr(cout[phase] if cout is not None else None),
+                len(directions), ctypes.addressof(steps), H, W, D, phase, P1,
+                P2, Pout, col0, W_pout, s0, N_img, stream)
+            _build.check(lib, err, "sgm_knight_launch")
+
+
+def add_knight_volumes(cv: torch.Tensor, acc: torch.Tensor, directions,
+                       P1: float, P2: float, Pout: float, col0: int = 0,
+                       W_pout: int | None = None,
+                       one_launch: bool | None = None) -> torch.Tensor:
+    """Add the knight directions' adjustments into ``acc`` IN PLACE, one
+    direction after another (acc + (p0 + p1) per direction), and return
+    ``acc``.  Where their volumes fit (`_one_launch`), `knight_volumes`
+    runs them all in two launches; else one direction at a time into one
+    scratch volume (two launches a direction, the same bits, one volume of
+    memory).  ``one_launch`` forces the form."""
+    cv = kernel_volume(cv)
+    if one_launch is None:
+        one_launch = _one_launch(cv, len(directions))
+    if one_launch:
+        for v in knight_volumes(cv, directions, P1, P2, Pout, col0, W_pout):
+            acc.add_(v)
+        return acc
+    scratch = torch.empty((1,) + tuple(cv.shape), dtype=torch.float32,
+                          device=cv.device)
+    for d in directions:
+        acc.add_(knight_volumes(cv, [d], P1, P2, Pout, col0, W_pout,
+                                scratch)[0])
+    return acc
+
+
+# ---------------------------------------------------------------------------
+# K2s: one knight direction on one row (or column) shard
+# ---------------------------------------------------------------------------
+
+def sgm_knight_shard_pass_plain(cv, acc, direction: SgmDirection,
+                                P1: float, P2: float, Pout: float,
+                                carries: torch.Tensor | None = None,
+                                s0: int = 0, N_img: int | None = None,
+                                col0: int = 0,
+                                W_pout: int | None = None) -> torch.Tensor:
+    """The plain PyTorch version of K2s for a knight direction, on any
+    device: adds the lane form's p0 + p1 (`_knight_lane`) into ``acc`` once,
+    as the kernel's path does, and returns the carries out (2, lateral,
+    D)."""
+    vol, cout = _knight_lane(cv, direction, P1, P2, Pout, carries, s0, N_img,
+                             col0, W_pout)
+    acc.add_(vol)
+    return cout
 
 
 def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
@@ -321,15 +389,16 @@ def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
                           s0: int = 0, N_img: int | None = None,
                           col0: int = 0,
                           W_pout: int | None = None) -> torch.Tensor:
-    """`sgm_knight_pass` on one shard: scan rows [s0, s0 + N) of ``N_img``
-    along the direction's primary axis (image rows for the down/up knights,
-    which run on row shards; image columns for the left/right knights,
-    which run on column shards, where ``col0`` is the shard's first image
-    column and ``W_pout`` the image width).  ``carries`` (2, lateral, D)
-    float32 hold the previous shard's post-step carries of its last scan
-    row for each seed phase (lateral: W for row shards, H for column
-    shards; None: zeros, the line start).  Adds into ``acc`` in place (two
-    launches) and returns this shard's carries out."""
+    """One knight direction on one shard: scan rows [s0, s0 + N) of
+    ``N_img`` along the direction's primary axis (image rows for the
+    down/up knights, which run on row shards; image columns for the
+    left/right knights, which run on column shards, where ``col0`` is the
+    shard's first image column and ``W_pout`` the image width).
+    ``carries`` (2, lateral, D) float32 hold the previous shard's post-step
+    carries of its last scan row for each seed phase (lateral: W for row
+    shards, H for column shards; None: zeros, the line start).  The two
+    K2k launches write the shard's volume p0 + p1, which is added into
+    ``acc`` in place once; returns this shard's carries out."""
     if not direction.knight:
         raise ValueError(f"{direction.name} is not a knight-move direction")
     H, W, D = cv.shape
@@ -344,10 +413,13 @@ def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
     _check_cuda(cv, acc, "sgm_knight_shard_pass")
     _check_carries(carries, (2, X, D), cv.device, "sgm_knight_shard_pass")
     col0, W_pout = _pout_args(cv, col0, W_pout)
+    vol = torch.empty((1,) + tuple(cv.shape), dtype=torch.float32,
+                      device=cv.device)
     cout = torch.zeros((2, X, D), dtype=torch.float32, device=cv.device)
-    _knight_launch(cv, acc, carries, cout, direction, P1, P2, Pout, col0,
+    _knight_launch(cv, vol, carries, cout, [direction], P1, P2, Pout, col0,
                    W_pout, s0, N_img)
     sgm_knight_shard_pass.launches += 2
+    acc.add_(vol[0])
     return cout
 
 
@@ -394,9 +466,9 @@ def sgm_wta(cv: torch.Tensor, acc: torch.Tensor, P1: float, P2: float,
     """The right-to-left SGM direction over the whole image ``cv`` with
     ``acc`` holding the other directions' adjustments, then tie-last WTA,
     the 2r+1 band and (``refine``) the parabola subpixel.  ``acc`` is one
-    (H, W, D) volume or an (n, H, W, D) stack of up to 7 of them (one a
-    direction, `direction_volumes`), which K3 sums in order as it reads
-    them (`_acc_sum`).  Returns (idx (H, W) int32, bands (H, W, 2r+1)
+    (H, W, D) volume or an (n, H, W, D) stack of up to 15 of them (one a
+    direction, `direction_volumes` and `knight_volumes`), which K3 sums in
+    order as it reads them (`_acc_sum`).  Returns (idx (H, W) int32, bands (H, W, 2r+1)
     float32, disp (H, W) float32 or None)."""
     if cv.device.type == "cpu":
         return sgm_wta_plain(cv, acc, P1, P2, Pout, r, h_radius, v_radius,
@@ -440,34 +512,41 @@ sgm_wta.launches = 0
 def sgm_accumulate(cv: torch.Tensor, directions, P1: float, P2: float,
                    Pout: float, col0: int = 0,
                    W_pout: int | None = None) -> torch.Tensor:
-    """Sum of the given directions' adjustments (one K2 launch for each
-    principal direction, two K2k launches for each knight direction)."""
+    """Sum of the given directions' adjustments: one K2 launch for each
+    principal direction, into one accumulator in their order, then the
+    knight directions' volumes (`add_knight_volumes`) added one after
+    another, acc + (p0 + p1) each."""
     cv = kernel_volume(cv)
     acc = torch.empty(cv.shape, dtype=torch.float32, device=cv.device)
-    for k, direction in enumerate(directions):
-        if direction.knight:
-            if k == 0:
-                acc.zero_()
-            sgm_knight_pass(cv, acc, direction, P1, P2, Pout, col0, W_pout)
-        else:
-            sgm_pass(cv, acc, direction, P1, P2, Pout, k > 0, col0, W_pout)
+    principal = [d for d in directions if not d.knight]
+    knights = [d for d in directions if d.knight]
+    for k, direction in enumerate(principal):
+        sgm_pass(cv, acc, direction, P1, P2, Pout, k > 0, col0, W_pout)
+    if not principal:
+        acc.zero_()
+    if knights:
+        add_knight_volumes(cv, acc, knights, P1, P2, Pout, col0, W_pout)
     return acc
 
 
 def direction_volumes(cv: torch.Tensor, directions, P1: float, P2: float,
-                      Pout: float) -> torch.Tensor:
+                      Pout: float, out: torch.Tensor | None = None
+                      ) -> torch.Tensor:
     """Each of up to 7 principal directions' adjustment in a volume of its
-    own, (n, H, W, D) float32: ONE K2 launch, whose grid's second axis picks
-    the direction, so the directions' lines fill the card together (one
-    direction has fewer lines than the card has schedulers up to 480x640,
-    and few a scheduler beyond).  `_acc_sum` of the stack is
-    `sgm_accumulate`'s volume bit for bit (the same adjustments, added in
-    the same order)."""
+    own, (n, H, W, D) float32 (into ``out`` if given): ONE K2 launch, whose
+    grid's second axis picks the direction, so the directions' lines fill
+    the card together (one direction has fewer lines than the card has
+    schedulers up to 480x640, and few a scheduler beyond).  `_acc_sum` of
+    the stack is `sgm_accumulate`'s volume bit for bit (the same
+    adjustments, added in the same order)."""
     cv = kernel_volume(cv)
     if any(d.knight for d in directions):
         raise ValueError("direction_volumes takes principal directions")
-    adj = torch.empty((len(directions),) + tuple(cv.shape),
-                      dtype=torch.float32, device=cv.device)
+    shape = (len(directions),) + tuple(cv.shape)
+    adj = (torch.empty(shape, dtype=torch.float32, device=cv.device)
+           if out is None else out)
+    if tuple(adj.shape) != shape or not adj.is_contiguous():
+        raise ValueError(f"direction_volumes: out must be contiguous {shape}")
     if cv.device.type == "cpu":
         for d, a in zip(directions, adj):
             sgm_pass_plain(cv, a, d, P1, P2, Pout, accumulate=False)
@@ -482,44 +561,55 @@ def direction_volumes(cv: torch.Tensor, directions, P1: float, P2: float,
 
 direction_volumes.launches = 0
 
+
 def one_launch_fits(stack_bytes: int, free_bytes: int) -> bool:
-    """Whether `sgm_wta_fused` takes `direction_volumes` (one K2 launch, one
-    volume a direction, ``stack_bytes`` in all) over `sgm_accumulate` (one
-    launch a direction into one accumulator): where the stack takes at most
-    half of the ``free_bytes`` the device has left.  Both forms give the
-    same bits; with K3 after it the one launch was the faster form from
-    480x640 to 2160x3840 on an H100 (`chip_smoke.k2_forms`, PERF.md), so
-    memory alone decides."""
+    """Whether a stack of direction volumes (``stack_bytes`` in all) is
+    taken over one accumulator: where it takes at most half of the
+    ``free_bytes`` the device has left.  `sgm_wta_fused` then runs
+    `direction_volumes` (one K2 launch, a volume a direction; with 16
+    directions also `knight_volumes`) and K3 sums the stack, and
+    `add_knight_volumes` runs all its directions in one pair of launches.
+    Both forms give the same bits; with K3 after it the one launch was the
+    faster form from 480x640 to 2160x3840 on an H100 (`chip_smoke.k2_forms`,
+    PERF.md), so memory alone decides."""
     return 2 * stack_bytes <= free_bytes
 
 
-def _one_launch(cv: torch.Tensor, directions) -> bool:
-    """`one_launch_fits` for ``cv`` on its card; False on the CPU."""
+def _one_launch(cv: torch.Tensor, n_volumes: int) -> bool:
+    """`one_launch_fits` for ``n_volumes`` float32 volumes of ``cv``'s
+    shape on its card; False on the CPU."""
     if cv.device.type != "cuda":
         return False
     free, _ = torch.cuda.mem_get_info(cv.device)
     # the caching allocator's reserved but unused blocks are free to it
     free += (torch.cuda.memory_reserved(cv.device)
              - torch.cuda.memory_allocated(cv.device))
-    return one_launch_fits(len(directions) * cv.numel() * 4, free)
+    return one_launch_fits(n_volumes * cv.numel() * 4, free)
 
 
 def sgm_wta_fused(cv: torch.Tensor, P1: float, P2: float, Pout: float,
                   n_directions: int, r: int, h_radius: int, v_radius: int,
                   refine: bool):
     """SGM over a whole-image COST volume + WTA + band (+ subpixel): K2 for
-    every principal direction but RIGHT2LEFT, then K3.  With 4 or 8
-    directions, where `one_launch_fits` (the volumes fit), K2 runs once into
-    a volume a direction (`direction_volumes`) and K3 sums them in order;
-    else, and
-    with 16 directions, the K2 launches accumulate into one volume, one
-    after another, with the knight directions (K2k) after them.  Returns
-    what `sgm_wta` returns."""
+    every principal direction but RIGHT2LEFT (16 directions: and K2k for
+    the knight directions), then K3.  Where `one_launch_fits` (the volumes
+    fit), K2 runs once into a volume a direction (`direction_volumes`), the
+    knights into theirs (`knight_volumes`, two launches), and K3 sums the
+    stack (up to 15 volumes) in order; else the K2 launches accumulate into
+    one volume, one after another, and the knight volumes are added after
+    them (`sgm_accumulate`): the same bits.  Returns what `sgm_wta`
+    returns."""
     cv = kernel_volume(cv)
     dirs = [d for d in directions_for(n_directions)
             if d is not SgmDirection.RIGHT2LEFT]
-    if n_directions < 16 and _one_launch(cv, dirs):
-        acc = direction_volumes(cv, dirs, P1, P2, Pout)
-    else:
+    if not _one_launch(cv, len(dirs)):
         acc = sgm_accumulate(cv, dirs, P1, P2, Pout)
+        return sgm_wta(cv, acc, P1, P2, Pout, r, h_radius, v_radius, refine)
+    principal = [d for d in dirs if not d.knight]
+    knights = [d for d in dirs if d.knight]
+    acc = torch.empty((len(dirs),) + tuple(cv.shape), dtype=torch.float32,
+                      device=cv.device)
+    direction_volumes(cv, principal, P1, P2, Pout, acc[:len(principal)])
+    if knights:
+        knight_volumes(cv, knights, P1, P2, Pout, out=acc[len(principal):])
     return sgm_wta(cv, acc, P1, P2, Pout, r, h_radius, v_radius, refine)

@@ -426,11 +426,11 @@ def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
 
 def _add_knights(cv, adj, col0, W_pout, P1, P2, Pout):
     """The eight knight directions of 16-direction SGM, added into ``adj``
-    in place (K2k; its any-D instance past D = 320)."""
+    in place in `_KNIGHT_DIRS` order (`knight_volumes`, K2k; its any-D
+    instance past D = 320)."""
     from .sgm import _KNIGHT_DIRS
-    from .sgm_cuda import sgm_knight_pass
-    for direction in _KNIGHT_DIRS:
-        sgm_knight_pass(cv, adj, direction, P1, P2, Pout, col0, W_pout)
+    from .sgm_cuda import add_knight_volumes
+    add_knight_volumes(cv, adj, _KNIGHT_DIRS, P1, P2, Pout, col0, W_pout)
 
 
 # ---------------------------------------------------------------------------

@@ -11,9 +11,10 @@ so the result equals the single-device one; it serialises those passes
 across shards, as the JAX package's `ppermute` relay does.
 
 Each shard runs the directions in the single-device order
-(`ops.sgm_cuda.sgm_accumulate`: `directions_for` order, each pass adding
-into one accumulator; `sgm_lane_cuda.fused_adj`: down, up, the left to
-right column scan, the knights, then the right to left one), so a
+(`ops.sgm_cuda.sgm_accumulate`: `directions_for` order, each principal
+pass adding into one accumulator, then each knight direction's p0 + p1
+added once; `sgm_lane_cuda.fused_adj`: down, up, the left to right column
+scan, the knights, then the right to left one), so a
 distributed volume equals the single-device route's bit for bit.  Engines:
 
   * `distributed_sgm_fused_dhw` (4, 8 or 16 directions, any D): K2 for the

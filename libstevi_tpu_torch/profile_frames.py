@@ -1,6 +1,6 @@
 """Where a frame's device time goes: each entry path under `torch.profiler`.
 
-    python -m libstevi_tpu_torch.profile_frames [--frames sgm16,census,hd]
+    python -m libstevi_tpu_torch.profile_frames [--frames sgm16,sgm16_d384,hd]
         [--reps 5] [--top 8]
 
 Needs one CUDA device.  For each frame (a random pair from seed 3, at the
@@ -29,10 +29,16 @@ import torch
 
 from . import entry
 from .core import MatchingFunction
+from .ops import dense_sgm_stereo
 
 FRAMES = {
     "flagship": ((entry.HEIGHT, entry.WIDTH), entry.flagship_forward),
     "sgm16": ((entry.HEIGHT, entry.WIDTH), entry.sgm16_forward),
+    # SGM-16 past D = 320: K1, the lane route (K4b) and the any-D K2k
+    "sgm16_d384": ((entry.HEIGHT, entry.WIDTH),
+                   lambda L, R: dense_sgm_stereo(
+                       MatchingFunction.ZNCC, L, R,
+                       **dict(entry.SGM16, disp_width=384))[0]),
     "census": ((entry.HEIGHT, entry.WIDTH), entry.census_sgm_forward),
     "hd": ((entry.HD_HEIGHT, entry.HD_WIDTH), entry.hd_forward),
     "wide": ((entry.HEIGHT, entry.WIDTH), entry.wide_forward),

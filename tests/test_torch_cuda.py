@@ -15,9 +15,12 @@ from libstevi_tpu_torch.ops.box_cuda import (box_cv, box_cv_plain,
 from libstevi_tpu_torch.ops import sgm_wta_truncated
 from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
                                         _KNIGHT_DIRS)
+from libstevi_tpu_torch.ops.sgm import knight_adj
 from libstevi_tpu_torch.ops.sgm_cuda import (_acc_sum, direction_volumes,
-                                             sgm_accumulate, sgm_knight_pass,
-                                             sgm_knight_pass_plain, sgm_pass,
+                                             add_knight_volumes,
+                                             knight_volumes,
+                                             knight_volumes_plain,
+                                             sgm_accumulate, sgm_pass,
                                              sgm_pass_plain, sgm_wta,
                                              sgm_wta_plain, sgm_shard_pass,
                                              sgm_shard_pass_plain,
@@ -163,7 +166,7 @@ def _path_counts():
     """The launch counts of K1, K2 (one direction a launch), K2 (up to 7
     directions in one launch), K2k and K3."""
     return (box_cv.launches, sgm_pass.launches, direction_volumes.launches,
-            sgm_knight_pass.launches, sgm_wta.launches)
+            knight_volumes.launches, sgm_wta.launches)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -225,11 +228,12 @@ def test_unsupported_configurations_raise(dev):
     route)."""
     from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
     L, R = _pair(dev, 8, 340)
-    counts = (lane.fused_rows_pass.launches, sgm_knight_pass.launches)
+    counts = (lane.fused_rows_pass.launches, knight_volumes.launches)
     disp, idx, _ = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 330,
                                     0.1, 0.5, n_directions=16)
-    assert (lane.fused_rows_pass.launches, sgm_knight_pass.launches) == \
-        (counts[0] + 2, counts[1] + 16)
+    # the 8 knight volumes fit: two K2k launches for all of them
+    assert (lane.fused_rows_pass.launches, knight_volumes.launches) == \
+        (counts[0] + 2, counts[1] + 2)
     assert idx.shape == (8, 340)
     cv = torch.rand(8, 20, 330, device=dev)
     before = (lane.fused_rows_shard_pass.launches,
@@ -295,11 +299,11 @@ def test_p2_below_p1_runs_plain_on_the_card(dev, n_dirs):
     """P2 < P1 runs the dense-penalty steps as torch ops on the card, with
     no kernel launch, and equals the CPU run."""
     L, R = _pair(dev, 24, 40, seed=7)
-    counts = (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches,
+    counts = (sgm_pass.launches, knight_volumes.launches, sgm_wta.launches,
               lane.fused_rows_pass.launches)
     dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 2, 2, 8, 0.5,
                                   0.1, n_directions=n_dirs)
-    assert (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches,
+    assert (sgm_pass.launches, knight_volumes.launches, sgm_wta.launches,
             lane.fused_rows_pass.launches) == counts
     assert ig.is_cuda
     dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(), 2,
@@ -421,25 +425,81 @@ def test_wide_path_matches_cpu(dev):
 @pytest.mark.parametrize("shape", SHAPES + [(18, 7, 5), (5, 21, 5)])
 @pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
 def test_k2k_matches_plain(dev, direction, shape, dtype):
+    """K2k with one direction in its grid (the memory fallback's form):
+    the volume equals the plain lane form bit for bit, in two launches,
+    and `knight_adj`'s line form (another sum order where lines overlap)
+    within 1e-4."""
     cv = _volume(dev, shape, dtype)
-    acc = torch.rand(cv.shape, device=dev)
-    want = sgm_knight_pass_plain(cv, acc.clone(), direction, 0.1, 0.5, 100.0)
-    before = sgm_knight_pass.launches
-    got = sgm_knight_pass(cv, acc, direction, 0.1, 0.5, 100.0)
-    assert sgm_knight_pass.launches == before + 2
+    want = knight_volumes_plain(cv, [direction], 0.1, 0.5, 100.0)
+    before = knight_volumes.launches
+    got = knight_volumes(cv, [direction], 0.1, 0.5, 100.0)
+    assert knight_volumes.launches == before + 2
     torch.cuda.synchronize()
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(got, want)
+    torch.testing.assert_close(got[0], knight_adj(cv.float(), direction, 0.1,
+                                                  0.5, 100.0),
+                               rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", [(64, 96, 120), (24, 70, 300),
+                                   (20, 52, 330), (24, 60, 384)],
+                         ids=lambda s: f"D{s[2]}")
+def test_knight_volumes_equal_plain(dev, shape, dtype):
+    """All 8 knight directions in one pair of launches, at D = 120 and 300
+    (the register instance) and 330 and 384 (the any-D instance): equal to
+    the plain version bit for bit, the same on a second run, every entry
+    written by phase 0 (``out`` filled with NaN first), and summed into an
+    accumulator equal to the one-direction-at-a-time memory fallback bit
+    for bit."""
+    g = torch.Generator(device=dev).manual_seed(shape[2])
+    cv = (torch.rand(shape, generator=g, device=dev) * 3).to(dtype)
+    want = knight_volumes_plain(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0)
+    out = torch.full((8,) + shape, float("nan"), device=dev)
+    before = knight_volumes.launches
+    got = knight_volumes(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0, out=out)
+    assert knight_volumes.launches == before + 2 and got is out
+    assert torch.equal(got, want)
+    assert torch.equal(knight_volumes(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0), got)
+    acc = torch.rand(shape, generator=g, device=dev)
+    one = add_knight_volumes(cv, acc.clone(), _KNIGHT_DIRS, 0.1, 0.5, 100.0,
+                             one_launch=True)
+    before = knight_volumes.launches
+    fallback = add_knight_volumes(cv, acc.clone(), _KNIGHT_DIRS, 0.1, 0.5,
+                                  100.0, one_launch=False)
+    assert knight_volumes.launches == before + 16
+    assert torch.equal(one, fallback)
 
 
 def test_k2k_is_deterministic(dev):
     cv = _volume(dev, (64, 96, 40), torch.float32)
-    runs = []
-    for _ in range(2):
-        acc = torch.zeros(cv.shape, device=dev)
-        for d in _KNIGHT_DIRS:
-            sgm_knight_pass(cv, acc, d, 0.1, 0.5, 100.0)
-        runs.append(acc)
+    runs = [knight_volumes(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0)
+            for _ in range(2)]
     assert torch.equal(runs[0], runs[1])
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shape", SHAPES + [(9, 30, 300)])
+def test_k3_over_15_volumes_matches_plain(dev, shape, dtype):
+    """SGM-16's one-launch form: the 7 K2 volumes and the 8 knight volumes
+    in one stack; K3 over it equals K3 over the sequential accumulator
+    (`sgm_accumulate`) bit for bit, and its plain version within 1e-4
+    (idx on >= 0.999 of the pixels)."""
+    cv = _volume(dev, shape, dtype)
+    dirs = [d for d in directions_for(16) if d is not SgmDirection.RIGHT2LEFT]
+    stack = torch.empty((15,) + tuple(cv.shape), device=dev)
+    direction_volumes(cv, dirs[:7], 0.1, 0.5, 100.0, out=stack[:7])
+    knight_volumes(cv, dirs[7:], 0.1, 0.5, 100.0, out=stack[7:])
+    seq = sgm_accumulate(cv, dirs, 0.1, 0.5, 100.0)
+    assert torch.equal(_acc_sum(stack), seq)
+    for a, b in zip(sgm_wta(cv, stack, 0.1, 0.5, 100.0, 1, 3, 3, True),
+                    sgm_wta(cv, seq, 0.1, 0.5, 100.0, 1, 3, 3, True)):
+        assert torch.equal(torch.nan_to_num(a, 9.0), torch.nan_to_num(b, 9.0))
+    i1, b1, _ = sgm_wta(cv, stack, 0.1, 0.5, 100.0, 1, 3, 3, True)
+    i2, b2, _ = sgm_wta_plain(cv, stack, 0.1, 0.5, 100.0, 1, 3, 3, True)
+    same = i1 == i2
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(b1[same], b2[same], rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -455,15 +515,16 @@ def test_d300_kernels_match_plain(dev, D, dtype):
     assert torch.equal(cv, want.to(dtype))
     acc = torch.empty(cv.shape, device=dev)
     acc2 = torch.empty(cv.shape, device=dev)
-    for k, d in enumerate(directions_for(16)):
-        if d is SgmDirection.RIGHT2LEFT:
-            continue
-        if d.knight:
-            sgm_knight_pass(cv, acc, d, 0.1, 0.5, 100.0)
-            sgm_knight_pass_plain(cv, acc2, d, 0.1, 0.5, 100.0)
-        else:
+    for k, d in enumerate(directions_for(8)):
+        if d is not SgmDirection.RIGHT2LEFT:
             sgm_pass(cv, acc, d, 0.1, 0.5, 100.0, accumulate=k > 0)
             sgm_pass_plain(cv, acc2, d, 0.1, 0.5, 100.0, accumulate=k > 0)
+    vols = knight_volumes(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0)
+    assert torch.equal(vols, knight_volumes_plain(cv, _KNIGHT_DIRS, 0.1, 0.5,
+                                                  100.0))
+    for v in vols:
+        acc.add_(v)
+        acc2.add_(v)
     torch.testing.assert_close(acc, acc2, rtol=1e-4, atol=1e-4)
     i1, b1, d1 = sgm_wta(cv, acc, 0.1, 0.5, 100.0, 1, 3, 3, True)
     i2, b2, d2 = sgm_wta_plain(cv, acc, 0.1, 0.5, 100.0, 1, 3, 3, True)
@@ -483,12 +544,12 @@ def test_margins_match_cpu(dev, n_dirs):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got[:1].cpu(), cv[:1].cpu())    # outside: untouched
     # with margins: sgm_cost_volume (K2 x8, K2k) -> WTA -> band, as in JAX
-    counts = (sgm_pass.launches, sgm_knight_pass.launches, sgm_wta.launches)
+    counts = (sgm_pass.launches, knight_volumes.launches, sgm_wta.launches)
     ig, tg = sgm_wta_truncated(cv, 0.1, 0.5, m, n_directions=n_dirs,
                                h_radius=2, v_radius=1)
-    assert (sgm_pass.launches, sgm_knight_pass.launches,
+    assert (sgm_pass.launches, knight_volumes.launches,
             sgm_wta.launches) == (counts[0] + 8,
-                                  counts[1] + (16 if n_dirs == 16 else 0),
+                                  counts[1] + (2 if n_dirs == 16 else 0),
                                   counts[2])
     ic, tc = sgm_wta_truncated(cv.cpu(), 0.1, 0.5, m, n_directions=n_dirs,
                                h_radius=2, v_radius=1)
@@ -509,11 +570,10 @@ def test_dense_routes_match_cpu(dev, func, n_dirs):
     counts = _path_counts()
     f = MatchingFunction[func]
     dg, ig, tg = dense_sgm_stereo(f, L, R, 3, 3, 16, P1, P2, **kw)
-    # 8 directions: K2 in one launch; 16: 7 K2 launches, then the knights
+    # K2 in one launch; 16 directions: and the knights in two
     sixteen = n_dirs == 16
-    assert _path_counts()[1:] == (counts[1] + (7 if sixteen else 0),
-                                  counts[2] + (0 if sixteen else 1),
-                                  counts[3] + (16 if sixteen else 0),
+    assert _path_counts()[1:] == (counts[1], counts[2] + 1,
+                                  counts[3] + (2 if sixteen else 0),
                                   counts[4] + 1)
     dc, ic, tc = dense_sgm_stereo(f, L.cpu(), R.cpu(), 3, 3, 16, P1, P2, **kw)
     same = ig.cpu() == ic
@@ -689,17 +749,22 @@ def test_k2s_knight_equals_plain(dev, direction, shape, dtype):
 
 @pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
 def test_k2k_any_d_matches_plain(dev, direction):
-    """K2k past D = 320 (the shared-memory instance) on a whole image: equal
-    to the lane-form plain pass bitwise, and to `knight_adj`'s line form
-    within 1e-4 (another sum order where lines overlap)."""
+    """K2k past D = 320 (the shared-memory instance) on a whole image, one
+    direction in the grid: equal to the lane-form plain version bitwise,
+    added once to an accumulator equal to the shard pass's plain version
+    bitwise, and within 1e-4 of `knight_adj`'s line form (another sum
+    order where lines overlap)."""
     cv = _volume(dev, (24, 60, 384), torch.float32)
     acc = torch.rand(cv.shape, device=dev)
-    want = sgm_knight_pass_plain(cv, acc.clone(), direction, 0.1, 0.5, 100.0)
+    got = knight_volumes(cv, [direction], 0.1, 0.5, 100.0)
+    assert torch.equal(got, knight_volumes_plain(cv, [direction], 0.1, 0.5,
+                                                 100.0))
     lane_form = acc.clone()
     sgm_knight_shard_pass_plain(cv, lane_form, direction, 0.1, 0.5, 100.0)
-    got = sgm_knight_pass(cv, acc, direction, 0.1, 0.5, 100.0)
-    assert torch.equal(got, lane_form)
-    torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
+    assert torch.equal(acc + got[0], lane_form)
+    torch.testing.assert_close(got[0], knight_adj(cv, direction, 0.1, 0.5,
+                                                  100.0),
+                               rtol=1e-4, atol=1e-4)
 
 
 @pytest.mark.parametrize("shape", LANE_SHAPES)

@@ -18,7 +18,11 @@ from libstevi_tpu.parallel.sgm_dist import (
     distributed_sgm_fused as j_dist_fused,
     distributed_sgm_fused_dhw as j_dist_dhw)
 from libstevi_tpu_torch.ops import sgm_cost_volume
-from libstevi_tpu_torch.parallel.sgm_dist import (distributed_sgm,
+from libstevi_tpu_torch.ops.sgm import _KNIGHT_DIRS
+from libstevi_tpu_torch.ops.sgm_cuda import (knight_volumes_plain,
+                                             sgm_knight_shard_pass_plain)
+from libstevi_tpu_torch.parallel.sgm_dist import (carry_relay,
+                                                  distributed_sgm,
                                                   distributed_sgm_fused,
                                                   distributed_sgm_fused_dhw,
                                                   distributed_sgm_routed)
@@ -172,3 +176,37 @@ def test_routed_falls_back_to_k2s_where_k4c_does_not_fit(rng, monkeypatch):
         list(torch.from_numpy(cv).split(2)), 0.3, 1.1, 7.0, 16))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert calls                                  # the K2s engine ran
+
+
+@pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
+def test_knight_shard_relay_equals_whole_image_volume(rng, direction):
+    """The knight shard pass's plain version relayed over shards that start
+    at odd global offsets (rows 0, 5, 8, 15 of 23 for the down/up knights,
+    columns 0, 3, 10, 13 of 19 for the left/right ones, with the image
+    column offset for Pout), each adding its p0 + p1 into its accumulator
+    once, equals the whole-image volume of `knight_volumes_plain` bit for
+    bit."""
+    cv = torch.from_numpy(rng.uniform(0, 4, (23, 19, 5)).astype(np.float32))
+    whole = knight_volumes_plain(cv, [direction], 0.3, 1.1, 7.0)[0]
+    vert = direction.steps[0][0] != 0
+    sizes = [5, 3, 7, 8] if vert else [3, 7, 3, 6]
+    starts = np.cumsum([0] + sizes)
+    acc = torch.zeros_like(cv)
+
+    def run(m, carries):
+        s0, s1 = int(starts[m]), int(starts[m + 1])
+        blk = cv[s0:s1] if vert else cv[:, s0:s1].contiguous()
+        a = torch.zeros_like(blk)
+        kw = (dict(s0=s0, N_img=23) if vert
+              else dict(s0=s0, N_img=19, col0=s0, W_pout=19))
+        out = sgm_knight_shard_pass_plain(blk, a, direction, 0.3, 1.1, 7.0,
+                                          carries, **kw)
+        if vert:
+            acc[s0:s1] = a
+        else:
+            acc[:, s0:s1] = a
+        return out
+
+    rev = (direction.steps[0][0] if vert else direction.steps[0][1]) < 0
+    carry_relay(["cpu"] * len(sizes), run, reverse=rev)
+    assert torch.equal(acc, whole)

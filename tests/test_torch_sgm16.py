@@ -22,9 +22,14 @@ from libstevi_tpu_torch.core import Margins
 from libstevi_tpu_torch.ops import (dense_sgm_stereo, sgm_cost_volume,
                                     sgm_wta_truncated)
 from libstevi_tpu_torch.ops.sgm import (SgmDirection, _KNIGHT_DIRS,
-                                        _build_lines, knight_adj)
-from libstevi_tpu_torch.ops.sgm_cuda import (sgm_knight_pass,
-                                             sgm_knight_pass_plain,
+                                        _build_lines, directions_for,
+                                        knight_adj)
+from libstevi_tpu_torch.ops.sgm_cuda import (add_knight_volumes,
+                                             knight_volumes,
+                                             knight_volumes_plain,
+                                             sgm_accumulate,
+                                             sgm_knight_shard_pass,
+                                             sgm_knight_shard_pass_plain,
                                              sgm_wta_fused)
 from libstevi_tpu_torch.reference import to_port
 
@@ -84,37 +89,132 @@ def test_build_lines_equal_jax(jdir, case):
 @pytest.mark.parametrize("case", CASES)
 @pytest.mark.parametrize("jdir", KNIGHTS)
 def test_knight_pass_matches_jax(jdir, case):
-    """The plain K2k pass and its wrapper against JAX's `_cost_mode_pass`
-    over `_build_lines`, both on the contiguous region inside the margins
-    (image column offset and width for Pout), padded back."""
+    """The knight adjustment against JAX's `_cost_mode_pass` over
+    `_build_lines`, on the contiguous region inside the margins (image
+    column offset and width for Pout), padded back: the line form
+    (`knight_adj`, what the CPU's `sgm_cost_volume` adds) and K2k's wrapper
+    (`knight_volumes`, on the CPU its plain lane form p0 + p1).  Added to a
+    random accumulator once, acc + (p0 + p1), as every path adds it: the
+    shard pass's plain version gives that sum bit for bit."""
     (H, W, D), m = CASES[case]
     cv = _cv(list(CASES).index(case), (H, W, D))
     want = np.asarray(jsgm._cost_mode_pass(
         jnp.asarray(cv), *jsgm._build_lines(H, W, m, jdir), P1, P2, POUT))
     ml, mt, mr, mb = m
     region = torch.from_numpy(cv[mt:H - mb, ml:W - mr]).contiguous()
+
+    def padded(x):
+        return torch.nn.functional.pad(x, (0, 0, ml, mr, mt, mb)).numpy()
+
     got = knight_adj(region, to_port(jdir), P1, P2, POUT, col0=ml, W_pout=W)
-    np.testing.assert_allclose(
-        torch.nn.functional.pad(got, (0, 0, ml, mr, mt, mb)).numpy(), want,
-        **TOL)
-    acc = torch.zeros_like(region)
-    before = sgm_knight_pass.launches
-    sgm_knight_pass(region, acc, to_port(jdir), P1, P2, POUT, col0=ml,
-                    W_pout=W)
-    assert sgm_knight_pass.launches == before        # CPU: the plain version
-    padded = torch.nn.functional.pad(acc, (0, 0, ml, mr, mt, mb))
-    np.testing.assert_allclose(padded.numpy(), want, **TOL)
+    np.testing.assert_allclose(padded(got), want, **TOL)
+    before = knight_volumes.launches
+    vol = knight_volumes(region, [to_port(jdir)], P1, P2, POUT, col0=ml,
+                         W_pout=W)[0]
+    assert knight_volumes.launches == before        # CPU: the plain version
+    np.testing.assert_allclose(padded(vol), want, **TOL)
+    acc = torch.from_numpy(_cv(99, region.shape))
+    summed = acc.clone()
+    sgm_knight_shard_pass_plain(region, summed, to_port(jdir), P1, P2, POUT,
+                                col0=ml, W_pout=W)
+    assert torch.equal(summed, acc + vol)
+    np.testing.assert_allclose(padded(summed), padded(acc) + want, **TOL)
 
 
 def test_k2k_wrapper_on_cpu_is_the_plain_version():
+    """`knight_volumes`, `add_knight_volumes` in both forms and the shard
+    pass run their plain versions on CPU tensors, with no launch; a
+    principal direction and a wrong ``out`` raise."""
     cv = torch.from_numpy(_cv(3, (9, 11, 6)))
     acc = torch.from_numpy(_cv(4, (9, 11, 6)))
+    before = knight_volumes.launches
+    got = knight_volumes(cv, _KNIGHT_DIRS, P1, P2, POUT)
+    want = knight_volumes_plain(cv, _KNIGHT_DIRS, P1, P2, POUT)
+    assert got.shape == (8, 9, 11, 6) and torch.equal(got, want)
+    for one_launch in (True, False):
+        summed = add_knight_volumes(cv, acc.clone(), _KNIGHT_DIRS, P1, P2,
+                                    POUT, one_launch=one_launch)
+        ref = acc.clone()
+        for v in want:
+            ref.add_(v)
+        assert torch.equal(summed, ref)
     for d in _KNIGHT_DIRS:
-        got = sgm_knight_pass(cv, acc.clone(), d, P1, P2, POUT)
-        want = sgm_knight_pass_plain(cv, acc.clone(), d, P1, P2, POUT)
-        assert torch.equal(got, want)
+        a, a_p = acc.clone(), acc.clone()
+        assert torch.equal(sgm_knight_shard_pass(cv, a, d, P1, P2, POUT),
+                           sgm_knight_shard_pass_plain(cv, a_p, d, P1, P2,
+                                                       POUT))
+        assert torch.equal(a, a_p)
+    assert knight_volumes.launches == before
     with pytest.raises(ValueError):
-        sgm_knight_pass(cv, acc, SgmDirection.UP2DOWN, P1, P2, POUT)
+        knight_volumes(cv, [SgmDirection.UP2DOWN], P1, P2, POUT)
+    with pytest.raises(ValueError):
+        knight_volumes(cv, _KNIGHT_DIRS[:2], P1, P2, POUT, out=got[:1])
+
+
+@pytest.mark.parametrize("case", [c for c in CASES if "margins" not in c])
+def test_knight_volumes_summed_in_order_equal_sgm_accumulate(case):
+    """16 directions through `sgm_accumulate` (the principal passes into
+    one accumulator, then the knight volumes added one after another) equal
+    bit for bit the principal sum plus `knight_volumes_plain`'s volumes
+    added in `_KNIGHT_DIRS` order, and the shard pass's plain version
+    applied direction by direction: acc + (p0 + p1), in one order on every
+    path."""
+    (H, W, D), _ = CASES[case]
+    cv = torch.from_numpy(_cv(20 + list(CASES).index(case), (H, W, D)))
+    principal = [d for d in directions_for(16) if not d.knight]
+    acc = sgm_accumulate(cv, principal, P1, P2, POUT)
+    got = sgm_accumulate(cv, directions_for(16), P1, P2, POUT)
+    ref, seq = acc.clone(), acc.clone()
+    for d, v in zip(_KNIGHT_DIRS,
+                    knight_volumes_plain(cv, _KNIGHT_DIRS, P1, P2, POUT)):
+        ref.add_(v)
+        sgm_knight_shard_pass_plain(cv, seq, d, P1, P2, POUT)
+    assert torch.equal(got, ref) and torch.equal(got, seq)
+
+
+def _seed_offset(direction, si, sj, H, W):
+    """A line seed's step along its direction's primary axis, from the
+    start edge."""
+    (v0, h0), _ = direction.steps
+    if v0 != 0:
+        return si if v0 > 0 else H - 1 - si
+    return sj if h0 > 0 else W - 1 - sj
+
+
+@pytest.mark.parametrize("shape", [(12, 15), (13, 16), (18, 7), (5, 21),
+                                   (1, 6), (6, 1)],
+                         ids=lambda s: f"{s[0]}x{s[1]}")
+@pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)
+def test_phase0_lines_cover_every_pixel(direction, shape):
+    """The premise of K2k's volume form (no zero fill): of the lines
+    `addDirectionalCost` seeds (`_build_lines`), those whose seed lies at
+    an even step along the primary axis (phase 0: the start edge and the
+    even side seeds) cover every pixel exactly once, the corner line
+    counted once; the odd side seeds (phase 1) cover each pixel at most
+    once, exactly where u <= (t - 1) // 2 (u the lateral distance from the
+    side edge the lines enter from, t the step from the start edge)."""
+    H, W = shape
+    ii, jj, active = _build_lines(H, W, (0, 0, 0, 0), direction)
+    seeds = set()
+    cover = [np.zeros((H, W), int), np.zeros((H, W), int)]
+    for line in range(ii.shape[0]):
+        seed = (int(ii[line, 0]), int(jj[line, 0]))
+        if seed in seeds:           # the corner, seeded from both edges
+            continue
+        seeds.add(seed)
+        phase = _seed_offset(direction, *seed, H, W) % 2
+        n = int(active[line].sum())
+        np.add.at(cover[phase], (ii[line, :n], jj[line, :n]), 1)
+    assert (cover[0] == 1).all()
+    (v0, h0), (v1, h1) = direction.steps
+    i, j = np.meshgrid(np.arange(H), np.arange(W), indexing="ij")
+    if v0 != 0:                     # vertical primary, drift along columns
+        t = i if v0 > 0 else H - 1 - i
+        u = j if h1 > 0 else W - 1 - j
+    else:
+        t = j if h0 > 0 else W - 1 - j
+        u = i if v1 > 0 else H - 1 - i
+    np.testing.assert_array_equal(cover[1], (u <= (t - 1) // 2).astype(int))
 
 
 @pytest.mark.parametrize("strategy", ["COST", "SCORE"])
@@ -142,6 +242,21 @@ def test_sgm_cost_volume_16_matches_pallas_dhw(margins):
     got = sgm_cost_volume(torch.from_numpy(cv), 0.3, 1.1, Margins(*margins),
                           Pout=7.0, n_directions=16).numpy()
     np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("shape", [(10, 14, 6), (13, 16, 4)],
+                         ids=["10x14x6", "13x16x4"])
+def test_sgm_accumulate_16_matches_pallas_dhw(shape):
+    """The order the card runs (`sgm_accumulate`: the principal passes,
+    then each knight volume p0 + p1 added once), here in its plain version,
+    against the DHW kernels in interpret mode, which add all four knight
+    carries of a pass to each row together."""
+    cv = _cv(16, shape)
+    want = np.asarray(j_sgm(jnp.asarray(cv), 0.3, 1.1, Pout=7.0,
+                            n_directions=16, backend="pallas"))
+    got = torch.from_numpy(cv) + sgm_accumulate(
+        torch.from_numpy(cv), directions_for(16), 0.3, 1.1, 7.0)
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 @pytest.mark.parametrize("margins", [(0, 0, 0, 0), (2, 1, 3, 2)],
