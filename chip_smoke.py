@@ -24,8 +24,12 @@ bitwise: K4a shear / unshear (both signs), K4b's row sweeps, column scans
 and WTA scan at the wide path's 480x640x384 f32 volume, at 37x101x333 and
 (after the HD wide path) at its 720x1280x640 volume, with the
 separate-accumulation mode within 1e-4, and K4d's four chunked sweeps at
-40x300x352 with 32-column chunks; and K1 at D=640, bit for bit.  Then it
-runs its paths,
+40x300x352 with 32-column chunks; and K1 at D=640, bit for bit.  The
+redesigned K4b row sweep, K4c and the column scans (with a stack of 0, 1
+and 8 knight volumes) are held bitwise, two runs equal, at 480x640x384,
+720x1280x640, 37x101x333, H = 1, W < 132 and in the direct-load instance,
+and the ring instance each geometry takes is printed.  Then it runs its
+paths,
 each with the launch counts set to 0 just before it and read just after:
 - the flagship stereo path (`entry.flagship_forward`: 480x640, D=120,
   ZNCC 7x7, bf16 volume, SGM-8, parabola subpixel) on the two committed
@@ -85,7 +89,8 @@ times K2's two forms with K3 (one launch, or 7 launches into one
 accumulator) from 480x640 to 2160x3840 with their peak memory and equal
 outputs, and K3's two forms on SGM-16 (over the 15 volumes, or over their
 sum), times K1's call, the flagship frame with its device items, the two
-SGM-16 frames with theirs, K2k, K3 and the distributed SGM-16 frame as
+SGM-16 frames with theirs, K2k, K3, the distributed SGM-16 frame, the
+wide and HD wide frames with their device items, K4b and K4c's relays as
 the checkout runs them (and, with ``--parent DIR``, a checkout of another
 commit, that one's too, in turns: parent, change, change, parent), and
 prints one JSON line of kernel records (each with its
@@ -335,6 +340,90 @@ def k2_forms(dev, k2_dirs, smi):
               f"sgm_wta_fused takes {chosen} (median of 5; {smi})",
               flush=True)
         del cv, outs
+        torch.cuda.empty_cache()
+
+
+# The redesigned K4b row sweep, K4c and the column scans at the main paths'
+# shapes (480x640x384, 720x1280x640), a ragged width (37x101x333), H = 1,
+# W < 132 and the direct-load instance (a budget of the fit rule's bytes)
+K4_CASES = {"480x640x384": (480, 640, 384, None),
+            "720x1280x640": (720, 1280, 640, None),
+            "37x101x333": (37, 101, 333, None),
+            "H=1 1x640x384": (1, 640, 384, None),
+            "W<132 20x100x333": (20, 100, 333, None),
+            "direct loads 37x101x333": (37, 101, 333, (2 * 3 + 2) * 333 * 4)}
+
+
+def k4_cases(dev):
+    """Each redesigned kernel against its plain version with `torch.equal`,
+    run twice with equal bits, at every shape of K4_CASES: K4b's rows
+    (down and up, fresh and accumulating, column offset 3), K4c (rows
+    [3, 3 + H) of H + 9 from random carries, carries out), both column
+    scans, and the reverse and WTA scans with a stack of 0, 1 and 8
+    knight volumes.  Prints the ring instance each geometry takes."""
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+
+    def twice(fn, tag):
+        a, b = fn(), fn()
+        for x, y in zip(a, b):
+            assert torch.equal(x, y), ("two runs", tag)
+        return a
+
+    for name, (H, W, D, budget) in K4_CASES.items():
+        g = torch.Generator(device=dev).manual_seed(H + W + D)
+        cv = torch.rand((H, W, D), generator=g, device=dev) * 3
+        acc = torch.rand((H, W, D), generator=g, device=dev)
+        carries = torch.rand((3, W, D), generator=g, device=dev) * 2
+        kw = dict(col0=3, W_pout=W + 5, P1=0.3, P2=1.1, Pout=7.0)
+        cap = min(budget or lane.SMEM_BLOCK, lane.SMEM_BLOCK)
+        lays = [lane.row_layout(W, D, 8, a, cap, sms) for a in (False, True)]
+        cols = [lane.cols_layout(H, D, n, w, sms)._asdict()
+                for n, w in ((0, False), (8, True))]
+        for rev in (False, True):
+            for a in (None, acc):
+                tag = (name, "rows", rev, a is None)
+                want = lane.fused_rows_pass_plain(
+                    cv, None if a is None else a.clone(), rev, True, **kw)
+                got = twice(lambda: (lane.fused_rows_pass(
+                    cv, None if a is None else a.clone(), rev, True,
+                    budget=budget, **kw),), tag)
+                exact(got[0], want, tag)
+                tag = (name, "K4c", rev, a is None)
+                args = (carries, 3, H + 9, rev, True)
+                want = lane.fused_rows_shard_pass_plain(
+                    cv, None if a is None else a.clone(), *args, **kw)
+                got = twice(lambda: lane.fused_rows_shard_pass(
+                    cv, None if a is None else a.clone(), *args,
+                    budget=budget, **kw), tag)
+                exact(got[0], want[0], tag)
+                exact(got[1], want[1], tag + ("carries",))
+        del want, got
+        for n in (0, 1, 8):
+            k = (torch.rand((n, H, W, D), generator=g, device=dev)
+                 if n else None)
+            for rev in ((False, True) if n == 0 else (True,)):
+                tag = (name, "cols", n, rev)
+                want = lane.fused_cols_pass_plain(cv, acc.clone(), rev,
+                                                  knights=k, **kw)
+                got = twice(lambda: (lane.fused_cols_pass(
+                    cv, acc.clone(), rev, knights=k, **kw),), tag)
+                exact(got[0], want, tag)
+            tag = (name, "WTA", n)
+            want = lane.fused_cols_wta_plain(cv, acc, 1, knights=k, **kw)
+            got = twice(lambda: lane.fused_cols_wta(cv, acc, 1, knights=k,
+                                                    **kw), tag)
+            exact(got[0], want[0], tag)
+            exact(got[1], want[1], tag)
+            del k, want, got
+        print(f"K4b/K4c {name} f32: rows (down and up, fresh and "
+              f"accumulating), K4c with carries in and out, both column "
+              f"scans and the WTA scan with 0, 1 and 8 knight volumes equal "
+              f"their plain versions bitwise, two runs equal; ring "
+              f"instance: rows fresh {lays[0]._asdict()}, accumulating "
+              f"{lays[1]._asdict()}; column scans {cols[0]}, the WTA "
+              f"scan over 8 knights {cols[1]}", flush=True)
+        del cv, acc, carries
         torch.cuda.empty_cache()
 
 
@@ -591,6 +680,7 @@ def distributed(dev, pairs, smi):
     assert d384.shape == (H, W) and t384.shape == (H, W, 3)
     check_random("SGM-16 D=384 random", d384, i384, DW)
     launches["K2k any-D"] = l16["K2k any-D"]
+    launches["K4b stack"] = l16["K4b WTA"]
 
     # -- timing: the distributed frames beside the single-device route -------
     frames = {
@@ -653,11 +743,12 @@ def distributed(dev, pairs, smi):
     acc_w = torch.zeros_like(cvw)
     kv_p = torch.empty((8,) + tuple(cvw.shape), device=dev)
 
+    kv = torch.empty_like(kv_p)
+
     def k2k_plain():
-        """The lane route's knights in their plain version: the volumes,
-        added in order."""
-        for v in knight_volumes_plain(cvw, _KNIGHT_DIRS, *Q, out=kv_p):
-            acc_w.add_(v)
+        """The lane route's knights in their plain version: the 8 volumes
+        of the stack the WTA scan sums."""
+        knight_volumes_plain(cvw, _KNIGHT_DIRS, *Q, out=kv_p)
 
     def k2a_job(fn):
         """7 K2 passes past D = 320 (the shared-memory instance) on the
@@ -673,9 +764,10 @@ def distributed(dev, pairs, smi):
                                 sgm_knight_shard_pass_plain), 1),
         "K4c": (lambda: k4c_job(lane.fused_rows_shard_pass),
                 lambda: k4c_job(lane.fused_rows_shard_pass_plain), 2),
-        # as the lane route runs it: two launches, the 8 ordered adds
-        "K2k any-D": (lambda: add_knight_volumes(cvw, acc_w, _KNIGHT_DIRS,
-                                                 *Q), k2k_plain, 1),
+        # as the lane route runs it: two launches into the stack of 8
+        # volumes that K4b's last scan sums (the 8 ordered adds are gone)
+        "K2k any-D": (lambda: knight_volumes(cvw, _KNIGHT_DIRS, *Q, out=kv),
+                      k2k_plain, 1),
     }
     ms = {}
     for name, (kern, plain, n) in jobs.items():
@@ -718,6 +810,7 @@ from libstevi_tpu_torch import entry
 from libstevi_tpu_torch.core import MatchingFunction
 from libstevi_tpu_torch.ops import dense_sgm_stereo
 from libstevi_tpu_torch.ops import sgm_cuda as sc
+from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
 from libstevi_tpu_torch.ops.box_cuda import box_cv
 from libstevi_tpu_torch.ops.sgm import (SgmDirection, _KNIGHT_DIRS,
                                         directions_for)
@@ -759,6 +852,12 @@ out["k1_ms"] = med(lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
 for key, D in (("sgm16", 120), ("sgm16_d384", 384)):
     cfg = dict(entry.SGM16, disp_width=D)
     out[key] = frame(lambda: dense_sgm_stereo(ZNCC, L, R, **cfg))
+out["wide"] = frame(lambda: entry.wide_forward(L, R))
+Lh, Rh = (torch.from_numpy(rng.uniform(0, 1, (720, 1280)).astype(np.float32))
+          .cuda() for _ in range(2))
+out["hd_wide"] = frame(lambda: entry.hd_wide_forward(Lh, Rh))
+del Lh, Rh
+torch.cuda.empty_cache()
 cv = box_cv(ZNCC, L, R, 3, 3, 120, torch.float32, True)
 cvw = box_cv(ZNCC, L, R, 3, 3, 384, torch.float32, True)
 dirs = [d for d in directions_for(16) if d is not SgmDirection.RIGHT2LEFT]
@@ -778,7 +877,10 @@ else:
     stack = sc.sgm_accumulate(cv, dirs, *Q)
 out["k2k_ms"], out["k2k_any_ms"] = med(k2k), med(k2k_any)
 out["k3_ms"] = med(lambda: sc.sgm_wta(cv, stack, *Q, 1, 3, 3, True))
-del stack, acc, acc_w, cvw
+del stack, acc, acc_w
+# K4b as the wide frame runs it: fused_adj with WTA at 480x640x384
+out["k4b_ms"] = med(lambda: lane.fused_adj(cvw, 0, 640, *Q, 8, wta_radius=1))
+del cvw
 g = torch.Generator(device="cuda").manual_seed(21)
 sh8 = list((torch.rand((480, 640, 120), generator=g, device="cuda") * 4)
            .split(60))
@@ -813,6 +915,21 @@ def k2s():
         carry_relay(["cuda"] * 8, run, reverse=d.steps[0][1] < 0)
 
 out["k2s_ms"] = med(k2s)
+sh4 = list((torch.rand((480, 640, 384), generator=g, device="cuda") * 4)
+           .split(120))
+
+def k4c():
+    # K4c's down and up relays over the tile-4 row shards (8 launches)
+    adj = [None] * 4
+    for rev in (False, True):
+        def run(m, c, rev=rev):
+            adj[m], co = lane.fused_rows_shard_pass(
+                sh4[m], adj[m], c, 120 * m, 480, rev, True, col0=0,
+                W_pout=640, P1=0.3, P2=1.1, Pout=7.0)
+            return co
+        carry_relay(["cuda"] * 4, run, reverse=rev)
+
+out["k4c_ms"] = med(k4c)
 print(json.dumps(out))
 """
 
@@ -841,7 +958,7 @@ def parent_and_change(parent, smi):
     for name, rs in runs.items():
         mean = {k: statistics.mean(r[k] for r in rs)
                 for k in rs[0] if isinstance(rs[0][k], (int, float))}
-        for key in ("sgm16", "sgm16_d384"):
+        for key in ("sgm16", "sgm16_d384", "wide", "hd_wide"):
             mean[key] = statistics.mean(r[key][0] for r in rs)
             mean[key + "_busy"] = statistics.mean(r[key][1] for r in rs)
         print(f"time: {name} ({len(rs)} run(s)): K1 box_cv 480x640x120 bf16 "
@@ -855,8 +972,13 @@ def parent_and_change(parent, smi):
               f"480x640x384 {mean['k2k_any_ms']:.3f} ms; K3 as SGM-16 runs it "
               f"{mean['k3_ms']:.3f} ms; distributed SGM-16 tile 8 "
               f"{mean['dist16_ms']:.3f} ms, its K2s passes "
-              f"{mean['k2s_ms']:.3f} ms (CUDA events, median of 5 a run; "
-              f"{smi})", flush=True)
+              f"{mean['k2s_ms']:.3f} ms; wide frame 480x640 D=384 "
+              f"{mean['wide']:.3f} ms (busy {mean['wide_busy']:.3f}), HD "
+              f"wide 720x1280 D=640 {mean['hd_wide']:.3f} ms (busy "
+              f"{mean['hd_wide_busy']:.3f}); K4b fused_adj + WTA "
+              f"480x640x384 {mean['k4b_ms']:.3f} ms; K4c relays 4 x "
+              f"120x640x384 {mean['k4c_ms']:.3f} ms (CUDA events, median of "
+              f"5 a run; {smi})", flush=True)
     if not parent:
         print("time: parent not given (--parent DIR, a checkout of the "
               "parent commit)", flush=True)
@@ -1200,7 +1322,7 @@ def main(argv=None) -> int:
           "plain", flush=True)
 
     # -- K4a, K4b, K4d against their plain versions ---------------------------
-    err.update(K4a=0.0, K4b=0.0, K4d=0.0)
+    err.update({"K4a": 0.0, "K4b": 0.0, "K4d": 0.0, "K4b stack": 0.0})
     INF = float("inf")
     WH, WW, WD = entry.HEIGHT, entry.WIDTH, entry.WIDE["disp_width"]
     Lw, Rw = pair(WH, WW, 13, dev)
@@ -1255,7 +1377,18 @@ def main(argv=None) -> int:
               f"fused_adj equal their plain versions bitwise; the separate "
               f"mode within {e_sep:.3g} of the alias mode", flush=True)
 
+    k4_cases(dev)
     k4b_check(cvw, f"{WH}x{WW}x{WD} f32")
+    # 16 directions: the knight volumes as the stack the WTA scan sums (the
+    # lane route's form where they fit) against the 8 in-place adds
+    for a, b in zip(lane.fused_adj(cvw, 0, WW, P1, P2, POUT, 16,
+                                   wta_radius=1, one_launch=True),
+                    lane.fused_adj(cvw, 0, WW, P1, P2, POUT, 16,
+                                   wta_radius=1, one_launch=False)):
+        exact(a, b, "K4b WTA over the knight stack vs in-place adds")
+    print(f"K4b {WH}x{WW}x{WD} f32, 16 directions: the WTA scan over the 8 "
+          f"knight volumes equals the 8 in-place adds and the scan bitwise",
+          flush=True)
     Lo, Ro = pair(37, 101, 15, dev)
     k4b_check(box_cv(ZNCC, Lo, Ro, 3, 3, 333, torch.float32, negate=True),
               "37x101x333 f32, col0 2, W_pout 106", col0=2, W_pout=106)
@@ -1791,12 +1924,20 @@ def main(argv=None) -> int:
         adj = lane.fused_cols_pass_plain(cvc, adj, False, **wkw)
         return lane.fused_cols_pass_plain(cvc, adj, True, **wkw)
 
+    acc_s = torch.rand(cvw.shape, device=dev)
+    kv_s = knight_volumes(cvw, KD, P1, P2, POUT)
     jobs.update({
         "K4a": (lambda: lane.shift_rows(padded, *sa),
                 lambda: lane.shift_rows_plain(padded, *sa)),
         "K4b": (lambda: lane.fused_adj(cvw, 0, WW, P1, P2, POUT, 8,
                                        wta_radius=1),
                 lambda: wide_plain(cvw)),
+        # SGM-16's last scan at D = 384: the WTA scan summing the 8 knight
+        # volumes as it reads them
+        "K4b stack": (lambda: lane.fused_cols_wta(cvw, acc_s, 1,
+                                                  knights=kv_s, **wkw),
+                      lambda: lane.fused_cols_wta_plain(cvw, acc_s, 1,
+                                                        knights=kv_s, **wkw)),
         "K4d": (lambda: lane.chunked_adj(cvw, 0, WW, P1, P2, POUT, 8),
                 k4d_plain),
     })
@@ -1806,7 +1947,8 @@ def main(argv=None) -> int:
           f"(median of 5; {smi})", flush=True)
     # the plain knight passes take ~1 s a run, the plain chunked sweeps
     # several
-    plain_reps = {"K2x7": 3, "K2k": 2, "K3": 3, "K4b": 2, "K4d": 1}
+    plain_reps = {"K2x7": 3, "K2k": 2, "K3": 3, "K4b": 2, "K4b stack": 2,
+                  "K4d": 1}
     ms = {}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
@@ -1878,6 +2020,9 @@ def main(argv=None) -> int:
          "libstevi_tpu/ops/sgm_pallas.py:43", "K4a"),
         ("K4b fused_rows/fused_cols", "libstevi_tpu_torch/csrc/sgm_lane.cu",
          "libstevi_tpu/ops/sgm_pallas.py:147", "K4b"),
+        ("K4b fused_cols_wta over the 8 knight volumes (SGM-16)",
+         "libstevi_tpu_torch/csrc/sgm_lane.cu",
+         "libstevi_tpu/ops/sgm_pallas.py:297", "K4b stack"),
         ("K4d chunked_rows", "libstevi_tpu_torch/csrc/sgm_lane.cu",
          "libstevi_tpu/ops/sgm_pallas.py:586", "K4d"),
         ("K2s sgm_shard_pass/sgm_knight_shard_pass",
@@ -1901,7 +2046,8 @@ def main(argv=None) -> int:
     launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
                     K4d=k4d_launches["K4d"])
     launches.update({k: d_launches[k]
-                     for k in ("K2s", "K4c", "K2k any-D", "K2 any-D")})
+                     for k in ("K2s", "K4c", "K2k any-D", "K2 any-D",
+                               "K4b stack")})
     # bounds from the timed calls' shapes: each input read once, each
     # output written once, and their f32 operations
     HW1, N1 = 480 * 640, 480 * 640 * 120
@@ -1933,6 +2079,10 @@ def main(argv=None) -> int:
         # K4a reads only the copied window of its padded input
         "K4a": bound(2 * WH * (WW + WH - 1) * WD * 4, 0),
         "K4b": bound(NW * 4 + 4 * WH * WW * 4, (SGM_OPS * 8 + 3) * NW),
+        # cv, acc and the 8 knight volumes read once, idx and bands written;
+        # the DP step, the 8 knight adds and the C sum and min
+        "K4b stack": bound(10 * NW * 4 + 4 * WH * WW * 4,
+                           (SGM_OPS + 8 + 3) * NW),
         "K4d": bound(2 * NW * 4, SGM_OPS * 8 * NW),
         **d_bounds,
     }

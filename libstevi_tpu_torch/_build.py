@@ -43,14 +43,15 @@ SIGNATURES = {
     "sgm_lane": {
         # in, out, H, W_in, W_out, Dp, base, slope, stream
         "shift_rows_launch": [_P, _P] + [_I] * 6 + [_P],
-        # cv, acc, out, edge, cin, cout, H, W, D, ncols, col0, W_pout, P1,
-        # P2, Pout, reverse, diag, i0, H_img, stream
-        "fused_rows_launch": [_P] * 6 + [_I] * 6 + [_F] * 3 + [_I] * 4
+        # cv, acc, out, edge, flags, cin, cout, H, W, D, ncols, G, S,
+        # stage_acc, use_mins, col0, W_pout, P1, P2, Pout, reverse, diag,
+        # i0, H_img, stream
+        "fused_rows_launch": [_P] * 7 + [_I] * 10 + [_F] * 3 + [_I] * 4
                              + [_P],
-        # cv, acc, out, idx, bands, H, W, D, col0, W_pout, P1, P2, Pout,
-        # reverse, r, wta, stream
-        "fused_cols_launch": [_P] * 5 + [_I] * 5 + [_F] * 3 + [_I] * 3
-                             + [_P],
+        # cv, acc, knights, n_knights, out, idx, bands, H, W, D, col0,
+        # W_pout, P1, P2, Pout, reverse, r, wta, G, S, stream
+        "fused_cols_launch": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
+                             + [_F] * 3 + [_I] * 5 + [_P],
         # cv, acc, out, hin, hout, H, W, D, c0, Wc, col0, W_pout, P1, P2,
         # Pout, reverse, shift_down, corner_c0, corner_slope,
         # with_vertical, with_diag, accumulate, stream

@@ -326,8 +326,9 @@ def sgm_route(D: int, n_directions: int, P1: float, P2: float,
 def _lane_adj(region, col0, W_pout, P1, P2, Pout, n_directions):
     """K4b, and K4d where `fused_adj` refuses the width (as
     `_pallas_adj` takes `sgm_fused_adj`, then `sgm_chunked_adj`); with 16
-    directions both add the knight directions (K2k) before their last
-    column scan."""
+    directions both run the knight directions (K2k) before their last
+    column scan, which sums their 8 volumes where they fit (else they are
+    added in place first: the same bits)."""
     from .sgm_lane_cuda import chunked_adj, fused_adj
     adj = fused_adj(region, col0, W_pout, P1, P2, Pout, n_directions)
     if adj is None:
@@ -427,7 +428,8 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
     the band come out of the last SGM pass: on a CUDA tensor at D <= 320,
     K2 and K2k launches, then K3; at D > 320 (both devices), K4b's
     `fused_cols_wta` where K4b takes the geometry (16 directions: the
-    knight passes reach its accumulator before the WTA scan).  Elsewhere (margins,
+    WTA scan sums the knight volumes as it reads them, or they are added
+    to its accumulator first).  Elsewhere (margins,
     K4d's geometry, P2 < P1) both devices run the chain itself, as the JAX
     package does (`libstevi_tpu/ops/sgm.py:571-600`)."""
     from .cost_volume import extract_selected_index, truncated_cost_volume

@@ -10,9 +10,13 @@ too, one warp a line; the distributed K2s engine uses them past D = 320.)
   (`_fused_rows_kernel`, `_fused_cols_kernel`, `_make_fused_cols_wta`),
   driven by `fused_adj` (`sgm_fused_adj`): the vertical direction and both
   diagonal families in one sweep down and one up, then the two column
-  scans, the last one optionally fused with the tie-last WTA and the band.
-  `fused_adj` returns None when `fused_fits` says the full-width carries do
-  not fit on chip (the GPU form of `sgm_fused_adj`'s VMEM test).
+  scans, the last one optionally fused with the tie-last WTA and the band
+  and, with 16 directions, summing the 8 knight volumes as it reads them
+  (``knights``).  `fused_adj` returns None when `fused_fits` says the
+  full-width carries do not fit on chip (the GPU form of
+  `sgm_fused_adj`'s VMEM test); inside that rule `row_layout` sizes the
+  row sweep's TMA ring and its split of D over warps, and `cols_layout`
+  the column scans'.
 - K4c `fused_rows_shard_pass` (`sgm_rows_shard_pass`): K4b's row sweep on
   one row shard of a distributed image, with 1 or 3 carries in and out, the
   shard's global first row and the global height; its column half
@@ -33,17 +37,28 @@ runs its plain version (`*_plain`) for CPU tensors.
 
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
 from .. import _build
 
 SMEM_BLOCK = 232448      # bytes of shared memory one block can opt into (H100)
+SMEM_SM = 233472         # bytes of shared memory an SM holds
 H100_SMS = 132           # streaming multiprocessors of an H100 SXM
+ROW_WARPS = 24           # most warps of a row-sweep block (csrc/sgm_lane.cu)
+RING = 8                 # most stages of a TMA ring
+COLS_WARPS = 4           # warps a column-scan line (parts of D)
+MAX_KNIGHTS = 8          # knight volumes a column scan sums
 _INF = float("inf")
 
 
 def _ceil_div(a: int, b: int) -> int:
     return -(-a // b)
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
 
 
 # ---------------------------------------------------------------------------
@@ -61,6 +76,94 @@ def fused_fits(W: int, D: int, n_directions: int, budget: int | None = None,
     n_car = 3 if n_directions >= 8 else 1
     halo = 2 if n_directions >= 8 else 0
     return (2 * n_car * _ceil_div(W, n_sm) + halo) * D * 4 <= budget
+
+
+class RowLayout(NamedTuple):
+    """How a K4b / K4c row sweep lays out one block (`row_layout`)."""
+    ncols: int       # columns a block
+    parts: int       # warps a column (G), each a run of 32-wide d-slices
+    stages: int      # TMA ring stages (S; 0: direct loads)
+    stage_acc: bool  # the ring stages acc beside cv (else acc is loaded)
+    mins: bool       # the parts' minima kept beside the carries
+    smem: int        # bytes of shared memory a block
+
+
+def row_layout(W: int, D: int, n_directions: int, accumulate: bool,
+               budget: int | None = None,
+               n_sm: int = H100_SMS) -> RowLayout | None:
+    """The layout of a K4b / K4c row sweep over a region of width W, or
+    None where `fused_fits` refuses it (the same rule; this only spends
+    what the carries leave).  A column's D is split over ``parts`` warps
+    (at most ROW_WARPS a block, whole 32-wide slices each), whose minima
+    go beside the carries, the first that fits of: that split, one part,
+    and one part without the minima (the kernel then finds them by a
+    loop).  The ring takes what is left of ``budget`` (default one
+    block's 227 KiB): the deepest of 2 to RING stages of cv and acc slabs,
+    else of cv slabs alone (acc then loaded directly), else one cv stage,
+    else none (direct loads).  `csrc/sgm_lane.cu`'s `row_layout` sums the
+    same sizes.  A pure function of its arguments."""
+    if not fused_fits(W, D, n_directions, budget, n_sm):
+        return None
+    budget = SMEM_BLOCK if budget is None else budget
+    diag = n_directions >= 8
+    n_car = 3 if diag else 1
+    ncols = _ceil_div(W, n_sm)
+    slices = _ceil_div(D, 32)
+    g = max(1, min(slices, ROW_WARPS // ncols))
+    g = _ceil_div(slices, _ceil_div(slices, g))     # no empty part
+
+    def base(parts, mins):
+        return 4 * (2 * n_car * ncols * D
+                    + (2 * (D + 2 * (parts - 1)) if diag else 0)
+                    + (2 * n_car * ncols * parts if mins else 0))
+
+    def total(b, stages, stage_acc):
+        slot = _r16(4 * ncols * D + 15)
+        return (_r16(b) + _r16(8 * stages)
+                + stages * slot * (2 if stage_acc else 1))
+
+    parts, mins = next((p, m) for p, m in ((g, True), (1, True), (1, False))
+                       if base(p, m) <= budget)
+    b = base(parts, mins)
+    for stage_acc, least in (((True, 2),) if accumulate else ()) + \
+            ((False, 2), (False, 1)):
+        s = next((s for s in range(RING, least - 1, -1)
+                  if total(b, s, stage_acc) <= budget), 0)
+        if s:
+            return RowLayout(ncols, parts, s, stage_acc, mins,
+                             total(b, s, stage_acc))
+    return RowLayout(ncols, parts, 0, False, mins, b)
+
+
+class ColsLayout(NamedTuple):
+    """How a K4b column scan lays out one block (`cols_layout`)."""
+    parts: int       # warps a line (G), each a run of 32-wide d-slices
+    stages: int      # TMA ring stages (S; 0: direct loads)
+    smem: int        # bytes of shared memory a block
+
+
+def cols_layout(H: int, D: int, n_knights: int, wta: bool,
+                n_sm: int = H100_SMS) -> ColsLayout:
+    """The layout of a K4b column scan: one block a line (H lines), its D
+    split over up to COLS_WARPS warps, and a ring whose stages each hold
+    one pixel's cv, acc and ``n_knights`` knight D-vectors.  As K2's ring
+    (`csrc/sgm_scan.cu`): as deep as the card's shared memory spread over
+    all lines allows, 2 to RING, then shallower where a block's area
+    passes its budget; 0 (direct loads) where not even one stage fits.
+    `csrc/sgm_lane.cu`'s `cols_smem` sums the same sizes.  A pure function
+    of its arguments."""
+    slices = _ceil_div(D, 32)
+    g = min(slices, COLS_WARPS)
+    g = _ceil_div(slices, _ceil_div(slices, g))     # no empty part
+    vslot = _r16(4 * D + 15)
+    stage = (2 + n_knights) * vslot
+    extra = _r16(4 * (4 if wta else 2) * D) + 4 * (4 if wta else 2) * g
+    limit = SMEM_BLOCK - 1024                # less the static barriers
+    per_line = 0.9 * SMEM_SM * n_sm / max(H, 1)
+    s = min(RING, max(2, int((per_line - extra) // stage)))
+    while s and s * stage + extra > limit:
+        s -= 1
+    return ColsLayout(g, s, s * stage + extra)
 
 
 def chunk_width(D: int) -> int:
@@ -224,33 +327,46 @@ def fused_rows_pass_plain(cv, acc, reverse: bool, diag: bool, col0: int,
 
 
 def _rows_launch(cv, acc, carries, i0, H_img, reverse, diag, col0, W_pout,
-                 P1, P2, Pout, what, carries_out):
-    """Launch K4b's rows kernel (K4c with carries or an offset): returns
-    (out, the carries out, or None without ``carries_out``)."""
+                 P1, P2, Pout, what, carries_out, budget=None):
+    """Launch K4b's rows kernel (K4c with carries or an offset) with the
+    `row_layout` of its geometry (``budget`` caps the shared memory it
+    spends): returns (out, the carries out, or None without
+    ``carries_out``)."""
     _check_cuda(what, cv, acc, carries)
     H, W, D = cv.shape
     n_sm = _sms(cv)
-    if not fused_fits(W, D, 8 if diag else 4, n_sm=n_sm):
+    n_dirs = 8 if diag else 4
+    if not fused_fits(W, D, n_dirs, n_sm=n_sm):
         raise NotImplementedError(f"{what}: the carries do not fit "
                                   "(fused_fits); use chunked_adj")
+    lay = row_layout(W, D, n_dirs, acc is not None,
+                     min(SMEM_BLOCK, budget or SMEM_BLOCK), n_sm)
+    if lay is None:
+        raise ValueError(f"{what}: budget below the carries' bytes")
     n_car = 3 if diag else 1
     if carries is not None and carries.shape != (n_car, W, D):
         raise ValueError(f"{what}: carries of shape ({n_car}, W, D)")
     if not (0 <= i0 and i0 + H <= H_img):
         raise ValueError(f"{what}: rows [i0, i0 + H) inside H_img")
     out = acc if acc is not None else torch.empty_like(cv)
-    edge = torch.empty((2, 2, W, D) if diag else (1,), dtype=torch.float32,
-                       device=cv.device)
+    # the edge carries (2 parities, 2 families, W, D), then their parts'
+    # minima (2, 2, W, parts); the neighbour-sync counters, one a block,
+    # zeroed for every launch
+    edge = torch.empty(4 * W * (D + lay.parts) if diag else 1,
+                       dtype=torch.float32, device=cv.device)
+    flags = torch.zeros(_ceil_div(W, lay.ncols) if diag else 1,
+                        dtype=torch.int32, device=cv.device)
     couts = (torch.empty((n_car, W, D), dtype=torch.float32,
                          device=cv.device) if carries_out else None)
     lib = _build.load("sgm_lane")
     with torch.cuda.device(cv.device):
         err = lib.fused_rows_launch(
             cv.data_ptr(), acc.data_ptr() if acc is not None else None,
-            out.data_ptr(), edge.data_ptr(),
+            out.data_ptr(), edge.data_ptr(), flags.data_ptr(),
             carries.data_ptr() if carries is not None else None,
             couts.data_ptr() if couts is not None else None, H, W, D,
-            _ceil_div(W, n_sm), col0, W_pout, P1, P2, Pout, int(reverse),
+            lay.ncols, lay.parts, lay.stages, int(lay.stage_acc),
+            int(lay.mins), col0, W_pout, P1, P2, Pout, int(reverse),
             int(diag), i0, H_img, _stream())
     _build.check(lib, err, "fused_rows_launch")
     return out, couts
@@ -258,15 +374,18 @@ def _rows_launch(cv, acc, carries, i0, H_img, reverse, diag, col0, W_pout,
 
 def fused_rows_pass(cv: torch.Tensor, acc: torch.Tensor | None,
                     reverse: bool, diag: bool, col0: int, W_pout: int,
-                    P1: float, P2: float, Pout: float) -> torch.Tensor:
+                    P1: float, P2: float, Pout: float,
+                    budget: int | None = None) -> torch.Tensor:
     """One sweep down (up with ``reverse``) carrying the vertical direction
     and, with ``diag``, both diagonal families.  With ``acc`` the sweep adds
-    into it IN PLACE and returns it; without, it returns a new volume."""
+    into it IN PLACE and returns it; without, it returns a new volume.
+    ``budget`` caps the kernel's shared memory (`row_layout`)."""
     if cv.device.type == "cpu":
         return fused_rows_pass_plain(cv, acc, reverse, diag, col0, W_pout,
                                      P1, P2, Pout)
     out, _ = _rows_launch(cv, acc, None, 0, cv.shape[0], reverse, diag, col0,
-                          W_pout, P1, P2, Pout, "fused_rows_pass", False)
+                          W_pout, P1, P2, Pout, "fused_rows_pass", False,
+                          budget)
     fused_rows_pass.launches += 1
     return out
 
@@ -277,7 +396,8 @@ fused_rows_pass.launches = 0
 def fused_rows_shard_pass(cv: torch.Tensor, acc: torch.Tensor | None,
                           carries: torch.Tensor | None, i0: int, H_img: int,
                           reverse: bool, diag: bool, col0: int, W_pout: int,
-                          P1: float, P2: float, Pout: float):
+                          P1: float, P2: float, Pout: float,
+                          budget: int | None = None):
     """K4c: `fused_rows_pass` on rows [i0, i0 + H) of an image ``H_img``
     rows high.  ``carries`` (1 or 3 with ``diag``, W, D) are the previous
     shard's post-step carries of its last scan row (vertical, then the
@@ -289,7 +409,8 @@ def fused_rows_shard_pass(cv: torch.Tensor, acc: torch.Tensor | None,
                                            reverse, diag, col0, W_pout, P1,
                                            P2, Pout)
     out = _rows_launch(cv, acc, carries, i0, H_img, reverse, diag, col0,
-                       W_pout, P1, P2, Pout, "fused_rows_shard_pass", True)
+                       W_pout, P1, P2, Pout, "fused_rows_shard_pass", True,
+                       budget)
     fused_rows_shard_pass.launches += 1
     return out
 
@@ -297,34 +418,68 @@ def fused_rows_shard_pass(cv: torch.Tensor, acc: torch.Tensor | None,
 fused_rows_shard_pass.launches = 0
 
 
+def _knight_sum(acc_j, knights, j):
+    """acc[:, j] plus the knight volumes' column j, in their order."""
+    if knights is not None:
+        for k in knights:
+            acc_j = acc_j + k[:, j]
+    return acc_j
+
+
 def fused_cols_pass_plain(cv, acc, reverse: bool, col0: int, W_pout: int,
-                          P1: float, P2: float, Pout: float) -> torch.Tensor:
-    """The plain version of K4b's column scan (adds into ``acc`` in place)."""
+                          P1: float, P2: float, Pout: float,
+                          knights=None) -> torch.Tensor:
+    """The plain version of K4b's column scan (adds into ``acc`` in place,
+    after the ``knights`` volumes, acc + k_0 + k_1 + ... in order)."""
     H, W, D = cv.shape
     pout = _pout_row(W, D, col0, W_pout, Pout, cv.device)
     carry = cv.new_zeros((H, D))
     for j in (range(W - 1, -1, -1) if reverse else range(W)):
         carry, adj = _step(carry, cv[:, j], pout[j], P1, P2)
-        acc[:, j] = acc[:, j] + adj
+        acc[:, j] = _knight_sum(acc[:, j], knights, j) + adj
     return acc
+
+
+def _check_knights(what, cv, knights):
+    if knights is None:
+        return 0
+    if (knights.ndim != 4 or tuple(knights.shape[1:]) != tuple(cv.shape)
+            or not 1 <= knights.shape[0] <= MAX_KNIGHTS):
+        raise ValueError(f"{what}: knights (1 to {MAX_KNIGHTS}, H, W, D)")
+    _check_cuda(what, cv, knights)
+    return knights.shape[0]
+
+
+def _cols_launch(cv, acc, knights, out, idx, bands, reverse, r, col0,
+                 W_pout, P1, P2, Pout, what):
+    n_k = _check_knights(what, cv, knights)
+    H, W, D = cv.shape
+    lay = cols_layout(H, D, n_k, idx is not None, _sms(cv))
+    ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
+    lib = _build.load("sgm_lane")
+    with torch.cuda.device(cv.device):
+        err = lib.fused_cols_launch(
+            cv.data_ptr(), acc.data_ptr(), ptr(knights), n_k, ptr(out),
+            ptr(idx), ptr(bands), H, W, D, col0, W_pout, P1, P2, Pout,
+            int(reverse), r, int(idx is not None), lay.parts, lay.stages,
+            _stream())
+    _build.check(lib, err, "fused_cols_launch")
 
 
 def fused_cols_pass(cv: torch.Tensor, acc: torch.Tensor, reverse: bool,
                     col0: int, W_pout: int, P1: float, P2: float,
-                    Pout: float) -> torch.Tensor:
+                    Pout: float, knights: torch.Tensor | None = None
+                    ) -> torch.Tensor:
     """LEFT2RIGHT (RIGHT2LEFT with ``reverse``): adds the direction's
-    adjustment into ``acc`` IN PLACE and returns it."""
+    adjustment into ``acc`` IN PLACE and returns it.  ``knights``, an
+    (n <= 8, H, W, D) stack, is summed into ``acc`` first, in order, as
+    the scan reads it: the bits of n in-place adds before the scan."""
     if cv.device.type == "cpu":
         return fused_cols_pass_plain(cv, acc, reverse, col0, W_pout, P1, P2,
-                                     Pout)
+                                     Pout, knights)
     _check_cuda("fused_cols_pass", cv, acc)
-    H, W, D = cv.shape
-    lib = _build.load("sgm_lane")
-    with torch.cuda.device(cv.device):
-        err = lib.fused_cols_launch(
-            cv.data_ptr(), acc.data_ptr(), acc.data_ptr(), None, None, H, W,
-            D, col0, W_pout, P1, P2, Pout, int(reverse), 0, 0, _stream())
-    _build.check(lib, err, "fused_cols_launch")
+    _cols_launch(cv, acc, knights, acc, None, None, reverse, 0, col0, W_pout,
+                 P1, P2, Pout, "fused_cols_pass")
     fused_cols_pass.launches += 1
     return acc
 
@@ -333,7 +488,7 @@ fused_cols_pass.launches = 0
 
 
 def fused_cols_wta_plain(cv, acc, r: int, col0: int, W_pout: int, P1: float,
-                         P2: float, Pout: float):
+                         P2: float, Pout: float, knights=None):
     """The plain version of K4b's WTA column scan: (idx, bands)."""
     H, W, D = cv.shape
     pout = _pout_row(W, D, col0, W_pout, Pout, cv.device)
@@ -344,7 +499,7 @@ def fused_cols_wta_plain(cv, acc, r: int, col0: int, W_pout: int, P1: float,
     for j in range(W - 1, -1, -1):
         base = cv[:, j]
         carry, adj = _step(carry, base, pout[j], P1, P2)
-        C = acc[:, j] + adj + base
+        C = _knight_sum(acc[:, j], knights, j) + adj + base
         m = C.amin(-1, keepdim=True)
         best = torch.where(C == m, dd, -1).amax(-1)
         idx[:, j] = best.int()
@@ -356,26 +511,25 @@ def fused_cols_wta_plain(cv, acc, r: int, col0: int, W_pout: int, P1: float,
 
 
 def fused_cols_wta(cv: torch.Tensor, acc: torch.Tensor, r: int, col0: int,
-                   W_pout: int, P1: float, P2: float, Pout: float):
+                   W_pout: int, P1: float, P2: float, Pout: float,
+                   knights: torch.Tensor | None = None):
     """RIGHT2LEFT fused with C = acc + adj + cv, the tie-last argmin and
     the band C[idx - r .. idx + r] (+inf outside [0, D); the centre slot is
-    the minimum).  Returns (idx (H, W) int32, bands (H, W, 2r+1))."""
+    the minimum).  ``knights`` as in `fused_cols_pass`: C = ((acc + k_0 +
+    ... + k_{n-1}) + adj) + cv.  Returns (idx (H, W) int32, bands (H, W,
+    2r+1))."""
     if r < 0:
         raise ValueError("fused_cols_wta: r >= 0")
     if cv.device.type == "cpu":
-        return fused_cols_wta_plain(cv, acc, r, col0, W_pout, P1, P2, Pout)
+        return fused_cols_wta_plain(cv, acc, r, col0, W_pout, P1, P2, Pout,
+                                    knights)
     _check_cuda("fused_cols_wta", cv, acc)
     H, W, D = cv.shape
     idx = torch.empty((H, W), dtype=torch.int32, device=cv.device)
     bands = torch.empty((H, W, 2 * r + 1), dtype=torch.float32,
                         device=cv.device)
-    lib = _build.load("sgm_lane")
-    with torch.cuda.device(cv.device):
-        err = lib.fused_cols_launch(
-            cv.data_ptr(), acc.data_ptr(), None, idx.data_ptr(),
-            bands.data_ptr(), H, W, D, col0, W_pout, P1, P2, Pout, 1, r, 1,
-            _stream())
-    _build.check(lib, err, "fused_cols_launch")
+    _cols_launch(cv, acc, knights, None, idx, bands, True, r, col0, W_pout,
+                 P1, P2, Pout, "fused_cols_wta")
     fused_cols_wta.launches += 1
     return idx, bands
 
@@ -390,15 +544,16 @@ def _region_f32(region: torch.Tensor) -> torch.Tensor:
 def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
               P2: float, Pout: float, n_directions: int,
               budget: int | None = None, wta_radius: int | None = None,
-              separate: bool = False):
+              separate: bool = False, one_launch: bool | None = None):
     """All principal-direction adjustments of an (H, W, D) region through
     K4b: down, up (adding onto down's output, or with ``separate`` into a
     volume of its own, added at the end), then the two column scans; 16
-    directions add the knight directions (K2k, `_add_knights`) between the
-    two column scans.  With ``wta_radius`` the last scan is
+    directions add the knight directions (K2k, `_knight_stack`) before the
+    last column scan.  With ``wta_radius`` the last scan is
     `fused_cols_wta` and the result is (idx, bands).  Returns None when
     `fused_fits` refuses the width (``budget`` overrides its shared-memory
-    budget)."""
+    budget, and caps the row sweeps', `row_layout`).  ``one_launch``
+    forces the knights' form (`_knight_stack`)."""
     if n_directions not in (4, 8, 16):
         raise ValueError("fused_adj takes 4, 8 or 16 directions")
     if separate and wta_radius is not None:
@@ -410,27 +565,40 @@ def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
     P1, P2, Pout = float(P1), float(P2), float(Pout)
     diag = n_directions >= 8
     kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
-    adj = fused_rows_pass(cv, None, False, diag, **kw)
+    adj = fused_rows_pass(cv, None, False, diag, budget=budget, **kw)
     if separate:
-        adj_up = fused_rows_pass(cv, None, True, diag, **kw)
+        adj_up = fused_rows_pass(cv, None, True, diag, budget=budget, **kw)
     else:
-        adj = fused_rows_pass(cv, adj, True, diag, **kw)
+        adj = fused_rows_pass(cv, adj, True, diag, budget=budget, **kw)
     adj = fused_cols_pass(cv, adj, False, **kw)
-    if n_directions >= 16:
-        _add_knights(cv, adj, **kw)
+    knights = _knight_stack(cv, adj, n_directions, one_launch, **kw)
     if wta_radius is not None:
-        return fused_cols_wta(cv, adj, wta_radius, **kw)
-    adj = fused_cols_pass(cv, adj, True, **kw)
+        return fused_cols_wta(cv, adj, wta_radius, knights=knights, **kw)
+    adj = fused_cols_pass(cv, adj, True, knights=knights, **kw)
     return adj + adj_up if separate else adj
 
 
-def _add_knights(cv, adj, col0, W_pout, P1, P2, Pout):
-    """The eight knight directions of 16-direction SGM, added into ``adj``
-    in place in `_KNIGHT_DIRS` order (`knight_volumes`, K2k; its any-D
-    instance past D = 320)."""
+def _knight_stack(cv, adj, n_directions, one_launch, col0, W_pout, P1, P2,
+                  Pout):
+    """The eight knight directions of 16-direction SGM (K2k, its any-D
+    instance past D = 320), in `_KNIGHT_DIRS` order, for the last column
+    scan: where their 8 volumes fit (`sgm_cuda._one_launch`, or
+    ``one_launch``), the stack of volumes (two launches), which the scan
+    sums into ``adj`` as it reads it; else None, after adding them into
+    ``adj`` in place one direction at a time through one scratch volume
+    (`add_knight_volumes`).  Both leave the same bits.  None for 4 and 8
+    directions."""
+    if n_directions < 16:
+        return None
     from .sgm import _KNIGHT_DIRS
-    from .sgm_cuda import add_knight_volumes
-    add_knight_volumes(cv, adj, _KNIGHT_DIRS, P1, P2, Pout, col0, W_pout)
+    from .sgm_cuda import _one_launch, add_knight_volumes, knight_volumes
+    if one_launch is None:
+        one_launch = _one_launch(cv, len(_KNIGHT_DIRS))
+    if one_launch:
+        return knight_volumes(cv, _KNIGHT_DIRS, P1, P2, Pout, col0, W_pout)
+    add_knight_volumes(cv, adj, _KNIGHT_DIRS, P1, P2, Pout, col0, W_pout,
+                       one_launch=False)
+    return None
 
 
 # ---------------------------------------------------------------------------
@@ -560,6 +728,5 @@ def chunked_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
         run_pass(reversed(range(n_w)), True, False, (W - H, 1), False)
     kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
     adj = fused_cols_pass(cv, adj, False, **kw)
-    if n_directions >= 16:
-        _add_knights(cv, adj, **kw)
-    return fused_cols_pass(cv, adj, True, **kw)
+    knights = _knight_stack(cv, adj, n_directions, None, **kw)
+    return fused_cols_pass(cv, adj, True, knights=knights, **kw)

@@ -791,6 +791,98 @@ def test_k4c_equals_plain(dev, shape, diag, reverse):
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+# The redesigned row sweep (K4b rows, K4c) and column scans at the main
+# paths' shapes (480x640x384: 8 ring stages of cv and acc; 720x1280x640:
+# 2 cv stages, acc loaded), a ragged width (D = 333, 11 parts a column),
+# H = 1, W < 132 (fewer blocks than SMs), and the direct-load instance that
+# a budget of the fit rule's bytes forces (one part, no stored minima)
+K4_CASES = {"wide": (480, 640, 384, None), "hd_wide": (720, 1280, 640, None),
+            "ragged": (37, 101, 333, None), "one_row": (1, 640, 384, None),
+            "narrow": (20, 100, 333, None),
+            "direct": (37, 101, 333, (2 * 3 + 2) * 333 * 4)}
+
+
+def _ten_runs(fn):
+    """fn() ten times, every run's tensors equal to the first's bit for
+    bit; returns the first run's."""
+    first = fn()
+    for _ in range(9):
+        for a, b in zip(first, fn()):
+            assert torch.equal(a, b)
+    return first
+
+
+@pytest.mark.parametrize("part", ["rows", "k4c", "cols", "wta"])
+@pytest.mark.parametrize("case", list(K4_CASES))
+def test_k4b_k4c_equal_plain_ten_runs(dev, case, part):
+    """K4b's row sweeps (fresh and accumulating, down and up, with a
+    column offset), K4c (rows [3, 3 + H) of H + 9, random carries in and
+    out), both column scans and the WTA scan, the reverse scans with and
+    without a stack of 1 and 8 knight volumes, equal to their plain
+    versions with `torch.equal`, ten runs each with the same bits."""
+    H, W, D, budget = K4_CASES[case]
+    g = torch.Generator(device=dev).manual_seed(H + W + D)
+    cv = torch.rand((H, W, D), generator=g, device=dev) * 3
+    acc = torch.rand((H, W, D), generator=g, device=dev)
+    kw = dict(col0=3, W_pout=W + 5, P1=0.3, P2=1.1, Pout=7.0)
+    if part == "rows":
+        for rev in (False, True):
+            for a in (None, acc):
+                want = lane.fused_rows_pass_plain(
+                    cv, None if a is None else a.clone(), rev, True, **kw)
+                before = lane.fused_rows_pass.launches
+                got = _ten_runs(lambda: (lane.fused_rows_pass(
+                    cv, None if a is None else a.clone(), rev, True,
+                    budget=budget, **kw),))
+                assert lane.fused_rows_pass.launches == before + 10
+                assert torch.equal(got[0], want), (rev, a is None)
+    elif part == "k4c":
+        carries = torch.rand((3, W, D), generator=g, device=dev) * 2
+        for rev in (False, True):
+            for a in (None, acc):
+                args = (carries, 3, H + 9, rev, True)
+                want = lane.fused_rows_shard_pass_plain(
+                    cv, None if a is None else a.clone(), *args, **kw)
+                got = _ten_runs(lambda: lane.fused_rows_shard_pass(
+                    cv, None if a is None else a.clone(), *args,
+                    budget=budget, **kw))
+                assert torch.equal(got[0], want[0]), (rev, a is None)
+                assert torch.equal(got[1], want[1]), (rev, a is None)
+    else:
+        for n in (0, 1, 8):
+            k = (torch.rand((n, H, W, D), generator=g, device=dev)
+                 if n else None)
+            if part == "wta":
+                want = lane.fused_cols_wta_plain(cv, acc, 1, knights=k, **kw)
+                got = _ten_runs(lambda: lane.fused_cols_wta(
+                    cv, acc, 1, knights=k, **kw))
+                assert torch.equal(got[0], want[0]), n
+                assert torch.equal(got[1], want[1]), n
+                continue
+            for rev in ((False, True) if n == 0 else (True,)):
+                want = lane.fused_cols_pass_plain(cv, acc.clone(), rev,
+                                                  knights=k, **kw)
+                got = _ten_runs(lambda: (lane.fused_cols_pass(
+                    cv, acc.clone(), rev, knights=k, **kw),))
+                assert torch.equal(got[0], want), (n, rev)
+            del k
+
+
+def test_fused_adj_sixteen_stack_equals_in_place(dev):
+    """`fused_adj` with 16 directions: the knight volumes as a stack that
+    the last scan sums (the card's form where they fit) equal the in-place
+    adds bit for bit, volume and WTA, with two K2k launches a call."""
+    cv = torch.rand(30, 140, 333, device=dev) * 3
+    args = (cv, 1, 143, 0.3, 1.1, 7.0, 16)
+    before = knight_volumes.launches
+    assert torch.equal(lane.fused_adj(*args, one_launch=True),
+                       lane.fused_adj(*args, one_launch=False))
+    assert knight_volumes.launches == before + 2 + 16
+    for a, b in zip(lane.fused_adj(*args, wta_radius=1, one_launch=True),
+                    lane.fused_adj(*args, wta_radius=1, one_launch=False)):
+        assert torch.equal(a, b)
+
+
 def _shards(x, sizes):
     return list(x.split(sizes))
 

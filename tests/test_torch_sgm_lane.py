@@ -322,3 +322,114 @@ def test_fused_adj_returns_none_past_its_budget():
     with pytest.raises(ValueError):
         lane.fused_adj(cv, 0, 20, 0.1, 0.5, 100.0, 8, wta_radius=1,
                        separate=True)
+
+
+@pytest.mark.parametrize("wta", [False, True])
+@pytest.mark.parametrize("n", [0, 1, 8])
+def test_cols_knight_stack_equals_in_place_adds(n, wta):
+    """The last column scan's plain version with a stack of n knight
+    volumes (summed as the scan reads them) against the n in-place adds
+    followed by the scan without a stack: equal bit for bit, for the plain
+    reverse scan and for the WTA scan."""
+    H, W, D = 6, 11, 37
+    g = torch.Generator().manual_seed(n)
+    cv = torch.rand((H, W, D), generator=g) * 3
+    acc = torch.rand((H, W, D), generator=g)
+    knights = torch.rand((n, H, W, D), generator=g) if n else None
+    kw = dict(col0=2, W_pout=W + 4, P1=P1, P2=P2, Pout=POUT)
+    summed = acc.clone()
+    for k in (knights if n else []):
+        summed.add_(k)
+    if wta:
+        want = lane.fused_cols_wta_plain(cv, summed, 1, **kw)
+        got = lane.fused_cols_wta(cv, acc, 1, knights=knights, **kw)
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    else:
+        want = lane.fused_cols_pass_plain(cv, summed, True, **kw)
+        got = lane.fused_cols_pass(cv, acc.clone(), True, knights=knights,
+                                   **kw)
+        assert torch.equal(got, want)
+
+
+def test_sixteen_directions_stack_form_matches_jax():
+    """The 16-direction lane route with the knight volumes as a stack that
+    the last scan sums (`fused_adj(..., one_launch=True)`, the card's form
+    where the 8 volumes fit) against JAX's XLA path at 1e-4, and against
+    the in-place form bit for bit; its WTA scan gives the in-place form's
+    idx and bands."""
+    cv = _cv(14, (9, 14, 330))
+    t = torch.from_numpy(cv)
+    stack = lane.fused_adj(t, 0, 14, P1, P2, POUT, 16, one_launch=True)
+    in_place = lane.fused_adj(t, 0, 14, P1, P2, POUT, 16, one_launch=False)
+    assert torch.equal(stack, in_place)
+    want = np.asarray(j_sgm(jnp.asarray(cv), P1, P2, Pout=POUT,
+                            n_directions=16, backend="xla"))
+    np.testing.assert_allclose(cv + stack.numpy(), want, **TOL)
+    for a, b in zip(lane.fused_adj(t, 0, 14, P1, P2, POUT, 16, wta_radius=1,
+                                   one_launch=True),
+                    lane.fused_adj(t, 0, 14, P1, P2, POUT, 16, wta_radius=1,
+                                   one_launch=False)):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("W,D,acc,want", [
+    # 480x640 D=384: 5 columns a block, 4 parts of 3 slices a column (20
+    # warps), 8 stages of cv and acc slabs
+    (640, 384, True, (5, 4, 8, True, True, 172880)),
+    (640, 384, False, (5, 4, 8, False, True, 111312)),
+    # 720x1280 D=640: the carries take 155 KiB; 2 cv stages, acc loaded
+    (1280, 640, True, (10, 2, 2, False, True, 210464)),
+    (1280, 640, False, (10, 2, 2, False, True, 210464)),
+    # 1280 wide at D=900: the carries fit, no stage does (direct loads)
+    (1280, 900, True, (10, 2, 0, False, True, 223696)),
+    # a ragged width, 11 parts of one slice (D = 333)
+    (101, 333, True, (1, 11, 8, True, True, 32912)),
+])
+def test_row_layout(W, D, acc, want):
+    """K4b's row-sweep layout (`row_layout`) is a pure function of the
+    geometry: parts a column, ring stages and bytes at the shapes the
+    main paths give it, and a geometry where no ring stage fits."""
+    got = lane.row_layout(W, D, 8, acc)
+    assert tuple(got) == want and lane.row_layout(W, D, 8, acc) == got
+    assert got.smem <= lane.SMEM_BLOCK
+
+
+def test_row_layout_budget_and_column_layout():
+    """A budget of just the fit rule's bytes forces the direct-load
+    instance with one part and no stored minima; past the rule there is no
+    layout.  The column scans' layout (`cols_layout`): 4 warps a line, 8
+    stages at 480x640x384, 3 with the 8 knight vectors, 2 at 720x1280x640
+    with them, 0 where not one stage fits."""
+    rule = (2 * 3 + 2) * 333 * 4
+    assert tuple(lane.row_layout(101, 333, 8, True, budget=rule)) == \
+        (1, 1, 0, False, False, rule)
+    assert lane.row_layout(101, 333, 8, True, budget=rule - 4) is None
+    assert lane.row_layout(3840, 384, 8, True) is None
+    assert tuple(lane.cols_layout(480, 384, 0, False)) == (4, 8, 27936)
+    assert tuple(lane.cols_layout(480, 384, 8, True)) == (4, 3, 52768)
+    assert tuple(lane.cols_layout(720, 640, 8, True)) == (4, 2, 61824)
+    assert tuple(lane.cols_layout(720, 640, 0, False)) == (4, 6, 36064)
+    assert lane.cols_layout(480, 5800, 8, True).stages == 0
+    assert lane.cols_layout(480, 5, 0, True).parts == 1
+
+
+@pytest.mark.parametrize("H,W,D,n_dirs,want", [
+    (480, 640, 384, 8, True), (720, 1280, 640, 8, True),
+    (720, 1280, 900, 8, True), (720, 1280, 950, 8, False),
+    (2160, 3840, 384, 8, False), (2160, 3840, 384, 4, True),
+])
+def test_fused_fits_unchanged(H, W, D, n_dirs, want):
+    """The K4b / K4d rule is what it was: (2 * 3 * ceil(W / 132) + 2) * D
+    * 4 bytes within 227 KiB (2 * ceil(W / 132) * D * 4 for 4
+    directions)."""
+    assert lane.fused_fits(W, D, n_dirs) is want
+
+
+def test_lane_probe_instruments_the_current_source():
+    """`lane_probe` (the card's per-phase cycle counts of K4b / K4c) patches
+    a copy of `csrc/sgm_lane.cu`: every anchor is found once, so the probe
+    stays in step with the kernels, and 12 phase marks go in (6 in the row
+    sweep, 6 in the column scans)."""
+    from libstevi_tpu_torch import lane_probe
+    src = lane_probe.instrumented_source()
+    assert src.count("PHASE(") == 13 and "probe_read" in src
