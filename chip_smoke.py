@@ -23,8 +23,11 @@ the 480x640x120 NCC volume; the lane-layout SGM kernels past D = 320,
 bitwise: K4a shear / unshear (both signs), K4b's row sweeps, column scans
 and WTA scan at the wide path's 480x640x384 f32 volume, at 37x101x333 and
 (after the HD wide path) at its 720x1280x640 volume, with the
-separate-accumulation mode within 1e-4, and K4d's four chunked sweeps at
-40x300x352 with 32-column chunks; and K1 at D=640, bit for bit.  The
+separate-accumulation mode within 1e-4, and K4d's four sweep kinds (one
+launch each, all chunks) at 40x300x352 with the card's chunk width and with
+150 chunks, more than the SMs; K4d's sweeps, K4b's forward and WTA column
+scans and K2k's knights at 6x40x29000, past a block's shared memory (their
+carries in global memory); and K1 at D=640, bit for bit.  The
 redesigned K4b row sweep, K4c and the column scans (with a stack of 0, 1
 and 8 knight volumes) are held bitwise, two runs equal, at 480x640x384,
 720x1280x640, 37x101x333, H = 1, W < 132 and in the direct-load instance,
@@ -53,13 +56,21 @@ each with the launch counts set to 0 just before it and read just after:
   held to the plain route's on the card (no bar: no PARITY row at D=384);
 - HD wide (`entry.hd_wide_forward`: 720x1280, D=640), K4b again, since its
   carries fit on chip too (155 KiB a block), on a random pair;
-- K4d at full size: `sgm_lane_cuda.chunked_adj` called directly on the HD
-  D=640 volume, then WTA and subpixel (no public entry takes K4d at that
-  size on an H100); it and `fused_adj` are held to the plain direction sum
-  on the card at 1e-4;
+- K4d at HD wide size: `sgm_lane_cuda.chunked_adj` called directly on the
+  HD D=640 volume (4 launches), then WTA and subpixel, and again ending in
+  K4b's WTA scan, held to that chain's indices off near-ties (no public
+  entry takes K4d at that size on an H100); it and `fused_adj` are held to
+  the plain direction sum on the card at 1e-4;
 - the route cross-check: on the fixtures at D=120 f32, `fused_adj` and a
-  forced `chunked_adj` equal K2's direction sum and give the K2/K3
-  route's idx off near-ties, each held to the `zncc_sgm8_f32` bars;
+  forced `chunked_adj` equal K2's direction sum and, ending in the WTA
+  scan, give the K2/K3 route's idx off near-ties, each held to the
+  `zncc_sgm8_f32` bars;
+- 4K UHD (`entry.uhd_wide_forward`: 2160x3840, D=384, f32, SGM-8) on a
+  random pair: K1 1, K4d 4, K4b's rows 0, column scans 2 launches, the
+  parabola held as on the other random pairs, its frame time, peak memory
+  and profile; K4d's four sweeps on that volume bitwise against their
+  plain version, and timed; K4b's forward, WTA and reverse column scans on
+  the K4d sums and K1 on that pair, bitwise;
 - the distributed paths (`libstevi_tpu_torch.parallel`) on 8 virtual
   shards of the card, after K2s (on a 60x640x120 row shard and a
   480x80x120 column shard), K4c (on a 120x640x384 row shard), the any-D
@@ -90,9 +101,11 @@ accumulator) from 480x640 to 2160x3840 with their peak memory and equal
 outputs, and K3's two forms on SGM-16 (over the 15 volumes, or over their
 sum), times K1's call, the flagship frame with its device items, the two
 SGM-16 frames with theirs, K2k, K3, the distributed SGM-16 frame, the
-wide and HD wide frames with their device items, K4b and K4c's relays as
-the checkout runs them (and, with ``--parent DIR``, a checkout of another
-commit, that one's too, in turns: parent, change, change, parent), and
+wide and HD wide frames with their device items, K4b, K4c's relays, K4d's
+`chunked_adj` at 480x640x384 and the 4K UHD frame as the checkout runs them
+(and, with ``--parent DIR``, a checkout of another commit, that one's too,
+in turns: parent, change, change, parent; first, while the card is empty),
+and
 prints one JSON line of kernel records (each with its
 least time on the card, ``bound_ms``, from this run's shapes), the card's
 name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
@@ -289,6 +302,19 @@ def peak_bytes(fn):
     fn()
     torch.cuda.synchronize()
     return torch.cuda.max_memory_allocated() - base
+
+
+def k4d_four_sweeps(cv, adj, cw, plain=False):
+    """`chunked_adj`'s four 8-direction sweeps into ``adj`` (the first one
+    writes) at chunk width ``cw``: K4d (one launch each) or, with
+    ``plain``, the sweep-level plain version."""
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    H, W, _ = cv.shape
+    fn = lane.chunked_sweep_plain if plain else lane.chunked_sweep
+    for k, sweep in enumerate(lane.chunk_sweeps(H, W, 8).values()):
+        fn(cv, adj, cw=cw, col0=0, W_pout=W, P1=P1, P2=P2, Pout=POUT,
+           accumulate=k > 0, **sweep)
+    return adj
 
 
 # K2's two forms across frame sizes (bf16 volumes): the flagship, HD, full
@@ -822,12 +848,12 @@ L, R = (torch.from_numpy(rng.uniform(0, 1, (480, 640)).astype(np.float32))
         .cuda() for _ in range(2))
 ZNCC, Q = MatchingFunction.ZNCC, (0.1, 0.5, 100.0)
 
-def med(fn):
-    for _ in range(3):
+def med(fn, warm=3, reps=5):
+    for _ in range(warm):
         fn()
     torch.cuda.synchronize()
     ts = []
-    for _ in range(5):
+    for _ in range(reps):
         a = torch.cuda.Event(enable_timing=True)
         b = torch.cuda.Event(enable_timing=True)
         a.record()
@@ -845,6 +871,19 @@ def frame(fn):
         [name, round(us, 1), round(n, 1)] for name, (us, n) in top]
 
 out = {}
+# the 4K UHD frame first, while the card is empty (a chain that holds the
+# SGM volume takes ~64 GB): the tree's entry, or the same configuration
+# through dense_sgm_stereo where a tree has none (1 warm-up and 2 frames
+# there: its K4d ran the chunks in series, ~7 s a frame)
+L4, R4 = (torch.from_numpy(np.random.default_rng(4).uniform(
+    0, 1, (2160, 3840)).astype(np.float32)).cuda() for _ in range(2))
+if hasattr(entry, "uhd_wide_forward"):
+    out["uhd_ms"] = med(lambda: entry.uhd_wide_forward(L4, R4))
+else:
+    out["uhd_ms"] = med(lambda: dense_sgm_stereo(ZNCC, L4, R4, **entry.WIDE),
+                        warm=1, reps=2)
+del L4, R4
+torch.cuda.empty_cache()
 out["k1_ms"] = med(lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
                                   True))
 (out["frame_ms"], out["busy_ms"], out["device_items"],
@@ -880,6 +919,8 @@ out["k3_ms"] = med(lambda: sc.sgm_wta(cv, stack, *Q, 1, 3, 3, True))
 del stack, acc, acc_w
 # K4b as the wide frame runs it: fused_adj with WTA at 480x640x384
 out["k4b_ms"] = med(lambda: lane.fused_adj(cvw, 0, 640, *Q, 8, wta_radius=1))
+# K4d: the whole chunked_adj at 480x640x384 (no entry takes it there)
+out["k4d_ms"] = med(lambda: lane.chunked_adj(cvw, 0, 640, *Q, 8))
 del cvw
 g = torch.Generator(device="cuda").manual_seed(21)
 sh8 = list((torch.rand((480, 640, 120), generator=g, device="cuda") * 4)
@@ -977,8 +1018,12 @@ def parent_and_change(parent, smi):
               f"wide 720x1280 D=640 {mean['hd_wide']:.3f} ms (busy "
               f"{mean['hd_wide_busy']:.3f}); K4b fused_adj + WTA "
               f"480x640x384 {mean['k4b_ms']:.3f} ms; K4c relays 4 x "
-              f"120x640x384 {mean['k4c_ms']:.3f} ms (CUDA events, median of "
-              f"5 a run; {smi})", flush=True)
+              f"120x640x384 {mean['k4c_ms']:.3f} ms; K4d chunked_adj "
+              f"480x640x384 {mean['k4d_ms']:.3f} ms; 4K UHD frame "
+              f"2160x3840 D=384 {mean['uhd_ms']:.3f} ms (CUDA events, median "
+              f"of 5 a run after 3 warm-ups; a tree without "
+              f"entry.uhd_wide_forward: its 4K frame median of 2 after 1; "
+              f"{smi})", flush=True)
     if not parent:
         print("time: parent not given (--parent DIR, a checkout of the "
               "parent commit)", flush=True)
@@ -1020,8 +1065,9 @@ def main(argv=None) -> int:
     from libstevi_tpu_torch.ops.sgm_cuda import (add_knight_volumes,
                                                  knight_volumes,
                                                  knight_volumes_plain,
-                                                 sgm_pass, sgm_pass_plain,
-                                                 sgm_wta, sgm_wta_plain)
+                                                 ring_fits, sgm_pass,
+                                                 sgm_pass_plain, sgm_wta,
+                                                 sgm_wta_plain)
     from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
     from libstevi_tpu_torch.ops.refinement import (
         InterpolationKernel, refine_disp_cost_interpolation)
@@ -1031,6 +1077,7 @@ def main(argv=None) -> int:
     from libstevi_tpu_torch.statistics import prop_good, inlier_mae
 
     dev = torch.device("cuda")
+    n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smi = card()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}",
           flush=True)
@@ -1050,6 +1097,9 @@ def main(argv=None) -> int:
               flush=True)
         for line in spills:
             print(f"    {line}", flush=True)
+    # the checkouts' timing first, while this process holds no volume: a
+    # parent's 4K frame holds ~64 GB of the card
+    parent_and_change(parent, smi)
 
     ZNCC = MatchingFunction.ZNCC
     R2L = SgmDirection.RIGHT2LEFT
@@ -1393,35 +1443,73 @@ def main(argv=None) -> int:
     k4b_check(box_cv(ZNCC, Lo, Ro, 3, 3, 333, torch.float32, negate=True),
               "37x101x333 f32, col0 2, W_pout 106", col0=2, W_pout=106)
 
-    # K4d: the four sweeps of `chunked_adj`'s table on the first, a middle
-    # and the last (12-column) chunk, from a random history; then the whole
-    # `chunked_adj` with 32-column chunks against the plain direction sum
+    # K4d: each of `chunked_adj`'s four sweep kinds in one launch, writing
+    # and adding, with the card's chunk width (3 columns, 100 chunks) and
+    # with 2 columns (150 chunks, more than the SMs: the ticket order),
+    # bitwise against the sweep-level plain version at the widest chunk,
+    # twice; then the whole `chunked_adj` (cw 32: 4 launches) against the
+    # plain direction sum
     Lo, Ro = pair(40, 300, 16, dev)
     cvo = box_cv(ZNCC, Lo, Ro, 3, 3, 352, torch.float32, negate=True)
-    g4 = torch.Generator(device=dev).manual_seed(17)
-    for rev, down, corner, vert in ((False, True, (0, 1), True),
-                                    (True, True, (39, -1), True),
-                                    (False, False, (299, -1), False),
-                                    (True, False, (260, 1), False)):
-        for c0 in (0, 128, 288):
-            adj0 = torch.rand(cvo.shape, generator=g4, device=dev)
-            hist = torch.rand((40, 352), generator=g4, device=dev)
+    acc_o = torch.rand(cvo.shape, device=dev,
+                       generator=torch.Generator(device=dev).manual_seed(17))
+    cws = (lane.chunk_width(352, 8, 300, n_sms), 2)
+    for kind, k4d_sweep in lane.chunk_sweeps(40, 300, 8).items():
+        for accumulate in (False, True):
             kw = dict(col0=0, W_pout=300, P1=P1, P2=P2, Pout=POUT,
-                      reverse=rev, shift_down=down, corner_c0=corner[0],
-                      corner_slope=corner[1], with_vertical=vert,
-                      with_diag=True, accumulate=c0 > 0)
-            wc = min(32, 300 - c0)
-            adj_p = adj0.clone()
-            h_k = lane.chunked_pass(cvo, adj0, hist, c0, wc, **kw)
-            h_p = lane.chunked_pass_plain(cvo, adj_p, hist, c0, wc, **kw)
-            err["K4d"] = max(err["K4d"], exact(adj0, adj_p, (rev, down, c0)),
-                             exact(h_k, h_p, (rev, down, c0, "history")))
+                      accumulate=accumulate, **k4d_sweep)
+            want = lane.chunked_sweep_plain(cvo, acc_o.clone(), cw=300, **kw)
+            for cw in cws + cws:
+                got = lane.chunked_sweep(cvo, acc_o.clone(), cw=cw, **kw)
+                err["K4d"] = max(err["K4d"], exact(got, want,
+                                                   (kind, accumulate, cw)))
+    del got, want, acc_o
+    before = lane.chunked_sweep.launches
     e4d = close(lane.chunked_adj(cvo, 0, 300, P1, P2, POUT, 8, cw=32),
                 _grouped_adj(cvo, P1, P2, POUT, 8, 0, 300))
-    print(f"K4d 40x300x352 f32: four chunked sweeps on chunks at c0 = 0, "
-          f"128, 288 equal their plain versions bitwise (adj and history "
-          f"out); chunked_adj (cw 32) within {e4d:.3g} of the plain "
-          f"direction sum (the XLA grouping)", flush=True)
+    assert lane.chunked_sweep.launches == before + 4
+    print(f"K4d 40x300x352 f32: the four sweep kinds, writing and adding, "
+          f"at {cws[0]} columns a chunk ({-(-300 // cws[0])} chunks) and at "
+          f"2 (150 chunks, more than the {n_sms} SMs), one launch each, "
+          f"equal their plain version bitwise, twice; chunked_adj (cw 32, "
+          f"4 launches) within {e4d:.3g} of the plain direction sum (the "
+          f"XLA grouping)", flush=True)
+
+    # the lane kernels past a block's shared memory, their carries in
+    # global memory (the lane route takes any D, as the JAX package's XLA
+    # path does): at D = 29000 K4d's four sweeps (one column a chunk), K4b's
+    # forward and WTA column scans and K2k's 8 knights, each against its
+    # plain version bitwise
+    DS = 29000
+    gs = torch.Generator(device=dev).manual_seed(18)
+    cvs = torch.rand((6, 40, DS), device=dev, generator=gs) * 3
+    acc_s = torch.rand(cvs.shape, device=dev, generator=gs)
+    cws = lane.chunk_width(DS, 8, 40, n_sms)
+    assert lane.chunk_layout(DS, cws, True, True).spill
+    assert lane.cols_spills(DS, False) and lane.cols_spills(DS, True)
+    assert not ring_fits(DS)
+    err["K4d"] = max(err["K4d"], exact(
+        k4d_four_sweeps(cvs, torch.empty_like(cvs), cws),
+        k4d_four_sweeps(cvs, torch.empty_like(cvs), 40, plain=True),
+        "K4d global carries"))
+    kw = dict(col0=0, W_pout=40, P1=P1, P2=P2, Pout=POUT)
+    err["K4b"] = max(err["K4b"], exact(
+        lane.fused_cols_pass(cvs, acc_s.clone(), False, **kw),
+        lane.fused_cols_pass_plain(cvs, acc_s.clone(), False, **kw),
+        "K4b forward scan, global carries"))
+    i_s, b_s = lane.fused_cols_wta(cvs, acc_s, 1, **kw)
+    i_p, b_p = lane.fused_cols_wta_plain(cvs, acc_s, 1, **kw)
+    assert torch.equal(i_s, i_p), "K4b WTA scan idx, global carries"
+    err["K4b"] = max(err["K4b"], exact(b_s, b_p, "K4b WTA bands, global"))
+    err["K2k any-D"] = exact(
+        knight_volumes(cvs, _KNIGHT_DIRS, P1, P2, POUT),
+        knight_volumes_plain(cvs, _KNIGHT_DIRS, P1, P2, POUT),
+        "K2k knights, global carries")
+    del cvs, acc_s, i_s, b_s, i_p, b_p
+    print(f"lane kernels at 6x40x{DS} f32, their carries in global memory "
+          f"(past a block's shared memory): K4d's four sweeps ({cws} column "
+          f"a chunk), K4b's forward and WTA column scans and K2k's 8 knight "
+          f"volumes equal their plain versions bitwise", flush=True)
 
     # -- the main path: three full-size pairs --------------------------------
     pairs = {}
@@ -1527,12 +1615,12 @@ def main(argv=None) -> int:
     # -- the wide path: 480x640, D=384, f32, SGM-8 (K1 x2, K4b) --------------
     LANE_K4B = (lane.fused_rows_pass, lane.fused_cols_pass,
                 lane.fused_cols_wta)
-    LANE = LANE_K4B + (lane.chunked_pass, lane.shift_rows)
+    LANE = LANE_K4B + (lane.chunked_sweep, lane.shift_rows)
 
     def lane_launches():
         return {"K1": box_cv.launches, "K4a": lane.shift_rows.launches,
                 "K4b": sum(fn.launches for fn in LANE_K4B),
-                "K4d": lane.chunked_pass.launches,
+                "K4d": lane.chunked_sweep.launches,
                 "K2": sgm_pass.launches, "K3": sgm_wta.launches}
 
     def wide_plain(cv, r=1):
@@ -1624,12 +1712,30 @@ def main(argv=None) -> int:
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     k4d_launches = lane_launches()
-    print(f"K4d path {HH}x{HW}x{HD} f32 (chunk width "
-          f"{lane.chunk_width(HD)}): {wall:.3f} s host wall (first call), "
+    cw_hd = lane.chunk_width(HD, 8, HW, n_sms)
+    print(f"K4d path {HH}x{HW}x{HD} f32 (chunk width {cw_hd}, "
+          f"{-(-HW // cw_hd)} chunks): {wall:.3f} s host wall (first call), "
           f"launches {k4d_launches}", flush=True)
-    assert k4d_launches["K4d"] > 0, k4d_launches
+    # one launch a sweep (the chunks in series took 236)
+    assert k4d_launches["K4d"] == 4, k4d_launches
     check_random("K4d HD random", disp_hd, idx_hd, HD)
-    del C, bands_hd, tcv_hd, disp_hd, idx_hd
+    # the route ending in K4b's WTA scan (`sgm_wta_truncated`'s form)
+    # against the chain's tie-last argmin on cv + adj, off near-ties
+    two = torch.topk(C, 2, dim=-1, largest=False).values
+    clear = (two[..., 1] - two[..., 0]) > 1e-4
+    del C, two, tcv_hd, disp_hd
+    idx_w, bands_w = lane.chunked_adj(cv_hd, 0, HW, P1, P2, POUT, 8,
+                                      wta_radius=1)
+    same = idx_w == idx_hd
+    assert torch.equal(idx_w[clear], idx_hd[clear])
+    agree = same.float().mean().item()
+    assert agree >= 0.999, agree
+    fin = same[..., None] & torch.isfinite(bands_hd)
+    e_wta = close(bands_w[fin], bands_hd[fin])
+    print(f"  K4d route with the WTA scan: idx equal to the chain's off "
+          f"near-ties, agree {agree:.6f}, bands within {e_wta:.3g}",
+          flush=True)
+    del bands_hd, idx_hd, idx_w, bands_w, same, clear, fin
     # both lane routes against the plain direction sum (the XLA grouping,
     # another sum order) on the card
     ref_hd = _grouped_adj(cv_hd, P1, P2, POUT, 8, 0, HW)
@@ -1651,11 +1757,12 @@ def main(argv=None) -> int:
         two = torch.topk(cvf + ref, 2, dim=-1, largest=False).values
         clear = (two[..., 1] - two[..., 0]) > 1e-4
         e_f = close(lane.fused_adj(cvf, 0, 640, P1, P2, POUT, 8), ref)
-        adj_c = lane.chunked_adj(cvf, 0, 640, P1, P2, POUT, 8, cw=64)
-        e_c = close(adj_c, ref)
+        e_c = close(lane.chunked_adj(cvf, 0, 640, P1, P2, POUT, 8, cw=64),
+                    ref)
         routes = {"K4b": lane.fused_adj(cvf, 0, 640, P1, P2, POUT, 8,
                                         wta_radius=1),
-                  "K4d": wta_bands(cvf + adj_c, 1)}
+                  "K4d": lane.chunked_adj(cvf, 0, 640, P1, P2, POUT, 8,
+                                          cw=64, wta_radius=1)}
         for route, (idx_r, bands_r) in routes.items():
             agree = (idx_r == idx_k).float().mean().item()
             assert torch.equal(idx_r[clear], idx_k[clear]), (name, route)
@@ -1668,6 +1775,92 @@ def main(argv=None) -> int:
                   f"{e_f if route == 'K4b' else e_c:.3g} of K2's sum, idx "
                   f"agree with K2/K3 {agree:.6f}", flush=True)
             check_bars(f"{name} via {route}", disp_r, gt, F32_BARS[name])
+
+    # -- 4K UHD: 2160x3840, D=384, f32, SGM-8 (K1, K4d, K4b's scans) -------
+    # K4b's carries do not fit on chip at this width (`fused_fits`), so the
+    # entry runs K1 (one launch), K4d's four one-launch sweeps and K4b's two
+    # column scans, the last one fused with the WTA
+    from libstevi_tpu_torch.profile_frames import profile_frame
+    UH, UW = entry.UHD_HEIGHT, entry.UHD_WIDTH
+    assert not lane.fused_fits(UW, WD, 8, n_sm=n_sms)
+    L4, R4 = pair(UH, UW, 25, dev)
+    reset(box_cv, *LANE, *K2K_COUNTERS)
+    t0 = time.perf_counter()
+    d4 = entry.uhd_wide_forward(L4, R4)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    uhd_launches = dict(lane_launches(),
+                        rows=lane.fused_rows_pass.launches,
+                        cols=lane.fused_cols_pass.launches,
+                        wta=lane.fused_cols_wta.launches)
+    cw4 = lane.chunk_width(WD, 8, UW, n_sms)
+    print(f"4K UHD path {UH}x{UW}x{WD} f32 (entry.uhd_wide_forward; K4d "
+          f"chunk width {cw4}, {-(-UW // cw4)} chunks): {wall:.3f} s host "
+          f"wall (first call), launches {uhd_launches}", flush=True)
+    assert (uhd_launches["K1"], uhd_launches["K4d"], uhd_launches["rows"],
+            uhd_launches["cols"], uhd_launches["wta"]) == (1, 4, 0, 1, 1), \
+        uhd_launches
+    assert d4.shape == (UH, UW) and d4.dtype == torch.float32
+    _, i4, t4 = dense_sgm_stereo(ZNCC, L4, R4, **entry.WIDE)
+    assert torch.equal(torch.nan_to_num(d4, 9.0), torch.nan_to_num(
+        refine_disp_cost_interpolation(InterpolationKernel.PARABOLA, t4, i4),
+        9.0))
+    check_random("4K UHD random", d4, i4, WD)
+    del d4, i4, t4
+    uhd = lambda: entry.uhd_wide_forward(L4, R4)  # noqa: E731
+    uhd_ms = median_ms(uhd)
+    uhd_peak = peak_bytes(uhd)
+    busy, items = profile_frame(uhd, 3)
+    top = sorted(items.items(), key=lambda kv: -kv[1][0])[:5]
+    print(f"time: 4K UHD frame {UH}x{UW} D={WD} f32 SGM-8 (K1, K4d, K4b's "
+          f"scans): {uhd_ms:.3f} ms (median of 5 after a warm-up; {smi}); "
+          f"memory: peak {uhd_peak / 1e9:.3f} GB above the inputs; profile "
+          f"(3 frames): device busy {busy / 1e3:.3f} ms a frame, idle "
+          f"{1 - busy / 1e3 / uhd_ms:.3f}, top items (name, us a frame, "
+          f"launches a frame) {[[n, round(u, 1), round(k, 1)] for n, (u, k) in top]}",
+          flush=True)
+    # K4d at the main path's shape: its four sweeps on this pair's volume,
+    # kernel against the sweep-level plain version (one chunk of the whole
+    # width: the same bits), bitwise; then timed in turns (plain, kernel,
+    # kernel, plain; the plain version once a turn, ~2 s)
+    cv4 = box_cv(ZNCC, L4, R4, 3, 3, WD, torch.float32, negate=True)
+    adj4 = k4d_four_sweeps(cv4, torch.empty_like(cv4), cw4)
+    err["K4d"] = max(err["K4d"], exact(
+        adj4, k4d_four_sweeps(cv4, torch.empty_like(cv4), UW, plain=True),
+        "K4d 4K sweeps"))
+    p1_ = median_ms(lambda: k4d_four_sweeps(cv4, adj4, UW, plain=True), 1, 0)
+    k1_, k2_ = (median_ms(lambda: k4d_four_sweeps(cv4, adj4, cw4))
+                for _ in range(2))
+    p2_ = median_ms(lambda: k4d_four_sweeps(cv4, adj4, UW, plain=True), 1, 0)
+    k4d_ms = ((k1_ + k2_) / 2, (p1_ + p2_) / 2)
+    print(f"K4d {UH}x{UW}x{WD} f32: the four sweeps (4 launches, {cw4} "
+          f"columns a chunk) equal the plain version bitwise; time: kernel "
+          f"{k4d_ms[0]:.3f} ms vs plain {k4d_ms[1]:.3f} ms (kernel median "
+          f"of 5, plain 1, twice each; {smi})", flush=True)
+    # K4b's column scans at the main path's shape, on the K4d sums: the
+    # forward scan and the WTA scan (the path's two), then the reverse
+    # scan, each against its plain version bit for bit
+    kw = dict(col0=0, W_pout=UW, P1=P1, P2=P2, Pout=POUT)
+    got = lane.fused_cols_pass(cv4, adj4.clone(), False, **kw)
+    adj4 = lane.fused_cols_pass_plain(cv4, adj4, False, **kw)
+    err["K4b"] = max(err["K4b"], exact(got, adj4, "K4b 4K forward scan"))
+    del got
+    i_k, b_k = lane.fused_cols_wta(cv4, adj4, 1, **kw)
+    i_p, b_p = lane.fused_cols_wta_plain(cv4, adj4, 1, **kw)
+    assert torch.equal(i_k, i_p), "K4b 4K WTA idx"
+    err["K4b"] = max(err["K4b"], exact(b_k, b_p, "K4b 4K WTA bands"))
+    del i_k, b_k, i_p, b_p
+    got = lane.fused_cols_pass(cv4, adj4.clone(), True, **kw)
+    adj4 = lane.fused_cols_pass_plain(cv4, adj4, True, **kw)
+    err["K4b"] = max(err["K4b"], exact(got, adj4, "K4b 4K reverse scan"))
+    del got, cv4, adj4
+    print(f"K4b {UH}x{UW}x{WD} f32: the forward, WTA and reverse column "
+          f"scans on the K4d sums equal their plain versions bitwise",
+          flush=True)
+    # K1 at the main path's shape: statistics and volume, bit for bit
+    k1_exact(L4, R4, WD, (torch.float32,), f"{UH}x{UW}x{WD}")
+    del L4, R4, uhd
+    torch.cuda.empty_cache()
 
     # -- the CLI, as a subprocess, SGM-16 on the warp fixture ----------------
     with tempfile.TemporaryDirectory() as tmp:
@@ -1895,34 +2088,10 @@ def main(argv=None) -> int:
     })
     # the lane kernels at the wide path's volume (480x640x384 f32): K4a the
     # shear's window copy out of the padded volume, K4b the whole
-    # `fused_adj` with WTA, K4d the whole
-    # `chunked_adj` (chunk width 37; at this width K4b would take it)
+    # `fused_adj` with WTA (K4d is timed at 4K, in its path's phase)
     padded = torch.nn.functional.pad(cvw, (0, 0, WH - 1, WH), value=INF)
     sa = shear_args(WH, WW, False)
     wkw = dict(col0=0, W_pout=WW, P1=P1, P2=P2, Pout=POUT)
-
-    def k4d_plain():
-        cvc = cvw
-        adj = torch.empty_like(cvc)
-        cw = lane.chunk_width(WD)
-        n_w = -(-WW // cw)
-        zrow = cvc.new_zeros((1, WD))
-        for k, (rev, down, corner, vert, order) in enumerate((
-                (False, True, (0, 1), True, range(n_w)),
-                (True, True, (WH - 1, -1), True, range(n_w)),
-                (False, False, (WW - 1, -1), False, range(n_w - 1, -1, -1)),
-                (True, False, (WW - WH, 1), False, range(n_w - 1, -1, -1)))):
-            hist = cvc.new_zeros((WH, WD))
-            for w in order:
-                hout = lane.chunked_pass_plain(
-                    cvc, adj, hist, w * cw, min(cw, WW - w * cw), reverse=rev,
-                    shift_down=down, corner_c0=corner[0],
-                    corner_slope=corner[1], with_vertical=vert,
-                    with_diag=True, accumulate=k > 0, **wkw)
-                hist = (torch.cat([hout[1:], zrow]) if rev
-                        else torch.cat([zrow, hout[:-1]]))
-        adj = lane.fused_cols_pass_plain(cvc, adj, False, **wkw)
-        return lane.fused_cols_pass_plain(cvc, adj, True, **wkw)
 
     acc_s = torch.rand(cvw.shape, device=dev)
     kv_s = knight_volumes(cvw, KD, P1, P2, POUT)
@@ -1938,18 +2107,14 @@ def main(argv=None) -> int:
                                                   knights=kv_s, **wkw),
                       lambda: lane.fused_cols_wta_plain(cvw, acc_s, 1,
                                                         knights=kv_s, **wkw)),
-        "K4d": (lambda: lane.chunked_adj(cvw, 0, WW, P1, P2, POUT, 8),
-                k4d_plain),
     })
     assert torch.equal(shift_rows_gather(padded, *sa), lane.shear(cvw, False))
     lib_ms = median_ms(lambda: shift_rows_gather(padded, *sa))
     print(f"time: K4a library call (one torch.gather) {lib_ms:.3f} ms "
           f"(median of 5; {smi})", flush=True)
-    # the plain knight passes take ~1 s a run, the plain chunked sweeps
-    # several
-    plain_reps = {"K2x7": 3, "K2k": 2, "K3": 3, "K4b": 2, "K4b stack": 2,
-                  "K4d": 1}
-    ms = {}
+    # the plain knight passes take ~1 s a run
+    plain_reps = {"K2x7": 3, "K2k": 2, "K3": 3, "K4b": 2, "K4b stack": 2}
+    ms = {"K4d": k4d_ms}
     for name, (kern, plain) in jobs.items():
         # plain, kernel, kernel, plain: the two medians of each averaged
         n = plain_reps.get(name, 5)
@@ -1983,10 +2148,9 @@ def main(argv=None) -> int:
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
 
-    parent_and_change(parent, smi)
-
     d_err, d_launches, d_ms, d_bounds = distributed(dev, pairs, smi)
-    err.update(d_err)
+    for k, v in d_err.items():
+        err[k] = max(err.get(k, 0.0), v)
     ms.update(d_ms)
 
     records = [
@@ -2023,7 +2187,8 @@ def main(argv=None) -> int:
         ("K4b fused_cols_wta over the 8 knight volumes (SGM-16)",
          "libstevi_tpu_torch/csrc/sgm_lane.cu",
          "libstevi_tpu/ops/sgm_pallas.py:297", "K4b stack"),
-        ("K4d chunked_rows", "libstevi_tpu_torch/csrc/sgm_lane.cu",
+        ("K4d chunked_sweep (one launch a sweep, 4K UHD)",
+         "libstevi_tpu_torch/csrc/sgm_lane.cu",
          "libstevi_tpu/ops/sgm_pallas.py:586", "K4d"),
         ("K2s sgm_shard_pass/sgm_knight_shard_pass",
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
@@ -2042,9 +2207,9 @@ def main(argv=None) -> int:
     launches.update({k: launches16[k] for k in ("K2k", "K3")})
     launches["K2"] = margin_launches["K2"]
     # K4a is on no path (the JAX package calls it only in a test): its
-    # count is the wide path's, as K4b's; K4d's is the full-size K4d run's
+    # count is the wide path's, as K4b's; K4d's is the 4K UHD path's
     launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
-                    K4d=k4d_launches["K4d"])
+                    K4d=uhd_launches["K4d"])
     launches.update({k: d_launches[k]
                      for k in ("K2s", "K4c", "K2k any-D", "K2 any-D",
                                "K4b stack")})
@@ -2052,6 +2217,7 @@ def main(argv=None) -> int:
     # output written once, and their f32 operations
     HW1, N1 = 480 * 640, 480 * 640 * 120
     NW = WH * WW * WD
+    N4 = UH * UW * WD
     bounds = {
         # K1: the two images read, the bf16 volume written; separable sums
         # (7 products, 6 vertical and 6 horizontal adds an entry at 7x7)
@@ -2083,7 +2249,9 @@ def main(argv=None) -> int:
         # the DP step, the 8 knight adds and the C sum and min
         "K4b stack": bound(10 * NW * 4 + 4 * WH * WW * 4,
                            (SGM_OPS + 8 + 3) * NW),
-        "K4d": bound(2 * NW * 4, SGM_OPS * 8 * NW),
+        # the four sweeps at 4K: cv read once, adj written once; the six
+        # directions they carry
+        "K4d": bound(2 * N4 * 4, SGM_OPS * 6 * N4),
         **d_bounds,
     }
     library = {"K4a": lib_ms}

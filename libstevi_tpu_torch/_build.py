@@ -48,24 +48,25 @@ SIGNATURES = {
         # i0, H_img, stream
         "fused_rows_launch": [_P] * 7 + [_I] * 10 + [_F] * 3 + [_I] * 4
                              + [_P],
-        # cv, acc, knights, n_knights, out, idx, bands, H, W, D, col0,
-        # W_pout, P1, P2, Pout, reverse, r, wta, G, S, stream
-        "fused_cols_launch": [_P] * 3 + [_I] + [_P] * 3 + [_I] * 5
+        # cv, acc, knights, n_knights, out, idx, bands, spill, H, W, D,
+        # col0, W_pout, P1, P2, Pout, reverse, r, wta, G, S, stream
+        "fused_cols_launch": [_P] * 3 + [_I] + [_P] * 4 + [_I] * 5
                              + [_F] * 3 + [_I] * 5 + [_P],
-        # cv, acc, out, hin, hout, H, W, D, c0, Wc, col0, W_pout, P1, P2,
-        # Pout, reverse, shift_down, corner_c0, corner_slope,
-        # with_vertical, with_diag, accumulate, stream
-        "chunked_rows_launch": [_P] * 5 + [_I] * 7 + [_F] * 3 + [_I] * 7
-                               + [_P],
+        # cv, acc, out, hist, flags, spill, H, W, D, cw, G, use_mins, col0,
+        # W_pout, P1, P2, Pout, reverse, shift_down, corner_c0,
+        # corner_slope, with_vertical, with_diag, stream
+        "chunked_sweep_launch": [_P] * 6 + [_I] * 8 + [_F] * 3 + [_I] * 6
+                                + [_P],
     },
     "sgm_scan": {
         # cv, cv_bf16, acc, cin, cout, n, steps (2n ints: di, dj), H, W, D,
         # P1, P2, Pout, accumulate, col0, W_pout, i0, H_img, stream
         "sgm_pass_launch": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 3
                            + [_F] * 3 + [_I] * 5 + [_P],
-        # cv, cv_bf16, vol, cin, cout, n, steps (4n ints: v0, v1, h0, h1),
-        # H, W, D, phase, P1, P2, Pout, col0, W_pout, s0, N_img, stream
-        "sgm_knight_launch": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 4
+        # cv, cv_bf16, vol, cin, cout, spill, n, steps (4n ints: v0, v1,
+        # h0, h1), H, W, D, phase, P1, P2, Pout, col0, W_pout, s0, N_img,
+        # stream
+        "sgm_knight_launch": [_P, _I, _P, _P, _P, _P, _I, _P] + [_I] * 4
                              + [_F] * 3 + [_I] * 4 + [_P],
         # cv, cv_bf16, acc, n_acc, idx, bands, disp, H, W, D, P1, P2, Pout,
         # r, h_radius, v_radius, stream

@@ -16,10 +16,12 @@
 //       `_make_fused_cols_wta` (:297): the column scans, the reverse one
 //       optionally fused with C = acc + adj + cv, the tie-last argmin and
 //       the 2r+1 band (the centre slot is the minimum itself);
-//   K4d `chunked_rows_kernel` <- `_chunked_rows_kernel` (:586, launched by
-//       `_chunked_pass` :667): one W-chunk of a row sweep, carrying the
-//       vertical direction (optional) and one diagonal family, with an (H, D)
-//       edge history in and out.
+//   K4d `chunked_sweep_kernel` <- `_chunked_rows_kernel` (:586, launched by
+//       `_chunked_pass` :667, one pallas_call a chunk, chained by
+//       `sgm_chunked_adj` :706): a whole row sweep of the vertical direction
+//       (optional) and one diagonal family over W-chunks, all chunks in one
+//       launch, the diagonal carry crossing each chunk edge through a
+//       history of the boundary column's carries.
 //
 // The DP step is `_fused_step` (:132-144): m = min(prev),
 //   agg = min(min(prev[d], m + P2), min(prev[d-1], prev[d+1]) + P1),
@@ -35,7 +37,12 @@
 // versions in ops/sgm_lane_cuda.py repeat these operations in this order,
 // so kernel and plain version agree to the bit.  Every carry lives in
 // shared memory (D floats per column and direction, double-buffered by row
-// parity), so D is unbounded; d +- 1 are shared-memory reads.
+// parity; d +- 1 are shared-memory reads), except where a block's shared
+// memory does not hold it: past K4d's chunk of one column (D = 11622 with
+// the diagonal) and the column scans' area (14460 with WTA) the same
+// kernels keep it in a global area of the block's own, read through the
+// same generic pointers (ops/sgm_lane_cuda.chunk_layout, cols_spills), so
+// the route takes any D, as the TPU's XLA path does.
 //
 // The TPU kept a row chunk's full width in one core's VMEM and ran rows in
 // order, so its sweep needed no barrier.  On an H100 the width is spread
@@ -121,12 +128,49 @@
 // No float atomics anywhere: every carry and output has one writer, so two
 // runs give the same bits.
 //
-// K4d is the route beyond the fit rule: chunks of CW columns run one after
-// another, one block each, with the diagonal carry crossing a chunk edge
-// through the edge history.  It runs on one SM at a time, so it is
-// latency-bound by design; a wavefront over chunks is queued in ROADMAP.md.
-// Each K4d lane issues the loads of U = 8 d-slices before it computes or
-// stores, so a step pays the global-load latency once per 256 disparities.
+// K4d is the route beyond K4b's fit rule (a 4K-wide frame at D = 384:
+// entry.uhd_wide_forward).  The TPU ran its W-chunks one pallas_call after
+// another, and the first port did too, one block each: one SM of 132 busy,
+// n_w x H dependent rows (260.7 ms at 480x640x384).  Each of K4d's four
+// sweeps carries ONE diagonal family (sgm_lane_cuda.chunked_adj's table),
+// so a chunk's row t needs only its upstream neighbour's boundary carry
+// after row t - 1: a one-way wavefront, a sweep in one launch, every chunk
+// a block, chunks drifting a row apart, about H + n_w row steps a sweep.
+// - Neighbour sync in one direction, as K4b's (above): the upstream
+//   block writes its boundary column's carry of every row (and its parts'
+//   minima) to a history buffer, closes the row with __syncthreads and
+//   publishes its row count with a release store; the warps of the
+//   downstream block's boundary column spin with acquire loads, then read
+//   the carry through L2 (__ldcg).  The history keeps every row, so a
+//   producer never waits on its consumer and no slot is reused.  (Each
+//   boundary part publishing at once, that column first in the row,
+//   measured slower at 4K: the release inside the warp's loop waits for
+//   its stores; PERF.md.)
+// - Forward progress without co-residency: a block takes its chunk from an
+//   atomic ticket in the flow's order (left to right for shift_down, else
+//   right to left), so it only waits on the chunk of a smaller ticket,
+//   which a block already running holds: the dynamic numbering of
+//   single-pass decoupled look-back scans (Merrill and Garland, NVIDIA
+//   NVR-2016-002).  No cooperative launch, and n_w may pass the SM count.
+//   The counters and the ticket are a small int buffer the wrapper zeroes
+//   for each launch.
+// - K4b's row machinery: D split over warps with each part's minimum taken
+//   as the carry is written (no min loop over the previous carry), loads
+//   issued ROW_U slices ahead.  No TMA ring: at 4K the two-family carries
+//   leave no room for a stage, and without the ring the one-family sweeps
+//   ran as fast (PERF.md, PR 11).
+// - The chunk width fills the card: ceil(W / SMs) columns, at most what
+//   the carries allow (sgm_lane_cuda.chunk_width), so at 2160x3840x384 128
+//   chunks of 30 columns, one a SM.  The bits do not depend on it: a
+//   carry crossing a chunk edge is the carry a wider chunk keeps on chip.
+// It is a kernel of its own, not an instance of fused_rows_kernel: K4b's
+// parity edge buffer is race-free only because neighbours wait on each
+// other both ways, and a one-way wavefront needs the full history and the
+// ticket instead.  What bounds it: the row chain (H + n_w steps) and, at
+// 4K, the loads each row step waits on.
+// Each lane issues the loads of U (ROW_U in the row kernels) d-slices
+// before it computes or stores, so a step pays the global-load latency
+// once per U slices.
 
 #include <cuda_runtime.h>
 #include <math.h>
@@ -248,6 +292,16 @@ __device__ __forceinline__ void stage_run(void* dst, const float* src,
       : "memory");
 }
 
+// A pointer the compiler cannot trace to its state space, so that loads
+// through it are generic (ld, not ld.global).  K4d reads its row slabs so:
+// with ld.global its two-family sweeps at 4K, which stage nothing, ran
+// ~13% slower (PERF.md, PR 11; the cause is not measured: no SASS
+// profiler runs on the card's machine).
+__device__ __forceinline__ const float* opaque(const float* p) {
+  asm("mov.b64 %0, %0;" : "+l"(p));
+  return p;
+}
+
 // the neighbour-sync counters: a release store and an acquire load at GPU
 // scope
 __device__ __forceinline__ int ld_acquire(const int* p) {
@@ -288,26 +342,27 @@ __global__ void shift_rows_kernel(const float* __restrict__ in,
 // ---------------------------------------------------------------------------
 
 // A row-sweep block's shared memory, in bytes from its start: the carries
-// (2 buffers x NC families x ncols x D floats), the halo (diagonal sweeps:
-// for each family, the parts' ranges of a neighbour block's edge carry
-// with one float of overlap on each side, D + 2 (G - 1) floats), the
-// parts' minima (use_mins: 2 x NC x ncols x G floats), then, with a ring
-// (S > 0), S mbarriers and S stages of one cv slab (and one acc slab with
+// (2 buffers x nc families x ncols x D floats), the halo (n_halo slots, one
+// a neighbour carry a block reads: the parts' ranges of its D with one
+// float of overlap on each side, D + 2 (G - 1) floats), the parts' minima
+// (use_mins: 2 x nc x ncols x G floats), then, with a ring (S > 0), S
+// mbarriers and S stages of one cv slab (and one acc slab with
 // stage_acc), each in a slot of the 16-byte-aligned cover of ncols * D
-// floats.  ops/sgm_lane_cuda.row_layout computes the same sizes.
+// floats.  K4b and K4c take nc = 3 and n_halo = 2 (both diagonal
+// families) with the diagonal, nc = 1 and n_halo = 0 without; K4d nc = 1
+// or 2 and n_halo = 1 (its one diagonal family).
+// ops/sgm_lane_cuda.row_layout and chunk_layout compute the same sizes.
 struct RowLayout {
   size_t halo, mins, bars, ring, slot, stage, total;
 };
 
 __host__ __device__ inline RowLayout row_layout(int ncols, int D, int G,
-                                                int S, bool diag,
+                                                int S, int nc, int n_halo,
                                                 bool stage_acc,
                                                 bool use_mins) {
-  const size_t nc = diag ? 3 : 1;
   RowLayout L;
   L.halo = sizeof(float) * 2 * nc * ncols * (size_t)D;
-  L.mins = L.halo + (diag ? sizeof(float) * 2 * ((size_t)D + 2 * (G - 1))
-                          : 0);
+  L.mins = L.halo + sizeof(float) * n_halo * ((size_t)D + 2 * (G - 1));
   const size_t base =
       L.mins + (use_mins ? sizeof(float) * 2 * nc * ncols * (size_t)G : 0);
   L.slot = r16(sizeof(float) * (size_t)ncols * D + 15);
@@ -363,8 +418,8 @@ fused_rows_kernel(const RowArgs a) {
   const int H = a.H, W = a.W, D = a.D, ncols = a.ncols, G = a.G, S = a.S;
   const bool mins_on = a.use_mins != 0;
   const bool stage_acc = a.stage_acc != 0 && a.acc != nullptr;
-  const RowLayout L =
-      row_layout(ncols, D, G, S, DIAG, stage_acc, mins_on);
+  const RowLayout L = row_layout(ncols, D, G, S, NC, DIAG ? 2 : 0,
+                                 stage_acc, mins_on);
   float* car_s = reinterpret_cast<float*>(row_smem);
   float* halo = reinterpret_cast<float*>(row_smem + L.halo);
   float* mins = reinterpret_cast<float*>(row_smem + L.mins);
@@ -578,23 +633,27 @@ struct ColArgs {
   float* out;            // may alias acc
   int* idx;
   float* bands;
+  unsigned char* spill;  // null: the carries in shared memory; else one
+                         // area of `area` bytes a line, in global memory
+  size_t area;
   int n_knights, H, W, D, col0, W_pout;
   float P1, P2, Pout;
   int reverse, r, G, S;
 };
 
-// A column-scan block's shared memory (one line, G warps): S stages of
+// A column-scan block (one line, G warps): in shared memory S stages of
 // (2 + n_knights) slots (the covers of one pixel's cv, acc and knight
-// D-vectors), the two carries, with WTA two C vectors, then the parts'
-// minima (2 x G carry minima; with WTA also G minima of C and G indices).
-// ops/sgm_lane_cuda.cols_layout sums the same sizes.
-__host__ __device__ inline size_t cols_smem(int D, int n_knights, int G,
-                                            int S, bool wta,
-                                            size_t* vslot) {
-  *vslot = r16(sizeof(float) * (size_t)D + 15);
-  return (size_t)S * (2 + n_knights) * *vslot +
-         r16(sizeof(float) * (wta ? 4 : 2) * (size_t)D) +
+// D-vectors), then its area: the two carries, with WTA two C vectors, then
+// the parts' minima (2 x G carry minima; with WTA also G minima of C and G
+// indices).  Past a block's shared memory the area lies in global memory
+// (`spill`, S = 0).  ops/sgm_lane_cuda.cols_layout sums the same sizes.
+__host__ __device__ inline size_t cols_area(int D, int G, bool wta) {
+  return r16(sizeof(float) * (wta ? 4 : 2) * (size_t)D) +
          sizeof(float) * (wta ? 4 : 2) * (size_t)G;
+}
+
+__host__ __device__ inline size_t cols_vslot(int D) {
+  return r16(sizeof(float) * (size_t)D + 15);
 }
 
 // K4b columns: one block scans one row (left to right, or right to left
@@ -603,10 +662,11 @@ __host__ __device__ inline size_t cols_smem(int D, int n_knights, int G,
 // (acc + k_0 + k_1 + ..., in order).  With WTA (reverse only) it writes
 // idx and the bands instead.  S > 0: lanes 0 to 1 + n_knights of warp 0
 // stage a pixel's vectors S steps ahead of the step, into the stage the
-// step's barrier has just released.  Each warp takes the min of its part
-// of the new carry as it writes it; a step's barrier makes the carry and
-// the parts' minima whole for the next.
-template <bool WTA>
+// step's barrier has just released.  SPILL: the area lies in global memory
+// (`cols_area`, S = 0), a template argument as in K4d.  Each warp takes
+// the min of its part of the new carry as it writes it; a step's barrier
+// makes the carry and the parts' minima whole for the next.
+template <bool WTA, bool SPILL>
 __global__ void __launch_bounds__(32 * MAX_COLS_WARPS)
 fused_cols_kernel(const ColArgs a) {
   extern __shared__ __align__(16) unsigned char col_smem[];
@@ -615,14 +675,15 @@ fused_cols_kernel(const ColArgs a) {
   const int i = blockIdx.x;
   const int W = a.W, D = a.D, S = a.S, nk = a.n_knights, G = a.G;
   const int nvec = 2 + nk;
-  size_t vslot;
-  cols_smem(D, nk, G, S, WTA, &vslot);
+  const size_t vslot = cols_vslot(D);
   const size_t stage = nvec * vslot;
   unsigned char* ring = col_smem;
-  float* bufs = reinterpret_cast<float*>(ring + (size_t)S * stage);
+  unsigned char* area =
+      SPILL ? a.spill + (size_t)i * a.area : ring + (size_t)S * stage;
+  float* bufs = reinterpret_cast<float*>(area);
   float* Cs = bufs + 2 * D;  // C at the last two pixels (WTA)
   float* cmin = reinterpret_cast<float*>(
-      ring + (size_t)S * stage + r16(sizeof(float) * (WTA ? 4 : 2) * D));
+      area + r16(sizeof(float) * (WTA ? 4 : 2) * D));
   float* Cmin = cmin + 2 * G;                          // WTA
   int* best_p = reinterpret_cast<int*>(Cmin + G);      // WTA
   const int SP = ((D + 31) / 32 + G - 1) / G;
@@ -733,83 +794,190 @@ fused_cols_kernel(const ColArgs a) {
   }
 }
 
-// K4d: one chunk of columns [c0, c0 + Wc) of a row sweep, one block.
-// shift_down: the diagonal carry moves to higher columns each row and the
-// chunk's column 0 takes the history row; otherwise to lower columns and
-// column Wc-1 takes it.  hout[i] is the boundary column's post-row carry
-// (the one the neighbour chunk consumes), or hin[i] without the diagonal.
-__global__ void chunked_rows_kernel(
-    const float* __restrict__ cv, const float* acc, float* out,
-    const float* __restrict__ hin, float* __restrict__ hout, int H, int W,
-    int D, int c0, int Wc, int col0, int W_pout, float P1, float P2,
-    float Pout, int reverse, int shift_down, int corner_c0, int corner_slope,
-    int with_vertical, int with_diag, int accumulate) {
-  extern __shared__ float sm[];
+// ---------------------------------------------------------------------------
+// K4d
+// ---------------------------------------------------------------------------
+
+struct ChunkArgs {
+  const float* cv;
+  const float* acc;   // may alias out; null: the sweep writes out afresh
+  float* out;
+  float* hist;        // (n_w, H, D) boundary carries of every row
+  float* hist_min;    // (n_w, H, G) their parts' minima
+  int* flags;         // rows done, one counter a chunk, then the ticket
+  unsigned char* spill;  // null: each block's area in shared memory; else
+                         // one area of `area` bytes a block, in global memory
+  size_t area;
+  int H, W, D, cw, n_w, G, use_mins, col0, W_pout;
+  float P1, P2, Pout;
+  int reverse, shift_down, corner_c0, corner_slope;
+};
+
+// K4d: one sweep (down, or up with `reverse`) of one diagonal family
+// (DIAG) and, with VERT, the vertical direction, over a region cut into
+// chunks of cw columns, one block a chunk, all chunks in one launch.
+// shift_down: the diagonal carry moves to higher columns each row, so a
+// chunk's first column continues the left chunk's last column (its
+// upstream chunk); otherwise the mirror.  A block takes its chunk from a
+// ticket in the flow's order, so it only ever waits on a chunk that a
+// block already running holds.  The doubled corner line is at region
+// column corner_c0 + corner_slope * i.  The block's area (carries, halo,
+// parts' minima: `row_layout` with no ring) is its shared memory or, with
+// SPILL (past a block's shared memory), its own slice of a global buffer:
+// the row's __syncthreads orders global memory within the block as it
+// does shared.  SPILL is a template argument so that the shared instance
+// keeps shared-memory instructions (a pointer that may be either is
+// generic, and measured slower at 4K).
+template <bool VERT, bool DIAG, bool SPILL>
+__global__ void __launch_bounds__(32 * ROW_WARPS, 1)
+chunked_sweep_kernel(const ChunkArgs a) {
+  extern __shared__ __align__(16) unsigned char chunk_smem[];
+  __shared__ int ticket_s;
+  constexpr int NF = (VERT ? 1 : 0) + (DIAG ? 1 : 0);
+  constexpr int FD = VERT ? 1 : 0;  // the diagonal family's carries
+  const int H = a.H, W = a.W, D = a.D, cw = a.cw, G = a.G;
+  const bool mins_on = a.use_mins != 0;
+  const RowLayout L =
+      row_layout(cw, D, G, 0, NF, DIAG ? 1 : 0, false, mins_on);
+  unsigned char* area =
+      SPILL ? a.spill + (size_t)blockIdx.x * a.area : chunk_smem;
+  float* car_s = reinterpret_cast<float*>(area);
+  float* halo = reinterpret_cast<float*>(area + L.halo);
+  float* mins = reinterpret_cast<float*>(area + L.mins);
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int nwarps = blockDim.x >> 5;
-  auto car = [&](int buf, int f, int lc) {  // f 0: vertical, 1: diagonal
-    return sm + ((size_t)(buf * 2 + f) * Wc + lc) * D;
+  if (threadIdx.x == 0) ticket_s = atomicAdd(a.flags + a.n_w, 1);
+  __syncthreads();
+  const int ticket = ticket_s;
+  const int w = a.shift_down ? ticket : a.n_w - 1 - ticket;
+  const int up = a.shift_down ? w - 1 : w + 1;  // the chunk this continues
+  const bool has_up = DIAG && up >= 0 && up < a.n_w;
+  const bool has_down = DIAG && (a.shift_down ? w + 1 < a.n_w : w > 0);
+  const int c_lo = w * cw, nc = min(cw, W - c_lo);
+  const int lc_in = a.shift_down ? 0 : nc - 1;   // continues `up`'s carry
+  const int lc_out = a.shift_down ? nc - 1 : 0;  // its carry goes downstream
+  const int SP = ((D + 31) / 32 + G - 1) / G;    // 32-wide slices a part
+  auto car = [&](int buf, int f, int lc) {
+    return car_s + ((size_t)(buf * NF + f) * cw + lc) * D;
   };
-  float* hrow = sm + (size_t)4 * Wc * D;  // the history row, staged
-  for (int t = 0; t < H; ++t) {
-    const int i = reverse ? H - 1 - t : t;
+  auto pmin = [&](int buf, int f, int lc) {
+    return mins + ((size_t)(buf * NF + f) * cw + lc) * G;
+  };
+  auto row_of = [&](int t) { return a.reverse ? H - 1 - t : t; };
+
+  for (int t = 0; t < H; ++t) {  // scan row t, image row i
+    const int i = row_of(t);
     const int wb = t & 1, rb = wb ^ 1;
-    const int cj = corner_c0 + corner_slope * i - c0;
-    if (with_diag) {
-      for (int d = threadIdx.x; d < D; d += blockDim.x)
-        hrow[d] = hin[(size_t)i * D + d];
-      __syncthreads();
-    }
-    for (int lc = warp; lc < Wc; lc += nwarps) {
-      const int c = c0 + lc;
-      const size_t pix = ((size_t)i * W + c) * D;
-      const float* pv = (with_vertical && t) ? car(rb, 0, lc) : nullptr;
-      const float* pd = nullptr;
-      if (with_diag) {
-        const int ls = shift_down ? lc - 1 : lc + 1;
-        if (ls < 0 || ls >= Wc) pd = hrow;
-        else if (t) pd = car(rb, 1, ls);
+    const int cj = a.corner_c0 + a.corner_slope * i - c_lo;
+    // the chunk's columns of row i: one contiguous run in each volume,
+    // read through generic loads (`opaque`)
+    const size_t row0 = ((size_t)i * W + c_lo) * D;
+    const float* cvr = opaque(a.cv + row0);
+    const float* acr = a.acc ? opaque(a.acc + row0) : nullptr;
+    for (int u = warp; u < nc * G; u += nwarps) {
+      const int lc = u / G, g = u - lc * G, c = c_lo + lc;
+      const int d_lo = g * SP * 32, d_hi = min(D, d_lo + SP * 32);
+      // the previous row's carries and their minima (null: a zero carry,
+      // the line start)
+      const float *pv = nullptr, *pd = nullptr;
+      float mv = 0.f, md = 0.f;
+      if (VERT && t > 0) {
+        pv = car(rb, 0, lc);
+        mv = mins_on ? parts_min(pmin(rb, 0, lc), G) : carry_min(pv, D, lane);
       }
-      const bool boundary = lc == (shift_down ? Wc - 1 : 0);
-      const float mult = lc == cj ? 2.f : 1.f;
-      const float mv = with_vertical ? carry_min(pv, D, lane) : 0.f;
-      const float md = with_diag ? carry_min(pd, D, lane) : 0.f;
-      for (int d0 = lane; d0 < D; d0 += 32 * U) {
-        float bs[U], as[U];  // issue U slices' loads before any store
+      if (DIAG && t > 0 && lc != lc_in) {
+        const int ls = a.shift_down ? lc - 1 : lc + 1;
+        pd = car(rb, FD, ls);
+        md = mins_on ? parts_min(pmin(rb, FD, ls), G)
+                     : carry_min(pd, D, lane);
+      } else if (DIAG && t > 0 && has_up) {
+        // wait until the upstream chunk has finished row t - 1, then copy
+        // this part's range (and one float each side) of its boundary
+        // carry, and the parts' minima, through L2
+        while (ld_acquire(a.flags + up) < t) {
+        }
+        const size_t hr = (size_t)up * H + (t - 1);
+        const int e_lo = max(d_lo - 1, 0), n = min(d_hi + 1, D) - e_lo;
+        const float* e = a.hist + hr * D + e_lo;
+        float* h = halo + (g ? d_lo + 2 * g - 1 : 0);
+        float m = (mins_on && lane < G) ? __ldcg(a.hist_min + hr * G + lane)
+                                        : INFINITY;
+        for (int d0 = lane; d0 < n; d0 += 32 * HALO_U) {
+          float v[HALO_U];
 #pragma unroll
-        for (int k = 0; k < U; ++k) {
+          for (int k = 0; k < HALO_U; ++k)
+            v[k] = d0 + 32 * k < n ? __ldcg(e + d0 + 32 * k) : 0.f;
+#pragma unroll
+          for (int k = 0; k < HALO_U; ++k)
+            if (d0 + 32 * k < n) h[d0 + 32 * k] = v[k];
+        }
+        m = warp_min(m);
+        __syncwarp();
+        pd = h - e_lo;
+        md = mins_on ? m : carry_min(halo, D, lane);  // G = 1: all of D
+      }
+      const bool feeds = has_down && lc == lc_out;
+      const float mult = lc == cj ? 2.f : 1.f;
+      const float* cvc = cvr + (size_t)lc * D;
+      const float* acc_c = acr ? acr + (size_t)lc * D : nullptr;
+      const size_t pix = ((size_t)i * W + c) * D;
+      float* hout = feeds ? a.hist + ((size_t)w * H + t) * D : nullptr;
+      float lv = INFINITY, ld = INFINITY;
+      for (int d0 = d_lo + lane; d0 < d_hi; d0 += 32 * ROW_U) {
+        float bs[ROW_U], as[ROW_U];  // issue the slices' loads first
+#pragma unroll
+        for (int k = 0; k < ROW_U; ++k) {
           const int d = d0 + 32 * k;
-          bs[k] = d < D ? cv[pix + d] : 0.f;
-          as[k] = (accumulate && d < D) ? acc[pix + d] : 0.f;
+          bs[k] = d < d_hi ? cvc[d] : 0.f;
+          as[k] = (acc_c && d < d_hi) ? acc_c[d] : 0.f;
         }
 #pragma unroll
-        for (int k = 0; k < U; ++k) {
+        for (int k = 0; k < ROW_U; ++k) {
           const int d = d0 + 32 * k;
-          if (d >= D) break;
+          if (d >= d_hi) break;
           const float base = bs[k];
-          const float pout = col0 + c + d >= W_pout ? Pout : 0.f;
+          const float pout = a.col0 + c + d >= a.W_pout ? a.Pout : 0.f;
           float total = as[k];
-          if (with_vertical) {
-            const float av = step_adj(pv, d, D, mv, P1, P2, pout);
-            car(wb, 0, lc)[d] = __fadd_rn(base, av);
+          if (VERT) {
+            const float av = step_adj(pv, d, D, mv, a.P1, a.P2, pout);
+            const float nv = __fadd_rn(base, av);
+            car(wb, 0, lc)[d] = nv;
+            lv = fminf(lv, nv);
             total = __fadd_rn(total, av);
           }
-          if (with_diag) {
-            const float ad = step_adj(pd, d, D, md, P1, P2, pout);
-            const float cd = __fadd_rn(base, ad);
-            car(wb, 1, lc)[d] = cd;
-            if (boundary) hout[(size_t)i * D + d] = cd;
+          if (DIAG) {
+            const float ad = step_adj(pd, d, D, md, a.P1, a.P2, pout);
+            const float nd = __fadd_rn(base, ad);
+            car(wb, FD, lc)[d] = nd;
+            ld = fminf(ld, nd);
+            if (hout) hout[d] = nd;
             total = __fadd_rn(total, __fmul_rn(ad, mult));
           }
-          out[pix + d] = total;
+          a.out[pix + d] = total;
+        }
+      }
+      if (mins_on) {  // each part's minimum of its new carries
+        if (VERT) lv = warp_min(lv);
+        if (DIAG) ld = warp_min(ld);
+        if (lane == 0) {
+          if (VERT) pmin(wb, 0, lc)[g] = lv;
+          if (DIAG) pmin(wb, FD, lc)[g] = ld;
+          if (feeds) a.hist_min[((size_t)w * H + t) * G + g] = ld;
         }
       }
     }
-    __syncthreads();
+    __syncthreads();  // the chunk's row complete
+    // publish row t downstream: the release orders the block's writes,
+    // which the barrier ordered before thread 0's
+    if (threadIdx.x == 0 && has_down) st_release(a.flags + w, t + 1);
   }
-  if (!with_diag)
-    for (size_t e = threadIdx.x; e < (size_t)H * D; e += blockDim.x)
-      hout[e] = hin[e];
+}
+
+template <bool SPILL>
+const void* chunked_fn(bool vert, bool diag) {
+  return !vert  ? (const void*)chunked_sweep_kernel<false, true, SPILL>
+         : diag ? (const void*)chunked_sweep_kernel<true, true, SPILL>
+                : (const void*)chunked_sweep_kernel<true, false, SPILL>;
 }
 
 bool bad_region(int H, int W, int D, int col0, int W_pout) {
@@ -869,8 +1037,9 @@ extern "C" int fused_rows_launch(const void* cv, const void* acc, void* out,
     return (int)cudaErrorInvalidValue;
   const int blocks = (W + ncols - 1) / ncols;
   const int threads = 32 * min(ncols * G, ROW_WARPS);
-  const size_t smem =
-      row_layout(ncols, D, G, S, diag, stage_acc, use_mins).total;
+  const size_t smem = row_layout(ncols, D, G, S, diag ? 3 : 1, diag ? 2 : 0,
+                                 stage_acc, use_mins)
+                          .total;
   const void* fn = diag ? (const void*)fused_rows_kernel<true>
                         : (const void*)fused_rows_kernel<false>;
   cudaError_t e = allow_smem(fn, smem);
@@ -920,26 +1089,31 @@ extern "C" int fused_rows_launch(const void* cv, const void* acc, void* out,
 
 // knights: null, or n_knights (<= 8) volumes (n, H, W, D) added to acc in
 // order before the scan.  G (warps a line) and S (ring stages; 0: direct
-// loads): ops/sgm_lane_cuda.cols_layout.
+// loads): ops/sgm_lane_cuda.cols_layout; spill: null, or H areas of
+// r16(`cols_area`) bytes in global memory (then S = 0).
 extern "C" int fused_cols_launch(const void* cv, const void* acc,
                                  const void* knights, int n_knights,
-                                 void* out, void* idx, void* bands, int H,
-                                 int W, int D, int col0, int W_pout,
-                                 float P1, float P2, float Pout, int reverse,
-                                 int r, int wta, int G, int S,
+                                 void* out, void* idx, void* bands,
+                                 void* spill, int H, int W, int D, int col0,
+                                 int W_pout, float P1, float P2, float Pout,
+                                 int reverse, int r, int wta, int G, int S,
                                  void* stream) {
   const int slices = (D + 31) / 32;
   if (bad_region(H, W, D, col0, W_pout) || (wta && (!reverse || r < 0)) ||
       n_knights < 0 || n_knights > MAX_KNIGHTS ||
       (n_knights > 0 && knights == nullptr) || S < 0 || S > RING ||
-      G < 1 || G > MAX_COLS_WARPS || G > slices ||
-      (G - 1) * ((slices + G - 1) / G) >= slices)
+      (spill != nullptr && S > 0) || G < 1 || G > MAX_COLS_WARPS ||
+      G > slices || (G - 1) * ((slices + G - 1) / G) >= slices)
     return (int)cudaErrorInvalidValue;
-  size_t vslot;
-  const size_t smem = cols_smem(D, n_knights, G, S, wta, &vslot);
+  const size_t area = cols_area(D, G, wta);
+  const size_t smem = (size_t)S * (2 + n_knights) * cols_vslot(D) +
+                      (spill ? 0 : area);
   if (smem > (size_t)COLS_SMEM) return (int)cudaErrorInvalidValue;
-  const void* fn = wta ? (const void*)fused_cols_kernel<true>
-                       : (const void*)fused_cols_kernel<false>;
+  const void* fn =
+      spill ? (wta ? (const void*)fused_cols_kernel<true, true>
+                   : (const void*)fused_cols_kernel<false, true>)
+            : (wta ? (const void*)fused_cols_kernel<true, false>
+                   : (const void*)fused_cols_kernel<false, false>);
   const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
   ColArgs a;
@@ -949,6 +1123,8 @@ extern "C" int fused_cols_launch(const void* cv, const void* acc,
   a.out = static_cast<float*>(out);
   a.idx = static_cast<int*>(idx);
   a.bands = static_cast<float*>(bands);
+  a.spill = static_cast<unsigned char*>(spill);
+  a.area = r16(area);
   a.n_knights = n_knights;
   a.H = H;
   a.W = W;
@@ -962,35 +1138,69 @@ extern "C" int fused_cols_launch(const void* cv, const void* acc,
   a.r = r;
   a.G = G;
   a.S = S;
-  const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (wta)
-    fused_cols_kernel<true><<<H, 32 * G, smem, s>>>(a);
-  else
-    fused_cols_kernel<false><<<H, 32 * G, smem, s>>>(a);
-  return (int)cudaGetLastError();
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(fn, dim3(H), dim3(32 * G), args, smem,
+                               static_cast<cudaStream_t>(stream));
 }
 
-extern "C" int chunked_rows_launch(const void* cv, const void* acc, void* out,
-                                   const void* hin, void* hout, int H, int W,
-                                   int D, int c0, int Wc, int col0,
-                                   int W_pout, float P1, float P2, float Pout,
-                                   int reverse, int shift_down, int corner_c0,
-                                   int corner_slope, int with_vertical,
-                                   int with_diag, int accumulate,
-                                   void* stream) {
-  if (bad_region(H, W, D, col0, W_pout) || c0 < 0 || Wc < 1 || c0 + Wc > W)
+// hist: null, or n_w x H x (D + G) floats with the diagonal (every row's
+// boundary carries, then their parts' minima); flags: n_w + 1 ints, zero
+// (the chunks' row counters, then the ticket); spill: null (each block's
+// area in shared memory), or n_w areas of r16(`row_layout`'s total) bytes
+// in global memory.  cw, G and use_mins: ops/sgm_lane_cuda.chunk_layout.
+extern "C" int chunked_sweep_launch(const void* cv, const void* acc,
+                                    void* out, void* hist, void* flags,
+                                    void* spill, int H, int W, int D, int cw,
+                                    int G, int use_mins, int col0,
+                                    int W_pout, float P1, float P2,
+                                    float Pout, int reverse, int shift_down,
+                                    int corner_c0, int corner_slope,
+                                    int with_vertical, int with_diag,
+                                    void* stream) {
+  const int slices = (D + 31) / 32;
+  if (bad_region(H, W, D, col0, W_pout) || cw < 1 || G < 1 || G > slices ||
+      G > 32 || (G > 1 && !use_mins) ||
+      (G - 1) * ((slices + G - 1) / G) >= slices || flags == nullptr ||
+      !(with_vertical || with_diag) || (with_diag && hist == nullptr))
     return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(float) * (4 * (size_t)Wc + 1) * D;
-  const cudaError_t e = allow_smem((const void*)chunked_rows_kernel, smem);
+  const int n_w = (W + cw - 1) / cw;
+  const int nf = (with_vertical ? 1 : 0) + (with_diag ? 1 : 0);
+  const int threads = 32 * min(cw * G, ROW_WARPS);
+  const size_t area =
+      row_layout(cw, D, G, 0, nf, with_diag ? 1 : 0, false, use_mins).total;
+  const size_t smem = spill ? 0 : area;
+  const void* fn = spill ? chunked_fn<true>(with_vertical, with_diag)
+                        : chunked_fn<false>(with_vertical, with_diag);
+  const cudaError_t e = allow_smem(fn, smem);
   if (e != cudaSuccess) return (int)e;
-  chunked_rows_kernel<<<1, 32 * min(Wc, 32), smem,
-                        static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(cv), static_cast<const float*>(acc),
-      static_cast<float*>(out), static_cast<const float*>(hin),
-      static_cast<float*>(hout), H, W, D, c0, Wc, col0, W_pout, P1, P2, Pout,
-      reverse, shift_down, corner_c0, corner_slope, with_vertical, with_diag,
-      accumulate);
-  return (int)cudaGetLastError();
+  ChunkArgs a;
+  a.cv = static_cast<const float*>(cv);
+  a.acc = static_cast<const float*>(acc);
+  a.out = static_cast<float*>(out);
+  a.hist = static_cast<float*>(hist);
+  a.hist_min = hist ? a.hist + (size_t)n_w * H * D : nullptr;
+  a.flags = static_cast<int*>(flags);
+  a.spill = static_cast<unsigned char*>(spill);
+  a.area = r16(area);
+  a.H = H;
+  a.W = W;
+  a.D = D;
+  a.cw = cw;
+  a.n_w = n_w;
+  a.G = G;
+  a.use_mins = use_mins;
+  a.col0 = col0;
+  a.W_pout = W_pout;
+  a.P1 = P1;
+  a.P2 = P2;
+  a.Pout = Pout;
+  a.reverse = reverse;
+  a.shift_down = shift_down;
+  a.corner_c0 = corner_c0;
+  a.corner_slope = corner_slope;
+  void* args[] = {&a};
+  return (int)cudaLaunchKernel(fn, dim3(n_w), dim3(threads), args, smem,
+                               static_cast<cudaStream_t>(stream));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -734,15 +734,23 @@ sgm_knight_kernel(const T* __restrict__ cv, float* __restrict__ vol,
 // over d is a loop plus the warp reduction and d +- 1 are shared-memory
 // reads, as in `sgm_pass_smem_kernel`.  The lines, the ring, the DP step
 // (`dp_step`'s operations in its order, the isfinite guards included) and
-// the volume writes are `sgm_knight_kernel`'s.
-template <typename T>
+// the volume writes are `sgm_knight_kernel`'s.  Where not even a ring of
+// two stages and the carries fit a block (`ring_layout`; f32 volumes past
+// D = 9640) the launcher passes `spill`: the line loads its pixels
+// directly (S = 0) and keeps its two carries in a global area of its own,
+// line `line` of direction y at (y * (H + W) + line) * carry_bytes (a
+// direction has fewer than H + W lines); __syncwarp orders them as it
+// does shared memory.  SPILL is a template argument, so that the shared
+// instance keeps shared-memory instructions.
+template <typename T, bool SPILL>
 __global__ void __launch_bounds__(32 * LINE_WARPS)
 sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
                        const float* __restrict__ cin,
-                       float* __restrict__ cout, int H, int W, int D,
-                       KDirs dirs, int phase, float P1, float P2, float Pout,
-                       int col0, int W_pout, int s0, int S, int cb,
-                       int stage) {
+                       float* __restrict__ cout,
+                       unsigned char* spill, int H, int W,
+                       int D, KDirs dirs, int phase, float P1, float P2,
+                       float Pout, int col0, int W_pout, int s0, int S,
+                       int cb, int stage) {
   extern __shared__ __align__(16) unsigned char knight_smem_d[];
   __shared__ __align__(8) uint64_t bars_kd[LINE_WARPS][RING];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -757,13 +765,17 @@ sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
   // each warp's area stays 16-byte aligned: the carries are rounded up
   const size_t carry_bytes = (2 * sizeof(float) * D + 15) & ~(size_t)15;
   unsigned char* ring =
-      knight_smem_d + (size_t)wid * ((size_t)S * stage + carry_bytes);
-  float* bufs = reinterpret_cast<float*>(ring + (size_t)S * stage);
+      knight_smem_d +
+      (size_t)wid * ((size_t)S * stage + (SPILL ? 0 : carry_bytes));
+  float* bufs = reinterpret_cast<float*>(
+      SPILL ? spill + ((size_t)y * (H + W) + line) * carry_bytes
+            : ring + (size_t)S * stage);
   uint64_t* bar = bars_kd[wid];
   const int ab = stage - cb;
-  ring_start(ring, bar, S, stage, cb, ab, cv, vol, phase, 0,
-             [=](int k) { return knight_pix(L, k, W, v0, v1, h0, h1); },
-             L.len, D, lane);
+  if (S > 0)
+    ring_start(ring, bar, S, stage, cb, ab, cv, vol, phase, 0,
+               [=](int k) { return knight_pix(L, k, W, v0, v1, h0, h1); },
+               L.len, D, lane);
   const bool vert = v0 == v1;
   const int last = vert ? (v0 > 0 ? H - 1 : 0) : (h0 > 0 ? W - 1 : 0);
   const float w = L.w;
@@ -774,10 +786,14 @@ sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
   long long pix = (long long)i * W + j;
   for (int t = 0; t < L.len; ++t) {
     __syncwarp();  // the carry written at the last step
-    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
     unsigned char* st = ring + slot * stage;
-    const T* cs = staged(st, cv + pix * D);
-    const float* vs = staged(st + cb, vol + pix * D);
+    const T* cs = cv + pix * D;
+    const float* vs = vol + pix * D;
+    if (S > 0) {
+      mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
+      cs = staged(st, cs);
+      vs = staged(st + cb, vs);
+    }
     const float* prev = bufs + cur * D;
     float* next = bufs + (cur ^ 1) * D;
     float lm = INFINITY;
@@ -799,7 +815,7 @@ sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
       if (co) co[d] = nc;
     }
     __syncwarp();  // the stage is read and `next` complete
-    if (t + S < L.len)
+    if (S > 0 && t + S < L.len)
       stage_pixel(st, cb, ab, cv, vol, phase, 0,
                   knight_pix(L, t + S, W, v0, v1, h0, h1), D, &bar[slot],
                   lane);
@@ -807,7 +823,7 @@ sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
     i += drift ? v1 : v0;
     j += drift ? h1 : h0;
     pix = (long long)i * W + j;
-    slot = slot + 1 == S ? 0 : slot + 1;
+    slot = slot + 1 >= S ? 0 : slot + 1;
     cur ^= 1;
   }
 }
@@ -1007,9 +1023,10 @@ cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
 
 template <typename T>
 cudaError_t knight_t(const void* cv, float* vol, const float* cin,
-                     float* cout, int H, int W, int D, const KDirs& dirs,
-                     int n, int phase, float P1, float P2, float Pout,
-                     int col0, int W_pout, int s0, cudaStream_t s) {
+                     float* cout, unsigned char* spill, int H, int W, int D,
+                     const KDirs& dirs, int n, int phase, float P1, float P2,
+                     float Pout, int col0, int W_pout, int s0,
+                     cudaStream_t s) {
   const int K = (D + 31) / 32;
   const bool regs = K <= REG_K;
   int lines = 0, most = 0;  // all directions' lines, and one's most
@@ -1021,18 +1038,30 @@ cudaError_t knight_t(const void* cv, float* vol, const float* cin,
   }
   if (most == 0) return cudaSuccess;
   Layout ly;  // phase 1 also stages the volume's vector
-  if (!ring_layout(D, sizeof(T), phase, regs ? 0 : round16(8 * D), lines,
-                   ly))
+  if (spill != nullptr) {  // direct loads, the carries in global memory
+    if (regs) return cudaErrorInvalidValue;
+    ly.S = ly.cb = ly.stage = 0;
+    ly.warps = LINE_WARPS;
+    ly.smem = 0;
+  } else if (!ring_layout(D, sizeof(T), phase, regs ? 0 : round16(8 * D),
+                          lines, ly)) {
     return cudaErrorInvalidValue;
+  }
   const dim3 grid((most + ly.warps - 1) / ly.warps, n);
   const T* v = static_cast<const T*>(cv);
   cudaError_t e;
+  if (!regs && spill != nullptr) {  // any D, the carries in global memory
+    sgm_knight_smem_kernel<T, true><<<grid, 32 * ly.warps, 0, s>>>(
+        v, vol, cin, cout, spill, H, W, D, dirs, phase, P1, P2, Pout, col0,
+        W_pout, s0, ly.S, ly.cb, ly.stage);
+    return cudaGetLastError();
+  }
   if (!regs) {  // any D: the carries in shared memory
-    e = allow_smem((const void*)sgm_knight_smem_kernel<T>, ly.smem);
+    e = allow_smem((const void*)sgm_knight_smem_kernel<T, false>, ly.smem);
     if (e != cudaSuccess) return e;
-    sgm_knight_smem_kernel<T><<<grid, 32 * ly.warps, ly.smem, s>>>(
-        v, vol, cin, cout, H, W, D, dirs, phase, P1, P2, Pout, col0, W_pout,
-        s0, ly.S, ly.cb, ly.stage);
+    sgm_knight_smem_kernel<T, false><<<grid, 32 * ly.warps, ly.smem, s>>>(
+        v, vol, cin, cout, nullptr, H, W, D, dirs, phase, P1, P2, Pout,
+        col0, W_pout, s0, ly.S, ly.cb, ly.stage);
     return cudaGetLastError();
   }
 #define SGM_KNIGHT_CASE(k)                                                 \
@@ -1134,9 +1163,12 @@ extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
 // N_img along the primary axis (rows for vertical-primary directions,
 // columns otherwise), and cin / cout hold one D-vector per position along
 // the other axis (K2s).  N_img = 0 takes each direction's own extent (a
-// whole image).
+// whole image).  spill: null, or n x (H + W) areas of r16(8 D) bytes in
+// global memory for the carries (D > 320, where `ring_layout` refuses:
+// ops/sgm_cuda.ring_fits).
 extern "C" int sgm_knight_launch(const void* cv, int cv_bf16, void* vol,
-                                 const void* cin, void* cout, int n,
+                                 const void* cin, void* cout, void* spill,
+                                 int n,
                                  const int* steps, int H, int W, int D,
                                  int phase, float P1, float P2, float Pout,
                                  int col0, int W_pout, int s0, int N_img,
@@ -1166,11 +1198,12 @@ extern "C" int sgm_knight_launch(const void* cv, int cv_bf16, void* vol,
   float* a = static_cast<float*>(vol);
   const float* ci = static_cast<const float*>(cin);
   float* co = static_cast<float*>(cout);
+  unsigned char* sp = static_cast<unsigned char*>(spill);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(cv_bf16 ? knight_t<__nv_bfloat16>(cv, a, ci, co, H, W, D, dirs,
-                                                 n, phase, P1, P2, Pout, col0,
-                                                 W_pout, s0, s)
-                       : knight_t<float>(cv, a, ci, co, H, W, D, dirs, n,
+  return (int)(cv_bf16 ? knight_t<__nv_bfloat16>(cv, a, ci, co, sp, H, W, D,
+                                                 dirs, n, phase, P1, P2, Pout,
+                                                 col0, W_pout, s0, s)
+                       : knight_t<float>(cv, a, ci, co, sp, H, W, D, dirs, n,
                                          phase, P1, P2, Pout, col0, W_pout,
                                          s0, s));
 }

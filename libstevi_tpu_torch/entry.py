@@ -15,9 +15,12 @@ flagship at 720x1280 with D=320 (`bench_grid.py:153-154`, "SGM8 ZNCC bf16
 dense HD D=320").  `wide_forward` is the flagship just past K2's reach:
 ZNCC 7x7, D=384, SGM-8, a float32 volume (K4b casts to float32,
 `libstevi_tpu/ops/sgm_pallas.py:394`), at 480x640; `hd_wide_forward` is
-the HD row with its range doubled to D=640, at 720x1280.  Both run K1 over
-d-slices and the lane-layout SGM kernels (K4b, or K4d where K4b's carries
-do not fit on chip).
+the HD row with its range doubled to D=640, at 720x1280.  Both run K1 and
+the lane-layout SGM kernels (K4b).  `uhd_wide_forward` is the wide
+configuration at 4K UHD, 2160x3840 (a 12.74 GB f32 volume), the geometry of
+3840x2160 stereo rigs: there K4b's carries do not fit on chip, so it runs
+K1, K4d's four one-launch sweeps and K4b's column scans, the last one fused
+with the WTA.
 
 `distributed_forward` is the flagship configuration (ZNCC 7x7, D=120,
 P1=0.1, P2=0.5, SGM-8) through `parallel.stereo.distributed_full_step` on a
@@ -57,6 +60,7 @@ DIST = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
             n_directions=8)
 HEIGHT, WIDTH = 480, 640
 HD_HEIGHT, HD_WIDTH = 720, 1280
+UHD_HEIGHT, UHD_WIDTH = 2160, 3840
 
 
 def flagship_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
@@ -99,6 +103,14 @@ def hd_wide_forward(img_l: torch.Tensor,
     """Refined disparity (H, W) float32 of a gray pair at D=640, f32."""
     disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
                                   **HD_WIDE)
+    return disp
+
+
+def uhd_wide_forward(img_l: torch.Tensor,
+                     img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair at D=384, f32: the
+    wide configuration, meant for 2160x3840 (UHD_HEIGHT x UHD_WIDTH)."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r, **WIDE)
     return disp
 
 

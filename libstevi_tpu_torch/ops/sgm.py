@@ -33,6 +33,10 @@ Pallas kernels and its XLA groups (`libstevi_tpu/ops/sgm.py:333-352, 387`):
   directions the knight directions run through K2k's any-D instance
   (`sgm_cuda.knight_volumes`), as the JAX package runs them through
   `_cost_mode_pass` beside `_pallas_adj` (`libstevi_tpu/ops/sgm.py:387-414`).
+  The lane route takes any D, as the JAX package's XLA path does: past a
+  block's shared memory each of its kernels keeps its carries in a global
+  area of its own (K4d past D = 11622, the WTA column scan past 14460,
+  K2k's knights past 9640).
 Every route adds a knight direction's adjustment to the principal sum once,
 in `_KNIGHT_DIRS` order, as the JAX XLA path does.
 """
@@ -311,29 +315,33 @@ def sgm_route(D: int, n_directions: int, P1: float, P2: float,
     the module docstring): 'dense' (P2 < P1, plain torch ops on either
     device, no kernel), 'scan' (K2/K2k/K3, or their plain versions on the
     CPU) or 'lane' (K4b, else K4d: `_lane_adj`; with 16 directions, K2k's
-    any-D instance for the knights).  The choice is the same on both
-    devices; ``cuda`` is kept for the callers' symmetry."""
+    any-D instance for the knights; any D, each kernel's carries in global
+    memory past a block's shared memory).  The choice comes from the
+    configuration alone and is the same on both devices; ``cuda`` is kept
+    for the callers' symmetry."""
     from .sgm_cuda import MAX_D
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
     if P2 < P1:
         return "dense"
-    if D <= MAX_D:
-        return "scan"
-    return "lane"
+    return "scan" if D <= MAX_D else "lane"
 
 
-def _lane_adj(region, col0, W_pout, P1, P2, Pout, n_directions):
+def _lane_adj(region, col0, W_pout, P1, P2, Pout, n_directions,
+              wta_radius=None):
     """K4b, and K4d where `fused_adj` refuses the width (as
     `_pallas_adj` takes `sgm_fused_adj`, then `sgm_chunked_adj`); with 16
     directions both run the knight directions (K2k) before their last
     column scan, which sums their 8 volumes where they fit (else they are
-    added in place first: the same bits)."""
+    added in place first: the same bits).  With ``wta_radius`` the last
+    scan is the WTA scan and the result is (idx, bands)."""
     from .sgm_lane_cuda import chunked_adj, fused_adj
-    adj = fused_adj(region, col0, W_pout, P1, P2, Pout, n_directions)
-    if adj is None:
-        adj = chunked_adj(region, col0, W_pout, P1, P2, Pout, n_directions)
-    return adj
+    res = fused_adj(region, col0, W_pout, P1, P2, Pout, n_directions,
+                    wta_radius=wta_radius)
+    if res is None:
+        res = chunked_adj(region, col0, W_pout, P1, P2, Pout, n_directions,
+                          wta_radius=wta_radius)
+    return res
 
 
 def _region(cv: torch.Tensor, margins: Margins) -> torch.Tensor:
@@ -352,12 +360,12 @@ def sgm_cost_volume(cv: torch.Tensor, P1: float, P2: float,
     run the cost-mode engine on the negated volume.  On a CUDA tensor the
     region runs contiguous through one K2 launch per principal direction
     and the knight directions' volumes (two K2k launches), added after them
-    one by one (`sgm_cuda.sgm_accumulate`), and is padded back.  On the CPU the sums follow the JAX XLA path: the
-    principal directions grouped, then each knight pass in `_KNIGHT_DIRS`
-    order, each padded to the full volume.  At D > 320 both devices run
-    `sgm_lane_cuda`'s K4b or K4d route (16 directions: with the knight
-    passes of K2k's any-D instance), and P2 < P1 runs the plain
-    dense-penalty steps (`sgm_route`)."""
+    one by one (`sgm_cuda.sgm_accumulate`), and is padded back.  On the
+    CPU the sums follow the JAX XLA path: the principal directions
+    grouped, then each knight pass in `_KNIGHT_DIRS` order, each padded to
+    the full volume.  At D > 320 both devices run `sgm_lane_cuda`'s K4b or
+    K4d route (16 directions: with the knight passes of K2k's any-D
+    instance), and P2 < P1 the plain dense-penalty steps (`sgm_route`)."""
     if n_directions not in (4, 8, 16):
         raise ValueError("SGM operates with 4, 8 or 16 directions")
     if strategy is ExtractionStrategy.SCORE:
@@ -426,12 +434,12 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
     truncated_cv)``; the truncated volume is in COST orientation (for SCORE
     inputs it holds the negated SGM scores).  Without margins the WTA and
     the band come out of the last SGM pass: on a CUDA tensor at D <= 320,
-    K2 and K2k launches, then K3; at D > 320 (both devices), K4b's
-    `fused_cols_wta` where K4b takes the geometry (16 directions: the
-    WTA scan sums the knight volumes as it reads them, or they are added
-    to its accumulator first).  Elsewhere (margins,
-    K4d's geometry, P2 < P1) both devices run the chain itself, as the JAX
-    package does (`libstevi_tpu/ops/sgm.py:571-600`)."""
+    K2 and K2k launches, then K3; on the lane route (both devices), the
+    WTA column scan `fused_cols_wta` after K4b's or K4d's sweeps (16
+    directions: the WTA scan sums the knight volumes as it reads them, or
+    they are added to its accumulator first).  Elsewhere (margins, P2 <
+    P1) both devices run the chain itself, as the JAX package does
+    (`libstevi_tpu/ops/sgm.py:571-600`)."""
     from .cost_volume import extract_selected_index, truncated_cost_volume
     H, W, D = cv.shape
     r = cost_vol_radius
@@ -445,9 +453,8 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
                 from .sgm_cuda import sgm_wta_fused
                 res = sgm_wta_fused(vol, *P, n_directions, r, h_radius,
                                     v_radius, refine=False)[:2]
-            else:   # None where K4b's carries do not fit: K4d's geometry
-                from .sgm_lane_cuda import fused_adj
-                res = fused_adj(vol, 0, W, *P, n_directions, wta_radius=r)
+            else:
+                res = _lane_adj(vol, 0, W, *P, n_directions, wta_radius=r)
         if res is not None:
             return _tcv_from_bands(res[0], res[1], H, W, D, h_radius,
                                    v_radius, r)
@@ -472,9 +479,9 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     one launch, a volume each, where they fit, else a launch each) -> K2k
     (16 directions: two launches, a volume each) -> K3 (the last direction
     fused with the in-order sum of those volumes, WTA, band and, for
-    PARABOLA, the subpixel).  At D > 320 it runs K1 over
-    d-slices -> ``sgm_wta_truncated`` (K4b's passes and WTA, or K4d; K2k
-    for 16 directions) -> refinement in torch.  Other costs,
+    PARABOLA, the subpixel).  At D > 320 it runs K1 (one launch) ->
+    ``sgm_wta_truncated`` (K4b's or K4d's sweeps, then K4b's column scans
+    ending in the WTA scan; K2k for 16 directions) -> refinement in torch.  Other costs,
     multichannel images and P2 < P1 take the JAX package's general route:
     ``unfold_based_cost_volume`` (the box route, or unfold with K5 where
     `aggregate_cost` launches it and the shifted-compare loop for CENSUS

@@ -62,6 +62,25 @@ from .sgm import (SgmDirection, directions_for, direction_adj,
                   direction_shard_adj, wta_bands, _dp_step, _tcv_from_bands)
 
 MAX_D = 320        # K3 keeps ceil(D / 32) <= 10 values per lane
+# a block's 227 KB less room for the static barriers (csrc/sgm_scan.cu)
+SMEM_MAX = 232448 - 1024
+
+
+def _r16(x: int) -> int:
+    return -(-x // 16) * 16
+
+
+def ring_fits(D: int, elt: int = 4, n_acc: int = 1) -> bool:
+    """Whether a K2 / K2k launch lays out its ring at D: `ring_layout` in
+    csrc/sgm_scan.cu at its shallowest, two stages of the cost vector's
+    cover (``elt`` bytes an entry) and ``n_acc`` f32 covers, plus the two
+    shared-memory carries (8 D bytes) of the any-D instance past D = 320,
+    within SMEM_MAX.  K2k's second seed phase stages one volume vector
+    (n_acc = 1), so f32 knight volumes take D <= 9640; past it K2k loads
+    directly and keeps its carries in global memory (`_knight_launch`).
+    A pure function of its arguments."""
+    stage = _r16(D * elt + 15) + n_acc * _r16(4 * D + 15)
+    return 2 * stage + (_r16(8 * D) if D > MAX_D else 0) <= SMEM_MAX
 
 
 def kernel_volume(cv: torch.Tensor) -> torch.Tensor:
@@ -325,6 +344,12 @@ def _knight_launch(cv, vol, cin, cout, directions, P1, P2, Pout, col0,
                        d.steps[1][1])]
     steps = (ctypes.c_int * len(steps))(*steps)
     H, W, D = cv.shape
+    # past the any-D ring (`ring_fits`, phase 1's), each line's carries in
+    # global memory: fewer than H + W lines a direction
+    elt = cv.element_size()
+    spill = (torch.empty(len(directions) * (H + W) * _r16(8 * D),
+                         dtype=torch.uint8, device=cv.device)
+             if D > MAX_D and not ring_fits(D, elt, 1) else None)
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         stream = torch.cuda.current_stream().cuda_stream
@@ -332,7 +357,7 @@ def _knight_launch(cv, vol, cin, cout, directions, P1, P2, Pout, col0,
             err = lib.sgm_knight_launch(
                 cv.data_ptr(), int(cv.dtype == torch.bfloat16),
                 vol.data_ptr(), _ptr(cin[phase] if cin is not None else None),
-                _ptr(cout[phase] if cout is not None else None),
+                _ptr(cout[phase] if cout is not None else None), _ptr(spill),
                 len(directions), ctypes.addressof(steps), H, W, D, phase, P1,
                 P2, Pout, col0, W_pout, s0, N_img, stream)
             _build.check(lib, err, "sgm_knight_launch")

@@ -1,9 +1,12 @@
 """K4a, K4b, K4c and K4d: the lane-layout SGM kernels (`csrc/sgm_lane.cu`),
 the port of `libstevi_tpu/ops/sgm_pallas.py`.
 
-These carry single-device SGM past K3's register limit (D <= 320): every
-carry lives in shared memory, so D is unbounded.  (K2 and K2s take any D
-too, one warp a line; the distributed K2s engine uses them past D = 320.)
+These carry single-device SGM past K3's register limit (D <= 320): the
+carries live in shared memory and, where a block's shared memory does not
+hold them (K4d's one-column chunk past D = 11622, the WTA column scan past
+14460), in a global area of the block's own (`chunk_layout`,
+`cols_spills`), so the route takes any D.  (K2 and K2s take D past 320
+too, one warp a line; the distributed K2s engine uses them there.)
 - K4a `shift_rows` (`_shift_rows`): the per-row window copy, and `shear` /
   `unshear` on it (`pallas_shear` / `pallas_unshear`).
 - K4b `fused_rows_pass`, `fused_cols_pass`, `fused_cols_wta`
@@ -16,15 +19,22 @@ too, one warp a line; the distributed K2s engine uses them past D = 320.)
   full-width carries do not fit on chip (the GPU form of
   `sgm_fused_adj`'s VMEM test); inside that rule `row_layout` sizes the
   row sweep's TMA ring and its split of D over warps, and `cols_layout`
-  the column scans'.
+  the column scans' (and puts their carries in global memory past a
+  block's shared memory).
 - K4c `fused_rows_shard_pass` (`sgm_rows_shard_pass`): K4b's row sweep on
   one row shard of a distributed image, with 1 or 3 carries in and out, the
   shard's global first row and the global height; its column half
   (`sgm_cols_shard_pass`) is `fused_cols_pass` on the shard's block.
   `parallel.sgm_dist.distributed_sgm_fused` relays it.
-- K4d `chunked_pass` (`_chunked_rows_kernel` / `_chunked_pass`), driven by
-  `chunked_adj` (`sgm_chunked_adj`): W-chunks run one after another, the
-  diagonal carry crossing each chunk edge through an (H, D) edge history.
+- K4d `chunked_sweep` (`_chunked_rows_kernel` / `_chunked_pass`, chained
+  over the chunks by `sgm_chunked_adj`), driven by `chunked_adj`: one
+  launch a sweep, every W-chunk a block of one grid, each chunk waiting
+  only on its upstream neighbour's boundary carry of the previous row (a
+  one-way wavefront, chunks taken by ticket in the flow's order);
+  `chunk_width` fills the card, and `chunk_layout` puts a block's carries
+  in global memory where a one-column chunk's do not fit its shared
+  memory.  Its plain version `chunked_sweep_plain` chains
+  `chunked_pass_plain`, the per-chunk form of `_chunked_pass`.
 
 The volumes are (H, W, D) float32 regions; ``col0`` is the image column of
 the region's first column and ``W_pout`` the image width, for the Pout test
@@ -88,43 +98,39 @@ class RowLayout(NamedTuple):
     smem: int        # bytes of shared memory a block
 
 
-def row_layout(W: int, D: int, n_directions: int, accumulate: bool,
-               budget: int | None = None,
-               n_sm: int = H100_SMS) -> RowLayout | None:
-    """The layout of a K4b / K4c row sweep over a region of width W, or
-    None where `fused_fits` refuses it (the same rule; this only spends
-    what the carries leave).  A column's D is split over ``parts`` warps
-    (at most ROW_WARPS a block, whole 32-wide slices each), whose minima
-    go beside the carries, the first that fits of: that split, one part,
-    and one part without the minima (the kernel then finds them by a
-    loop).  The ring takes what is left of ``budget`` (default one
-    block's 227 KiB): the deepest of 2 to RING stages of cv and acc slabs,
-    else of cv slabs alone (acc then loaded directly), else one cv stage,
-    else none (direct loads).  `csrc/sgm_lane.cu`'s `row_layout` sums the
-    same sizes.  A pure function of its arguments."""
-    if not fused_fits(W, D, n_directions, budget, n_sm):
-        return None
-    budget = SMEM_BLOCK if budget is None else budget
-    diag = n_directions >= 8
-    n_car = 3 if diag else 1
-    ncols = _ceil_div(W, n_sm)
-    slices = _ceil_div(D, 32)
-    g = max(1, min(slices, ROW_WARPS // ncols))
-    g = _ceil_div(slices, _ceil_div(slices, g))     # no empty part
+def _area(ncols: int, D: int, n_car: int, n_halo: int, parts: int,
+          mins: bool) -> int:
+    """The bytes of a row-sweep block's area: ``ncols`` columns' carries (2
+    buffers of ``n_car`` families, D floats each), ``n_halo`` staged
+    neighbour carries (D + 2 (parts - 1) floats each) and, with ``mins``,
+    the parts' minima.  `csrc/sgm_lane.cu`'s `row_layout` sums the same
+    sizes."""
+    return 4 * (2 * n_car * ncols * D + n_halo * (D + 2 * (parts - 1))
+                + (2 * n_car * ncols * parts if mins else 0))
 
-    def base(parts, mins):
-        return 4 * (2 * n_car * ncols * D
-                    + (2 * (D + 2 * (parts - 1)) if diag else 0)
-                    + (2 * n_car * ncols * parts if mins else 0))
+
+def _block_layout(ncols: int, D: int, n_car: int, n_halo: int,
+                  accumulate: bool, budget: int, g: int) -> RowLayout | None:
+    """A K4b / K4c row-sweep block whose area (`_area`) fits ``budget``
+    bytes: a column's D is split over ``parts`` warps (whole 32-wide
+    slices each), whose minima go beside the carries, the first that fits
+    of: ``g`` parts, one part, and one part without the minima (the kernel
+    then finds them by a loop); the ring takes what is left: the deepest
+    of 2 to RING stages of cv and acc slabs, else of cv slabs alone (acc
+    then loaded directly), else one cv stage, else none (direct loads).
+    None where not even the carries fit."""
 
     def total(b, stages, stage_acc):
         slot = _r16(4 * ncols * D + 15)
         return (_r16(b) + _r16(8 * stages)
                 + stages * slot * (2 if stage_acc else 1))
 
-    parts, mins = next((p, m) for p, m in ((g, True), (1, True), (1, False))
-                       if base(p, m) <= budget)
-    b = base(parts, mins)
+    fits = [(p, m) for p, m in ((g, True), (1, True), (1, False))
+            if _area(ncols, D, n_car, n_halo, p, m) <= budget]
+    if not fits:
+        return None
+    parts, mins = fits[0]
+    b = _area(ncols, D, n_car, n_halo, parts, mins)
     for stage_acc, least in (((True, 2),) if accumulate else ()) + \
             ((False, 2), (False, 1)):
         s = next((s for s in range(RING, least - 1, -1)
@@ -135,6 +141,80 @@ def row_layout(W: int, D: int, n_directions: int, accumulate: bool,
     return RowLayout(ncols, parts, 0, False, mins, b)
 
 
+def row_layout(W: int, D: int, n_directions: int, accumulate: bool,
+               budget: int | None = None,
+               n_sm: int = H100_SMS) -> RowLayout | None:
+    """The layout of a K4b / K4c row sweep over a region of width W (one
+    block per SM, ceil(W / n_sm) columns each, `_block_layout`), or None
+    where `fused_fits` refuses it (the same rule; this only spends what the
+    carries leave of ``budget``, default one block's 227 KiB).  A pure
+    function of its arguments."""
+    if not fused_fits(W, D, n_directions, budget, n_sm):
+        return None
+    diag = n_directions >= 8
+    ncols, slices = _ceil_div(W, n_sm), _ceil_div(D, 32)
+    # as many parts as the block's ROW_WARPS warps give each column
+    g = max(1, min(slices, ROW_WARPS // ncols))
+    g = _ceil_div(slices, _ceil_div(slices, g))     # no empty part
+    return _block_layout(ncols, D, 3 if diag else 1, 2 if diag else 0,
+                         accumulate, SMEM_BLOCK if budget is None else budget,
+                         g)
+
+
+def chunk_width(D: int, n_directions: int = 8, W: int | None = None,
+                n_sm: int = H100_SMS) -> int:
+    """K4d's chunk width: the most columns whose carries (2 buffers of the
+    vertical and, with 8 or 16 directions, the diagonal family, D floats a
+    column) and one staged boundary carry fit one block's shared memory,
+    and, given the region's width W, at most ceil(W / n_sm), so that the
+    chunks fill the card: 30 at 3840 wide and D = 384, 128 chunks.  Where
+    not even one column fits (D past 11622 with the diagonal, 29056
+    without), the carries go to global memory (`chunk_layout`) and the
+    chunks take ceil(W / n_sm) columns (1 without W).  A pure function of
+    its arguments; the result's bits do not depend on it."""
+    n_car, halo = (2, 1) if n_directions >= 8 else (1, 0)
+    cw = (SMEM_BLOCK // (4 * D) - halo) // (2 * n_car)
+    fill = _ceil_div(W, n_sm) if W is not None else None
+    if cw < 1:
+        return fill or 1
+    return min(cw, fill) if fill is not None else cw
+
+
+class ChunkLayout(NamedTuple):
+    """How a K4d sweep lays out one block (`chunk_layout`)."""
+    ncols: int       # columns a block
+    parts: int       # warps a column (G), each a run of 32-wide d-slices
+    mins: bool       # the parts' minima kept beside the carries
+    area: int        # bytes of the block's carries, halo and minima
+    spill: bool      # the area lies in global memory, not shared memory
+
+
+def chunk_layout(D: int, cw: int, with_vertical: bool,
+                 with_diag: bool) -> ChunkLayout:
+    """The layout of one K4d sweep's block: ``cw`` columns of one or two
+    families (the vertical, the diagonal) and one staged upstream carry
+    (`_area`).  The parts balance the ROW_WARPS warps: the fewest that
+    minimise the units a warp runs a row times a unit's slices, plus about
+    one slice of a unit's own work (its minima): 4 at 5 columns and D =
+    384, 3 at 30 (where one part would leave 6 warps two whole columns).
+    The area takes the first that fits one block's shared memory of those
+    parts, one part, and one part without the minima; where none fits, it
+    keeps the balanced parts with their minima in global memory
+    (``spill``).  A pure function of its arguments."""
+    slices = _ceil_div(D, 32)
+    g = min((g for g in range(1, min(slices, ROW_WARPS) + 1)
+             if (g - 1) * _ceil_div(slices, g) < slices),    # no empty part
+            key=lambda g: (_ceil_div(cw * g, ROW_WARPS)
+                           * (_ceil_div(slices, g) + 1), g))
+    n_car, n_halo = int(with_vertical) + int(with_diag), int(with_diag)
+    for parts, mins in ((g, True), (1, True), (1, False)):
+        area = _area(cw, D, n_car, n_halo, parts, mins)
+        if area <= SMEM_BLOCK:
+            return ChunkLayout(cw, parts, mins, area, False)
+    return ChunkLayout(cw, g, True, _area(cw, D, n_car, n_halo, g, True),
+                       True)
+
+
 class ColsLayout(NamedTuple):
     """How a K4b column scan lays out one block (`cols_layout`)."""
     parts: int       # warps a line (G), each a run of 32-wide d-slices
@@ -142,39 +222,50 @@ class ColsLayout(NamedTuple):
     smem: int        # bytes of shared memory a block
 
 
+def _cols_parts(D: int) -> int:
+    slices = _ceil_div(D, 32)
+    g = min(slices, COLS_WARPS)
+    return _ceil_div(slices, _ceil_div(slices, g))     # no empty part
+
+
+def cols_area(D: int, wta: bool) -> int:
+    """The bytes of a K4b column scan's area a line: the two carries, with
+    ``wta`` two C vectors, then the parts' minima.  `csrc/sgm_lane.cu`'s
+    `cols_area` sums the same sizes."""
+    n = 4 if wta else 2
+    return _r16(4 * n * D) + 4 * n * _cols_parts(D)
+
+
+def cols_spills(D: int, wta: bool) -> bool:
+    """Whether a column scan's area passes one block's budget less the
+    static barriers (the WTA scan past D = 14460, the other past 28924):
+    it then lies in global memory, one area a line, and the scan loads
+    directly.  A pure function of its arguments."""
+    return cols_area(D, wta) > SMEM_BLOCK - 1024
+
+
 def cols_layout(H: int, D: int, n_knights: int, wta: bool,
                 n_sm: int = H100_SMS) -> ColsLayout:
     """The layout of a K4b column scan: one block a line (H lines), its D
-    split over up to COLS_WARPS warps, and a ring whose stages each hold
-    one pixel's cv, acc and ``n_knights`` knight D-vectors.  As K2's ring
-    (`csrc/sgm_scan.cu`): as deep as the card's shared memory spread over
-    all lines allows, 2 to RING, then shallower where a block's area
-    passes its budget; 0 (direct loads) where not even one stage fits.
-    `csrc/sgm_lane.cu`'s `cols_smem` sums the same sizes.  A pure function
-    of its arguments."""
-    slices = _ceil_div(D, 32)
-    g = min(slices, COLS_WARPS)
-    g = _ceil_div(slices, _ceil_div(slices, g))     # no empty part
-    vslot = _r16(4 * D + 15)
-    stage = (2 + n_knights) * vslot
-    extra = _r16(4 * (4 if wta else 2) * D) + 4 * (4 if wta else 2) * g
+    split over up to COLS_WARPS warps, its area (`cols_area`) and a ring
+    whose stages each hold one pixel's cv, acc and ``n_knights`` knight
+    D-vectors.  As K2's ring (`csrc/sgm_scan.cu`): as deep as the card's
+    shared memory spread over all lines allows, 2 to RING, then shallower
+    where a block's bytes pass its budget; 0 (direct loads) where not even
+    one stage fits.  Where the area lies in global memory (`cols_spills`)
+    the block takes no shared memory and no ring.  A pure function of its
+    arguments."""
+    g = _cols_parts(D)
+    if cols_spills(D, wta):
+        return ColsLayout(g, 0, 0)
+    stage = (2 + n_knights) * _r16(4 * D + 15)
+    area = cols_area(D, wta)
     limit = SMEM_BLOCK - 1024                # less the static barriers
     per_line = 0.9 * SMEM_SM * n_sm / max(H, 1)
-    s = min(RING, max(2, int((per_line - extra) // stage)))
-    while s and s * stage + extra > limit:
+    s = min(RING, max(2, int((per_line - area) // stage)))
+    while s and s * stage + area > limit:
         s -= 1
-    return ColsLayout(g, s, s * stage + extra)
-
-
-def chunk_width(D: int) -> int:
-    """K4d's chunk width: the most columns whose vertical and diagonal
-    carries (2 buffers each, D floats a column), with the staged history
-    row, fit one block's shared memory."""
-    cw = (SMEM_BLOCK // (D * 4) - 1) // 4
-    if cw < 1:
-        raise NotImplementedError(f"K4d: D = {D} leaves no chunk column in "
-                                  f"{SMEM_BLOCK} bytes of shared memory")
-    return cw
+    return ColsLayout(g, s, s * stage + area)
 
 
 def _sms(t: torch.Tensor) -> int:
@@ -454,13 +545,18 @@ def _cols_launch(cv, acc, knights, out, idx, bands, reverse, r, col0,
                  W_pout, P1, P2, Pout, what):
     n_k = _check_knights(what, cv, knights)
     H, W, D = cv.shape
-    lay = cols_layout(H, D, n_k, idx is not None, _sms(cv))
+    wta = idx is not None
+    lay = cols_layout(H, D, n_k, wta, _sms(cv))
+    # past a block's shared memory, each line's area in global memory
+    spill = (torch.empty(H * _r16(cols_area(D, wta)), dtype=torch.uint8,
+                         device=cv.device) if cols_spills(D, wta) else None)
     ptr = lambda t: t.data_ptr() if t is not None else None  # noqa: E731
     lib = _build.load("sgm_lane")
     with torch.cuda.device(cv.device):
         err = lib.fused_cols_launch(
             cv.data_ptr(), acc.data_ptr(), ptr(knights), n_k, ptr(out),
-            ptr(idx), ptr(bands), H, W, D, col0, W_pout, P1, P2, Pout,
+            ptr(idx), ptr(bands), ptr(spill), H, W, D, col0, W_pout, P1, P2,
+            Pout,
             int(reverse), r, int(idx is not None), lay.parts, lay.stages,
             _stream())
     _build.check(lib, err, "fused_cols_launch")
@@ -610,8 +706,11 @@ def chunked_pass_plain(cv, adj, hist, c0: int, Wc: int, *, col0: int,
                        reverse: bool, shift_down: bool, corner_c0: int,
                        corner_slope: int, with_vertical: bool,
                        with_diag: bool, accumulate: bool) -> torch.Tensor:
-    """The plain version of K4d: writes (or adds, with ``accumulate``)
-    columns [c0, c0 + Wc) of ``adj`` in place and returns the history out."""
+    """One W-chunk of a K4d sweep, the form of `_chunked_pass` that
+    `chunked_sweep_plain` chains: writes (or adds, with ``accumulate``)
+    columns [c0, c0 + Wc) of ``adj`` in place and returns the history out
+    (the boundary column's post-row carries, or ``hist`` without the
+    diagonal)."""
     H, W, D = cv.shape
     pout = _pout_row(Wc, D, col0 + c0, W_pout, Pout, cv.device)
     cols = torch.arange(Wc, device=cv.device)[:, None]
@@ -638,95 +737,136 @@ def chunked_pass_plain(cv, adj, hist, c0: int, Wc: int, *, col0: int,
     return hout
 
 
-def chunked_pass(cv: torch.Tensor, adj: torch.Tensor, hist: torch.Tensor,
-                 c0: int, Wc: int, *, col0: int, W_pout: int, P1: float,
-                 P2: float, Pout: float, reverse: bool, shift_down: bool,
-                 corner_c0: int, corner_slope: int, with_vertical: bool,
-                 with_diag: bool, accumulate: bool) -> torch.Tensor:
-    """One W-chunk (region columns [c0, c0 + Wc)) of a row sweep over all
-    rows: the vertical direction (``with_vertical``) and one diagonal family
-    (``with_diag``; ``shift_down``: the carry moves to higher columns and
-    the chunk's first column takes ``hist[i]``, else the mirror).  Writes
-    the chunk's columns of ``adj`` in place and returns the (H, D) history
-    out: the boundary column's post-row carry, or ``hist`` without the
-    diagonal.  The doubled corner line is at column corner_c0 +
-    corner_slope * i of the region."""
-    kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout,
-              reverse=reverse, shift_down=shift_down, corner_c0=corner_c0,
-              corner_slope=corner_slope, with_vertical=with_vertical,
-              with_diag=with_diag, accumulate=accumulate)
-    if cv.device.type == "cpu":
-        return chunked_pass_plain(cv, adj, hist, c0, Wc, **kw)
-    _check_cuda("chunked_pass", cv, adj, hist)
+def chunked_sweep_plain(cv, adj, *, cw: int, col0: int, W_pout: int,
+                        P1: float, P2: float, Pout: float, reverse: bool,
+                        shift_down: bool, corner_c0: int, corner_slope: int,
+                        with_vertical: bool, with_diag: bool,
+                        accumulate: bool) -> torch.Tensor:
+    """The plain version of K4d: `chunked_pass_plain` chained over the
+    chunks of ``cw`` columns in the flow's order (left to right with
+    ``shift_down``, else right to left), each chunk taking its upstream
+    neighbour's boundary carries of the previous scan row (a zero row at
+    the first), as `sgm_chunked_adj` chains `_chunked_pass`.  Writes (adds,
+    with ``accumulate``) ``adj`` in place and returns it."""
     H, W, D = cv.shape
-    if not 0 <= c0 < c0 + Wc <= W or hist.shape != (H, D):
-        raise ValueError("chunked_pass: a chunk inside the region and an "
-                         "(H, D) history")
-    if Wc > chunk_width(D):
-        raise NotImplementedError("chunked_pass: Wc above chunk_width(D)")
-    hout = torch.empty_like(hist)
+    n_w = _ceil_div(W, cw)
+    hist = cv.new_zeros((H, D))
+    zrow = cv.new_zeros((1, D))
+    for w in (range(n_w) if shift_down else range(n_w - 1, -1, -1)):
+        c0 = w * cw
+        hout = chunked_pass_plain(
+            cv, adj, hist, c0, min(cw, W - c0), col0=col0, W_pout=W_pout,
+            P1=P1, P2=P2, Pout=Pout, reverse=reverse, shift_down=shift_down,
+            corner_c0=corner_c0, corner_slope=corner_slope,
+            with_vertical=with_vertical, with_diag=with_diag,
+            accumulate=accumulate)
+        # the consumer at row i takes the producer's carry after row i - 1
+        # (i + 1 on reverse sweeps); the zero row starts a line
+        hist = (torch.cat([hout[1:], zrow]) if reverse
+                else torch.cat([zrow, hout[:-1]]))
+    return adj
+
+
+def chunked_sweep(cv: torch.Tensor, adj: torch.Tensor, *, cw: int,
+                  col0: int, W_pout: int, P1: float, P2: float, Pout: float,
+                  reverse: bool, shift_down: bool, corner_c0: int,
+                  corner_slope: int, with_vertical: bool, with_diag: bool,
+                  accumulate: bool) -> torch.Tensor:
+    """One row sweep over all rows and all W-chunks of ``cw`` columns (K4d,
+    one launch): the vertical direction (``with_vertical``) and one
+    diagonal family (``with_diag``; ``shift_down``: the carry moves to
+    higher columns, else lower), the doubled corner line at region column
+    corner_c0 + corner_slope * i.  Writes (adds, with ``accumulate``)
+    ``adj`` IN PLACE and returns it; the bits are those of
+    `chunked_sweep_plain` at any ``cw``, whether the block's carries lie
+    in shared or in global memory (`chunk_layout`)."""
+    kw = dict(col0=col0, W_pout=W_pout, P1=float(P1), P2=float(P2),
+              Pout=float(Pout), reverse=reverse, shift_down=shift_down,
+              corner_c0=corner_c0, corner_slope=corner_slope,
+              with_vertical=with_vertical, with_diag=with_diag,
+              accumulate=accumulate)
+    if cv.device.type == "cpu":
+        return chunked_sweep_plain(cv, adj, cw=cw, **kw)
+    _check_cuda("chunked_sweep", cv, adj)
+    H, W, D = cv.shape
+    if adj.shape != cv.shape or not 1 <= cw <= W:
+        raise ValueError("chunked_sweep: adj of cv's shape, 1 <= cw <= W")
+    if not (with_vertical or with_diag):
+        raise ValueError("chunked_sweep: a vertical or a diagonal family")
+    lay = chunk_layout(D, cw, with_vertical, with_diag)
+    n_w = _ceil_div(W, cw)
+    # every row's boundary carries, then their parts' minima; the chunks'
+    # row counters and the ticket, zeroed for every launch; past a block's
+    # shared memory, each block's area
+    hist = (torch.empty(n_w * H * (D + lay.parts), dtype=torch.float32,
+                        device=cv.device) if with_diag else None)
+    flags = torch.zeros(n_w + 1, dtype=torch.int32, device=cv.device)
+    spill = (torch.empty(n_w * _r16(lay.area), dtype=torch.uint8,
+                         device=cv.device) if lay.spill else None)
     lib = _build.load("sgm_lane")
     with torch.cuda.device(cv.device):
-        err = lib.chunked_rows_launch(
-            cv.data_ptr(), adj.data_ptr(), adj.data_ptr(), hist.data_ptr(),
-            hout.data_ptr(), H, W, D, c0, Wc, col0, W_pout, float(P1),
-            float(P2), float(Pout), int(reverse), int(shift_down), corner_c0,
-            corner_slope, int(with_vertical), int(with_diag), int(accumulate),
-            _stream())
-    _build.check(lib, err, "chunked_rows_launch")
-    chunked_pass.launches += 1
-    return hout
+        err = lib.chunked_sweep_launch(
+            cv.data_ptr(), adj.data_ptr() if accumulate else None,
+            adj.data_ptr(), hist.data_ptr() if with_diag else None,
+            flags.data_ptr(), spill.data_ptr() if lay.spill else None, H, W,
+            D, cw, lay.parts, int(lay.mins), col0, W_pout, kw["P1"],
+            kw["P2"], kw["Pout"], int(reverse), int(shift_down), corner_c0,
+            corner_slope, int(with_vertical), int(with_diag), _stream())
+    _build.check(lib, err, "chunked_sweep_launch")
+    chunked_sweep.launches += 1
+    return adj
 
 
-chunked_pass.launches = 0
+chunked_sweep.launches = 0
+
+
+def chunk_sweeps(H: int, W: int, n_directions: int) -> dict:
+    """`sgm_chunked_adj`'s table of K4d's sweeps over an H x W region, in
+    their order: kind -> `chunked_sweep`'s reverse, shift_down, corner line
+    (region column corner_c0 + corner_slope * i), with_vertical and
+    with_diag.  The verticals ride the two left-to-right sweeps (SE, NE);
+    8 and 16 directions add SW and NW; 4 directions carry no diagonal."""
+    diag = n_directions >= 8
+
+    def sweep(reverse, shift_down, c0, slope, vertical):
+        return dict(reverse=reverse, shift_down=shift_down, corner_c0=c0,
+                    corner_slope=slope, with_vertical=vertical,
+                    with_diag=diag)
+    # carry shift, chunk order, doubled corner line j = c0 + slope * i:
+    #   SE fwd  down  L->R  j = i          NE rev  down  L->R  j = H-1-i
+    #   SW fwd  up    R->L  j = W-1-i      NW rev  up    R->L  j = i + W-H
+    out = {"SE": sweep(False, True, 0, 1, True),
+           "NE": sweep(True, True, H - 1, -1, True)}
+    if diag:
+        out.update(SW=sweep(False, False, W - 1, -1, False),
+                   NW=sweep(True, False, W - H, 1, False))
+    return out
 
 
 def chunked_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
                 P2: float, Pout: float, n_directions: int,
-                cw: int | None = None) -> torch.Tensor:
+                cw: int | None = None, wta_radius: int | None = None):
     """All principal-direction adjustments of an (H, W, D) region through
-    K4d (the four chunked sweeps of `sgm_chunked_adj`'s table, in their
-    chunk order) and K4b's two column scans (16 directions: the knight
-    directions between them, as `fused_adj`).  ``cw`` forces the chunk
-    width (default `chunk_width`)."""
+    K4d, one launch for each of the four sweeps of `sgm_chunked_adj`'s
+    table (two for 4 directions), and K4b's two column scans (16
+    directions: the knight directions before the last, as `fused_adj`).
+    With ``wta_radius`` the last scan is `fused_cols_wta` and the result is
+    (idx, bands).  ``cw`` forces the chunk width (default `chunk_width` for
+    the region's width); the bits do not depend on it."""
     if n_directions not in (4, 8, 16):
         raise ValueError("chunked_adj takes 4, 8 or 16 directions")
     cv = _region_f32(region)
     H, W, D = cv.shape
-    CW = min(W, cw if cw is not None else chunk_width(D))
-    n_w = _ceil_div(W, CW)
-    diag = n_directions >= 8
-    P1, P2, Pout = float(P1), float(P2), float(Pout)
+    cw = (chunk_width(D, n_directions, W, _sms(cv)) if cw is None
+          else min(W, cw))
+    kw = dict(col0=col0, W_pout=W_pout, P1=float(P1), P2=float(P2),
+              Pout=float(Pout))
     adj = torch.empty_like(cv)
-    started = [False] * n_w
-    zrow = cv.new_zeros((1, D))
-
-    def run_pass(order, reverse, shift_down, corner, with_vertical):
-        hist = cv.new_zeros((H, D))
-        for w in order:
-            c0 = w * CW
-            hout = chunked_pass(
-                cv, adj, hist, c0, min(CW, W - c0), col0=col0, W_pout=W_pout,
-                P1=P1, P2=P2, Pout=Pout, reverse=reverse,
-                shift_down=shift_down, corner_c0=corner[0],
-                corner_slope=corner[1], with_vertical=with_vertical,
-                with_diag=diag, accumulate=started[w])
-            started[w] = True
-            # the consumer at row i takes the producer's carry after row
-            # i - 1 (i + 1 on reverse sweeps); the zero row starts a line
-            hist = (torch.cat([hout[1:], zrow]) if reverse
-                    else torch.cat([zrow, hout[:-1]]))
-
-    # sweep, carry shift, chunk order, doubled corner line j = c0 + slope*i:
-    #   SE fwd  down  L->R  j = i          NE rev  down  L->R  j = H-1-i
-    #   SW fwd  up    R->L  j = W-1-i      NW rev  up    R->L  j = i + W-H
-    # the verticals ride the two left-to-right sweeps
-    run_pass(range(n_w), False, True, (0, 1), True)
-    run_pass(range(n_w), True, True, (H - 1, -1), True)
-    if diag:
-        run_pass(reversed(range(n_w)), False, False, (W - 1, -1), False)
-        run_pass(reversed(range(n_w)), True, False, (W - H, 1), False)
-    kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
+    for k, sweep in enumerate(chunk_sweeps(H, W, n_directions).values()):
+        # the first sweep writes, the later ones add
+        chunked_sweep(cv, adj, cw=cw, accumulate=k > 0, **sweep, **kw)
     adj = fused_cols_pass(cv, adj, False, **kw)
     knights = _knight_stack(cv, adj, n_directions, None, **kw)
+    if wta_radius is not None:
+        return fused_cols_wta(cv, adj, wta_radius, knights=knights, **kw)
     return fused_cols_pass(cv, adj, True, knights=knights, **kw)

@@ -43,6 +43,8 @@ FRAMES = {
     "hd": ((entry.HD_HEIGHT, entry.HD_WIDTH), entry.hd_forward),
     "wide": ((entry.HEIGHT, entry.WIDTH), entry.wide_forward),
     "hd_wide": ((entry.HD_HEIGHT, entry.HD_WIDTH), entry.hd_wide_forward),
+    # K1, K4d's four sweeps and K4b's column scans
+    "uhd_wide": ((entry.UHD_HEIGHT, entry.UHD_WIDTH), entry.uhd_wide_forward),
     "patchmatch": ((entry.HEIGHT, entry.WIDTH), entry.patchmatch_forward),
     "wta_zsad": ((entry.HEIGHT, entry.WIDTH),
                  lambda L, R: entry.wta_forward(MatchingFunction.ZSAD, L, R)),

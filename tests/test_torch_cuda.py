@@ -372,33 +372,150 @@ def test_fused_and_chunked_adj_match_grouped(dev, shape, n_dirs):
     from libstevi_tpu_torch.ops.sgm import _grouped_adj
     cv = torch.rand(shape, device=dev) * 3
     want = _grouped_adj(cv, 0.3, 1.1, 7.0, n_dirs, 2, shape[1] + 4)
-    before = (lane.fused_rows_pass.launches, lane.chunked_pass.launches)
+    before = (lane.fused_rows_pass.launches, lane.chunked_sweep.launches)
     for got in (lane.fused_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs),
                 lane.fused_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs,
                                separate=True),
                 lane.chunked_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs,
                                  cw=32)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
-    n_w = -(-shape[1] // 32)
-    assert (lane.fused_rows_pass.launches, lane.chunked_pass.launches) == \
-        (before[0] + 4, before[1] + (4 if n_dirs == 8 else 2) * n_w)
+    # K4d: one launch a sweep, whatever the number of chunks
+    assert (lane.fused_rows_pass.launches, lane.chunked_sweep.launches) == \
+        (before[0] + 4, before[1] + (4 if n_dirs == 8 else 2))
 
 
+def _sweep_kw(H, W, kind, accumulate, vertical=None):
+    """`chunked_sweep`'s arguments for one of `chunked_adj`'s four sweep
+    kinds (`chunk_sweeps`: SE, NE, SW, NW), with a column offset and image
+    width for Pout; ``vertical`` overrides the kind's vertical family."""
+    kw = dict(lane.chunk_sweeps(H, W, 8)[kind], col0=3, W_pout=W + 5,
+              P1=0.3, P2=1.1, Pout=7.0, accumulate=accumulate)
+    if vertical is not None:
+        kw["with_vertical"] = vertical
+    return kw
+
+
+@pytest.mark.parametrize("accumulate", [False, True])
+@pytest.mark.parametrize("vertical", [False, True])
 @pytest.mark.parametrize("shift_down", [False, True])
 @pytest.mark.parametrize("reverse", [False, True])
-def test_k4d_pass_equals_plain(dev, shift_down, reverse):
+def test_k4d_pass_equals_plain(dev, reverse, shift_down, vertical,
+                               accumulate):
+    """K4d's one-launch sweep (`chunked_sweep`) at 40x300x352 with the
+    card's chunk width (3 columns, 100 chunks) against its sweep-level
+    plain version with `torch.equal`, reverse x shift_down x
+    with_vertical, writing and accumulating, ten runs with the same bits,
+    one launch each."""
     H, W, D = 40, 300, 352
-    cv = torch.rand(H, W, D, device=dev) * 3
-    adj = torch.rand(H, W, D, device=dev)
-    hist = torch.rand(H, D, device=dev)
-    kw = dict(col0=1, W_pout=W + 2, P1=0.3, P2=1.1, Pout=7.0,
-              reverse=reverse, shift_down=shift_down, corner_c0=40,
-              corner_slope=1 if shift_down else -1, with_vertical=True,
-              with_diag=True, accumulate=True)
-    adj_p = adj.clone()
-    h_p = lane.chunked_pass_plain(cv, adj_p, hist, 32, 32, **kw)
-    h_k = lane.chunked_pass(cv, adj, hist, 32, 32, **kw)
-    assert torch.equal(adj, adj_p) and torch.equal(h_k, h_p)
+    g = torch.Generator(device=dev).manual_seed(31)
+    cv = torch.rand((H, W, D), generator=g, device=dev) * 3
+    acc = torch.rand((H, W, D), generator=g, device=dev)
+    kind = ("SE" if not reverse else "NE") if shift_down else \
+        ("SW" if not reverse else "NW")
+    kw = _sweep_kw(H, W, kind, accumulate, vertical)
+    cw = lane.chunk_width(D, 8, W)
+    assert cw == 3
+    want = lane.chunked_sweep_plain(cv, acc.clone(), cw=W, **kw)
+    before = lane.chunked_sweep.launches
+    got = _ten_runs(lambda: (lane.chunked_sweep(cv, acc.clone(), cw=cw,
+                                                **kw),))
+    assert lane.chunked_sweep.launches == before + 10
+    assert torch.equal(got[0], want)
+
+
+# K4d's sweeps at the edges of its design: D not a multiple of 32 with
+# H = 1, more chunks (150) than the card has SMs, so the ticket order is
+# exercised, a 1-column chunk, a vertical-only sweep (4 directions), and
+# the instance whose carries lie in global memory, past a one-column
+# chunk's shared memory (D = 11700 with the diagonal, 29100 without);
+# (H, W, D, cw, vertical-only)
+K4D_CASES = {"d333_one_row": (1, 300, 333, None, False),
+             "more_chunks_than_sms": (12, 300, 40, 2, False),
+             "one_column": (9, 50, 333, 1, False),
+             "four_directions": (20, 300, 333, None, True),
+             "global_carries": (6, 40, 11700, None, False),
+             "global_carries_four_directions": (4, 20, 29100, None, True)}
+
+
+@pytest.mark.parametrize("case", list(K4D_CASES))
+def test_k4d_sweeps_equal_plain_ten_runs(dev, case):
+    """Each of K4d's four sweep kinds (one launch, all chunks) against its
+    sweep-level plain version at the widest chunk, with `torch.equal`, ten
+    runs with the same bits."""
+    H, W, D, cw, vertical_only = K4D_CASES[case]
+    cw = cw or lane.chunk_width(D, 4 if vertical_only else 8, W)
+    assert lane.chunk_layout(D, cw, True, not vertical_only).spill is \
+        case.startswith("global")
+    g = torch.Generator(device=dev).manual_seed(H + W + D)
+    cv = torch.rand((H, W, D), generator=g, device=dev) * 3
+    acc = torch.rand((H, W, D), generator=g, device=dev)
+    for kind in (("SE", "NE") if vertical_only else ("SE", "NE", "SW", "NW")):
+        for accumulate in (False, True):
+            kw = _sweep_kw(H, W, kind, accumulate)
+            if vertical_only:
+                kw.update(with_vertical=True, with_diag=False)
+            want = lane.chunked_sweep_plain(cv, acc.clone(), cw=W, **kw)
+            got = _ten_runs(lambda: (lane.chunked_sweep(
+                cv, acc.clone(), cw=cw, **kw),))
+            assert torch.equal(got[0], want), (kind, accumulate)
+
+
+def test_past_the_column_scan_limit_runs_the_kernels_on_the_card(dev):
+    """4-direction `sgm_wta_truncated` at W <= 132 and D just past the WTA
+    column scan's shared memory (14461): K4b's rows fit (`fused_fits`), so
+    the scan was launched and refused with cudaErrorInvalidValue; now the
+    scan keeps its carries in global memory (`cols_spills`), and the card
+    runs K4b's two row sweeps and both column scans and returns the CPU
+    run's bits (the plain versions, held to JAX's on the CPU)."""
+    from libstevi_tpu_torch.ops.sgm import sgm_route
+    D = 14461
+    assert lane.fused_fits(3, D, 4) and lane.cols_spills(D, True)
+    assert sgm_route(D, 4, 0.3, 1.1, True) == "lane"
+    g = torch.Generator(device=dev).manual_seed(5)
+    cv = torch.rand((2, 3, D), generator=g, device=dev) * 3
+    counters = (lane.fused_rows_pass, lane.fused_cols_pass,
+                lane.fused_cols_wta, lane.chunked_sweep)
+    before = [fn.launches for fn in counters]
+    ig, tg = sgm_wta_truncated(cv, 0.3, 1.1, Pout=7.0, n_directions=4)
+    torch.cuda.synchronize()
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [2, 1, 1, 0]
+    ic, tc = sgm_wta_truncated(cv.cpu(), 0.3, 1.1, Pout=7.0, n_directions=4)
+    assert torch.equal(ig.cpu(), ic)
+    torch.testing.assert_close(tg.cpu(), tc, rtol=0, atol=0, equal_nan=True)
+
+
+@pytest.mark.parametrize("n_dirs,shape", [(8, (2, 3, 12000)),
+                                          (16, (2, 3, 12000)),
+                                          (16, (5, 7, 9700)),
+                                          (4, (3, 2, 30000))])
+def test_past_the_shared_memory_equals_plain(dev, n_dirs, shape):
+    """Past the D whose carries fit a block's shared memory (K4d's
+    one-column chunk, K2k's any-D ring, the WTA column scan), the lane
+    route's kernels run with their carries in global memory: K4d's sweeps
+    (one launch each), K4b's column scans and, with 16 directions, K2k's
+    knights, launched and equal to the plain versions on the CPU bit for
+    bit, `sgm_cost_volume` and `sgm_wta_truncated` alike."""
+    D = shape[-1]
+    g = torch.Generator(device=dev).manual_seed(D + n_dirs)
+    cv = torch.rand(shape, generator=g, device=dev) * 3
+    counters = (lane.chunked_sweep, lane.fused_cols_pass,
+                lane.fused_cols_wta, knight_volumes)
+    before = [fn.launches for fn in counters]
+    got = sgm_cost_volume(cv, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
+    ig, tg = sgm_wta_truncated(cv, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
+    torch.cuda.synchronize()
+    sweeps = 4 if n_dirs >= 8 else 2
+    knights = 4 if n_dirs == 16 else 0
+    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+        [2 * sweeps, 3, 1, knights]
+    assert torch.equal(got.cpu(), sgm_cost_volume(cv.cpu(), 0.3, 1.1,
+                                                  Pout=7.0,
+                                                  n_directions=n_dirs))
+    ic, tc = sgm_wta_truncated(cv.cpu(), 0.3, 1.1, Pout=7.0,
+                               n_directions=n_dirs)
+    assert torch.equal(ig.cpu(), ic)
+    torch.testing.assert_close(tg.cpu(), tc, rtol=0, atol=0, equal_nan=True)
 
 
 def test_wide_path_matches_cpu(dev):

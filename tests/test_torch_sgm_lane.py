@@ -102,8 +102,10 @@ def test_fused_cols_wta_matches_pallas(n_dirs):
     ids=["SE", "NE", "SW", "NW"])
 def test_chunked_pass_matches_pallas(reverse, shift_down, vertical,
                                      accumulate):
-    """One K4d chunk (plain) against `_chunked_pass`: a random history in,
-    the boundary column's carries out, the corner line inside the chunk."""
+    """One K4d chunk (`chunked_pass_plain`, the per-chunk form that K4d's
+    sweep-level plain version chains) against `_chunked_pass`: a random
+    history in, the boundary column's carries out, the corner line inside
+    the chunk."""
     H, W, D, c0, Wc = 9, 20, 6, 5, 7
     cv = _cv(3, (H, W, D))
     acc = _cv(4, (H, W, D))
@@ -118,7 +120,7 @@ def test_chunked_pass_matches_pallas(reverse, shift_down, vertical,
         jnp.asarray(_dp_pad(hist, D)), H1=H, Wc=Wc, c0=c0, ml=1, W_pout=W + 1,
         P1=P1, P2=P2, Pout=POUT, rc=1, interpret=True, **kw)
     adj = torch.from_numpy(acc.copy())
-    hout = lane.chunked_pass(
+    hout = lane.chunked_pass_plain(
         torch.from_numpy(cv), adj, torch.from_numpy(hist), c0, Wc, col0=1,
         W_pout=W + 1, P1=P1, P2=P2, Pout=POUT, accumulate=accumulate, **kw)
     np.testing.assert_allclose(adj.numpy()[:, c0:c0 + Wc],
@@ -127,16 +129,217 @@ def test_chunked_pass_matches_pallas(reverse, shift_down, vertical,
     np.testing.assert_array_equal(adj.numpy()[:, :c0], acc[:, :c0])
 
 
-@pytest.mark.parametrize("n_dirs,cw", [(8, 16), (8, 8), (4, 8)])
+@pytest.mark.parametrize("n_dirs,cw", [(8, 16), (8, 8), (4, 8), (8, 1),
+                                       (8, 7), (8, 40), (4, 3), (8, None)])
 def test_chunked_adj_matches_pallas(n_dirs, cw):
     """K4d's four chunked sweeps and K4b's column scans (plain), forced
-    small chunks, against `sgm_chunked_adj` (and so the XLA groups)."""
+    chunk widths from 1 to the whole width, and the card's rule (None: one
+    column a chunk at this width, 40 chunks), against `sgm_chunked_adj`
+    (and so the XLA groups)."""
     cv = _cv(6, (12, 40, 6))
     want = jp.sgm_chunked_adj(jnp.asarray(cv), 0, 40, P1, P2, POUT, n_dirs,
-                              interpret=True, cw_target=cw)
+                              interpret=True, cw_target=cw or 8)
     got = lane.chunked_adj(torch.from_numpy(cv), 0, 40, P1, P2, POUT, n_dirs,
                            cw=cw)
     np.testing.assert_allclose(got.numpy(), np.asarray(want), **TOL)
+
+
+@pytest.mark.parametrize("n_dirs", [4, 8])
+def test_chunked_adj_wta_matches_pallas(n_dirs):
+    """K4d's route ending in K4b's WTA column scan (`chunked_adj(...,
+    wta_radius=1)`, as `sgm_wta_truncated` runs it without margins)
+    against the tie-last argmin and band of cv + `sgm_chunked_adj`: idx
+    equal off near-ties, the band slots inside [0, D) within 1e-4 where
+    idx agrees."""
+    cv = _cv(23, (12, 40, 6))
+    sgm = cv + np.asarray(jp.sgm_chunked_adj(
+        jnp.asarray(cv), 0, 40, P1, P2, POUT, n_dirs, interpret=True,
+        cw_target=8))
+    idx, bands = (x.numpy() for x in lane.chunked_adj(
+        torch.from_numpy(cv), 0, 40, P1, P2, POUT, n_dirs, cw=7,
+        wta_radius=1))
+    want = 5 - np.argmin(sgm[..., ::-1], -1)          # ties: the last index
+    two = np.sort(sgm, -1)[..., :2]
+    clear = (two[..., 1] - two[..., 0]) > 1e-4
+    np.testing.assert_array_equal(idx[clear], want[clear])
+    same = idx == want
+    assert same.mean() > 0.99
+    p = idx[..., None] + np.arange(-1, 2)
+    ok = same[..., None] & (p >= 0) & (p < 6)
+    ref = np.take_along_axis(sgm, np.clip(p, 0, 5), -1)
+    np.testing.assert_allclose(bands[ok], ref[ok], **TOL)
+
+
+@pytest.mark.parametrize("sweep", ["SE", "NE", "SW", "NW"])
+@pytest.mark.parametrize("W,cw", [(40, 1), (40, 7), (40, 37), (40, 40),
+                                  (300, 2)])
+def test_chunked_sweep_plain_equals_chunk_chain(W, cw, sweep):
+    """K4d's sweep-level plain version (`chunked_sweep`, plain on the CPU:
+    the reference of the card's one-launch sweep) against the per-chunk
+    plain version chained by hand in the flow's order, and against one
+    chunk of the whole width: equal bit for bit at chunk widths 1, 7, 37
+    and W, and with more chunks than an H100 has SMs (W = 300 at 2
+    columns: 150 chunks).  The bits do not depend on the chunk width, which
+    the card's rule (`chunk_width`) picks."""
+    H, D = 6, 9
+    cv = torch.from_numpy(_cv(20, (H, W, D)))
+    acc = torch.from_numpy(_cv(21, (H, W, D)))
+    # the first sweep of `chunked_adj` writes, the later ones add
+    kw = dict(lane.chunk_sweeps(H, W, 8)[sweep], col0=2, W_pout=W + 3,
+              P1=P1, P2=P2, Pout=POUT, accumulate=sweep != "SE")
+    reverse, shift_down = kw["reverse"], kw["shift_down"]
+    got = lane.chunked_sweep(cv, acc.clone(), cw=cw, **kw)
+    want = acc.clone()
+    n_w = -(-W // cw)
+    hist = torch.zeros(H, D)
+    for w in (range(n_w) if shift_down else reversed(range(n_w))):
+        hout = lane.chunked_pass_plain(cv, want, hist, w * cw,
+                                       min(cw, W - w * cw), **kw)
+        # row i continues the upstream's carry of scan row i -+ 1
+        hist = torch.roll(hout, -1 if reverse else 1, 0)
+        hist[-1 if reverse else 0] = 0.0
+    assert torch.equal(got, want)
+    assert torch.equal(got, lane.chunked_sweep_plain(cv, acc.clone(), cw=W,
+                                                     **kw))
+
+
+@pytest.mark.parametrize("n_dirs,shape", [(8, (2, 3, 12000)),
+                                          (16, (2, 3, 12000)),
+                                          (4, (1, 9, 30000)),
+                                          (4, (3, 2, 30000))])
+def test_past_the_lane_kernels_matches_jax(n_dirs, shape):
+    """Past the D whose carries fit a block's shared memory (here K4d's
+    one-column chunk; 16 directions also K2k's any-D ring, 4 the WTA
+    column scan's), the lane route still runs on either device, each
+    kernel with its carries in global memory (`chunk_layout`,
+    `cols_spills`, `sgm_cuda.ring_fits`), as JAX's XLA path takes any D:
+    `sgm_cost_volume` within 1e-4 of JAX's, and `sgm_wta_truncated`'s
+    indices equal off near-ties with the truncated volume within 1e-4
+    where they agree.  Both raised NotImplementedError ("no chunk column")
+    before the route took any D."""
+    D = shape[-1]
+    assert sgm_route(D, n_dirs, P1, P2, True) == "lane"
+    assert sgm_route(D, n_dirs, P1, P2, False) == "lane"
+    assert not lane.fused_fits(shape[1], D, n_dirs)
+    assert lane.chunk_layout(D, lane.chunk_width(D, n_dirs, shape[1]), True,
+                             n_dirs >= 8).spill
+    cv = _cv(22, shape)
+    want = np.asarray(j_sgm(jnp.asarray(cv), P1, P2, Pout=POUT,
+                            n_directions=n_dirs, backend="xla"))
+    got = sgm_cost_volume(torch.from_numpy(cv), P1, P2, Pout=POUT,
+                          n_directions=n_dirs).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+    kw = dict(Pout=POUT, n_directions=n_dirs)
+    i_j, t_j = (np.asarray(x) for x in j_wta(jnp.asarray(cv), P1, P2,
+                                             backend="xla", **kw))
+    i_t, t_t = (x.numpy() for x in sgm_wta_truncated(torch.from_numpy(cv),
+                                                     P1, P2, **kw))
+    two = np.sort(want, -1)[..., :2]
+    clear = (two[..., 1] - two[..., 0]) > 1e-4
+    np.testing.assert_array_equal(i_t[clear], i_j[clear])
+    same = i_t == i_j
+    np.testing.assert_allclose(t_t[same], t_j[same], equal_nan=True, **TOL)
+
+
+@pytest.mark.parametrize("D,n_dirs,spill", [
+    (11622, 8, False), (11623, 8, True),
+    (9640, 16, False), (9641, 16, True),
+    (14460, 4, False), (14461, 4, True),
+])
+def test_sgm_route_at_the_lane_limits(D, n_dirs, spill):
+    """At each kernel's shared-memory limit `sgm_route` keeps the lane
+    route, alike on both devices, and the kernel's own pure layout
+    function moves its carries to global memory just past it: 8
+    directions past K4d's one-column chunk (D = 11622), 16 past K2k's
+    any-D ring (9640), 4 past the WTA column scan (14460; K4d's
+    vertical-only chunk would take 29056)."""
+    from libstevi_tpu_torch.ops.sgm_cuda import ring_fits
+    for cuda in (False, True):
+        assert sgm_route(D, n_dirs, 0.1, 0.5, cuda) == "lane"
+    k4d = lane.chunk_layout(D, lane.chunk_width(D, n_dirs), True,
+                            n_dirs >= 8)
+    cols = lane.cols_spills(D, True)
+    if n_dirs == 8:
+        assert lane.chunk_width(D, 8) == 1
+        assert k4d.spill is spill and not cols
+    elif n_dirs == 16:
+        assert ring_fits(D) is not spill
+        assert not k4d.spill and not cols
+    else:
+        # K4b's rows take it at W <= 132, so only the scan's own layout
+        # keeps it off the card's cudaErrorInvalidValue
+        assert lane.fused_fits(132, D, 4) and not k4d.spill
+        assert cols is spill
+        assert (lane.cols_layout(1, D, 0, True).smem == 0) is spill
+        assert not lane.cols_spills(D, False)
+
+
+def test_lane_limit_functions():
+    """The layouts' shared-memory limits: K4d's chunk (one column at D =
+    11622 with the diagonal, 29056 without, then a chunk of the same width
+    in global memory), the column scans (the WTA scan's area to 14460, the
+    plain one's to 28924; `cols_layout(100, 14500, 0, True)` puts its
+    232064 bytes in global memory), K2k's any-D ring (9640 in f32), and
+    K4d's chunk width filling the card at 4K UHD (30 columns, 128 chunks)
+    but never past what the carries allow, and past them at any D."""
+    from libstevi_tpu_torch.ops.sgm_cuda import ring_fits
+    assert lane.chunk_width(11622) == 1 and lane.chunk_width(11623) == 1
+    assert not lane.chunk_layout(11622, 1, True, True).spill
+    assert lane.chunk_layout(11623, 1, True, True).spill
+    assert lane.chunk_width(29056, 4) == 1
+    assert not lane.chunk_layout(29056, 1, True, False).spill
+    assert lane.chunk_layout(29057, 1, True, False).spill
+    assert not lane.cols_spills(14460, True)
+    assert lane.cols_spills(14461, True)
+    assert not lane.cols_spills(28924, False)
+    assert lane.cols_spills(28925, False)
+    assert lane.cols_area(14500, True) == 232064
+    assert lane.cols_layout(100, 14500, 0, True) == (4, 0, 0)
+    assert ring_fits(9640) and not ring_fits(9641)
+    assert lane.chunk_width(384, 8, 3840) == 30
+    assert lane.chunk_width(384, 8, 640) == 5
+    assert lane.chunk_width(800, 8, 3000) == 17        # 177 chunks
+    assert lane.chunk_width(12000, 8, 3840) == 30      # global carries
+    lay = lane.chunk_layout(384, 30, True, True)
+    assert not lay.spill and lay.area <= lane.SMEM_BLOCK
+    assert lane.chunk_layout(384, 38, True, True).spill
+
+
+def test_uhd_entry_at_full_width_matches_jax():
+    """The 4K UHD entry (`entry.uhd_wide_forward`: ZNCC 7x7, D = 384, f32,
+    SGM-8, parabola) at its full width 3840, 8 rows: K4b's carries do not
+    fit (`fused_fits`), so the lane route runs K4d's sweeps with the card's
+    chunk width and the WTA column scan (plain on the CPU), against JAX's
+    `dense_sgm_stereo` on its XLA path: idx equal off near-ties, the band
+    and the parabola disparity within 1e-4 where idx agrees."""
+    from libstevi_tpu_torch import entry
+    H, W, D = 8, entry.UHD_WIDTH, entry.WIDE["disp_width"]
+    assert sgm_route(D, 8, 0.1, 0.5, True) == "lane"
+    assert not lane.fused_fits(W, D, 8)
+    rng = np.random.default_rng(24)
+    L = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    R = rng.uniform(0, 1, (H, W)).astype(np.float32)
+    args = (3, 3, D, 0.1, 0.5)
+    dj, ij, tj = (np.asarray(x) for x in j_dense(
+        JMF.ZNCC, jnp.asarray(L), jnp.asarray(R), *args, backend="xla",
+        n_directions=8, refine_kernel=JInterp.PARABOLA))
+    Lt, Rt = torch.from_numpy(L), torch.from_numpy(R)
+    dt, it, tt = (x.numpy() for x in dense_sgm_stereo(
+        to_port(JMF.ZNCC), Lt, Rt, **entry.WIDE))
+    assert np.array_equal(entry.uhd_wide_forward(Lt, Rt).numpy(), dt,
+                          equal_nan=True)
+    sgm = np.sort(np.asarray(j_sgm(-j_box(JMF.ZNCC, jnp.asarray(L),
+                                          jnp.asarray(R), 3, 3, D),
+                                   0.1, 0.5, n_directions=8,
+                                   backend="xla")), -1)
+    clear = (sgm[..., 1] - sgm[..., 0]) > 1e-4
+    np.testing.assert_array_equal(it[clear], ij[clear])
+    same = it == ij
+    assert same.mean() > 0.99
+    np.testing.assert_array_equal(np.isnan(tt[same]), np.isnan(tj[same]))
+    np.testing.assert_allclose(tt[same], tj[same], **TOL)
+    f = np.isfinite(dj) & same
+    np.testing.assert_allclose(dt[f], dj[f], **TOL)
 
 
 @pytest.mark.parametrize("neg", [False, True])
