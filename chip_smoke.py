@@ -18,8 +18,11 @@ against the sequential accumulator and against the plain versions; the
 SGM entries with margins against the CPU; K5 feature-volume cost volume at
 the WTA path's
 shape (480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset
-search, an RGB F=147 input); K6 PatchMatch sweep and K7 probe, exactly, on
-the 480x640x120 NCC volume; the lane-layout SGM kernels past D = 320,
+search, an RGB F=147 input); K6 PatchMatch sweep (its three launches) and
+K7 probe and search probe, exactly, on the 480x640x120 NCC volume, K6 also
+on a flood whose run crosses 2/3 of every line and at edge shapes (one and
+two lines, 45 chains, lower < 0, +inf and ties, costs not the volume's
+own); the lane-layout SGM kernels past D = 320,
 bitwise: K4a shear / unshear (both signs), K4b's row sweeps, column scans
 and WTA scan at the wide path's 480x640x384 f32 volume, at 37x101x333 and
 (after the HD wide path) at its 720x1280x640 volume, with the
@@ -85,6 +88,9 @@ each with the launch counts set to 0 just before it and read just after:
   fixtures as a batch of 2, indices held to the single-device route's at
   >= 0.999 agreement; `entry.dryrun_multichip(8)`; SGM-4/8/16 at
   48x64x330 (tile 4; K2 and K2s past D = 320) against the CPU at 1e-4;
+  SGM-8/16 at 48x64x9641 (tile 4, past K2's any-D ring: its global-carry
+  instance) through `distributed_sgm_routed`, bitwise against the plain
+  passes;
 - SGM-16 at D=384 (`dense_sgm_stereo`: K1, K4b and the any-D K2k) on a
   random pair;
 - `aggregate_cost` 'auto' with ZSAD r=5 (F=121) over D=448, past K5's
@@ -99,10 +105,14 @@ median of 5), measures the flagship and HD frames' peak device memory,
 times K2's two forms with K3 (one launch, or 7 launches into one
 accumulator) from 480x640 to 2160x3840 with their peak memory and equal
 outputs, and K3's two forms on SGM-16 (over the 15 volumes, or over their
-sum), times K1's call, the flagship frame with its device items, the two
+sum), times K6 and K7 as calls and on the device (torch.profiler) beside their
+sector floors, the any-D K2 a launch on relay shards at D = 330 and past
+its ring, times K1's call, the flagship frame with its device items, the two
 SGM-16 frames with theirs, K2k, K3, the distributed SGM-16 frame, the
 wide and HD wide frames with their device items, K4b, K4c's relays, K4d's
-`chunked_adj` at 480x640x384 and the 4K UHD frame as the checkout runs them
+`chunked_adj` at 480x640x384, the 4K UHD frame, and the PatchMatch frame
+with its device items, K6's sweeps (480x640x120 and 720x1280x320), K7
+(K = 1, 4) and the random search's probe step as the checkout runs them
 (and, with ``--parent DIR``, a checkout of another commit, that one's too,
 in turns: parent, change, change, parent; first, while the card is empty),
 and
@@ -285,6 +295,179 @@ def shift_rows_gather(x, W_out, base, slope):
     s = (base + slope * torch.arange(H, device=x.device)).clamp(0, W_in - W_out)
     cols = s[:, None] + torch.arange(W_out, device=x.device)
     return torch.gather(x, 1, cols[..., None].expand(H, W_out, Dp))
+
+
+def k6_flood(H, W, D, axis, reverse, dev, seed=23):
+    """A K6 state over an (H, W, D) cost-oriented volume for the sweep
+    (axis, reverse): the first line's value v0 runs across the lines up to
+    2/3 of the sweep, whose own values all differ from v0 and from their
+    neighbours' (so no run breaks by equality: one run of hundreds of
+    lines); the line at 2/3 rejects v0.  Costs are each pixel's own
+    volume value.  Returns (cv, disp, cost) as (H, W) images."""
+    L, S = (H, W) if axis == 0 else (W, H)
+    g = torch.Generator(device=dev).manual_seed(seed)
+    v0 = D // 2
+    k = ((torch.arange(L, device=dev)[:, None] * 5
+          + torch.arange(S, device=dev)[None] * 3) % (D - 1))
+    k = k + (k >= v0).long()
+    k[0] = v0
+    cv = torch.rand((L, S, D), generator=g, device=dev) + 1
+    cv[:, :, v0] = 0.5
+    cv[2 * L // 3, :, v0] = 3.0
+    cost = torch.gather(cv, -1, k[..., None])[..., 0]
+    disp = k.int()
+    if reverse:
+        cv, disp, cost = cv.flip(0), disp.flip(0), cost.flip(0)
+    if axis == 1:
+        cv, disp, cost = cv.transpose(0, 1), disp.t(), cost.t()
+    return cv.contiguous(), disp.contiguous(), cost.contiguous()
+
+
+def k6_edges(dev):
+    """(tag, (cv, disp, cost, lower)) K6 edge states: one line and two
+    lines along either axis, 45 chains (not a multiple of K6's 32-chain
+    block) over 77 lines, lower = -11, a volume of small integers with
+    +inf (ties), and costs that are not the volume's own values."""
+    rng = np.random.default_rng(24)
+    for tag, (H, W, D), lower, ints, own in (
+            ("one line", (1, 45, 13), 0, False, True),
+            ("one line", (45, 1, 13), 0, False, True),
+            ("two lines", (2, 45, 13), 0, False, True),
+            ("two lines", (45, 2, 13), 0, False, True),
+            ("45 x 77", (45, 77, 13), 0, False, True),
+            ("lower -11", (70, 33, 21), -11, False, True),
+            ("+inf and ties", (67, 38, 9), 0, True, True),
+            ("costs not the volume's", (65, 70, 30), 0, False, False)):
+        cv = (rng.integers(0, 3, (H, W, D)) if ints
+              else rng.uniform(0, 1, (H, W, D))).astype(np.float32)
+        cv[rng.uniform(size=cv.shape) < (0.15 if ints else 0.05)] = np.inf
+        disp = rng.integers(lower - 2, lower + D + 2, (H, W)).astype(
+            np.int32)
+        if own:
+            k = np.clip(disp - lower, 0, D - 1)
+            cost = np.take_along_axis(cv, k[..., None], -1)[..., 0]
+            cost = np.where((disp >= lower) & (disp < lower + D), cost,
+                            np.float32(np.inf)).astype(np.float32)
+        else:
+            cost = rng.uniform(0, 1, (H, W)).astype(np.float32)
+        yield tag, tuple(torch.from_numpy(x).to(dev)
+                         for x in (cv, disp, cost)) + (lower,)
+
+
+def host_us(fn, n=200):
+    """The host's µs a call of ``fn``, over ``n`` calls issued back to back
+    without a synchronisation (the launches queue on the card)."""
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+
+def pm_kernel_times(dev, costc, d0, d1, c1, draws, cand, inf_cost, L, R,
+                    smi):
+    """K6's and K7's times at the PatchMatch path's shapes: each call with
+    CUDA events (median of 5) beside its device time under torch.profiler
+    (the sum of its kernels' device µs a call, over 20 calls, the L2
+    scrubbed before each) and the host's µs a call, the sector
+    floors of their scattered volume reads, K6 on a converged state (the
+    PatchMatch path's own output) and at 720x1280x320, the search probe
+    beside the candidate glue it replaces, and the PatchMatch frame's
+    profile.  Returns the device ms of the K6 and K7 records."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.ops.box_cuda import box_cv
+    from libstevi_tpu_torch.ops.patchmatch import cost_oriented_volume
+    from libstevi_tpu_torch.ops.patchmatch_cuda import (
+        probe, scaled_candidate, search_probe, sweep)
+    from libstevi_tpu_torch.profile_frames import profile_frame
+
+    # device times with a cold L2, as the path meets the volume: a 96 MB
+    # fill (past the 50 MB L2) before each call, left out of the sums
+    scrub = torch.empty(24 << 20, device=dev)
+
+    def device_us(fn, names):
+        _, items = profile_frame(lambda: (scrub.zero_(), fn()), 20)
+        got = {k: v[0] for k, v in items.items()
+               if any(n in k for n in names)}
+        assert got, (names, list(items))
+        return sum(got.values()), got
+
+    HW = L.numel()
+    # one 32-byte sector a scattered volume value, the state's planes
+    floor6 = HW * (32 + 4 * 4) / HBM_BYTES_PER_MS * 1e3
+    floor7 = HW * (4 * (32 + 4) + 4 * 4) / HBM_BYTES_PER_MS * 1e3
+    print(f"sector floors at 480x640: K6 sweep {floor6:.2f} us (a sector "
+          f"and 16 bytes of state a pixel), K7 K=4 {floor7:.2f} us (4 "
+          f"sectors and 4 candidates, 16 bytes of state)", flush=True)
+    # the converged state: the path's output on (L, R) and its own costs
+    gen = torch.Generator(device=dev).manual_seed(0)
+    d_pm = entry.patchmatch_forward(L, R, gen)
+    cv_pm = cost_oriented_volume(MatchingFunction.NCC,
+                                 box_cv(MatchingFunction.NCC, L, R, 3, 3,
+                                        120), 0)
+    c_pm = probe(cv_pm, d_pm, d_pm, inf_cost, 0)[1]
+    g = torch.Generator(device=dev).manual_seed(25)
+    Hh, Wh, Dh = 720, 1280, 320
+    cv_hd = torch.rand((Hh, Wh, Dh), generator=g, device=dev)
+    d_hd = torch.randint(0, Dh, (Hh, Wh), generator=g, device=dev,
+                         dtype=torch.int32)
+    c_hd = probe(cv_hd, d_hd, d_hd, torch.full((Hh, Wh), float("inf"),
+                                                device=dev), 0)[1]
+    K6 = ("pm_runs", "pm_chain", "pm_cost")
+    jobs = {
+        "K6 sweep along W 480x640x120 (random state)": (
+            lambda: sweep(costc, d1, c1, 0, 1, False), K6),
+        "K6 sweep along H 480x640x120 (random state)": (
+            lambda: sweep(costc, d1, c1, 0, 0, False), K6),
+        "K6 sweep along W 480x640x120 (converged: the path's output)": (
+            lambda: sweep(cv_pm, d_pm, c_pm, 0, 1, False), K6),
+        "K6 sweep along H 480x640x120 (converged: the path's output)": (
+            lambda: sweep(cv_pm, d_pm, c_pm, 0, 0, False), K6),
+        "K6 sweep along W 720x1280x320 (random state)": (
+            lambda: sweep(cv_hd, d_hd, c_hd, 0, 1, False), K6),
+        "K6 sweep along H 720x1280x320 (random state)": (
+            lambda: sweep(cv_hd, d_hd, c_hd, 0, 0, False), K6),
+        "K7 probe K=1 (init)": (
+            lambda: probe(costc, d0, d0, inf_cost, 0), ("pm_probe",)),
+        "K7 probe K=4": (
+            lambda: probe(costc, cand, d1, c1, 0), ("pm_probe",)),
+        "K7 search probe K=4 (the path's)": (
+            lambda: search_probe(costc, draws, d1, c1, 0, 4),
+            ("pm_probe",)),
+    }
+    out = {}
+    for name, (fn, names) in jobs.items():
+        ms = median_ms(fn)
+        us, parts = device_us(fn, names)
+        out[name] = (ms, us / 1e3)
+        print(f"time: {name}: call {ms:.4f} ms, device {us:.2f} us ("
+              + ", ".join(f"{k} {v:.2f}" for k, v in parts.items())
+              + f"), host {host_us(fn):.1f} us a call ({smi})", flush=True)
+    glue_ms = median_ms(lambda: probe(costc, torch.stack(
+        [scaled_candidate(draws[k], d1, k, 4) for k in range(4)]), d1, c1,
+        0))
+    sp_ms = out["K7 search probe K=4 (the path's)"][0]
+    print(f"time: the candidate glue it replaces (4 x scaled_candidate, "
+          f"stack, probe K=4): {glue_ms:.4f} ms against the search probe's "
+          f"{sp_ms:.4f} (median of 5; {smi})", flush=True)
+    fn = lambda: entry.patchmatch_forward(L, R, gen.manual_seed(0))
+    pm_ms = median_ms(fn)
+    busy, items = profile_frame(fn, 5)
+    top = sorted(items.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"profile: PatchMatch frame 480x640 D=120 5 it: {pm_ms:.3f} ms, "
+          f"device busy {busy / 1e3:.3f} ms, idle {1 - busy / 1e3 / pm_ms:.3f}"
+          f", {sum(n for _, n in items.values()):.1f} device items a frame;"
+          f" top: " + ", ".join(f"{k} {us:.1f} us x{n:.0f}"
+                                for k, (us, n) in top) + f" ({smi})",
+          flush=True)
+    del cv_hd, cv_pm
+    return out, {
+        "K6": out["K6 sweep along W 480x640x120 (random state)"][1],
+        "K7": out["K7 search probe K=4 (the path's)"][1]}
 
 
 def bf16_ulp(x):
@@ -474,9 +657,9 @@ def distributed(dev, pairs, smi):
                                             directions_for)
     from libstevi_tpu_torch.ops.sgm import knight_adj
     from libstevi_tpu_torch.ops.sgm_cuda import (
-        add_knight_volumes, knight_volumes, knight_volumes_plain,
-        sgm_knight_shard_pass, sgm_knight_shard_pass_plain, sgm_pass,
-        sgm_pass_plain, sgm_shard_pass, sgm_shard_pass_plain)
+        MAX_D, add_knight_volumes, knight_volumes, knight_volumes_plain,
+        ring_fits, sgm_knight_shard_pass, sgm_knight_shard_pass_plain,
+        sgm_pass, sgm_pass_plain, sgm_shard_pass, sgm_shard_pass_plain)
     from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
     from libstevi_tpu_torch.parallel.sgm_dist import (
         _column_split, carry_relay, distributed_sgm, distributed_sgm_fused,
@@ -675,6 +858,37 @@ def distributed(dev, pairs, smi):
         print(f"  SGM-{n} {tuple(cv_a.shape)} tile 4 (K2 and K2s past D = "
               f"320): within {e:.3g} of the CPU run", flush=True)
     del da, want, sha_c
+    # C6: past K2's any-D ring (`ring_fits`: the first D is 9641 for an f32
+    # pass that accumulates) K2 and K2s keep their carries in global
+    # memory: SGM-8 and SGM-16 over 4 row shards through
+    # `distributed_sgm_routed` (K4c's carries do not fit: the K2s engine),
+    # bitwise against the plain passes in `sgm_accumulate`'s order
+    DC = MAX_D + 1
+    while ring_fits(DC, 4, 1):
+        DC += 1
+    cv_6 = torch.rand((48, 64, DC), generator=g, device=dev) * 4
+    sh6 = list(cv_6.split(12))
+    for n in (8, 16):
+        dirs = directions_for(n)
+        acc = torch.empty(cv_6.shape, device=dev)
+        for k, d in enumerate(x for x in dirs if not x.knight):
+            sgm_pass_plain(cv_6, acc, d, *Q, accumulate=k > 0)
+        for d in (x for x in dirs if x.knight):
+            acc.add_(knight_volumes_plain(cv_6, [d], *Q)[0])
+        for fn in counters:
+            fn.launches = 0
+        got = torch.cat(distributed_sgm_routed(sh6, *Q, n))
+        l6 = {"K2": sgm_pass.launches, "K2s": sgm_shard_pass.launches,
+              "K2s knights": sgm_knight_shard_pass.launches,
+              "K4c": lane.fused_rows_shard_pass.launches}
+        assert l6["K2"] > 0 and l6["K2s"] > 0 and l6["K4c"] == 0, l6
+        err["K2 any-D"] = max(err["K2 any-D"],
+                              exact(got, cv_6 + acc, ("C6 relay", n)))
+        print(f"  C6: SGM-{n} {tuple(cv_6.shape)} tile 4 (past K2's any-D "
+              f"ring, D = {DC}: its global-carry instance) through "
+              f"distributed_sgm_routed, launches {l6}: equal to the plain "
+              f"passes bitwise", flush=True)
+    del acc, got
     for tag, got in (("full step (2, 2, 2)", out_full),
                      ("dense step (2, 4)", out_dense)):
         assert got.shape == (2, H, W) and got.dtype == torch.int32
@@ -795,6 +1009,32 @@ def distributed(dev, pairs, smi):
         "K2k any-D": (lambda: knight_volumes(cvw, _KNIGHT_DIRS, *Q, out=kv),
                       k2k_plain, 1),
     }
+    # the any-D K2 a launch: a principal pass on one shard as the D = 330
+    # relays run it (80 launches), and at C6's D (the global-carry
+    # instance), kernel and plain in turns
+    LR, DOWN = SgmDirection.LEFT2RIGHT, SgmDirection.UP2DOWN
+    for tag, x in ((f"D={DA} relay shard", sha[1]),
+                   (f"D={DC} relay shard (global carries)", sh6[1])):
+        a = torch.rand(x.shape, generator=g, device=dev)
+        c = torch.rand((x.shape[1], x.shape[2]), generator=g, device=dev)
+        one = {
+            "K2 (left to right)": (
+                lambda: sgm_pass(x, a, LR, *Q),
+                lambda: sgm_pass_plain(x, a, LR, *Q)),
+            "K2s (top to bottom, carries in and out)": (
+                lambda: sgm_shard_pass(x, a, DOWN, *Q, True, c, 12, 48),
+                lambda: sgm_shard_pass_plain(x, a, DOWN, *Q, True, c, 12,
+                                             48)),
+        }
+        nb = bound(3 * x.numel() * 4, SGM_OPS * x.numel())[0]
+        for name, (kern, plain) in one.items():
+            p1, k1, k2_, p2 = (median_ms(plain), median_ms(kern),
+                               median_ms(kern), median_ms(plain))
+            print(f"time: any-D {name}, one launch on a "
+                  f"{tuple(x.shape)} {tag}: kernel {(k1 + k2_) / 2:.4f} ms "
+                  f"vs plain {(p1 + p2) / 2:.4f} ms, bound {nb:.4f} ms "
+                  f"(median of 5, twice each; {smi})", flush=True)
+    del cv_6, sh6
     ms = {}
     for name, (kern, plain, n) in jobs.items():
         w = 1 if n > 1 else 0
@@ -829,7 +1069,7 @@ def distributed(dev, pairs, smi):
 # one accumulator, K3 over it); the distributed SGM-16 frame over the
 # 480x640x120 row shards, tile 8, and its K2s relays alone
 CHECKOUT_TIMING = r"""
-import json, statistics, sys
+import json, statistics, sys, time
 import numpy as np, torch
 sys.path.insert(0, ".")
 from libstevi_tpu_torch import entry
@@ -886,6 +1126,59 @@ del L4, R4
 torch.cuda.empty_cache()
 out["k1_ms"] = med(lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
                                   True))
+# PatchMatch: the frame with its device items; K6 and K7 (the search step
+# in this tree's form: `search_probe`, or the candidate glue and `probe`
+# of a tree before it) at the frame's shapes, from a random state
+from libstevi_tpu_torch.ops import patchmatch as pmm
+from libstevi_tpu_torch.ops import patchmatch_cuda as pmc
+gen = torch.Generator(device="cuda")
+out["pm"] = frame(lambda: entry.patchmatch_forward(L, R, gen.manual_seed(0)))
+gp = torch.Generator(device="cuda").manual_seed(7)
+
+def pm_state(cv):
+    H, W, D = cv.shape
+    d = torch.randint(0, D, (H, W), generator=gp, device="cuda",
+                      dtype=torch.int32)
+    return d, pmc.probe(cv, d, d, torch.full((H, W), float("inf"),
+                                             device="cuda"), 0)[1]
+
+pcv = pmm.cost_oriented_volume(MatchingFunction.NCC, box_cv(
+    MatchingFunction.NCC, L, R, 3, 3, 120), 0)
+d1, c1 = pm_state(pcv)
+draws = torch.randint(0, 120, (4, 480, 640), generator=gp, device="cuda",
+                      dtype=torch.int32)
+for axis, key in ((1, "k6_w_ms"), (0, "k6_h_ms")):
+    out[key] = med(lambda: pmc.sweep(pcv, d1, c1, 0, axis, False))
+out["k7_k1_ms"] = med(lambda: pmc.probe(pcv, draws[0], d1, c1, 0))
+out["k7_k4_ms"] = med(lambda: pmc.probe(pcv, draws, d1, c1, 0))
+if hasattr(pmc, "search_probe"):
+    search = lambda: pmc.search_probe(pcv, draws, d1, c1, 0, 4)
+else:
+    search = lambda: pmc.probe(pcv, torch.stack(
+        [pmm._scaled_candidate(draws[k], d1, k, 4) for k in range(4)]), d1,
+        c1, 0)
+out["search_ms"] = med(search)
+
+def host_us(fn, n=200):
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        fn()
+    t1 = time.perf_counter()
+    torch.cuda.synchronize()
+    return (t1 - t0) / n * 1e6
+
+# the wrappers' host cost a call (launches queued, no synchronisation)
+out["k6_host_us"] = host_us(lambda: pmc.sweep(pcv, d1, c1, 0, 1, False))
+out["k7_host_us"] = host_us(lambda: pmc.probe(pcv, draws[0], d1, c1, 0))
+out["search_host_us"] = host_us(search)
+hcv = torch.rand((720, 1280, 320), generator=gp, device="cuda")
+dh, ch = pm_state(hcv)
+for axis, key in ((1, "k6_hd_w_ms"), (0, "k6_hd_h_ms")):
+    out[key] = med(lambda: pmc.sweep(hcv, dh, ch, 0, axis, False))
+del pcv, hcv
+torch.cuda.empty_cache()
 (out["frame_ms"], out["busy_ms"], out["device_items"],
  _) = frame(lambda: entry.flagship_forward(L, R))
 for key, D in (("sgm16", 120), ("sgm16_d384", 384)):
@@ -999,7 +1292,7 @@ def parent_and_change(parent, smi):
     for name, rs in runs.items():
         mean = {k: statistics.mean(r[k] for r in rs)
                 for k in rs[0] if isinstance(rs[0][k], (int, float))}
-        for key in ("sgm16", "sgm16_d384", "wide", "hd_wide"):
+        for key in ("sgm16", "sgm16_d384", "wide", "hd_wide", "pm"):
             mean[key] = statistics.mean(r[key][0] for r in rs)
             mean[key + "_busy"] = statistics.mean(r[key][1] for r in rs)
         print(f"time: {name} ({len(rs)} run(s)): K1 box_cv 480x640x120 bf16 "
@@ -1020,7 +1313,18 @@ def parent_and_change(parent, smi):
               f"480x640x384 {mean['k4b_ms']:.3f} ms; K4c relays 4 x "
               f"120x640x384 {mean['k4c_ms']:.3f} ms; K4d chunked_adj "
               f"480x640x384 {mean['k4d_ms']:.3f} ms; 4K UHD frame "
-              f"2160x3840 D=384 {mean['uhd_ms']:.3f} ms (CUDA events, median "
+              f"2160x3840 D=384 {mean['uhd_ms']:.3f} ms; PatchMatch frame "
+              f"480x640 D=120 {mean['pm']:.3f} ms (busy "
+              f"{mean['pm_busy']:.3f}); K6 sweep 480x640x120 along W "
+              f"{mean['k6_w_ms']:.4f} ms, along H {mean['k6_h_ms']:.4f} ms, "
+              f"720x1280x320 along W {mean['k6_hd_w_ms']:.4f} ms, along H "
+              f"{mean['k6_hd_h_ms']:.4f} ms; K7 probe K=1 "
+              f"{mean['k7_k1_ms']:.4f} ms, K=4 {mean['k7_k4_ms']:.4f} ms; "
+              f"the search step (the tree's form, K=4) "
+              f"{mean['search_ms']:.4f} ms; host µs a call: K6 "
+              f"{mean['k6_host_us']:.1f}, K7 K=1 {mean['k7_host_us']:.1f}, "
+              f"the search step {mean['search_host_us']:.1f} (CUDA events, "
+              f"median "
               f"of 5 a run after 3 warm-ups; a tree without "
               f"entry.uhd_wide_forward: its 4K frame median of 2 after 1; "
               f"{smi})", flush=True)
@@ -1057,8 +1361,9 @@ def main(argv=None) -> int:
                                                    fused_fv_cost_volume_plain)
     from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
                                                    cost_oriented_volume)
-    from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
-                                                        sweep, sweep_plain)
+    from libstevi_tpu_torch.ops.patchmatch_cuda import (
+        probe, probe_plain, search_probe, search_probe_plain, sweep,
+        sweep_plain)
     from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
                                             direction_adj, _KNIGHT_DIRS,
                                             _tcv_from_bands)
@@ -1363,6 +1668,16 @@ def main(argv=None) -> int:
         err["K7"] = max(err["K7"], e7)
     print(f"K7 480x640x120 K=1 (init) and K=1, 4 ({n_oor} out-of-range, "
           f"{n_inf} +inf candidates): equal to plain", flush=True)
+    # the random search's probe: the raw draws, scaled in the kernel
+    draws = torch.randint(0, 120, (4, 480, 640), generator=g, device=dev,
+                          dtype=torch.int32)
+    draws[0, ::9] = d1[::9]                   # scaled to the current value
+    for K in (1, 4):
+        e7 = state_err(search_probe(costc, draws[:K], d1, c1, 0, K),
+                       search_probe_plain(costc, draws[:K], d1, c1, 0, K))
+        err["K7"] = max(err["K7"], e7)
+    print("K7 search probe 480x640x120 K=1, 4 (candidates formed in the "
+          "kernel): equal to plain", flush=True)
     for axis in (0, 1):
         for rev in (False, True):
             e6 = state_err(sweep(costc, d1, c1, 0, axis, rev),
@@ -1370,6 +1685,30 @@ def main(argv=None) -> int:
             err["K6"] = max(err["K6"], e6)
     print("K6 480x640x120 sweeps (axis 0, 1; forward, reverse): equal to "
           "plain", flush=True)
+    # a flood: one value runs across 2/3 of every line, whose own values
+    # all differ: one run of hundreds of lines a chain
+    for axis in (0, 1):
+        for rev in (False, True):
+            fl = k6_flood(480, 640, 120, axis, rev, dev)
+            want = sweep_plain(*fl, 0, axis, rev)
+            e6 = state_err(sweep(*fl, 0, axis, rev), want)
+            err["K6"] = max(err["K6"], e6)
+            run = want[0].t() if axis == 1 else want[0]
+            run = run.flip(0) if rev else run
+            n = 2 * run.shape[0] // 3
+            assert bool((run[:n] == run[0]).all()), (axis, rev)
+            del fl, want
+    print("K6 480x640x120 flood (one run over 2/3 of each line), 4 "
+          "directions: equal to plain", flush=True)
+    for tag, (cv_e, d_e, c_e, lo) in k6_edges(dev):
+        for axis in (0, 1):
+            for rev in (False, True):
+                e6 = state_err(sweep(cv_e, d_e, c_e, lo, axis, rev),
+                               sweep_plain(cv_e, d_e, c_e, lo, axis, rev))
+                err["K6"] = max(err["K6"], e6)
+    print("K6 edge shapes (one line, two lines, chains not a multiple of "
+          "32, lower < 0, +inf and ties, costs not the volume's own), 4 "
+          "directions each: equal to plain", flush=True)
 
     # -- K4a, K4b, K4d against their plain versions ---------------------------
     err.update({"K4a": 0.0, "K4b": 0.0, "K4d": 0.0, "K4b stack": 0.0})
@@ -2083,8 +2422,9 @@ def main(argv=None) -> int:
                lambda: fused_fv_cost_volume_plain("sad", fs, ft, range(120))),
         "K6": (lambda: sweep(costc, d1, c1, 0, 1, False),
                lambda: sweep_plain(costc, d1, c1, 0, 1, False)),
-        "K7": (lambda: probe(costc, cand, d1, c1, 0),
-               lambda: probe_plain(costc, cand, d1, c1, 0)),
+        # K7 as the random search runs it: the search probe, K = 4
+        "K7": (lambda: search_probe(costc, draws, d1, c1, 0, 4),
+               lambda: search_probe_plain(costc, draws, d1, c1, 0, 4)),
     })
     # the lane kernels at the wide path's volume (480x640x384 f32): K4a the
     # shear's window copy out of the padded volume, K4b the whole
@@ -2138,12 +2478,15 @@ def main(argv=None) -> int:
         "K6 sweep along H x5": 5 * median_ms(
             lambda: sweep(costc, d1, c1, 0, 0, False)),
         "K7 K=1 x1": median_ms(lambda: probe(costc, d0, d0, inf_cost, 0)),
-        "K7 K=4 x5": 5 * median_ms(lambda: probe(costc, cand, d1, c1, 0)),
+        "K7 search probe K=4 x5": 5 * median_ms(
+            lambda: search_probe(costc, draws, d1, c1, 0, 4)),
     }
     parts["glue (the rest)"] = pm_ms - sum(parts.values())
     print(f"time: PatchMatch frame 480x640 D=120 5 it: {pm_ms:.3f} ms "
           f"(median of 5; {smi}); parts: "
           + ", ".join(f"{k} {v:.3f}" for k, v in parts.items()), flush=True)
+    _, device_ms = pm_kernel_times(
+        dev, costc, d0, d1, c1, draws, cand, inf_cost, L, R, smi)
     wta_ms = median_ms(lambda: entry.wta_forward(ZSAD, L, R))
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
@@ -2176,9 +2519,11 @@ def main(argv=None) -> int:
          "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3x7"),
         ("K5 fv_cv", "libstevi_tpu_torch/csrc/fv_cv.cu",
          "libstevi_tpu/ops/fv_backend.py:38", "K5"),
-        ("K6 pm_sweep", "libstevi_tpu_torch/csrc/patchmatch.cu",
+        ("K6 pm_sweep (runs, chains, costs: three launches a sweep)",
+         "libstevi_tpu_torch/csrc/patchmatch.cu",
          "libstevi_tpu/ops/patchmatch_pallas.py:47", "K6"),
-        ("K7 pm_probe", "libstevi_tpu_torch/csrc/patchmatch.cu",
+        ("K7 pm_probe (search_probe, K=4)",
+         "libstevi_tpu_torch/csrc/patchmatch.cu",
          "libstevi_tpu/ops/patchmatch_pallas.py:118", "K7"),
         ("K4a shift_rows", "libstevi_tpu_torch/csrc/sgm_lane.cu",
          "libstevi_tpu/ops/sgm_pallas.py:43", "K4a"),
@@ -2240,8 +2585,12 @@ def main(argv=None) -> int:
         "K3": bound(N1 * 4 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
         "K3x7": bound(N1 * 2 + N1 * 4 + 5 * HW1 * 4, (SGM_OPS + 3 + 6) * N1),
         "K5": bound(2 * HW1 * 49 * 4 + N1 * 4, 3 * 49 * N1),
+        # the state read and written (disp and cost in, disp and cost
+        # out) and one volume value read a pixel; a compare and a select
         "K6": bound(5 * HW1 * 4, 4 * HW1),
-        "K7": bound(12 * HW1 * 4, 4 * 4 * HW1),
+        # the state, the 4 draws and the 4 volume values a pixel; the
+        # scaling (5 operations) and the accept test a candidate
+        "K7": bound(12 * HW1 * 4, 4 * 8 * HW1),
         # K4a reads only the copied window of its padded input
         "K4a": bound(2 * WH * (WW + WH - 1) * WD * 4, 0),
         "K4b": bound(NW * 4 + 4 * WH * WW * 4, (SGM_OPS * 8 + 3) * NW),
@@ -2260,7 +2609,8 @@ def main(argv=None) -> int:
          "launches": launches[key], "max_abs_err": err[key],
          "ms": ms[key][0], "plain_ms": ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
-         "library_ms": library.get(key)}
+         "library_ms": library.get(key),
+         **({"device_ms": device_ms[key]} if key in device_ms else {})}
         for name, src, rep, key in records]}), flush=True)
     print(f"script wall time {time.perf_counter() - t_script:.1f} s",
           flush=True)

@@ -59,9 +59,9 @@ SIGNATURES = {
                                 + [_P],
     },
     "sgm_scan": {
-        # cv, cv_bf16, acc, cin, cout, n, steps (2n ints: di, dj), H, W, D,
-        # P1, P2, Pout, accumulate, col0, W_pout, i0, H_img, stream
-        "sgm_pass_launch": [_P, _I, _P, _P, _P, _I, _P] + [_I] * 3
+        # cv, cv_bf16, acc, cin, cout, spill, n, steps (2n ints: di, dj),
+        # H, W, D, P1, P2, Pout, accumulate, col0, W_pout, i0, H_img, stream
+        "sgm_pass_launch": [_P, _I, _P, _P, _P, _P, _I, _P] + [_I] * 3
                            + [_F] * 3 + [_I] * 5 + [_P],
         # cv, cv_bf16, vol, cin, cout, spill, n, steps (4n ints: v0, v1,
         # h0, h1), H, W, D, phase, P1, P2, Pout, col0, W_pout, s0, N_img,
@@ -79,12 +79,12 @@ SIGNATURES = {
         "fv_cv_launch": [_P] * 4 + [_I] * 8 + [_P],
     },
     "patchmatch": {
-        # cv, disp_in, cost_in, disp_out, cost_out, H, W, D, lower, axis,
-        # reverse, stream
-        "pm_sweep_launch": [_P] * 5 + [_I] * 6 + [_P],
-        # cv, cand, disp_in, cost_in, disp_out, cost_out, H, W, D, K,
-        # lower, stream
-        "pm_probe_launch": [_P] * 6 + [_I] * 5 + [_P],
+        # cv, disp_in, cost_in, disp_out, cost_out, runs, H, W, D, lower,
+        # axis, reverse, stream
+        "pm_sweep_launch": [_P] * 6 + [_I] * 6 + [_P],
+        # cv, cand, base, disp_in, cost_in, disp_out, cost_out, H, W, D, K,
+        # lower, search, k0, n_random, stream
+        "pm_probe_launch": [_P] * 7 + [_I] * 8 + [_P],
     },
 }
 

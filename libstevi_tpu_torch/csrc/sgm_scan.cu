@@ -464,14 +464,23 @@ sgm_pass_kernel(const T* __restrict__ cv, float* __restrict__ acc,
 // a loop plus the warp reduction and d +- 1 are shared-memory reads, as in
 // `sgm_knight_smem_kernel`.  The lines, the ring, the DP step (`dp_step`'s
 // operations in its order, the isfinite guards included) and the
-// accumulation are `sgm_pass_kernel`'s.
-template <typename T>
+// accumulation are `sgm_pass_kernel`'s.  Where not even a ring of two
+// stages and the carries fit a block (`ring_layout`; f32 volumes past
+// D = 9640 for a pass that accumulates) the launcher passes `spill`, as
+// `sgm_knight_smem_kernel` takes it: the line reads cv and acc directly
+// (S = 0) and keeps its two carries in a global area of its own, line
+// `line` of direction y at (y * (H + W) + line) * carry_bytes (a direction
+// has fewer than H + W lines); __syncwarp orders them as it does shared
+// memory.  SPILL is a template argument, so that the shared instance keeps
+// shared-memory instructions.
+template <typename T, bool SPILL>
 __global__ void __launch_bounds__(32 * LINE_WARPS)
 sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
                      const float* __restrict__ cin, float* __restrict__ cout,
-                     int H, int W, int D, Dirs dirs, float P1, float P2,
-                     float Pout, int accumulate, int col0, int W_pout, int i0,
-                     int H_img, int S, int cb, int stage) {
+                     unsigned char* spill, int H, int W, int D, Dirs dirs,
+                     float P1, float P2, float Pout, int accumulate, int col0,
+                     int W_pout, int i0, int H_img, int S, int cb,
+                     int stage) {
   extern __shared__ __align__(16) unsigned char pass_smem_d[];
   __shared__ __align__(8) uint64_t bars_d[LINE_WARPS][RING];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
@@ -483,24 +492,32 @@ sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
   // each warp's area stays 16-byte aligned: the carries are rounded up
   const size_t carry_bytes = (2 * sizeof(float) * D + 15) & ~(size_t)15;
   unsigned char* ring =
-      pass_smem_d + (size_t)wid * ((size_t)S * stage + carry_bytes);
-  float* bufs = reinterpret_cast<float*>(ring + (size_t)S * stage);
+      pass_smem_d +
+      (size_t)wid * ((size_t)S * stage + (SPILL ? 0 : carry_bytes));
+  float* bufs = reinterpret_cast<float*>(
+      SPILL ? spill + ((size_t)blockIdx.y * (H + W) + line) * carry_bytes
+            : ring + (size_t)S * stage);
   uint64_t* bar = bars_d[wid];
   const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
   const long long step = (long long)di * W + dj;
   long long pix = (long long)L.si * W + L.sj;
-  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0,
-             [=](int s) { return pix + s * step; }, L.len, D, lane);
+  if (S > 0)
+    ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0,
+               [=](int s) { return pix + s * step; }, L.len, D, lane);
   const int i_last = di > 0 ? H - 1 : 0;
   const float w = L.w;
   for (int d = lane; d < D; d += 32) bufs[d] = L.src ? L.src[d] : 0.f;
   int i = L.si, j = L.sj, slot = 0, cur = 0;
   for (int t = 0; t < L.len; ++t) {
     __syncwarp();  // the carry written at the last step
-    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
     unsigned char* st = ring + slot * stage;
-    const T* cs = staged(st, cv + pix * D);
-    const float* as = staged(st + cb, acc + pix * D);
+    const T* cs = cv + pix * D;
+    const float* as = acc + pix * D;
+    if (S > 0) {
+      mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
+      cs = staged(st, cs);
+      as = staged(st + cb, as);
+    }
     const float* prev = bufs + cur * D;
     float* next = bufs + (cur ^ 1) * D;
     float lm = INFINITY;
@@ -522,13 +539,13 @@ sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
       if (co) co[d] = nc;
     }
     __syncwarp();  // the stage is read and `next` complete
-    if (t + S < L.len)
+    if (S > 0 && t + S < L.len)
       stage_pixel(st, cb, ab, cv, acc, n_acc, 0, pix + S * step, D,
                   &bar[slot], lane);
     pix += step;
     i += di;
     j += dj;
-    slot = slot + 1 == S ? 0 : slot + 1;
+    slot = slot + 1 >= S ? 0 : slot + 1;
     cur ^= 1;
   }
 }
@@ -976,9 +993,10 @@ cudaError_t allow_smem(const void* fn, size_t smem) {
 
 template <typename T>
 cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
-                   int H, int W, int D, const Dirs& dirs, int n, float P1,
-                   float P2, float Pout, int accumulate, int col0, int W_pout,
-                   int i0, int H_img, cudaStream_t s) {
+                   unsigned char* spill, int H, int W, int D,
+                   const Dirs& dirs, int n, float P1, float P2, float Pout,
+                   int accumulate, int col0, int W_pout, int i0, int H_img,
+                   cudaStream_t s) {
   const int K = (D + 31) / 32;
   const bool regs = K <= REG_K;
   int lines = 0, most = 0;  // all directions' lines, and one's most
@@ -989,18 +1007,30 @@ cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
     most = l > most ? l : most;
   }
   Layout ly;
-  if (!ring_layout(D, sizeof(T), accumulate ? 1 : 0, regs ? 0 : round16(8 * D),
-                   lines, ly))
+  if (spill != nullptr) {  // direct loads, the carries in global memory
+    if (regs) return cudaErrorInvalidValue;
+    ly.S = ly.cb = ly.stage = 0;
+    ly.warps = LINE_WARPS;
+    ly.smem = 0;
+  } else if (!ring_layout(D, sizeof(T), accumulate ? 1 : 0,
+                          regs ? 0 : round16(8 * D), lines, ly)) {
     return cudaErrorInvalidValue;
+  }
   const dim3 grid((most + ly.warps - 1) / ly.warps, n);
   const T* v = static_cast<const T*>(cv);
   cudaError_t e;
+  if (spill != nullptr) {  // any D, the carries in global memory
+    sgm_pass_smem_kernel<T, true><<<grid, 32 * ly.warps, 0, s>>>(
+        v, acc, cin, cout, spill, H, W, D, dirs, P1, P2, Pout, accumulate,
+        col0, W_pout, i0, H_img, ly.S, ly.cb, ly.stage);
+    return cudaGetLastError();
+  }
   if (!regs) {  // any D: the carries in shared memory
-    e = allow_smem((const void*)sgm_pass_smem_kernel<T>, ly.smem);
+    e = allow_smem((const void*)sgm_pass_smem_kernel<T, false>, ly.smem);
     if (e != cudaSuccess) return e;
-    sgm_pass_smem_kernel<T><<<grid, 32 * ly.warps, ly.smem, s>>>(
-        v, acc, cin, cout, H, W, D, dirs, P1, P2, Pout, accumulate, col0,
-        W_pout, i0, H_img, ly.S, ly.cb, ly.stage);
+    sgm_pass_smem_kernel<T, false><<<grid, 32 * ly.warps, ly.smem, s>>>(
+        v, acc, cin, cout, nullptr, H, W, D, dirs, P1, P2, Pout, accumulate,
+        col0, W_pout, i0, H_img, ly.S, ly.cb, ly.stage);
     return cudaGetLastError();
   }
 #define SGM_PASS_CASE(k)                                                   \
@@ -1119,14 +1149,17 @@ bool bad_region(int H, int W, int D, int col0, int W_pout) {
 
 }  // namespace
 
-// Any D (the shared-memory instance past D = 320).  steps holds n
-// directions (di, dj), 1 <= n <= MAX_DIRS; direction y uses volume y of acc
-// (H * W * D floats apart).  cin / cout may be null (a zero line start / no
-// carries out); with carries (one direction only) the block is rows
-// [i0, i0 + H) of an image H_img rows high (K2s).
+// Any D: the shared-memory instance past D = 320, and past the ring
+// (`ring_layout` refuses; ops/sgm_cuda.ring_fits) the global-carry one.
+// steps holds n directions (di, dj), 1 <= n <= MAX_DIRS; direction y uses
+// volume y of acc (H * W * D floats apart).  cin / cout may be null (a zero
+// line start / no carries out); with carries (one direction only) the
+// block is rows [i0, i0 + H) of an image H_img rows high (K2s).  spill:
+// null, or n x (H + W) areas of r16(8 D) bytes in global memory for the
+// carries (D > 320, where `ring_layout` refuses).
 extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
-                               const void* cin, void* cout, int n,
-                               const int* steps, int H, int W, int D,
+                               const void* cin, void* cout, void* spill,
+                               int n, const int* steps, int H, int W, int D,
                                float P1, float P2, float Pout, int accumulate,
                                int col0, int W_pout, int i0, int H_img,
                                void* stream) {
@@ -1146,13 +1179,15 @@ extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
   float* a = static_cast<float*>(acc);
   const float* ci = static_cast<const float*>(cin);
   float* co = static_cast<float*>(cout);
+  unsigned char* sp = static_cast<unsigned char*>(spill);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return (int)(cv_bf16 ? pass_t<__nv_bfloat16>(cv, a, ci, co, H, W, D, dirs,
-                                               n, P1, P2, Pout, accumulate,
-                                               col0, W_pout, i0, H_img, s)
-                       : pass_t<float>(cv, a, ci, co, H, W, D, dirs, n, P1,
-                                       P2, Pout, accumulate, col0, W_pout, i0,
-                                       H_img, s));
+  return (int)(cv_bf16 ? pass_t<__nv_bfloat16>(cv, a, ci, co, sp, H, W, D,
+                                               dirs, n, P1, P2, Pout,
+                                               accumulate, col0, W_pout, i0,
+                                               H_img, s)
+                       : pass_t<float>(cv, a, ci, co, sp, H, W, D, dirs, n,
+                                       P1, P2, Pout, accumulate, col0, W_pout,
+                                       i0, H_img, s));
 }
 
 // One seed phase (0: write, 1: add) of n knight directions, any D (the

@@ -31,7 +31,8 @@ from ..core.types import (MatchingFunction, MATCH_TRAITS, ExtractionStrategy,
                           disp_dtype)
 from ..core.search import SearchOffset1
 from .matching import feature_comparison
-from .patchmatch_cuda import probe, sweep
+from .patchmatch_cuda import (probe, scaled_candidate as _scaled_candidate,
+                              search_probe, sweep)
 
 _INF = float("inf")
 
@@ -133,13 +134,6 @@ def _col_sweep(ev: _StereoEval, disp, cost, forward: bool):
     return disp, cost, changes
 
 
-def _scaled_candidate(cand, disp, k: int, n_random: int):
-    """The k-th random candidate pulled toward ``disp`` by (k+1)/(n+1)
-    with floor division, forced off the current value."""
-    cand = disp + ((cand - disp) * (k + 1)) // (n_random + 1)
-    return torch.where(cand == disp, disp + 1, cand)
-
-
 def _random_search(ev: _StereoEval, disp, cost, search: SearchOffset1,
                    n_random: int, draw):
     """Geometric-decay random probes (`patchMatchSearch`,
@@ -206,11 +200,12 @@ def _patch_match_stereo_cv(func, source_fv, target_fv, search: SearchOffset1,
         disp, cost = sweep(costc, disp, cost, lower, 1, not row_fwd)
         disp, cost = sweep(costc, disp, cost, lower, 0, not col_fwd)
         if n_random:
-            # all candidate fields are drawn from the pre-probe disparity
-            # and tried in order in one K7 launch, as the JAX package does
-            cands = [_scaled_candidate(draw((H, W), lower, upper + 1), disp,
-                                       k, n_random) for k in range(n_random)]
-            disp, cost = probe(costc, torch.stack(cands), disp, cost, lower)
+            # all candidate fields are formed from the pre-probe disparity
+            # and tried in order in one K7 launch, as the JAX package does;
+            # the kernel scales the raw draws itself
+            draws = [draw((H, W), lower, upper + 1) for _ in range(n_random)]
+            disp, cost = search_probe(costc, torch.stack(draws), disp, cost,
+                                      lower, n_random)
     return disp.to(disp_dtype)
 
 

@@ -16,6 +16,7 @@ the 15 volumes in order, or they are added to the accumulator in order,
 `add_knight_volumes`).  Every path adds a knight direction's volume
 p0 + p1 once, acc + (p0 + p1), the JAX XLA path's order.  K2, K2k and K2s
 take any D: past D = 320 they run instances that keep the carry in shared
+memory, and past their ring (`ring_fits`) instances that keep it in global
 memory.  K3 takes D <= 320 (`ops.sgm.sgm_route` sends wider ranges to the
 lane route, K4b / K4d).  K2, K2k and K3 stage the pixels ahead of each
 line's step in a shared-memory ring filled by asynchronous copies, so a
@@ -75,10 +76,12 @@ def ring_fits(D: int, elt: int = 4, n_acc: int = 1) -> bool:
     csrc/sgm_scan.cu at its shallowest, two stages of the cost vector's
     cover (``elt`` bytes an entry) and ``n_acc`` f32 covers, plus the two
     shared-memory carries (8 D bytes) of the any-D instance past D = 320,
-    within SMEM_MAX.  K2k's second seed phase stages one volume vector
-    (n_acc = 1), so f32 knight volumes take D <= 9640; past it K2k loads
-    directly and keeps its carries in global memory (`_knight_launch`).
-    A pure function of its arguments."""
+    within SMEM_MAX.  A K2 pass that accumulates and K2k's second seed
+    phase stage one f32 vector beside the cost's (n_acc = 1), so f32
+    volumes take D <= 9640 there.  Past it K2 and K2k load directly and
+    keep their carries in global memory (`_pass_launch`,
+    `_knight_launch`), so both take any D.  A pure function of its
+    arguments."""
     stage = _r16(D * elt + 15) + n_acc * _r16(4 * D + 15)
     return 2 * stage + (_r16(8 * D) if D > MAX_D else 0) <= SMEM_MAX
 
@@ -164,13 +167,20 @@ def _pass_launch(cv, acc, cin, cout, directions, P1, P2, Pout, accumulate,
     steps = [s for d in directions for s in d.step]
     steps = (ctypes.c_int * len(steps))(*steps)
     H, W, D = cv.shape
+    # past the any-D ring (`ring_fits`), each line's carries in global
+    # memory: fewer than H + W lines a direction
+    spill = (torch.empty(len(directions) * (H + W) * _r16(8 * D),
+                         dtype=torch.uint8, device=cv.device)
+             if D > MAX_D and not ring_fits(D, cv.element_size(),
+                                            1 if accumulate else 0)
+             else None)
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         err = lib.sgm_pass_launch(
             cv.data_ptr(), int(cv.dtype == torch.bfloat16), acc.data_ptr(),
-            _ptr(cin), _ptr(cout), len(directions), ctypes.addressof(steps),
-            H, W, D, P1, P2, Pout, int(accumulate), col0, W_pout, i0, H_img,
-            torch.cuda.current_stream().cuda_stream)
+            _ptr(cin), _ptr(cout), _ptr(spill), len(directions),
+            ctypes.addressof(steps), H, W, D, P1, P2, Pout, int(accumulate),
+            col0, W_pout, i0, H_img, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_pass_launch")
 
 

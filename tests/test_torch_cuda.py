@@ -32,6 +32,8 @@ from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
 from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
                                                cost_oriented_volume)
 from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
+                                                    search_probe,
+                                                    search_probe_plain,
                                                     sweep, sweep_plain)
 from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
 
@@ -782,6 +784,129 @@ def test_k7_equals_plain(dev, K, shape):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _flood_state(L, S, D, lower, seed):
+    """In sweep order (lines first): the first line's value v0 runs across
+    the lines up to 2L/3, whose own values all differ from v0 and from
+    their neighbours, so no run breaks by equality: one run of ~100 lines
+    a chain; the line at 2L/3 rejects v0.  Each cost is
+    its pixel's own volume value."""
+    rng = np.random.default_rng(seed)
+    v0 = D // 2
+    k = (np.arange(L)[:, None] * 5 + np.arange(S)[None] * 3) % (D - 1)
+    k[k >= v0] += 1
+    k[0] = v0
+    cv = rng.uniform(1, 2, (L, S, D)).astype(np.float32)
+    cv[:, :, v0] = 0.5
+    cv[2 * L // 3, :, v0] = 3.0
+    cost = np.take_along_axis(cv, k[..., None], -1)[..., 0]
+    return cv, (k + lower).astype(np.int32), cost
+
+
+def _k6_case(case, axis, reverse, dev):
+    """(cv, disp, cost, lower) of one K6 edge case as (H, W) images."""
+    rng = np.random.default_rng(7)
+    lower = 0
+    if case == "flood":
+        L, S, D, lower = 150, 45, 40, -7
+        cv, disp, cost = _flood_state(L, S, D, lower, 8)
+        if reverse:
+            cv, disp, cost = cv[::-1], disp[::-1], cost[::-1]
+        if axis == 1:
+            cv, disp, cost = cv.swapaxes(0, 1), disp.T, cost.T
+    else:
+        # (lines, chains, D): one line, two lines, chains not a multiple
+        # of the 32-chain block, lines past a 32-line tile
+        L, S, D = {"L1": (1, 45, 13), "L2": (2, 45, 13),
+                   "odd": (77, 45, 13), "neg_lower": (70, 33, 21),
+                   "inf_ties": (67, 38, 9),
+                   "random_cost": (65, 70, 30)}[case]
+        H, W = (L, S) if axis == 0 else (S, L)
+        if case == "neg_lower":
+            lower = -11
+        if case == "inf_ties":      # small integers: many ties, and +inf
+            cv = rng.integers(0, 3, (H, W, D)).astype(np.float32)
+            cv[rng.uniform(size=cv.shape) < 0.15] = np.inf
+        else:
+            cv = rng.uniform(0, 1, (H, W, D)).astype(np.float32)
+            cv[rng.uniform(size=cv.shape) < 0.05] = np.inf
+        disp = rng.integers(lower - 2, lower + D + 2, (H, W)).astype(
+            np.int32)
+        if case == "random_cost":   # not the pixels' own volume values
+            cost = rng.uniform(0, 1, (H, W)).astype(np.float32)
+        else:
+            k = np.clip(disp - lower, 0, D - 1)
+            cost = np.take_along_axis(cv, k[..., None], -1)[..., 0]
+            cost = np.where((disp >= lower) & (disp < lower + D), cost,
+                            np.float32(np.inf))
+            if case == "inf_ties":
+                cost = np.minimum(cost, 2).astype(np.float32)
+    return tuple(torch.from_numpy(np.ascontiguousarray(x)).to(dev)
+                 for x in (cv, disp, cost)) + (lower,)
+
+
+@pytest.mark.parametrize("case", ["L1", "L2", "odd", "neg_lower", "inf_ties",
+                                  "flood", "random_cost"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k6_edge_cases_equal_plain(dev, axis, reverse, case):
+    """K6's three launches against `sweep_plain`, both planes bitwise, in
+    all four directions: sweeps of one and two lines, chains not a
+    multiple of the block, a negative `lower`, +inf entries and ties, a
+    flood whose run crosses 2/3 of every line (many batches in A), and
+    costs that are not the pixels' own volume values."""
+    cv, disp, cost, lower = _k6_case(case, axis, reverse, dev)
+    before = sweep.launches
+    got = sweep(cv, disp, cost, lower, axis, reverse)
+    assert sweep.launches == before + 1
+    want = sweep_plain(cv, disp, cost, lower, axis, reverse)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    if case == "flood":             # the run did cross 100 lines
+        lines = want[0].t() if axis == 1 else want[0]
+        lines = lines.flip(0) if reverse else lines
+        assert bool((lines[1:100] == lines[0]).all())
+
+
+def _probe_inputs(dev, shape, K, seed):
+    """A volume of small integers (ties) with +inf, a state reaching past
+    either end of the range, and K raw draws in the search range."""
+    H, W, D = shape
+    rng = np.random.default_rng(seed)
+    cv = rng.integers(0, 4, (H, W, D)).astype(np.float32)
+    cv[rng.uniform(size=cv.shape) < 0.1] = np.inf
+    disp = rng.integers(-3, D + 3, (H, W)).astype(np.int32)
+    cost = rng.integers(0, 4, (H, W)).astype(np.float32)
+    draws = rng.integers(0, D, (K, H, W)).astype(np.int32)
+    draws[0, :3] = disp[:3]            # scaled to the current value: moved
+    return tuple(torch.from_numpy(x).to(dev)
+                 for x in (cv, disp, cost, draws))
+
+
+@pytest.mark.parametrize("shape", [(37, 101, 13), (64, 96, 40)])
+@pytest.mark.parametrize("K", [1, 2, 3, 4, 5, 6, 7, 8, 11])
+def test_k7_and_search_probe_equal_plain(dev, K, shape):
+    """K7 at K = 1 to 8 (one launch) and 11 (two), as `probe` and as
+    `search_probe` (candidates formed in the kernel: the floor of negative
+    differences, forced off the current value), bitwise against their
+    plain versions, with out-of-range candidates, +inf and ties; an odd
+    pixel count takes the scalar path."""
+    cv, disp, cost, draws = _probe_inputs(dev, shape, K, K)
+    D = shape[2]
+    cand = draws.clone()
+    cand[-1, ::5] = D + 2                          # out of range
+    cand[0, 1::5] = -1
+    for fn, plain, args in ((probe, probe_plain, (cand, disp, cost, 0)),
+                            (search_probe, search_probe_plain,
+                             (draws, disp, cost, 0, K))):
+        before = probe.launches
+        got = fn(cv, *args)
+        assert probe.launches == before + (K + 7) // 8
+        want = plain(cv, *args)
+        torch.cuda.synchronize()
+        assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+        assert not torch.equal(got[0], disp)
+
+
 def test_cv_patchmatch_matches_cpu_with_one_draw_stream(dev):
     """The CV route on the card against the plain route on the CPU, one
     volume and one replayed candidate stream: equal disparities."""
@@ -1002,6 +1127,89 @@ def test_fused_adj_sixteen_stack_equals_in_place(dev):
 
 def _shards(x, sizes):
     return list(x.split(sizes))
+
+
+def _first_past_ring(elt, n_acc):
+    from libstevi_tpu_torch.ops.sgm_cuda import MAX_D, ring_fits
+    D = MAX_D + 1
+    while ring_fits(D, elt, n_acc):
+        D += 1
+    return D
+
+
+@pytest.mark.parametrize("dtype,accumulate", [(torch.float32, True),
+                                              (torch.float32, False),
+                                              (torch.bfloat16, True)],
+                         ids=["f32_acc", "f32_write", "bf16_acc"])
+def test_k2_past_the_ring_equals_plain(dev, dtype, accumulate):
+    """C6: K2 at the first D past its any-D ring (`ring_fits`: 9641,
+    14461, 11569) runs the global-carry instance: every principal
+    direction, one launch each, and (writing) the 7 of the WTA path in
+    one launch, bitwise against the plain passes."""
+    D = _first_past_ring(2 if dtype == torch.bfloat16 else 4,
+                         1 if accumulate else 0)
+    g = torch.Generator(device=dev).manual_seed(D)
+    cv = (torch.rand((5, 7, D), generator=g, device=dev) * 4).to(dtype)
+    for d in directions_for(8):
+        acc = torch.rand(cv.shape, generator=g, device=dev)
+        acc_p = acc.clone()
+        before = sgm_pass.launches
+        sgm_pass(cv, acc, d, 0.3, 1.1, 7.0, accumulate)
+        assert sgm_pass.launches == before + 1
+        sgm_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0, accumulate)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, acc_p), d.name
+    if not accumulate:
+        dirs = [d for d in directions_for(8)
+                if d is not SgmDirection.RIGHT2LEFT]
+        got = direction_volumes(cv, dirs, 0.3, 1.1, 7.0)
+        for d, a in zip(dirs, got):
+            want = torch.empty(cv.shape, device=dev)
+            sgm_pass_plain(cv, want, d, 0.3, 1.1, 7.0, accumulate=False)
+            assert torch.equal(a, want), d.name
+
+
+@pytest.mark.parametrize("direction", PRINCIPAL, ids=lambda d: d.name)
+def test_k2s_past_the_ring_equals_plain(dev, direction):
+    """C6: K2s at D = 9641 (f32, past the ring) on rows [2, 6) of 9 from
+    random carries: the accumulator and the carries out bitwise."""
+    D = _first_past_ring(4, 1)
+    g = torch.Generator(device=dev).manual_seed(5)
+    cv = torch.rand((4, 6, D), generator=g, device=dev) * 4
+    acc = torch.rand(cv.shape, generator=g, device=dev)
+    acc_p = acc.clone()
+    carry = torch.rand((6, D), generator=g, device=dev)
+    co = sgm_shard_pass(cv, acc, direction, 0.3, 1.1, 7.0, True, carry, 2, 9)
+    co_p = sgm_shard_pass_plain(cv, acc_p, direction, 0.3, 1.1, 7.0, True,
+                                carry, 2, 9)
+    torch.cuda.synchronize()
+    assert torch.equal(acc, acc_p) and torch.equal(co, co_p)
+
+
+@pytest.mark.parametrize("n_dirs", [8, 16])
+def test_distributed_sgm_past_the_ring_equals_plain(dev, n_dirs):
+    """C6: `distributed_sgm_routed` over 2 row shards at D = 9641 takes
+    the K2s engine (K4c's carries do not fit) and returns the volume the
+    plain passes give, bitwise: the principal directions in order, then
+    the knights' lane form (`sgm_accumulate`'s order)."""
+    from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
+    D = _first_past_ring(4, 1)
+    g = torch.Generator(device=dev).manual_seed(n_dirs)
+    cv = torch.rand((6, 9, D), generator=g, device=dev) * 4
+    dirs = directions_for(n_dirs)
+    acc = torch.empty(cv.shape, device=dev)
+    principal = [d for d in dirs if not d.knight]
+    for k, d in enumerate(principal):
+        sgm_pass_plain(cv, acc, d, 0.3, 1.1, 7.0, accumulate=k > 0)
+    for d in dirs:
+        if d.knight:
+            acc.add_(knight_volumes_plain(cv, [d], 0.3, 1.1, 7.0)[0])
+    before = sgm_shard_pass.launches
+    got = torch.cat(distributed_sgm_routed(_shards(cv, [3, 3]), 0.3, 1.1,
+                                           7.0, n_dirs))
+    assert sgm_shard_pass.launches > before
+    torch.cuda.synchronize()
+    assert torch.equal(got, cv + acc)
 
 
 @pytest.mark.parametrize("n_dirs", [4, 8, 16])

@@ -155,6 +155,34 @@ def test_distributed_sgm_past_d320_matches_jax(rng, nd):
     np.testing.assert_allclose(got, want, **TOL)
 
 
+def first_past_ring(elt: int, n_acc: int) -> int:
+    """The first D past `ring_fits`: where K2's any-D launch keeps its
+    carries in global memory (9641 for an f32 pass that accumulates)."""
+    from libstevi_tpu_torch.ops.sgm_cuda import MAX_D, ring_fits
+    D = MAX_D + 1
+    while ring_fits(D, elt, n_acc):
+        D += 1
+    return D
+
+
+@pytest.mark.parametrize("nd", [8, 16])
+def test_distributed_sgm_past_the_k2_ring_matches_jax(rng, nd):
+    """C6's route: `distributed_sgm_routed` over 2 row shards at the first
+    D past K2's any-D ring (f32, a pass that accumulates), where K4c's
+    carries do not fit either, so the K2s engine runs (plain here, its
+    global-carry kernels on the card), against JAX's single-device
+    volume, as `test_distributed_sgm_past_d320_matches_jax` does at
+    D = 330."""
+    D = first_past_ring(4, 1)
+    assert D == 9641
+    cv = rng.uniform(0, 4, (6, 5, D)).astype(np.float32)
+    want = np.asarray(j_sgm(jnp.asarray(cv), 0.3, 1.1, Pout=7.0,
+                            n_directions=nd, backend="xla"))
+    got = torch.cat(distributed_sgm_routed(
+        list(torch.from_numpy(cv).split(3)), 0.3, 1.1, 7.0, nd)).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
 def test_routed_falls_back_to_k2s_where_k4c_does_not_fit(rng, monkeypatch):
     """Past D = 320, where K4c's carries do not fit a block's shared memory,
     the routed engine takes the K2s engine (any D) and still matches JAX's

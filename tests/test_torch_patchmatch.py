@@ -28,6 +28,8 @@ from libstevi_tpu_torch.ops import patchmatch as tpm
 from libstevi_tpu_torch.ops import patch_match, patch_match_stereo
 from libstevi_tpu_torch.ops.cost_volume import normalize_feature_volume
 from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
+                                                    search_probe,
+                                                    search_probe_plain,
                                                     sweep, sweep_plain)
 from libstevi_tpu_torch.ops.unfold import unfold
 from libstevi_tpu_torch.reference import to_port
@@ -109,14 +111,157 @@ def test_probe_plain_matches_pallas_kernel(K):
 
 def test_wrappers_on_cpu_are_the_plain_versions():
     cv, disp, cost = (torch.from_numpy(x) for x in _state(30, 6, 7, 5, 0))
+    draws = torch.from_numpy(np.random.default_rng(31).integers(
+        0, 5, (3, 6, 7)).astype(np.int32))
     before = (sweep.launches, probe.launches)
     for got, want in ((sweep(cv, disp, cost, 0, 1, True),
                        sweep_plain(cv, disp, cost, 0, 1, True)),
                       (probe(cv, disp, disp, cost, 0),
-                       probe_plain(cv, disp, disp, cost, 0))):
+                       probe_plain(cv, disp, disp, cost, 0)),
+                      (search_probe(cv, draws, disp, cost, 0, 3),
+                       search_probe_plain(cv, draws, disp, cost, 0, 3))):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
     assert (sweep.launches, probe.launches) == before
+
+
+def flood_state(L, S, D, lower, seed):
+    """A state in sweep order (lines first) where the first line's value
+    v0 runs across every line up to 2L/3, whose own values all differ from
+    v0 and from their neighbours (so no run breaks by equality); the line
+    at 2L/3 rejects v0.  The volume is in [1, 2) except v0's entries (0.5,
+    3 at the rejecting line); each cost is its pixel's own volume value."""
+    rng = np.random.default_rng(seed)
+    v0 = D // 2
+    k = (np.arange(L)[:, None] * 5 + np.arange(S)[None] * 3) % (D - 1)
+    k[k >= v0] += 1
+    k[0] = v0
+    cv = rng.uniform(1, 2, (L, S, D)).astype(np.float32)
+    cv[:, :, v0] = 0.5
+    cv[2 * L // 3, :, v0] = 3.0
+    cost = np.take_along_axis(cv, k[..., None], -1)[..., 0].copy()
+    return cv, (k + lower).astype(np.int32), cost
+
+
+def _k6_model(cv, disp, cost, lower, axis, reverse):
+    """`csrc/patchmatch.cu`'s K6 in numpy, phase by phase: A (nxt[m], the
+    first line after m that breaks the run of d_old[m], by equality or by
+    rejecting it; L where the run reaches the end), B
+    (each chain walked from source to source) and C (the costs from the
+    new disparities)."""
+    def lines(x):
+        x = x.swapaxes(0, 1) if axis == 1 else x
+        return x[::-1] if reverse else x
+    cv, disp, cost = lines(cv), lines(disp), lines(cost)
+    L, S, D = cv.shape
+
+    def accepts(l, s, v):
+        k = v - lower
+        return 0 <= k < D and np.isfinite(cv[l, s, k]) and \
+            cv[l, s, k] <= cost[l, s]
+    nxt = np.empty((L, S), np.int64)
+    for m in range(L):
+        for s in range(S):
+            v = disp[m, s]
+            brk = [l for l in range(m + 1, L)
+                   if disp[l, s] == v or not accepts(l, s, v)]
+            nxt[m, s] = brk[0] if brk else L
+    out = np.empty_like(disp)
+    for s in range(S):
+        v, nb = 0, 0
+        for n in range(L):
+            if n == nb:
+                v, nb = disp[n, s], nxt[n, s]
+            out[n, s] = v
+    c = cost.copy()
+    for n in range(1, L):
+        for s in range(S):
+            if accepts(n, s, out[n - 1, s]):
+                c[n, s] = cv[n, s, out[n - 1, s] - lower]
+
+    def unlines(x):
+        x = x[::-1] if reverse else x
+        return x.swapaxes(0, 1) if axis == 1 else x
+    return unlines(out), unlines(c)
+
+
+def _flood(axis, reverse, L, S, D, lower, seed):
+    """`flood_state` laid out for the sweep (axis, reverse) as (H, W)."""
+    cv, disp, cost = flood_state(L, S, D, lower, seed)
+    if reverse:
+        cv, disp, cost = cv[::-1], disp[::-1], cost[::-1]
+    if axis == 1:
+        cv, disp, cost = cv.swapaxes(0, 1), disp.T, cost.T
+    return tuple(np.ascontiguousarray(x) for x in (cv, disp, cost))
+
+
+@pytest.mark.parametrize("state", ["random", "flood", "edge"])
+@pytest.mark.parametrize("reverse", [False, True])
+@pytest.mark.parametrize("axis", [0, 1])
+def test_k6_phases_equal_the_recurrence(axis, reverse, state):
+    """K6's design (source-to-source chains, each line's run found up
+    front; `csrc/patchmatch.cu`) gives the naive recurrence's state bit for
+    bit: on random states with ties, +inf and out-of-range values, on a
+    flood whose run crosses 2/3 of every line, and on a volume whose last
+    columns are +inf (the image edge), where +inf costs accept any finite
+    candidate and runs grow long."""
+    lower = -2
+    if state == "random":
+        cv, disp, cost = _state(50 + axis, 19, 13, 6, lower)
+    elif state == "flood":
+        lower, L = 3, 80
+        cv, disp, cost = _flood(axis, reverse, L, 5, 11, lower, 51)
+    else:
+        rng = np.random.default_rng(52)
+        cv = rng.uniform(0, 1, (40, 30, 6)).astype(np.float32)
+        cv[:, -8:] = np.inf
+        cv[:, -8:, 0] = rng.uniform(0, 1, (40, 8))
+        disp = rng.integers(lower, lower + 6, (40, 30)).astype(np.int32)
+        k = (disp - lower)[..., None]
+        cost = np.take_along_axis(cv, k, -1)[..., 0].copy()
+    got = _k6_model(cv, disp, cost, lower, axis, reverse)
+    want = sweep_plain(torch.from_numpy(cv), torch.from_numpy(disp),
+                       torch.from_numpy(cost), lower, axis, reverse)
+    np.testing.assert_array_equal(got[0], want[0].numpy())
+    np.testing.assert_array_equal(got[1], want[1].numpy())
+    if state == "flood":    # the run crossed the first 2L/3 lines
+        n = 2 * L // 3
+        lines = want[0].numpy().T if axis == 1 else want[0].numpy()
+        lines = lines[::-1] if reverse else lines
+        assert (lines[:n] == lower + 11 // 2).all()
+        assert (lines[n] != lower + 11 // 2).all()
+
+
+@pytest.mark.parametrize("K", [1, 4])
+def test_search_probe_plain_matches_pallas_probe(K):
+    """`search_probe_plain` against the JAX package's `probe` (Pallas,
+    interpret mode) fed the candidates JAX's `_patch_match_stereo_cv`
+    forms (`patchmatch.py:245-253`) from the same numpy draws: negative
+    differences (the floor), candidates forced off the current value,
+    out-of-range candidates and ties."""
+    H, W, D, lower = 16, 9, 7, 3
+    cv, disp, cost = _state(60 + K, H, W, D, lower)
+    rng = np.random.default_rng(70 + K)
+    draws = rng.integers(lower, lower + D, (K, H, W)).astype(np.int32)
+    draws[0, :2] = disp[:2]                 # forced off the current value
+    jd = jnp.asarray(disp)
+    cands = []
+    for k in range(K):
+        cand = jd + ((jnp.asarray(draws[k]) - jd) * (k + 1)) // (K + 1)
+        cands.append(np.asarray(jnp.where(cand == jd, jd + 1, cand)))
+    assert (draws < disp).any() and any((c > lower + D - 1).any()
+                                        for c in cands)
+    cv_p, (d_p, c_p) = _jax_layout(cv, disp, cost)
+    c_pad = np.stack([_jax_layout(cv, c)[1][0] for c in cands], axis=1)
+    want_d, want_c = j_probe(jnp.asarray(cv_p), jnp.asarray(c_pad),
+                             jnp.asarray(d_p), jnp.asarray(c_p), lower, D,
+                             interpret=True)
+    td, tc = search_probe_plain(torch.from_numpy(cv), torch.from_numpy(draws),
+                                torch.from_numpy(disp),
+                                torch.from_numpy(cost), lower, K)
+    np.testing.assert_array_equal(td.numpy(), np.asarray(want_d)[:H, :W])
+    np.testing.assert_array_equal(tc.numpy(), np.asarray(want_c)[:H, :W])
+    assert not np.array_equal(td.numpy(), disp)         # something moved
 
 
 def test_scaled_candidate_floors_like_jax():
