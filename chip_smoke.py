@@ -17,8 +17,9 @@ order; SGM-16's 15 volumes, the 8 knight volumes after them) bitwise
 against the sequential accumulator and against the plain versions; the
 SGM entries with margins against the CPU; K5 feature-volume cost volume at
 the WTA path's
-shape (480x640, D=120, F=49) and at an odd shape (LEFT_TO_RIGHT, an offset
-search, an RGB F=147 input); K6 PatchMatch sweep (its three launches) and
+shape (480x640, D=120, F=49 and an RGB F=147) and at an odd shape
+(LEFT_TO_RIGHT, an offset search, an RGB F=147 input: the register-tiled
+instance; a shift list of step 2: the general one); K6 PatchMatch sweep (its three launches) and
 K7 probe and search probe, exactly, on the 480x640x120 NCC volume, K6 also
 on a flood whose run crosses 2/3 of every line and at edge shapes (one and
 two lines, 45 chains, lower < 0, +inf and ties, costs not the volume's
@@ -79,7 +80,12 @@ each with the launch counts set to 0 just before it and read just after:
   480x80x120 column shard), K4c (on a 120x640x384 row shard), the any-D
   K2k (480x640x384, the 8 knight volumes bitwise, and their ordered sum),
   the any-D K2 (120x160x330, 7 passes, f32 and bf16,
-  at 1e-4) and K2s at D=330 (bitwise) are held to their plain versions:
+  at 1e-4) and K2s at D=330 (bitwise), and K2 (1e-4) and K2s (bitwise)
+  on 12x64 shards at the first D of each instance of `pass_layout` (321,
+  1025: registers; 8193, 9641: shared carries; 28545: device carries;
+  the layout of each launch as its launcher reports it), and the 7 K2
+  passes of 480x640x384 into one accumulator (1e-4), are held to their
+  plain versions:
   SGM-8 and SGM-16 over the flagship geometry's row shards (480x640x120,
   tile 8; K2s), SGM-8 at 480x640x384 (tile 4; K4c) and SGM-16 there (K4c
   and the knight relays through K2s), each volume equal to the
@@ -88,9 +94,18 @@ each with the launch counts set to 0 just before it and read just after:
   fixtures as a batch of 2, indices held to the single-device route's at
   >= 0.999 agreement; `entry.dryrun_multichip(8)`; SGM-4/8/16 at
   48x64x330 (tile 4; K2 and K2s past D = 320) against the CPU at 1e-4;
-  SGM-8/16 at 48x64x9641 (tile 4, past K2's any-D ring: its global-carry
-  instance) through `distributed_sgm_routed`, bitwise against the plain
-  passes;
+  SGM-8/16 at 48x64x9641 and 8x16x28545 (tile 4; the any-D K2's shared
+  and device instances) through `distributed_sgm_routed`, bitwise against
+  the plain passes;
+- the distributed 4K UHD step (`distributed_dense_stereo_step`, batch 1,
+  tile 4 of the one card: 2160x3840, ZNCC 7x7, D=384, SGM-8): K4c's
+  carries do not fit, so K1 and the K2s engine's any-D K2 run it (8
+  `sgm_pass` and 24 `sgm_shard_pass` launches, asserted); its disparities
+  equal a (1, 1) mesh's and agree with the single-device lane route's on
+  >= 0.999 of pixels; its frame time, device items, idle share and peak
+  memory; on one 540x3840x384 row shard of its volume, K2 left to right
+  within 1e-4 of its plain pass and K2s top to bottom and along a
+  diagonal from random carries bitwise (rings of 2 stages);
 - SGM-16 at D=384 (`dense_sgm_stereo`: K1, K4b and the any-D K2k) on a
   random pair;
 - `aggregate_cost` 'auto' with ZSAD r=5 (F=121) over D=448, past K5's
@@ -106,11 +121,15 @@ times K2's two forms with K3 (one launch, or 7 launches into one
 accumulator) from 480x640 to 2160x3840 with their peak memory and equal
 outputs, and K3's two forms on SGM-16 (over the 15 volumes, or over their
 sum), times K6 and K7 as calls and on the device (torch.profiler) beside their
-sector floors, the any-D K2 a launch on relay shards at D = 330 and past
-its ring, times K1's call, the flagship frame with its device items, the two
+sector floors, the any-D K2 a launch on 12x64 shards at the first D of
+each instance, times K1's call, the flagship frame with its device items, the two
 SGM-16 frames with theirs, K2k, K3, the distributed SGM-16 frame, the
 wide and HD wide frames with their device items, K4b, K4c's relays, K4d's
-`chunked_adj` at 480x640x384, the 4K UHD frame, and the PatchMatch frame
+`chunked_adj` at 480x640x384, the 4K UHD frame, the distributed 4K UHD
+step (with its device items and peak memory), the any-D K2 a launch on
+12x64xD shards (as a call and on the device) and its 7 passes at
+480x640x384, K5 at 480x640x120 (F = 49 and 147, as a call and on the
+device), the WTA ZSAD frame, and the PatchMatch frame
 with its device items, K6's sweeps (480x640x120 and 720x1280x320), K7
 (K = 1, 4) and the random search's probe step as the checkout runs them
 (and, with ``--parent DIR``, a checkout of another commit, that one's too,
@@ -636,6 +655,127 @@ def k4_cases(dev):
         torch.cuda.empty_cache()
 
 
+def distributed_uhd(dev, L4, R4, lane_idx, smi):
+    """The distributed 4K UHD step: `distributed_dense_stereo_step` on a
+    (batch 1, tile 4) mesh of the one card, ZNCC 7x7, D = 384, P1 = 0.1,
+    P2 = 0.5, SGM-8, on a 2160x3840 pair.  K4c's carries do not fit at
+    this width (`fused_fits`), so every SGM pass runs the K2s engine on
+    the any-D K2: 2 horizontal `sgm_pass` and 6 relayed `sgm_shard_pass`
+    launches a shard, counted from 0 around one frame.  Holds the
+    disparities equal to the same step on a (1, 1) mesh (the relays are
+    exact) and to the single-device lane route's tie-last WTA over the
+    same pair (``lane_idx``, another sum order) on >= 0.999 of pixels;
+    times the frame (median of 3 after a warm-up), its device items and
+    its peak memory.  Then holds the any-D K2 to its plain versions on one
+    of the frame's row shards (rows 540 to 1080 of the pair's volume):
+    `sgm_pass` left to right at 1e-4, `sgm_shard_pass` top to bottom and
+    along a diagonal from random carries bitwise (some 4000 lines a
+    launch: the ring's fewest stages).  Returns the any-D K2's launches in
+    the frame and its largest error against the plain passes."""
+    from libstevi_tpu_torch.core import DispDirection, MatchingFunction
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    from libstevi_tpu_torch.ops.box_cuda import box_cv
+    from libstevi_tpu_torch.ops.sgm import SgmDirection
+    from libstevi_tpu_torch.ops.sgm_cuda import (sgm_pass, sgm_pass_plain,
+                                                 sgm_shard_pass,
+                                                 sgm_shard_pass_plain)
+    from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
+    from libstevi_tpu_torch.parallel.stereo import (
+        distributed_dense_stereo_step)
+    from libstevi_tpu_torch.profile_frames import profile_frame
+
+    UH, UW = L4.shape
+    D, n_sms = 384, torch.cuda.get_device_properties(dev).multi_processor_count
+    assert not lane.fused_fits(UW, D, 8, n_sm=n_sms)    # the K2s engine
+
+    def step(tile):
+        return distributed_dense_stereo_step(
+            make_stereo_mesh(MeshSpec(batch=1, tile=tile), [dev] * tile),
+            MatchingFunction.ZNCC, 3, 3, D, 0.1, 0.5, n_directions=8)
+
+    step4, step1 = step(4), step(1)
+    f4 = lambda: step4(L4[None], R4[None])  # noqa: E731
+    counters = (box_cv, sgm_pass, sgm_shard_pass, lane.fused_rows_shard_pass,
+                lane.fused_cols_pass)
+    for fn in counters:
+        fn.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out4 = f4()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"K1": box_cv.launches, "K2 (sgm_pass)": sgm_pass.launches,
+                "K2s (sgm_shard_pass)": sgm_shard_pass.launches,
+                "K4c": lane.fused_rows_shard_pass.launches,
+                "K4b cols": lane.fused_cols_pass.launches}
+    print(f"distributed 4K UHD step {UH}x{UW} D={D} SGM-8 (batch 1, tile "
+          f"4; K4c's carries do not fit: the K2s engine; the any-D K2's "
+          f"last launch ran {sgm_shard_pass.layout}, as its launcher "
+          f"reports): {wall:.3f} s host wall (first call), launches "
+          f"{launches}", flush=True)
+    assert launches == {"K1": 4, "K2 (sgm_pass)": 8,
+                        "K2s (sgm_shard_pass)": 24, "K4c": 0,
+                        "K4b cols": 0}, launches
+    assert out4.shape == (1, UH, UW) and out4.dtype == torch.int32
+    out1 = step1(L4[None], R4[None])
+    assert torch.equal(out4, out1), "4 row shards against the (1, 1) mesh"
+    del out1
+    sign = DispDirection.RIGHT_TO_LEFT.delta_sign
+    agree = (out4[0] == (sign * lane_idx).to(out4.dtype)).float().mean().item()
+    print(f"  the 4 row shards' disparities equal the (1, 1) mesh's; they "
+          f"agree with the single-device lane route's tie-last WTA on "
+          f"{agree:.6f} of pixels", flush=True)
+    assert agree >= 0.999, agree
+    del out4
+    torch.cuda.empty_cache()
+    ms = median_ms(f4, reps=3, warmup=1)
+    busy, items = profile_frame(f4, 1)
+    peak = peak_bytes(f4)
+    top = sorted(items.items(), key=lambda kv: -kv[1][0])[:6]
+    print(f"time: distributed 4K UHD step {UH}x{UW} D={D} SGM-8, 4 row "
+          f"shards: {ms:.3f} ms (median of 3 after a warm-up; {smi}); "
+          f"memory: peak {peak / 1e9:.3f} GB above the inputs; profile (1 "
+          f"frame): device busy {busy / 1e3:.3f} ms, idle "
+          f"{1 - busy / 1e3 / ms:.3f}, top items (name, us, launches) "
+          f"{[[n, round(u, 1), round(k, 1)] for n, (u, k) in top]}",
+          flush=True)
+    torch.cuda.empty_cache()
+    # the any-D K2 against its plain versions on one 540x3840x384 row shard
+    # of the frame's volume (K1's shards with their halos are its slices)
+    cv = box_cv(MatchingFunction.ZNCC, L4, R4, 3, 3, D, torch.float32,
+                negate=True)
+    i0, rows = UH // 4, UH // 4
+    x = cv[i0:i0 + rows].contiguous()
+    del cv
+    torch.cuda.empty_cache()
+    g = torch.Generator(device=dev).manual_seed(384)
+    a = torch.rand(x.shape, generator=g, device=dev)
+    c = torch.rand((UW, D), generator=g, device=dev)
+    Q = (P1, P2, POUT)
+    a_k, a_p = a.clone(), a.clone()
+    sgm_pass(x, a_k, SgmDirection.LEFT2RIGHT, *Q)
+    sgm_pass_plain(x, a_p, SgmDirection.LEFT2RIGHT, *Q)
+    err = close(a_k, a_p)
+    print(f"  any-D K2 {tuple(x.shape)} LEFT2RIGHT (launched "
+          f"{sgm_pass.layout}): within {err:.3g} of the plain pass "
+          f"(bitwise: {torch.equal(a_k, a_p)})", flush=True)
+    for d in (SgmDirection.UP2DOWN, SgmDirection.UPLEFT2DOWNRIGHT):
+        a_k.copy_(a)
+        a_p.copy_(a)
+        got = sgm_shard_pass(x, a_k, d, *Q, True, c, i0, UH)
+        used = sgm_shard_pass.layout
+        exact(got, sgm_shard_pass_plain(x, a_p, d, *Q, True, c, i0, UH),
+              ("K2s 4K shard carries", d.name))
+        exact(a_k, a_p, ("K2s 4K shard", d.name))
+        print(f"  any-D K2s {tuple(x.shape)} {d.name} from random carries "
+              f"(launched {used}): equal to the plain pass bitwise, the "
+              f"carries out too", flush=True)
+    del x, a, c, a_k, a_p, got
+    torch.cuda.empty_cache()
+    return (launches["K2 (sgm_pass)"] + launches["K2s (sgm_shard_pass)"],
+            err)
+
+
 def distributed(dev, pairs, smi):
     """The distributed paths (`libstevi_tpu_torch.parallel`) on virtual
     shards of the one card, and 16-direction SGM past D = 320.  Holds K2s,
@@ -658,8 +798,9 @@ def distributed(dev, pairs, smi):
     from libstevi_tpu_torch.ops.sgm import knight_adj
     from libstevi_tpu_torch.ops.sgm_cuda import (
         MAX_D, add_knight_volumes, knight_volumes, knight_volumes_plain,
-        ring_fits, sgm_knight_shard_pass, sgm_knight_shard_pass_plain,
-        sgm_pass, sgm_pass_plain, sgm_shard_pass, sgm_shard_pass_plain)
+        ring_fits, sgm_knight_shard_pass,
+        sgm_knight_shard_pass_plain, sgm_pass, sgm_pass_plain,
+        sgm_shard_pass, sgm_shard_pass_plain)
     from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
     from libstevi_tpu_torch.parallel.sgm_dist import (
         _column_split, carry_relay, distributed_sgm, distributed_sgm_fused,
@@ -670,7 +811,7 @@ def distributed(dev, pairs, smi):
     ZNCC, SCORE = MatchingFunction.ZNCC, ExtractionStrategy.SCORE
     H, W, D, DW = 480, 640, 120, 384
     Q = (0.3, 1.1, 7.0)          # JAX's flagship-geometry test's P1, P2, Pout
-    DA = 330                     # past K2's register instance (D <= 320)
+    DA = 330                     # past K2's one-warp instance (D <= 320)
     err = {"K2s": 0.0, "K4c": 0.0, "K2k any-D": 0.0, "K2 any-D": 0.0}
     g = torch.Generator(device=dev).manual_seed(21)
     cv = torch.rand((H, W, D), generator=g, device=dev) * 4
@@ -749,8 +890,8 @@ def distributed(dev, pairs, smi):
           f"to the plain lane form bitwise, the ordered sum equal to the "
           f"shard pass's plain version bitwise, within {e_kd:.3g} of "
           f"`knight_adj`", flush=True)
-    # K2 past D = 320 (the shared-memory instance): 7 passes on a whole
-    # 120x160x330 volume in f32 and bf16, then K2s on rows 40-79 of it
+    # K2 past D = 320 (the registers instance, K = 4, G = 3): 7 passes on a
+    # whole 120x160x330 volume in f32 and bf16, then K2s on rows 40-79 of it
     # from random carries, bitwise
     cva = torch.rand((120, 160, DA), generator=g, device=dev) * 4
     for dt in (torch.float32, torch.bfloat16):
@@ -833,7 +974,7 @@ def distributed(dev, pairs, smi):
               f"route's bitwise", flush=True)
     del d8, d16, dw, dw16, ref8, ref16, refw, refw16
     # SGM-4/8/16 past D = 320 over row shards: K2 and K2s take any D (their
-    # shared-memory instances), against the same engines on the CPU
+    # registers instances at D = 330), against the same engines on the CPU
     for fn in counters:
         fn.launches = 0
     torch.cuda.synchronize()
@@ -858,36 +999,40 @@ def distributed(dev, pairs, smi):
         print(f"  SGM-{n} {tuple(cv_a.shape)} tile 4 (K2 and K2s past D = "
               f"320): within {e:.3g} of the CPU run", flush=True)
     del da, want, sha_c
-    # C6: past K2's any-D ring (`ring_fits`: the first D is 9641 for an f32
-    # pass that accumulates) K2 and K2s keep their carries in global
-    # memory: SGM-8 and SGM-16 over 4 row shards through
-    # `distributed_sgm_routed` (K4c's carries do not fit: the K2s engine),
-    # bitwise against the plain passes in `sgm_accumulate`'s order
+    # C6's relays: past the ring of K2's first any-D form (`ring_fits`: the
+    # first D is 9641 for an f32 pass that accumulates; now the shared
+    # instance of `pass_layout`), and at the first D of the device
+    # instance (28545, small H x W): SGM-8 and SGM-16 over 4 row shards
+    # through `distributed_sgm_routed` (K4c's carries do not fit: the K2s
+    # engine), bitwise against the plain passes in `sgm_accumulate`'s order
     DC = MAX_D + 1
     while ring_fits(DC, 4, 1):
         DC += 1
     cv_6 = torch.rand((48, 64, DC), generator=g, device=dev) * 4
-    sh6 = list(cv_6.split(12))
-    for n in (8, 16):
+    cv_d = torch.rand((8, 16, 28545), generator=g, device=dev) * 4
+    for vol, n in ((cv_6, 8), (cv_6, 16), (cv_d, 8), (cv_d, 16)):
         dirs = directions_for(n)
-        acc = torch.empty(cv_6.shape, device=dev)
+        acc = torch.empty(vol.shape, device=dev)
         for k, d in enumerate(x for x in dirs if not x.knight):
-            sgm_pass_plain(cv_6, acc, d, *Q, accumulate=k > 0)
+            sgm_pass_plain(vol, acc, d, *Q, accumulate=k > 0)
         for d in (x for x in dirs if x.knight):
-            acc.add_(knight_volumes_plain(cv_6, [d], *Q)[0])
+            acc.add_(knight_volumes_plain(vol, [d], *Q)[0])
         for fn in counters:
             fn.launches = 0
-        got = torch.cat(distributed_sgm_routed(sh6, *Q, n))
+        got = torch.cat(distributed_sgm_routed(list(vol.split(
+            vol.shape[0] // 4)), *Q, n))
         l6 = {"K2": sgm_pass.launches, "K2s": sgm_shard_pass.launches,
               "K2s knights": sgm_knight_shard_pass.launches,
               "K4c": lane.fused_rows_shard_pass.launches}
         assert l6["K2"] > 0 and l6["K2s"] > 0 and l6["K4c"] == 0, l6
         err["K2 any-D"] = max(err["K2 any-D"],
-                              exact(got, cv_6 + acc, ("C6 relay", n)))
-        print(f"  C6: SGM-{n} {tuple(cv_6.shape)} tile 4 (past K2's any-D "
-              f"ring, D = {DC}: its global-carry instance) through "
+                              exact(got, vol + acc, ("C6 relay", n)))
+        Dv = vol.shape[-1]
+        print(f"  C6: SGM-{n} {tuple(vol.shape)} tile 4 (D = {Dv}: the "
+              f"any-D K2's {sgm_shard_pass.layout.carries} instance) through "
               f"distributed_sgm_routed, launches {l6}: equal to the plain "
               f"passes bitwise", flush=True)
+    del cv_d
     del acc, got
     for tag, got in (("full step (2, 2, 2)", out_full),
                      ("dense step (2, 4)", out_dense)):
@@ -991,7 +1136,7 @@ def distributed(dev, pairs, smi):
         knight_volumes_plain(cvw, _KNIGHT_DIRS, *Q, out=kv_p)
 
     def k2a_job(fn):
-        """7 K2 passes past D = 320 (the shared-memory instance) on the
+        """7 K2 passes past D = 320 (the registers instance) on the
         480x640x384 volume."""
         for k, d in enumerate(PRINC + [SgmDirection.LEFT2RIGHT]):
             fn(cvw, acc_w, d, *Q, accumulate=k > 0)
@@ -1009,14 +1154,39 @@ def distributed(dev, pairs, smi):
         "K2k any-D": (lambda: knight_volumes(cvw, _KNIGHT_DIRS, *Q, out=kv),
                       k2k_plain, 1),
     }
-    # the any-D K2 a launch: a principal pass on one shard as the D = 330
-    # relays run it (80 launches), and at C6's D (the global-carry
-    # instance), kernel and plain in turns
+    # the any-D K2 a launch on a 12x64xD shard, in each instance of
+    # `pass_layout`: the D = 330 relays' shard (80 launches), C6's D, and
+    # the first D of each instance (registers K = 4 and 8, shared carries,
+    # device carries); K2 left to right and K2s top to bottom from random
+    # carries, against the plain passes (K2 at 1e-4, K2s bitwise; whether
+    # K2 is bitwise too is printed), then kernel and plain timed in turns;
+    # each launch's layout as its launcher reports it
     LR, DOWN = SgmDirection.LEFT2RIGHT, SgmDirection.UP2DOWN
-    for tag, x in ((f"D={DA} relay shard", sha[1]),
-                   (f"D={DC} relay shard (global carries)", sh6[1])):
+
+    def layout_tag(ly):
+        return (f"{ly.carries} K={ly.K} G={ly.G} S={ly.stages} "
+                f"smem={ly.smem}")
+
+    instances = {}
+    for Dk in (321, DA, 1025, 8193, DC, 28545):
+        x = torch.rand((12, 64, Dk), generator=g, device=dev) * 4
         a = torch.rand(x.shape, generator=g, device=dev)
-        c = torch.rand((x.shape[1], x.shape[2]), generator=g, device=dev)
+        c = torch.rand((x.shape[1], Dk), generator=g, device=dev)
+        a_k, a_p = a.clone(), a.clone()
+        sgm_pass(x, a_k, LR, *Q)
+        ly = sgm_pass.layout
+        sgm_pass_plain(x, a_p, LR, *Q)
+        err["K2 any-D"] = max(err["K2 any-D"], close(a_k, a_p))
+        k2_bitwise = torch.equal(a_k, a_p)
+        a_k, a_p = a.clone(), a.clone()
+        exact(sgm_shard_pass(x, a_k, DOWN, *Q, True, c, 12, 48),
+              sgm_shard_pass_plain(x, a_p, DOWN, *Q, True, c, 12, 48),
+              ("K2s any-D carries", Dk))
+        exact(a_k, a_p, ("K2s any-D", Dk))
+        del a_k, a_p
+        tag = (f"K2 {layout_tag(ly)}; K2s "
+               f"{layout_tag(sgm_shard_pass.layout)}")
+        instances[f"12x64x{Dk}"] = tag
         one = {
             "K2 (left to right)": (
                 lambda: sgm_pass(x, a, LR, *Q),
@@ -1027,14 +1197,30 @@ def distributed(dev, pairs, smi):
                                              48)),
         }
         nb = bound(3 * x.numel() * 4, SGM_OPS * x.numel())[0]
+        print(f"any-D K2 12x64x{Dk} ({tag}): K2 within 1e-4 of the plain "
+              f"pass (bitwise: {k2_bitwise}), K2s equal bitwise",
+              flush=True)
         for name, (kern, plain) in one.items():
             p1, k1, k2_, p2 = (median_ms(plain), median_ms(kern),
                                median_ms(kern), median_ms(plain))
-            print(f"time: any-D {name}, one launch on a "
-                  f"{tuple(x.shape)} {tag}: kernel {(k1 + k2_) / 2:.4f} ms "
-                  f"vs plain {(p1 + p2) / 2:.4f} ms, bound {nb:.4f} ms "
-                  f"(median of 5, twice each; {smi})", flush=True)
-    del cv_6, sh6
+            print(f"time: any-D {name}, one launch on a 12x64x{Dk} shard "
+                  f"({ly.carries}): kernel {(k1 + k2_) / 2:.4f} ms vs plain "
+                  f"{(p1 + p2) / 2:.4f} ms, bound {nb:.4f} ms (median of 5, "
+                  f"twice each; {smi})", flush=True)
+    del x, a, c
+    del cv_6
+    # the 7 passes of the K2 any-D job into one accumulator, against the
+    # plain passes in the same order
+    k2a_job(sgm_pass)
+    got = acc_w.clone()
+    k2a_job(sgm_pass_plain)
+    e = close(got, acc_w)
+    err["K2 any-D"] = max(err["K2 any-D"], e)
+    print(f"any-D K2, 7 passes into one accumulator {tuple(cvw.shape)} "
+          f"(launched {layout_tag(sgm_pass.layout)} last): within {e:.3g} "
+          f"of the plain passes (bitwise: {torch.equal(got, acc_w)})",
+          flush=True)
+    del got
     ms = {}
     for name, (kern, plain, n) in jobs.items():
         w = 1 if n > 1 else 0
@@ -1055,7 +1241,7 @@ def distributed(dev, pairs, smi):
         # cv read once, acc written once; 7 directions' DP ops
         "K2 any-D": bound(2 * NW * 4, SGM_OPS * 7 * NW),
     }
-    return err, launches, ms, bounds
+    return err, launches, ms, bounds, instances
 
 
 # K1's call, the flagship frame and SGM-16 as a checkout's own code runs
@@ -1122,7 +1308,75 @@ if hasattr(entry, "uhd_wide_forward"):
 else:
     out["uhd_ms"] = med(lambda: dense_sgm_stereo(ZNCC, L4, R4, **entry.WIDE),
                         warm=1, reps=2)
-del L4, R4
+torch.cuda.empty_cache()
+# the distributed 4K UHD step: 4 row shards of the one card, ZNCC 7x7,
+# D = 384, SGM-8 through the K2s engine (K4c's carries do not fit): median
+# of 3 after a warm-up, its device items over one frame, its peak memory
+from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
+from libstevi_tpu_torch.parallel.stereo import distributed_dense_stereo_step
+step4 = distributed_dense_stereo_step(
+    make_stereo_mesh(MeshSpec(batch=1, tile=4), [torch.device("cuda")] * 4),
+    ZNCC, 3, 3, 384, 0.1, 0.5, n_directions=8)
+f4 = lambda: step4(L4[None], R4[None])
+out["dist4k_ms"] = med(f4, warm=1, reps=3)
+busy, items = profile_frame(f4, 1)
+out["dist4k_busy_ms"] = busy / 1e3
+out["dist4k_top"] = [[name, round(us, 1), round(n, 1)] for name, (us, n) in
+                     sorted(items.items(), key=lambda kv: -kv[1][0])[:6]]
+torch.cuda.synchronize()
+base = torch.cuda.memory_allocated()
+torch.cuda.reset_peak_memory_stats()
+f4()
+torch.cuda.synchronize()
+out["dist4k_peak_gb"] = (torch.cuda.max_memory_allocated() - base) / 1e9
+del L4, R4, step4, f4
+torch.cuda.empty_cache()
+# the any-D K2 a launch on 12x64xD shards (the D = 330 relays' shard, C6's
+# D = 9641, and the device instance's first D, 28545): left to right (K2),
+# top to bottom with carries (K2s); the 7 passes of 480x640x384 f32 into
+# one accumulator
+g2 = torch.Generator(device="cuda").manual_seed(5)
+LR, DOWN = SgmDirection.LEFT2RIGHT, SgmDirection.UP2DOWN
+out["k2_launch"], out["k2_launch_dev"] = {}, {}
+
+def dev_ms(fn, reps=10):
+    # the device time of the kernels one call launches (torch.profiler)
+    fn()
+    torch.cuda.synchronize()
+    return profile_frame(fn, reps)[0] / 1e3
+
+for D in (330, 9641, 28545):
+    x = torch.rand((12, 64, D), generator=g2, device="cuda") * 4
+    a = torch.rand(x.shape, generator=g2, device="cuda")
+    c = torch.rand((64, D), generator=g2, device="cuda")
+    k2 = lambda: sc.sgm_pass(x, a, LR, 0.3, 1.1, 7.0)
+    k2s = lambda: sc.sgm_shard_pass(x, a, DOWN, 0.3, 1.1, 7.0, True, c, 12,
+                                    48)
+    out["k2_launch"][D] = (med(k2), med(k2s))
+    out["k2_launch_dev"][D] = (dev_ms(k2), dev_ms(k2s))
+del x, a, c
+cw7 = torch.rand((480, 640, 384), generator=g2, device="cuda") * 4
+acc7 = torch.empty_like(cw7)
+k2_dirs7 = [d for d in directions_for(8) if d.step[0] != 0] + [LR]
+
+def k2a():
+    for k, d in enumerate(k2_dirs7):
+        sc.sgm_pass(cw7, acc7, d, 0.3, 1.1, 7.0, accumulate=k > 0)
+
+out["k2a_ms"] = med(k2a)
+del cw7, acc7
+# K5 at 480x640, D = 120 (RIGHT_TO_LEFT's shifts), ZSAD's 'sad' with f32
+# out: F = 49 (a gray 7x7 window) and 147 (RGB); the WTA ZSAD frame
+from libstevi_tpu_torch.ops.fv_backend import fused_fv_cost_volume
+for F in (49, 147):
+    fs, ft = (torch.rand((480, 640, F), generator=g2, device="cuda") - 0.5
+              for _ in range(2))
+    k5 = lambda: fused_fv_cost_volume("sad", fs, ft, range(120))
+    out[f"k5_f{F}_ms"] = med(k5)
+    out[f"k5_f{F}_dev_ms"] = dev_ms(k5)
+del fs, ft
+out["wta_zsad_ms"] = med(lambda: entry.wta_forward(MatchingFunction.ZSAD, L,
+                                                   R))
 torch.cuda.empty_cache()
 out["k1_ms"] = med(lambda: box_cv(ZNCC, L, R, 3, 3, 120, torch.bfloat16,
                                   True))
@@ -1328,6 +1582,28 @@ def parent_and_change(parent, smi):
               f"of 5 a run after 3 warm-ups; a tree without "
               f"entry.uhd_wide_forward: its 4K frame median of 2 after 1; "
               f"{smi})", flush=True)
+        dist_top = rs[-1]["dist4k_top"]
+        k2l = {D: tuple(statistics.mean(r[key][D][i] for r in rs)
+                        for key in ("k2_launch", "k2_launch_dev")
+                        for i in (0, 1))
+               for D in rs[0]["k2_launch"]}
+        print(f"time: {name} ({len(rs)} run(s)): distributed 4K UHD step "
+              f"2160x3840 D=384 SGM-8, 4 row shards (K2s engine) "
+              f"{mean['dist4k_ms']:.3f} ms (median of 3 after a warm-up), "
+              f"busy {mean['dist4k_busy_ms']:.3f} ms, idle "
+              f"{1 - mean['dist4k_busy_ms'] / mean['dist4k_ms']:.3f}, peak "
+              f"{mean['dist4k_peak_gb']:.3f} GB above the inputs, top items "
+              f"(name, us, launches a frame) {dist_top}; the any-D K2 a "
+              f"launch on 12x64xD, K2 left to right / K2s top to bottom, "
+              f"a call (on the device): "
+              + ", ".join(f"D={D} {a:.4f} / {b:.4f} ms ({c:.4f} / {d:.4f})"
+                          for D, (a, b, c, d) in k2l.items())
+              + f"; 7 passes 480x640x384 f32 {mean['k2a_ms']:.3f} ms; K5 "
+              f"480x640x120 'sad' f32 F=49 {mean['k5_f49_ms']:.4f} ms (on "
+              f"the device {mean['k5_f49_dev_ms']:.4f}), F=147 "
+              f"{mean['k5_f147_ms']:.4f} ms ({mean['k5_f147_dev_ms']:.4f}); "
+              f"WTA ZSAD frame 480x640 D=120 "
+              f"{mean['wta_zsad_ms']:.3f} ms ({smi})", flush=True)
     if not parent:
         print("time: parent not given (--parent DIR, a checkout of the "
               "parent commit)", flush=True)
@@ -1358,7 +1634,8 @@ def main(argv=None) -> int:
     from libstevi_tpu_torch.ops.box_cuda import (box_cv, box_cv_plain,
                                                  window_stats, _prep_inputs)
     from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
-                                                   fused_fv_cost_volume_plain)
+                                                   fused_fv_cost_volume_plain,
+                                                   fv_instance)
     from libstevi_tpu_torch.ops.patchmatch import (_patch_match_stereo_cv,
                                                    cost_oriented_volume)
     from libstevi_tpu_torch.ops.patchmatch_cuda import (
@@ -1606,7 +1883,10 @@ def main(argv=None) -> int:
         """The normalized 7x7 unfold the WTA path aggregates."""
         return normalize_feature_volume(func, unfold(3, 3, img))
 
+    k5_instances = {}
+
     def check_k5(kernel, src, tgt, shifts, tag):
+        k5_instances[tag] = fv_instance(shifts)
         want = fused_fv_cost_volume_plain(kernel, src, tgt, shifts)
         for dt in (torch.float32, torch.bfloat16):
             got = fused_fv_cost_volume(kernel, src, tgt, shifts, dt)
@@ -1617,13 +1897,19 @@ def main(argv=None) -> int:
                 err["K5"] = max(err["K5"], e5.max().item())
             else:
                 assert (e5 <= bf16_ulp(want) + 1e-5).all(), tag
-            print(f"K5 {tag} {kernel} {str(dt).split('.')[-1]}: max |kernel "
-                  f"- plain| = {e5.max().item():.3g}", flush=True)
+            print(f"K5 {tag} {kernel} {str(dt).split('.')[-1]} "
+                  f"({k5_instances[tag]} instance): max |kernel - plain| = "
+                  f"{e5.max().item():.3g}", flush=True)
 
     L, R = pair(480, 640, 4, dev)
+    rgb4 = torch.from_numpy(np.random.default_rng(7).uniform(
+        0, 1, (2, 480, 640, 3)).astype(np.float32)).to(dev)
     for kernel, func in K5_FUNCS.items():
         check_k5(kernel, features(func, R), features(func, L), range(120),
                  "480x640x120 F=49")
+        check_k5(kernel, features(func, rgb4[1]), features(func, rgb4[0]),
+                 range(120), "480x640x120 F=147 RGB")
+    del rgb4
     Lo, Ro = pair(37, 101, 5, dev)
     rgb = np.random.default_rng(6).uniform(0, 1, (2, 37, 101, 3))
     Lc, Rc = torch.from_numpy(rgb.astype(np.float32)).to(dev)
@@ -1635,6 +1921,8 @@ def main(argv=None) -> int:
         check_k5(kernel, fr, fl, range(-4, 9), "37x101x13 F=49 offset [-4, 8]")
         check_k5(kernel, features(func, Rc), features(func, Lc), range(13),
                  "37x101x13 F=147 RGB")
+        # a list of step 2: the general instance
+        check_k5(kernel, fr, fl, range(0, 26, 2), "37x101x13 F=49 step 2")
 
     # -- K6 and K7 against their plain versions, exactly ---------------------
     def state_err(got, want):
@@ -2145,7 +2433,7 @@ def main(argv=None) -> int:
         refine_disp_cost_interpolation(InterpolationKernel.PARABOLA, t4, i4),
         9.0))
     check_random("4K UHD random", d4, i4, WD)
-    del d4, i4, t4
+    del d4, t4
     uhd = lambda: entry.uhd_wide_forward(L4, R4)  # noqa: E731
     uhd_ms = median_ms(uhd)
     uhd_peak = peak_bytes(uhd)
@@ -2198,7 +2486,12 @@ def main(argv=None) -> int:
           flush=True)
     # K1 at the main path's shape: statistics and volume, bit for bit
     k1_exact(L4, R4, WD, (torch.float32,), f"{UH}x{UW}x{WD}")
-    del L4, R4, uhd
+    del uhd
+    torch.cuda.empty_cache()
+    # -- the distributed 4K UHD step (K1 and the K2s engine's any-D K2) -----
+    k2_uhd_launches, e = distributed_uhd(dev, L4, R4, i4, smi)
+    err["K2 any-D"] = max(err.get("K2 any-D", 0.0), e)
+    del L4, R4, i4
     torch.cuda.empty_cache()
 
     # -- the CLI, as a subprocess, SGM-16 on the warp fixture ----------------
@@ -2491,7 +2784,8 @@ def main(argv=None) -> int:
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
 
-    d_err, d_launches, d_ms, d_bounds = distributed(dev, pairs, smi)
+    d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
+                                                                  smi)
     for k, v in d_err.items():
         err[k] = max(err.get(k, 0.0), v)
     ms.update(d_ms)
@@ -2543,7 +2837,7 @@ def main(argv=None) -> int:
         ("K2k any-D sgm_knight_smem_kernel",
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:107", "K2k any-D"),
-        ("K2 any-D sgm_pass_smem_kernel",
+        ("K2 any-D sgm_pass_group_kernel / sgm_pass_buf_kernel",
          "libstevi_tpu_torch/csrc/sgm_scan.cu",
          "libstevi_tpu/ops/sgm_pallas_dhw.py:164", "K2 any-D"),
     ]
@@ -2556,8 +2850,9 @@ def main(argv=None) -> int:
     launches.update(K4a=wide_launches["K4a"], K4b=wide_launches["K4b"],
                     K4d=uhd_launches["K4d"])
     launches.update({k: d_launches[k]
-                     for k in ("K2s", "K4c", "K2k any-D", "K2 any-D",
-                               "K4b stack")})
+                     for k in ("K2s", "K4c", "K2k any-D", "K4b stack")})
+    # the any-D K2's main path: the distributed 4K UHD step (2 + 6 a shard)
+    launches["K2 any-D"] = k2_uhd_launches
     # bounds from the timed calls' shapes: each input read once, each
     # output written once, and their f32 operations
     HW1, N1 = 480 * 640, 480 * 640 * 120
@@ -2604,13 +2899,17 @@ def main(argv=None) -> int:
         **d_bounds,
     }
     library = {"K4a": lib_ms}
+    # the instance each checked shape took (K2 any-D: the layouts its
+    # launcher reported; K5: `fv_instance`)
+    instances = {"K2 any-D": k2_instances, "K5": k5_instances}
     print(json.dumps({"kernels": [
         {"name": name, "route": "cuda", "source": src, "replaces": rep,
          "launches": launches[key], "max_abs_err": err[key],
          "ms": ms[key][0], "plain_ms": ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
          "library_ms": library.get(key),
-         **({"device_ms": device_ms[key]} if key in device_ms else {})}
+         **({"device_ms": device_ms[key]} if key in device_ms else {}),
+         **({"instances": instances[key]} if key in instances else {})}
         for name, src, rep, key in records]}), flush=True)
     print(f"script wall time {time.perf_counter() - t_script:.1f} s",
           flush=True)

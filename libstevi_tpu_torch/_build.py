@@ -60,9 +60,10 @@ SIGNATURES = {
     },
     "sgm_scan": {
         # cv, cv_bf16, acc, cin, cout, spill, n, steps (2n ints: di, dj),
-        # H, W, D, P1, P2, Pout, accumulate, col0, W_pout, i0, H_img, stream
+        # H, W, D, P1, P2, Pout, accumulate, col0, W_pout, i0, H_img, used
+        # (5 ints out: the any-D layout), stream
         "sgm_pass_launch": [_P, _I, _P, _P, _P, _P, _I, _P] + [_I] * 3
-                           + [_F] * 3 + [_I] * 5 + [_P],
+                           + [_F] * 3 + [_I] * 5 + [_P, _P],
         # cv, cv_bf16, vol, cin, cout, spill, n, steps (4n ints: v0, v1,
         # h0, h1), H, W, D, phase, P1, P2, Pout, col0, W_pout, s0, N_img,
         # stream
@@ -75,8 +76,8 @@ SIGNATURES = {
     },
     "fv_cv": {
         # src, tgt, shifts, out, H, W, F, D, min_shift, span, kind,
-        # out_bf16, stream
-        "fv_cv_launch": [_P] * 4 + [_I] * 8 + [_P],
+        # out_bf16, step, stream
+        "fv_cv_launch": [_P] * 4 + [_I] * 9 + [_P],
     },
     "patchmatch": {
         # cv, disp_in, cost_in, disp_out, cost_out, runs, H, W, D, lower,

@@ -85,9 +85,11 @@
 // (W_pout) for the Pout test, so a region inside SGM margins runs as a
 // volume of its own; K3 takes whole images (with margins the caller runs WTA
 // and band itself).  K2 and K2k take any D: past K = 10 register slices
-// (D > 320) they run an instance with the carry in shared memory
-// (`sgm_pass_smem_kernel`, `sgm_knight_smem_kernel`); K3 takes D <= 320
-// and sums up to MAX_ACC volumes (SGM-16's 7 principal and 8 knight ones).
+// (D > 320) K2 runs a line a block of warps with D split across them
+// (`sgm_pass_group_kernel`, `sgm_pass_buf_kernel`, below) and K2k one warp
+// a line with the carry in shared memory (`sgm_knight_smem_kernel`); K3
+// takes D <= 320 and sums up to MAX_ACC volumes (SGM-16's 7 principal and
+// 8 knight ones).
 // The TPU path needed a (W, D, H) transpose of the volume and of the
 // accumulator for the horizontal passes; this one reads (H, W, D) for every
 // direction.
@@ -272,13 +274,17 @@ __device__ __forceinline__ void bulk_copy(void* dst, const void* src,
 // cost vector, lane q (1 <= q <= n) that of acc volume q - 1 (acc_stride
 // floats apart), each arriving on the stage's barrier with its bytes, so
 // the n + 1 copies issue side by side.  Lanes past n do nothing.
+// A vector is D elements, or its first cnt where cnt >= 0 (a slice: the
+// any-D K2 stages each warp's part of D, from cv and acc offset to it).
 template <typename T>
 __device__ __forceinline__ void stage_pixel(unsigned char* st, int cb, int ab,
                                             const T* cv, const float* acc,
                                             int n, long long acc_stride,
                                             long long pix, int D,
-                                            uint64_t* bar, int lane) {
+                                            uint64_t* bar, int lane,
+                                            int cnt = -1) {
   if (lane > n) return;
+  const int len = cnt < 0 ? D : cnt;
   const void* src;
   unsigned char* dst;
   unsigned bytes;
@@ -286,12 +292,12 @@ __device__ __forceinline__ void stage_pixel(unsigned char* st, int cb, int ab,
     const T* c = cv + pix * D;
     src = c;
     dst = st;
-    bytes = cover(c, D);
+    bytes = cover(c, len);
   } else {
     const float* a = acc + (lane - 1) * acc_stride + pix * D;
     src = a;
     dst = st + cb + (lane - 1) * ab;
-    bytes = cover(a, D);
+    bytes = cover(a, len);
   }
   // the stage was read by the warp's generic loads: order them before the
   // async proxy's writes
@@ -313,7 +319,7 @@ __device__ __forceinline__ void ring_start(unsigned char* ring, uint64_t* bar,
                                            const T* cv, const float* acc,
                                            int n, long long acc_stride,
                                            PixAt pix_at, int len, int D,
-                                           int lane) {
+                                           int lane, int cnt = -1) {
   if (lane == 0) {
     for (int s = 0; s < S; ++s) mbar_init(&bar[s], n + 1);
     asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
@@ -321,7 +327,7 @@ __device__ __forceinline__ void ring_start(unsigned char* ring, uint64_t* bar,
   __syncwarp();
   for (int s = 0; s < S && s < len; ++s)
     stage_pixel(ring + s * stage, cb, ab, cv, acc, n, acc_stride, pix_at(s),
-                D, &bar[s], lane);
+                D, &bar[s], lane, cnt);
   __syncwarp();
 }
 
@@ -457,96 +463,249 @@ sgm_pass_kernel(const T* __restrict__ cv, float* __restrict__ acc,
   }
 }
 
-// K2 for any D: `sgm_pass_kernel` with the carry in shared memory in place
-// of registers (K = ceil(D / 32) > 10 would not fit them).  Each warp keeps
-// two D-float carries after its ring (the previous and the current step,
-// swapped every step); lanes loop over 32-wide d-slices, the min over d is
-// a loop plus the warp reduction and d +- 1 are shared-memory reads, as in
-// `sgm_knight_smem_kernel`.  The lines, the ring, the DP step (`dp_step`'s
-// operations in its order, the isfinite guards included) and the
-// accumulation are `sgm_pass_kernel`'s.  Where not even a ring of two
-// stages and the carries fit a block (`ring_layout`; f32 volumes past
-// D = 9640 for a pass that accumulates) the launcher passes `spill`, as
-// `sgm_knight_smem_kernel` takes it: the line reads cv and acc directly
-// (S = 0) and keeps its two carries in a global area of its own, line
-// `line` of direction y at (y * (H + W) + line) * carry_bytes (a direction
-// has fewer than H + W lines); __syncwarp orders them as it does shared
-// memory.  SPILL is a template argument, so that the shared instance keeps
-// shared-memory instructions.
+// K2 for any D (D > 320; `sgm_pass_kernel` keeps ceil(D / 32) <= 10
+// slices of a line's carry in one warp's registers).  What held the
+// earlier any-D form back: one warp a line looped over every 32-wide
+// d-slice twice a step (the min, then the DP), through shared memory, so a
+// step cost ceil(D / 32) dependent rounds (~2.2 us at D = 330), and the
+// relay shapes' few lines left the card nearly empty.  Here a line is one
+// block of G warps with D split across them (K4b's column scans,
+// csrc/sgm_lane.cu, are the precedent), in one of three instances that
+// `pass_layout` picks from D alone (ops/sgm_cuda.pass_layout is its
+// Python twin: change both together):
+// - registers (`sgm_pass_group_kernel<K>`, D <= GROUP_MAX_D): warp g owns
+//   d = 32 K g + lane + 32 k (k < K; K = 4 up to D = 1024, G <= 8, then
+//   K = 8, G <= 32: 1024 threads leave 64 registers a thread).  d +- 1
+//   come from two shuffles a slice, and at the warp's two ends from the
+//   neighbour warps' edge values; the min over d is each warp's
+//   `warp_min` of its new carry, and the G minima and the 2 G edge values
+//   go to shared memory, double-buffered by step parity, so a step has
+//   ONE block barrier (a warp may write buffer b only at step t + 1,
+//   after every warp has passed step t's barrier, i.e. read buffer b).
+//   Each warp stages its own part of the pixel's cost vector (and of acc
+//   where the pass accumulates) S pixels ahead through K2's TMA ring, so
+//   the step never waits on device memory.
+// - shared (`sgm_pass_buf_kernel<T, false>`, D <= BUF_MAX_D): 32 warps, a
+//   run of 32-wide slices each; the two carries (the previous and the
+//   current step) in shared memory, d +- 1 read from them, the parts'
+//   minima double-buffered beside them: again one barrier a step.  Cost
+//   and acc are loaded directly (a pixel's 8 D bytes would leave no room
+//   for a ring), U slices' loads issued before any of them is used.
+// - device (`sgm_pass_buf_kernel<T, true>`, past BUF_MAX_D): the same with
+//   the two carries in a global area of the line's own, line `line` of
+//   direction y at (y * (H + W) + line) * r16(8 D) (a direction has fewer
+//   than H + W lines); the block barrier orders those accesses as it
+//   orders shared memory.
+// One line a block: G >= 3 warps already lets 21 blocks fill an SM's 64
+// warp slots (32 blocks at most), and packing lines into a block would
+// crowd a relay shape's few lines (12 for a 12x64 shard passed left to
+// right) onto fewer SMs.  Every instance keeps `dp_step`'s operations in
+// their order (the isfinite guards included), the corner line's weight,
+// the carries in and out, i0 / H_img, col0 / W_pout and a volume per
+// direction from blockIdx.y, so K2s equals its plain version bit for bit.
+// What bounds a pass: it reads cv and acc and writes acc (12 D bytes a
+// pixel in f32), so a 540x3840x384 shard pass moves 9.55 GB, 2.85 ms at
+// 3.35 TB/s; the registers instance's step chain (shuffles, a redux, one
+// barrier) is ~0.2 us, so lines of 3840 steps stay under that floor.
+constexpr int MAX_GROUP = 32;       // warps a line
+constexpr int GROUP_K4_MAX_D = 1024;  // registers, K = 4 (G <= 8)
+constexpr int GROUP_MAX_D = 8192;     // registers, K = 8 (G <= 32)
+// the shared instance's two carries within PASS_SMEM bytes
+constexpr int PASS_SMEM = 232448 - 4096;  // less the static arrays
+constexpr int BUF_MAX_D = PASS_SMEM / 8;
+constexpr int BUF_U = 8;            // slices a lane loads before it computes
+
+template <int K, typename T>
+__global__ void __launch_bounds__(K == 4 ? 256 : 1024)
+sgm_pass_group_kernel(const T* __restrict__ cv, float* __restrict__ acc,
+                      const float* __restrict__ cin,
+                      float* __restrict__ cout, int H, int W, int D,
+                      Dirs dirs, float P1, float P2, float Pout,
+                      int accumulate, int col0, int W_pout, int i0,
+                      int H_img, int S, int cb, int stage) {
+  extern __shared__ __align__(16) unsigned char group_smem[];
+  __shared__ __align__(8) uint64_t gbars[MAX_GROUP][RING];
+  __shared__ float gmins[2][MAX_GROUP];
+  __shared__ float gedges[2][MAX_GROUP][2];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int G = blockDim.x >> 5;
+  const int di = dirs.di[blockIdx.y], dj = dirs.dj[blockIdx.y];
+  acc += (size_t)blockIdx.y * H * W * D;
+  const PassLine L = pass_line(blockIdx.x, H, W, D, di, dj, cin, i0, H_img);
+  if (!L.ok) return;  // the whole block: one line
+  const int d_lo = 32 * K * g;
+  const int cnt = min(D - d_lo, 32 * K);  // this warp's part (>= 1)
+  const T* cvp = cv + d_lo;               // pixel p's part: cvp + p * D
+  float* accp = acc + d_lo;
+  unsigned char* ring = group_smem + (size_t)g * S * stage;
+  uint64_t* bar = gbars[g];
+  const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
+  const long long step = (long long)di * W + dj;
+  long long pix = (long long)L.si * W + L.sj;
+  ring_start(ring, bar, S, stage, cb, ab, cvp, accp, n_acc, 0,
+             [=](int s) { return pix + s * step; }, L.len, D, lane, cnt);
+  const int i_last = di > 0 ? H - 1 : 0;  // the shard's last scan row
+  const float w = L.w;
+
+  float carry[K];
+#pragma unroll
+  for (int k = 0; k < K; ++k) {
+    const int d = d_lo + lane + 32 * k;
+    carry[k] = d < D ? (L.src ? L.src[d] : 0.f) : INFINITY;
+  }
+  // this warp's minimum of the carry and its two end values, into buffer b
+  auto publish = [&](int b) {
+    float lm = INFINITY;
+#pragma unroll
+    for (int k = 0; k < K; ++k) lm = fminf(lm, finite_or_inf(carry[k]));
+    lm = warp_min(lm);
+    if (lane == 0) {
+      gmins[b][g] = lm;
+      gedges[b][g][0] = finite_or_inf(carry[0]);
+    }
+    if (lane == 31) gedges[b][g][1] = finite_or_inf(carry[K - 1]);
+  };
+  publish(0);
+  __syncthreads();
+  int i = L.si, j = L.sj, slot = 0;
+  for (int t = 0; t < L.len; ++t) {
+    const int b = t & 1;
+    const float m = warp_min(lane < G ? gmins[b][lane] : INFINITY);
+    const float e_lo = g > 0 ? gedges[b][g - 1][1] : INFINITY;  // d_lo - 1
+    const float e_hi = g + 1 < G ? gedges[b][g + 1][0] : INFINITY;
+    mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);  // this pixel's stage
+    unsigned char* st = ring + slot * stage;
+    const T* cs = staged(st, cvp + pix * D);
+    const float* as = staged(st + cb, accp + pix * D);
+    float bv[K], av[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int dl = lane + 32 * k;
+      bv[k] = dl < cnt ? load(cs + dl) : INFINITY;
+      av[k] = (accumulate && dl < cnt) ? as[dl] : 0.f;
+    }
+    __syncwarp();  // the stage is read: refill it with the pixel S ahead
+    if (t + S < L.len)
+      stage_pixel(st, cb, ab, cvp, accp, n_acc, 0, pix + S * step, D,
+                  &bar[slot], lane, cnt);
+    // `dp_step`, with the neighbour warps' ends at this warp's ends
+    float p[K], ru[K], rd[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) p[k] = finite_or_inf(carry[k]);
+#pragma unroll
+    for (int k = 0; k < K; ++k) {  // lane - 1's and lane + 1's value, cyclic
+      ru[k] = __shfl_sync(FULL, p[k], (lane + 31) & 31);
+      rd[k] = __shfl_sync(FULL, p[k], (lane + 1) & 31);
+    }
+    const bool out = cout != nullptr && di != 0 && i == i_last;
+#pragma unroll
+    for (int k = 0; k < K; ++k) {
+      const int d = d_lo + lane + 32 * k;
+      // prev[d - 1]: lane 0 takes lane 31's value of the slice below
+      const float up =
+          lane > 0 ? ru[k] : (k > 0 ? ru[k > 0 ? k - 1 : 0] : e_lo);
+      // prev[d + 1]: lane 31 takes lane 0's value of the slice above
+      const float dn =
+          lane < 31 ? rd[k] : (k + 1 < K ? rd[k + 1 < K ? k + 1 : k] : e_hi);
+      float agg = fminf(fminf(p[k], m + P2), fminf(up + P1, dn + P1));
+      if (col0 + j + d >= W_pout) agg += Pout;  // disparity leaves the image
+      const float adj = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
+      if (d < D) {
+        carry[k] = bv[k] + adj;
+        acc[pix * D + d] = av[k] + w * adj;
+        if (out) cout[(size_t)j * D + d] = carry[k];
+      }
+    }
+    publish(b ^ 1);
+    __syncthreads();  // the minima and ends of this step whole
+    pix += step;
+    i += di;
+    j += dj;
+    slot = slot + 1 == S ? 0 : slot + 1;
+  }
+}
+
+// The shared and device instances (see above): 32 warps a line, each a
+// run of 32-wide slices [d_lo, d_hi) of D; the two carries in shared
+// memory, or with SPILL in the line's global area.
 template <typename T, bool SPILL>
-__global__ void __launch_bounds__(32 * LINE_WARPS)
-sgm_pass_smem_kernel(const T* __restrict__ cv, float* __restrict__ acc,
-                     const float* __restrict__ cin, float* __restrict__ cout,
-                     unsigned char* spill, int H, int W, int D, Dirs dirs,
-                     float P1, float P2, float Pout, int accumulate, int col0,
-                     int W_pout, int i0, int H_img, int S, int cb,
-                     int stage) {
-  extern __shared__ __align__(16) unsigned char pass_smem_d[];
-  __shared__ __align__(8) uint64_t bars_d[LINE_WARPS][RING];
-  const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int line = blockIdx.x * (blockDim.x >> 5) + wid;
+__global__ void __launch_bounds__(32 * MAX_GROUP)
+sgm_pass_buf_kernel(const T* __restrict__ cv, float* __restrict__ acc,
+                    const float* __restrict__ cin, float* __restrict__ cout,
+                    unsigned char* spill, int H, int W, int D, Dirs dirs,
+                    float P1, float P2, float Pout, int accumulate, int col0,
+                    int W_pout, int i0, int H_img) {
+  extern __shared__ __align__(16) unsigned char buf_smem[];
+  __shared__ float bmins[2][MAX_GROUP];
+  const int lane = threadIdx.x & 31, g = threadIdx.x >> 5;
+  const int G = blockDim.x >> 5;
+  const int line = blockIdx.x;
   const int di = dirs.di[blockIdx.y], dj = dirs.dj[blockIdx.y];
   acc += (size_t)blockIdx.y * H * W * D;
   const PassLine L = pass_line(line, H, W, D, di, dj, cin, i0, H_img);
   if (!L.ok) return;
-  // each warp's area stays 16-byte aligned: the carries are rounded up
   const size_t carry_bytes = (2 * sizeof(float) * D + 15) & ~(size_t)15;
-  unsigned char* ring =
-      pass_smem_d +
-      (size_t)wid * ((size_t)S * stage + (SPILL ? 0 : carry_bytes));
   float* bufs = reinterpret_cast<float*>(
       SPILL ? spill + ((size_t)blockIdx.y * (H + W) + line) * carry_bytes
-            : ring + (size_t)S * stage);
-  uint64_t* bar = bars_d[wid];
-  const int n_acc = accumulate ? 1 : 0, ab = stage - cb;
+            : buf_smem);
+  const int SP = ((D + 31) / 32 + G - 1) / G;  // 32-wide slices a warp
+  const int d_lo = g * SP * 32, d_hi = min(D, d_lo + SP * 32);
+  float lm = INFINITY;
+  for (int d = d_lo + lane; d < d_hi; d += 32) {
+    const float v = L.src ? L.src[d] : 0.f;
+    bufs[d] = v;
+    lm = fminf(lm, finite_or_inf(v));
+  }
+  lm = warp_min(lm);
+  if (lane == 0) bmins[0][g] = lm;
+  __syncthreads();
   const long long step = (long long)di * W + dj;
   long long pix = (long long)L.si * W + L.sj;
-  if (S > 0)
-    ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, 0,
-               [=](int s) { return pix + s * step; }, L.len, D, lane);
   const int i_last = di > 0 ? H - 1 : 0;
   const float w = L.w;
-  for (int d = lane; d < D; d += 32) bufs[d] = L.src ? L.src[d] : 0.f;
-  int i = L.si, j = L.sj, slot = 0, cur = 0;
+  int i = L.si, j = L.sj;
   for (int t = 0; t < L.len; ++t) {
-    __syncwarp();  // the carry written at the last step
-    unsigned char* st = ring + slot * stage;
+    const int b = t & 1;
+    const float* prev = bufs + b * D;
+    float* next = bufs + (b ^ 1) * D;
+    const float m = warp_min(lane < G ? bmins[b][lane] : INFINITY);
     const T* cs = cv + pix * D;
-    const float* as = acc + pix * D;
-    if (S > 0) {
-      mbar_wait(&bar[slot], (unsigned)(t / S) & 1u);
-      cs = staged(st, cs);
-      as = staged(st + cb, as);
-    }
-    const float* prev = bufs + cur * D;
-    float* next = bufs + (cur ^ 1) * D;
-    float lm = INFINITY;
-    for (int d = lane; d < D; d += 32) lm = fminf(lm, finite_or_inf(prev[d]));
-    const float m = warp_min(lm);
+    float* as = acc + pix * D;
     float* co = (cout != nullptr && di != 0 && i == i_last)
                     ? cout + (size_t)j * D
                     : nullptr;
-    for (int d = lane; d < D; d += 32) {
-      const float p = finite_or_inf(prev[d]);
-      const float up = d > 0 ? finite_or_inf(prev[d - 1]) : INFINITY;
-      const float dn = d + 1 < D ? finite_or_inf(prev[d + 1]) : INFINITY;
-      float agg = fminf(fminf(p, m + P2), fminf(up + P1, dn + P1));
-      if (col0 + j + d >= W_pout) agg += Pout;  // disparity leaves the image
-      const float adj = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
-      const float nc = load(cs + d) + adj;
-      next[d] = nc;
-      acc[pix * D + d] = (accumulate ? as[d] : 0.f) + w * adj;
-      if (co) co[d] = nc;
+    lm = INFINITY;
+    for (int d0 = d_lo + lane; d0 < d_hi; d0 += 32 * BUF_U) {
+      float bs[BUF_U], ac[BUF_U];  // issue U slices' loads before any use
+#pragma unroll
+      for (int u = 0; u < BUF_U; ++u) {
+        const int d = d0 + 32 * u;
+        bs[u] = d < d_hi ? load(cs + d) : 0.f;
+        ac[u] = (accumulate && d < d_hi) ? as[d] : 0.f;
+      }
+#pragma unroll
+      for (int u = 0; u < BUF_U; ++u) {
+        const int d = d0 + 32 * u;
+        if (d >= d_hi) break;
+        const float p = finite_or_inf(prev[d]);
+        const float up = d > 0 ? finite_or_inf(prev[d - 1]) : INFINITY;
+        const float dn = d + 1 < D ? finite_or_inf(prev[d + 1]) : INFINITY;
+        float agg = fminf(fminf(p, m + P2), fminf(up + P1, dn + P1));
+        if (col0 + j + d >= W_pout) agg += Pout;  // disparity leaves the image
+        const float adj = (isfinite(agg) && isfinite(m)) ? agg - m : 0.f;
+        const float nc = bs[u] + adj;
+        next[d] = nc;
+        as[d] = ac[u] + w * adj;
+        if (co) co[d] = nc;
+        lm = fminf(lm, finite_or_inf(nc));
+      }
     }
-    __syncwarp();  // the stage is read and `next` complete
-    if (S > 0 && t + S < L.len)
-      stage_pixel(st, cb, ab, cv, acc, n_acc, 0, pix + S * step, D,
-                  &bar[slot], lane);
+    lm = warp_min(lm);
+    if (lane == 0) bmins[b ^ 1][g] = lm;
+    __syncthreads();  // `next` and its parts' minima whole
     pix += step;
     i += di;
     j += dj;
-    slot = slot + 1 >= S ? 0 : slot + 1;
-    cur ^= 1;
   }
 }
 
@@ -749,7 +908,7 @@ sgm_knight_kernel(const T* __restrict__ cv, float* __restrict__ vol,
 // keeps two D-float carries after its ring (the previous and the current
 // step, swapped every step); lanes loop over 32-wide d-slices, the min
 // over d is a loop plus the warp reduction and d +- 1 are shared-memory
-// reads, as in `sgm_pass_smem_kernel`.  The lines, the ring, the DP step
+// reads.  The lines, the ring, the DP step
 // (`dp_step`'s operations in its order, the isfinite guards included) and
 // the volume writes are `sgm_knight_kernel`'s.  Where not even a ring of
 // two stages and the carries fit a block (`ring_layout`; f32 volumes past
@@ -985,6 +1144,41 @@ bool ring_layout(int D, int elt, int n_acc, int extra, int lines,
   return true;
 }
 
+// How the any-D K2 (D > 320) runs a launch: the instance (where the
+// carries live), K (d-slices a lane) and G (warps a line), and for the
+// registers instance the ring (S stages of `stage` bytes a warp, the
+// covers of its part of the cost vector, cb bytes, and of acc's), as deep
+// as RING where the launch's lines would all fit the card's shared memory
+// at once.  A pure function of its arguments; ops/sgm_cuda.pass_layout is
+// its Python twin.
+enum PassInstance { PASS_REGISTERS = 0, PASS_SHARED = 1, PASS_DEVICE = 2 };
+
+struct PassLayout {
+  int inst, K, G, S, cb, stage;
+  size_t smem;
+};
+
+PassLayout pass_layout(int D, int elt, int n_acc, int lines, int sms) {
+  PassLayout r = {};
+  if (D > GROUP_MAX_D) {
+    r.inst = D <= BUF_MAX_D ? PASS_SHARED : PASS_DEVICE;
+    r.G = MAX_GROUP;
+    r.smem = r.inst == PASS_SHARED ? (size_t)round16(8 * D) : 0;
+    return r;
+  }
+  r.inst = PASS_REGISTERS;
+  r.K = D <= GROUP_K4_MAX_D ? 4 : 8;
+  r.G = (D + 32 * r.K - 1) / (32 * r.K);
+  r.cb = round16(32 * r.K * elt + 15);
+  r.stage = r.cb + n_acc * round16(32 * r.K * 4 + 15);
+  const double per_line = SMEM_SM * sms / (lines > 0 ? lines : 1);
+  r.S = (int)(per_line / ((double)r.G * r.stage));
+  r.S = r.S > RING ? RING : (r.S < 2 ? 2 : r.S);
+  while ((size_t)r.G * r.S * r.stage > (size_t)PASS_SMEM && r.S > 2) --r.S;
+  r.smem = (size_t)r.G * r.S * r.stage;
+  return r;
+}
+
 cudaError_t allow_smem(const void* fn, size_t smem) {
   if (smem <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -996,9 +1190,8 @@ cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
                    unsigned char* spill, int H, int W, int D,
                    const Dirs& dirs, int n, float P1, float P2, float Pout,
                    int accumulate, int col0, int W_pout, int i0, int H_img,
-                   cudaStream_t s) {
+                   int* used, cudaStream_t s) {
   const int K = (D + 31) / 32;
-  const bool regs = K <= REG_K;
   int lines = 0, most = 0;  // all directions' lines, and one's most
   for (int y = 0; y < n; ++y) {
     const int l =
@@ -1006,33 +1199,54 @@ cudaError_t pass_t(const void* cv, float* acc, const float* cin, float* cout,
     lines += l;
     most = l > most ? l : most;
   }
-  Layout ly;
-  if (spill != nullptr) {  // direct loads, the carries in global memory
-    if (regs) return cudaErrorInvalidValue;
-    ly.S = ly.cb = ly.stage = 0;
-    ly.warps = LINE_WARPS;
-    ly.smem = 0;
-  } else if (!ring_layout(D, sizeof(T), accumulate ? 1 : 0,
-                          regs ? 0 : round16(8 * D), lines, ly)) {
-    return cudaErrorInvalidValue;
-  }
-  const dim3 grid((most + ly.warps - 1) / ly.warps, n);
   const T* v = static_cast<const T*>(cv);
   cudaError_t e;
-  if (spill != nullptr) {  // any D, the carries in global memory
-    sgm_pass_smem_kernel<T, true><<<grid, 32 * ly.warps, 0, s>>>(
-        v, acc, cin, cout, spill, H, W, D, dirs, P1, P2, Pout, accumulate,
-        col0, W_pout, i0, H_img, ly.S, ly.cb, ly.stage);
+  if (K > REG_K) {  // any D: a line a block of G warps (`pass_layout`)
+    const PassLayout pl =
+        pass_layout(D, sizeof(T), accumulate ? 1 : 0, lines, sm_count());
+    // the caller allocates the global carry areas exactly where the
+    // layout says so (ops/sgm_cuda.pass_layout)
+    if ((spill != nullptr) != (pl.inst == PASS_DEVICE))
+      return cudaErrorInvalidValue;
+    if (used != nullptr) {  // the layout this launch runs, for the caller
+      const int r[5] = {pl.inst, pl.K, pl.G, pl.S, (int)pl.smem};
+      for (int k = 0; k < 5; ++k) used[k] = r[k];
+    }
+    const dim3 grid(most, n);
+    if (pl.inst == PASS_DEVICE) {
+      sgm_pass_buf_kernel<T, true><<<grid, 32 * pl.G, 0, s>>>(
+          v, acc, cin, cout, spill, H, W, D, dirs, P1, P2, Pout, accumulate,
+          col0, W_pout, i0, H_img);
+      return cudaGetLastError();
+    }
+    if (pl.inst == PASS_SHARED) {
+      e = allow_smem((const void*)sgm_pass_buf_kernel<T, false>, pl.smem);
+      if (e != cudaSuccess) return e;
+      sgm_pass_buf_kernel<T, false><<<grid, 32 * pl.G, pl.smem, s>>>(
+          v, acc, cin, cout, nullptr, H, W, D, dirs, P1, P2, Pout,
+          accumulate, col0, W_pout, i0, H_img);
+      return cudaGetLastError();
+    }
+#define SGM_GROUP_CASE(k)                                                  \
+  case k:                                                                  \
+    e = allow_smem((const void*)sgm_pass_group_kernel<k, T>, pl.smem);     \
+    if (e != cudaSuccess) return e;                                        \
+    sgm_pass_group_kernel<k, T><<<grid, 32 * pl.G, pl.smem, s>>>(          \
+        v, acc, cin, cout, H, W, D, dirs, P1, P2, Pout, accumulate, col0,  \
+        W_pout, i0, H_img, pl.S, pl.cb, pl.stage);                         \
+    break;
+    switch (pl.K) {
+      SGM_GROUP_CASE(4) SGM_GROUP_CASE(8)
+      default: return cudaErrorInvalidValue;
+    }
+#undef SGM_GROUP_CASE
     return cudaGetLastError();
   }
-  if (!regs) {  // any D: the carries in shared memory
-    e = allow_smem((const void*)sgm_pass_smem_kernel<T, false>, ly.smem);
-    if (e != cudaSuccess) return e;
-    sgm_pass_smem_kernel<T, false><<<grid, 32 * ly.warps, ly.smem, s>>>(
-        v, acc, cin, cout, nullptr, H, W, D, dirs, P1, P2, Pout, accumulate,
-        col0, W_pout, i0, H_img, ly.S, ly.cb, ly.stage);
-    return cudaGetLastError();
-  }
+  if (spill != nullptr) return cudaErrorInvalidValue;
+  Layout ly;
+  if (!ring_layout(D, sizeof(T), accumulate ? 1 : 0, 0, lines, ly))
+    return cudaErrorInvalidValue;
+  const dim3 grid((most + ly.warps - 1) / ly.warps, n);
 #define SGM_PASS_CASE(k)                                                   \
   case k:                                                                  \
     e = allow_smem((const void*)sgm_pass_kernel<k, T>, ly.smem);           \
@@ -1149,20 +1363,22 @@ bool bad_region(int H, int W, int D, int col0, int W_pout) {
 
 }  // namespace
 
-// Any D: the shared-memory instance past D = 320, and past the ring
-// (`ring_layout` refuses; ops/sgm_cuda.ring_fits) the global-carry one.
-// steps holds n directions (di, dj), 1 <= n <= MAX_DIRS; direction y uses
-// volume y of acc (H * W * D floats apart).  cin / cout may be null (a zero
-// line start / no carries out); with carries (one direction only) the
-// block is rows [i0, i0 + H) of an image H_img rows high (K2s).  spill:
-// null, or n x (H + W) areas of r16(8 D) bytes in global memory for the
-// carries (D > 320, where `ring_layout` refuses).
+// Any D: past D = 320 the instance `pass_layout` picks (registers,
+// shared or device).  steps holds n directions (di, dj), 1 <= n <=
+// MAX_DIRS; direction y uses volume y of acc (H * W * D floats apart).
+// cin / cout may be null (a zero line start / no carries out); with
+// carries (one direction only) the block is rows [i0, i0 + H) of an image
+// H_img rows high (K2s).  spill: n x (H + W) areas of r16(8 D) bytes in
+// global memory for the carries where `pass_layout` says device, else
+// null (either way round is refused).  used, where not null, receives
+// the layout an any-D launch runs (instance, K, G, ring stages, dynamic
+// shared-memory bytes); below D = 321 it is left as it was.
 extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
                                const void* cin, void* cout, void* spill,
                                int n, const int* steps, int H, int W, int D,
                                float P1, float P2, float Pout, int accumulate,
                                int col0, int W_pout, int i0, int H_img,
-                               void* stream) {
+                               int* used, void* stream) {
   const bool carries = cin != nullptr || cout != nullptr;
   if (bad_region(H, W, D, col0, W_pout) || n < 1 || n > MAX_DIRS ||
       (n > 1 && carries) || i0 < 0 || H_img < i0 + H)
@@ -1184,10 +1400,10 @@ extern "C" int sgm_pass_launch(const void* cv, int cv_bf16, void* acc,
   return (int)(cv_bf16 ? pass_t<__nv_bfloat16>(cv, a, ci, co, sp, H, W, D,
                                                dirs, n, P1, P2, Pout,
                                                accumulate, col0, W_pout, i0,
-                                               H_img, s)
+                                               H_img, used, s)
                        : pass_t<float>(cv, a, ci, co, sp, H, W, D, dirs, n,
                                        P1, P2, Pout, accumulate, col0, W_pout,
-                                       i0, H_img, s));
+                                       i0, H_img, used, s));
 }
 
 // One seed phase (0: write, 1: add) of n knight directions, any D (the

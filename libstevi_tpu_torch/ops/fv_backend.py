@@ -9,7 +9,10 @@ elementwise comparison families in `FUSABLE_KERNELS`; MEDAD, Hamming
 `shifted_compare` is that loop in plain PyTorch: one aligned slice of a
 zero-padded target per shift (the JAX package's `_shifted_compare_scan`).
 `fused_fv_cost_volume` launches the kernel for CUDA tensors and runs
-`fused_fv_cost_volume_plain` (the loop) for CPU tensors.
+`fused_fv_cost_volume_plain` (the loop) for CPU tensors.  The kernel has
+two instances: where the shifts are a run of step +1 or -1 (`unit_step`),
+register tiles of 4 columns x 8 disparities a thread; any other list, one
+thread an entry (`fv_instance`).
 """
 
 from __future__ import annotations
@@ -59,6 +62,22 @@ def fused_fv_cost_volume_plain(kernel: str, source_fv: torch.Tensor,
 def smem_bytes(F: int, D: int, span: int) -> int:
     """Shared memory of one K5 block (`smem_bytes` in csrc/fv_cv.cu)."""
     return 4 * (F * ((WT | 1) + ((WT + span) | 1)) + D)
+
+
+def unit_step(shifts) -> int:
+    """+1 or -1 where ``shifts`` is a run of that step (shifts[d] =
+    shifts[0] + step * d; one shift counts as +1), else 0."""
+    shifts = [int(s) for s in shifts]
+    steps = {b - a for a, b in zip(shifts, shifts[1:])}
+    if not steps:
+        return 1 if shifts else 0
+    return steps.pop() if len(steps) == 1 and steps <= {1, -1} else 0
+
+
+def fv_instance(shifts) -> str:
+    """The K5 instance a shift list takes: 'tiled' (register tiles along a
+    unit-step list, `unit_step`) or 'general' (one thread an entry)."""
+    return "tiled" if unit_step(shifts) else "general"
 
 
 def fused_fits(F: int, shifts) -> bool:
@@ -114,7 +133,7 @@ def fused_fv_cost_volume(kernel: str, source_fv: torch.Tensor,
         err = lib.fv_cv_launch(
             src.data_ptr(), tgt.data_ptr(), sh.data_ptr(), out.data_ptr(),
             H, W, F, D, lo, span, _KIND[kernel],
-            int(cv_dtype == torch.bfloat16),
+            int(cv_dtype == torch.bfloat16), unit_step(shifts),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "fv_cv_launch")
     fused_fv_cost_volume.launches += 1

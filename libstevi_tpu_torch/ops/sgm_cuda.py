@@ -15,8 +15,8 @@ directions add the 8 knight volumes after them (`sgm_wta_fused`: K3 sums
 the 15 volumes in order, or they are added to the accumulator in order,
 `add_knight_volumes`).  Every path adds a knight direction's volume
 p0 + p1 once, acc + (p0 + p1), the JAX XLA path's order.  K2, K2k and K2s
-take any D: past D = 320 they run instances that keep the carry in shared
-memory, and past their ring (`ring_fits`) instances that keep it in global
+take any D: past D = 320 K2 runs the instances of `pass_layout`, and K2k
+keeps its carry in shared memory, past its ring (`ring_fits`) in global
 memory.  K3 takes D <= 320 (`ops.sgm.sgm_route` sends wider ranges to the
 lane route, K4b / K4d).  K2, K2k and K3 stage the pixels ahead of each
 line's step in a shared-memory ring filled by asynchronous copies, so a
@@ -31,6 +31,10 @@ reader can find the counterpart.  Horizontal passes on a row shard are
 plain K2 on the block (the W axis is not sharded).  Their plain versions
 equal the kernels bit for bit, and run shard after shard they equal the
 whole-image plain pass bit for bit.
+
+K2 past D = 320 runs a line a block of G warps with D split across them,
+in the instance `pass_layout` picks: the carry in registers (K d-slices a
+lane, a TMA ring a warp), in shared memory, or in device memory.
 
 K2 and K2k take the image column of the volume's first column (``col0``)
 and the image width (``W_pout``) for the Pout test ``j + d >= W``, so a
@@ -55,16 +59,26 @@ versions bit for bit; `sgm.knight_adj` (the line form the CPU's
 from __future__ import annotations
 
 import ctypes
+from typing import NamedTuple
 
 import torch
 
 from .. import _build
+from .sgm_lane_cuda import H100_SMS
 from .sgm import (SgmDirection, directions_for, direction_adj,
                   direction_shard_adj, wta_bands, _dp_step, _tcv_from_bands)
 
 MAX_D = 320        # K3 keeps ceil(D / 32) <= 10 values per lane
 # a block's 227 KB less room for the static barriers (csrc/sgm_scan.cu)
 SMEM_MAX = 232448 - 1024
+# the any-D K2's limits, as in csrc/sgm_scan.cu
+GROUP_K4_MAX_D = 1024   # the registers instance at K = 4 (G <= 8 warps)
+GROUP_MAX_D = 8192      # ... at K = 8 (G <= 32 warps)
+MAX_GROUP = 32          # warps a line
+PASS_SMEM = 232448 - 4096   # a block's 227 KB less the static arrays
+BUF_MAX_D = PASS_SMEM // 8  # the shared instance's two carries
+RING = 8                # most stages of a ring
+SMEM_SM = 0.9 * 233472  # the share of an SM's 228 KB a ring plans with
 
 
 def _r16(x: int) -> int:
@@ -72,18 +86,55 @@ def _r16(x: int) -> int:
 
 
 def ring_fits(D: int, elt: int = 4, n_acc: int = 1) -> bool:
-    """Whether a K2 / K2k launch lays out its ring at D: `ring_layout` in
+    """Whether a K2k launch lays out its ring at D: `ring_layout` in
     csrc/sgm_scan.cu at its shallowest, two stages of the cost vector's
     cover (``elt`` bytes an entry) and ``n_acc`` f32 covers, plus the two
     shared-memory carries (8 D bytes) of the any-D instance past D = 320,
-    within SMEM_MAX.  A K2 pass that accumulates and K2k's second seed
-    phase stage one f32 vector beside the cost's (n_acc = 1), so f32
-    volumes take D <= 9640 there.  Past it K2 and K2k load directly and
-    keep their carries in global memory (`_pass_launch`,
-    `_knight_launch`), so both take any D.  A pure function of its
-    arguments."""
+    within SMEM_MAX.  K2k's second seed phase stages one f32 vector beside
+    the cost's (n_acc = 1), so f32 volumes take D <= 9640 there.  Past it
+    K2k loads directly and keeps its carries in global memory
+    (`_knight_launch`), so it takes any D.  (K2 past D = 320 follows
+    `pass_layout`.)  A pure function of its arguments."""
     stage = _r16(D * elt + 15) + n_acc * _r16(4 * D + 15)
     return 2 * stage + (_r16(8 * D) if D > MAX_D else 0) <= SMEM_MAX
+
+
+class PassLayout(NamedTuple):
+    """How the any-D K2 (D > 320) runs a launch (`pass_layout`)."""
+    carries: str     # 'registers', 'shared' or 'device'
+    K: int           # d-slices a lane (registers), else 0
+    G: int           # warps a line (one line a block)
+    stages: int      # ring stages a warp (registers), else 0
+    smem: int        # dynamic shared memory a block
+
+
+def pass_layout(D: int, elt: int = 4, n_acc: int = 1, lines: int = 1,
+                sms: int = H100_SMS) -> PassLayout:
+    """The instance, K, G, ring depth and shared-memory bytes of an any-D
+    K2 launch over ``lines`` lines (all directions') of a volume of
+    ``elt``-byte entries, staging ``n_acc`` f32 acc vectors beside the cost
+    (1 where the pass accumulates): `pass_layout` in csrc/sgm_scan.cu.
+    Up to D = 8192 the carry lives in registers: K = 4 slices a lane up to
+    D = 1024 (G <= 8 warps), then K = 8 (G <= 32: 1024 threads leave 64
+    registers a thread), and each warp stages its part of D through a TMA
+    ring, RING stages deep where the launch's lines would all fit the
+    card's shared memory at once, at least 2.  Past it the two carries lie
+    in shared memory (8 D bytes, to D = 28544), then in device memory, 32
+    warps a line, with direct loads.  A pure function of its arguments."""
+    if D <= MAX_D:
+        raise ValueError(f"pass_layout: the any-D K2 takes D > {MAX_D}")
+    if D > GROUP_MAX_D:
+        shared = D <= BUF_MAX_D
+        return PassLayout("shared" if shared else "device", 0, MAX_GROUP, 0,
+                          _r16(8 * D) if shared else 0)
+    K = 4 if D <= GROUP_K4_MAX_D else 8
+    G = -(-D // (32 * K))
+    stage = _r16(32 * K * elt + 15) + n_acc * _r16(32 * K * 4 + 15)
+    S = int(SMEM_SM * sms / max(lines, 1) / (G * stage))
+    S = min(RING, max(2, S))
+    while G * S * stage > PASS_SMEM and S > 2:
+        S -= 1
+    return PassLayout("registers", K, G, S, G * S * stage)
 
 
 def kernel_volume(cv: torch.Tensor) -> torch.Tensor:
@@ -151,37 +202,43 @@ def sgm_pass(cv: torch.Tensor, acc: torch.Tensor, direction: SgmDirection,
                               col0, W_pout)
     _check_cuda(cv, acc, "sgm_pass")
     col0, W_pout = _pout_args(cv, col0, W_pout)
-    _pass_launch(cv, acc, None, None, [direction], P1, P2, Pout, accumulate,
-                 col0, W_pout, 0, cv.shape[0])
+    sgm_pass.layout = _pass_launch(cv, acc, None, None, [direction], P1, P2,
+                                   Pout, accumulate, col0, W_pout, 0,
+                                   cv.shape[0])
     sgm_pass.launches += 1
     return acc
 
 
 sgm_pass.launches = 0
+sgm_pass.layout = None  # the last launch's `PassLayout` (None: D <= 320)
 
 
 def _pass_launch(cv, acc, cin, cout, directions, P1, P2, Pout, accumulate,
                  col0, W_pout, i0, H_img):
     """One K2 launch over ``directions``; direction y uses volume y of
-    ``acc``."""
+    ``acc``.  Returns the `PassLayout` the launcher ran past D = 320 (as
+    it reports it), else None."""
     steps = [s for d in directions for s in d.step]
     steps = (ctypes.c_int * len(steps))(*steps)
     H, W, D = cv.shape
-    # past the any-D ring (`ring_fits`), each line's carries in global
-    # memory: fewer than H + W lines a direction
+    # where `pass_layout` puts the carries in device memory, each line's
+    # two in an area of its own: fewer than H + W lines a direction
     spill = (torch.empty(len(directions) * (H + W) * _r16(8 * D),
                          dtype=torch.uint8, device=cv.device)
-             if D > MAX_D and not ring_fits(D, cv.element_size(),
-                                            1 if accumulate else 0)
-             else None)
+             if D > MAX_D and pass_layout(D).carries == "device" else None)
+    used = (ctypes.c_int * 5)(-1, 0, 0, 0, 0)
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         err = lib.sgm_pass_launch(
             cv.data_ptr(), int(cv.dtype == torch.bfloat16), acc.data_ptr(),
             _ptr(cin), _ptr(cout), _ptr(spill), len(directions),
             ctypes.addressof(steps), H, W, D, P1, P2, Pout, int(accumulate),
-            col0, W_pout, i0, H_img, torch.cuda.current_stream().cuda_stream)
+            col0, W_pout, i0, H_img, ctypes.addressof(used),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_pass_launch")
+    if used[0] < 0:
+        return None
+    return PassLayout(("registers", "shared", "device")[used[0]], *used[1:])
 
 
 # ---------------------------------------------------------------------------
@@ -224,13 +281,15 @@ def sgm_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
     _check_cuda(cv, acc, "sgm_shard_pass")
     _check_carries(carry, (W, D), cv.device, "sgm_shard_pass")
     cout = torch.empty((W, D), dtype=torch.float32, device=cv.device)
-    _pass_launch(cv, acc, carry, cout, [direction], P1, P2, Pout, accumulate,
-                 0, W, i0, H_img)
+    sgm_shard_pass.layout = _pass_launch(cv, acc, carry, cout, [direction],
+                                         P1, P2, Pout, accumulate, 0, W, i0,
+                                         H_img)
     sgm_shard_pass.launches += 1
     return cout
 
 
 sgm_shard_pass.launches = 0
+sgm_shard_pass.layout = None  # the last launch's `PassLayout`, as sgm_pass's
 
 
 # ---------------------------------------------------------------------------

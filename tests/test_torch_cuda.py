@@ -1142,10 +1142,11 @@ def _first_past_ring(elt, n_acc):
                                               (torch.bfloat16, True)],
                          ids=["f32_acc", "f32_write", "bf16_acc"])
 def test_k2_past_the_ring_equals_plain(dev, dtype, accumulate):
-    """C6: K2 at the first D past its any-D ring (`ring_fits`: 9641,
-    14461, 11569) runs the global-carry instance: every principal
-    direction, one launch each, and (writing) the 7 of the WTA path in
-    one launch, bitwise against the plain passes."""
+    """C6's shapes: K2 at the first D past the ring of its first any-D
+    form (`ring_fits`: 9641, 14461, 11569; now `pass_layout`'s shared
+    instance, `test_k2_any_d_instances_equal_plain` reaches the device
+    one): every principal direction, one launch each, and (writing) the 7
+    of the WTA path in one launch, bitwise against the plain passes."""
     D = _first_past_ring(2 if dtype == torch.bfloat16 else 4,
                          1 if accumulate else 0)
     g = torch.Generator(device=dev).manual_seed(D)
@@ -1171,8 +1172,9 @@ def test_k2_past_the_ring_equals_plain(dev, dtype, accumulate):
 
 @pytest.mark.parametrize("direction", PRINCIPAL, ids=lambda d: d.name)
 def test_k2s_past_the_ring_equals_plain(dev, direction):
-    """C6: K2s at D = 9641 (f32, past the ring) on rows [2, 6) of 9 from
-    random carries: the accumulator and the carries out bitwise."""
+    """C6's shape: K2s at D = 9641 (f32; the shared instance) on rows
+    [2, 6) of 9 from random carries: the accumulator and the carries out
+    bitwise."""
     D = _first_past_ring(4, 1)
     g = torch.Generator(device=dev).manual_seed(5)
     cv = torch.rand((4, 6, D), generator=g, device=dev) * 4
@@ -1264,3 +1266,151 @@ def test_distributed_steps_match_cpu(dev, n_dirs):
             outs.append(fn(ls.to(d), rs.to(d)).cpu())
         assert outs[0].shape == (2, 32, 48)
         assert (outs[0] == outs[1]).float().mean().item() > 0.999
+
+
+# the any-D K2's instances (`pass_layout`): the registers instance from
+# D = 321 (K = 4) and from 1025 (K = 8), shared carries from 8193, device
+# carries from 28545; the first D of each and one past it, and the
+# relay's D = 330, the 4K step's 384, and 640, 641, 1000
+ANY_D = [321, 322, 330, 384, 640, 641, 1000, 1024, 1025, 1026, 8192, 8193,
+         8194, 28544, 28545, 28546]
+
+
+def _any_d_shape(D):
+    """Small H x W, so the plain passes stay quick at D = 28546."""
+    return (5, 7, D) if D > 8192 else (9, 13, D) if D > 1024 else (11, 17, D)
+
+
+@pytest.mark.parametrize("accumulate", [True, False], ids=["acc", "write"])
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", ANY_D)
+def test_k2_any_d_instances_equal_plain(dev, D, dtype, accumulate):
+    """The any-D K2 in each of its instances: every principal direction,
+    one launch each, onto a random accumulator (or writing it), against
+    the plain pass at 1e-4; with ``accumulate`` False also the WTA path's
+    7 directions in one launch (a volume each)."""
+    from libstevi_tpu_torch.ops.sgm_cuda import pass_layout
+    n_acc = 1 if accumulate else 0
+    elt = 2 if dtype == torch.bfloat16 else 4
+    want_inst = ("registers" if D <= 8192 else
+                 "shared" if D <= 28544 else "device")
+    assert pass_layout(D, elt, n_acc).carries == want_inst
+    g = torch.Generator(device=dev).manual_seed(D)
+    cv = (torch.rand(_any_d_shape(D), generator=g, device=dev) * 4).to(dtype)
+    for d in directions_for(8):
+        acc = torch.rand(cv.shape, generator=g, device=dev)
+        acc_p = acc.clone()
+        before = sgm_pass.launches
+        sgm_pass(cv, acc, d, 0.3, 1.1, 7.0, accumulate)
+        assert sgm_pass.launches == before + 1
+        assert sgm_pass.layout.carries == want_inst
+        sgm_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0, accumulate)
+        torch.cuda.synchronize()
+        torch.testing.assert_close(acc, acc_p, rtol=1e-4, atol=1e-4)
+    if not accumulate:
+        dirs = [d for d in directions_for(8)
+                if d is not SgmDirection.RIGHT2LEFT]
+        got = direction_volumes(cv, dirs, 0.3, 1.1, 7.0)
+        for d, a in zip(dirs, got):
+            want = torch.empty(cv.shape, device=dev)
+            sgm_pass_plain(cv, want, d, 0.3, 1.1, 7.0, accumulate=False)
+            torch.testing.assert_close(a, want, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("D", ANY_D)
+def test_k2s_any_d_instances_equal_plain(dev, D, dtype):
+    """K2s in each any-D instance: the six vertical and diagonal
+    directions on rows [3, 3 + H) of an image H + 5 rows high, from random
+    carries, the accumulator and the carries out bitwise."""
+    g = torch.Generator(device=dev).manual_seed(D + 1)
+    shape = _any_d_shape(D)
+    H, W, _ = shape
+    cv = (torch.rand(shape, generator=g, device=dev) * 4).to(dtype)
+    for d in PRINCIPAL:
+        acc = torch.rand(shape, generator=g, device=dev)
+        acc_p = acc.clone()
+        carry = torch.rand((W, D), generator=g, device=dev)
+        co = sgm_shard_pass(cv, acc, d, 0.3, 1.1, 7.0, True, carry, 3, H + 5)
+        co_p = sgm_shard_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0, True, carry,
+                                    3, H + 5)
+        torch.cuda.synchronize()
+        assert torch.equal(acc, acc_p), d.name
+        assert torch.equal(co, co_p), d.name
+
+
+# launches of some 4000 lines, as the distributed 4K step's shards give the
+# any-D K2 (3840 to 4379 lines a pass): rings of 2 stages a warp on an H100
+SHALLOW_RING = {"k2_left_to_right": (4000, 5, "LEFT2RIGHT"),
+                "k2s_top_to_bottom": (5, 4000, "UP2DOWN"),
+                "k2s_diagonal": (5, 4000, "UPLEFT2DOWNRIGHT")}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("case", list(SHALLOW_RING), ids=str)
+def test_any_d_shallow_ring_equals_plain(dev, case, dtype):
+    """The any-D K2 at D = 384 where the launch's lines leave its ring the
+    fewest stages: the layout the launcher reports equals `pass_layout`'s
+    at the launch's lines and the card's SMs, and the pass equals its plain
+    version (K2 at 1e-4 onto a random accumulator, K2s bitwise from random
+    carries on rows [3, 8) of an image 12 rows high)."""
+    from libstevi_tpu_torch.ops.sgm_cuda import pass_layout
+    H, W, name = SHALLOW_RING[case]
+    d, D = SgmDirection[name], 384
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    lines = H if d.step[0] == 0 else W if d.step[1] == 0 else H + W - 1
+    g = torch.Generator(device=dev).manual_seed(D)
+    cv = (torch.rand((H, W, D), generator=g, device=dev) * 4).to(dtype)
+    acc = torch.rand(cv.shape, generator=g, device=dev)
+    acc_p = acc.clone()
+    elt = 2 if dtype == torch.bfloat16 else 4
+    if d.step[0] == 0:
+        sgm_pass(cv, acc, d, 0.3, 1.1, 7.0)
+        sgm_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0)
+        used = sgm_pass.layout
+        torch.cuda.synchronize()
+        torch.testing.assert_close(acc, acc_p, rtol=1e-4, atol=1e-4)
+    else:
+        carry = torch.rand((W, D), generator=g, device=dev)
+        co = sgm_shard_pass(cv, acc, d, 0.3, 1.1, 7.0, True, carry, 3, 12)
+        co_p = sgm_shard_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0, True, carry,
+                                    3, 12)
+        used = sgm_shard_pass.layout
+        torch.cuda.synchronize()
+        assert torch.equal(acc, acc_p) and torch.equal(co, co_p)
+    assert used == pass_layout(D, elt, 1, lines, sms)
+    if sms == 132:
+        assert used.carries == "registers" and used.stages == 2, used
+
+
+K5_SHIFTS = {"r2l": list(range(120)), "l2r": [-d for d in range(57)],
+             "offset": list(range(-9, 191)), "nonunit": list(range(0, 90, 3))}
+
+
+@pytest.mark.parametrize("dtype", DTYPES)
+@pytest.mark.parametrize("shifts", list(K5_SHIFTS), ids=str)
+@pytest.mark.parametrize("F", [49, 121, 147])
+@pytest.mark.parametrize("kernel", ["dot", "ssd", "sad"])
+def test_k5_instances_equal_plain(dev, kernel, F, shifts, dtype):
+    """K5's two instances (`fv_instance`): the register tiles along
+    unit-step lists (RIGHT_TO_LEFT, LEFT_TO_RIGHT, an offset range of 200
+    shifts, two blocks of d-tiles), the general form on a list of step 3,
+    at W = 301 (not a multiple of either column tile), against
+    `fused_fv_cost_volume_plain`: f32 at 1e-5, bf16 within one ulp."""
+    from libstevi_tpu_torch.ops.fv_backend import fv_instance
+    sh = K5_SHIFTS[shifts]
+    assert fv_instance(sh) == ("general" if shifts == "nonunit" else "tiled")
+    g = torch.Generator(device=dev).manual_seed(F)
+    H, W = 3, 301
+    src = torch.rand(H, W, F, generator=g, device=dev) - 0.5
+    tgt = torch.rand(H, W, F, generator=g, device=dev) - 0.5
+    before = fused_fv_cost_volume.launches
+    got = fused_fv_cost_volume(kernel, src, tgt, sh, dtype)
+    assert fused_fv_cost_volume.launches == before + 1
+    want = fused_fv_cost_volume_plain(kernel, src, tgt, sh)
+    torch.cuda.synchronize()
+    assert got.shape == (H, W, len(sh)) and got.dtype == dtype
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    else:
+        _ulp_close(got.float(), want)

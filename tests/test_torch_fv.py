@@ -247,3 +247,111 @@ def test_auto_backend_takes_the_scan_past_k5s_tile():
     want = np.asarray(j_unfold_cv(f, jnp.asarray(L), jnp.asarray(R), 5, 5,
                                   24))
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("shifts,step", [
+    (list(range(120)), 1), ([-d for d in range(13)], -1),
+    (list(range(-4, 9)), 1), (list(range(8, -5, -1)), -1), ([3], 1),
+    (list(range(0, 90, 3)), 0), ([0, 1, 3], 0), ([2, 1, 2], 0)],
+    ids=["r2l", "l2r", "offset", "offset_down", "one", "step3", "gap",
+         "turn"])
+def test_k5_instance_choice(shifts, step):
+    """K5's unit-step detector (`unit_step`): +1 for RIGHT_TO_LEFT's
+    range(D), offset ranges and one shift, -1 for LEFT_TO_RIGHT's -d and
+    descending ranges, 0 for any other list; the tiled instance takes the
+    first two, the general one the rest (`fv_instance`)."""
+    from libstevi_tpu_torch.ops.fv_backend import fv_instance, unit_step
+    assert unit_step(shifts) == step
+    assert fv_instance(shifts) == ("tiled" if step else "general")
+
+
+def _k5_tiled_model(kernel, src, tgt, shifts):
+    """`csrc/fv_cv.cu`'s tiled instance in numpy, its indexing as written:
+    blocks of 128 columns and up to 16 d-tiles of 8 (D split evenly over
+    ceil(ND / 16) blocks), the staged source tile (stride 132, columns in
+    the image) and target span (stride 128 + 8 nd + 4, columns j0 + lo +
+    T0 + u for u < 128 + 8 nd, zero outside the image), each thread's
+    16-byte-aligned run of 12 target values from u = B, and entry
+    (c0 + a, d0 + b) taking run value a + b (step +1) or a + 7 - b (step
+    -1), summed in f32 over f in order.  What the kernel leaves unstaged is
+    NaN here, so an entry that read it would show; entries a thread does
+    not own stay NaN."""
+    from libstevi_tpu_torch.ops.fv_backend import unit_step
+    H, W, F = src.shape
+    D, lo, step = len(shifts), min(shifts), unit_step(shifts)
+    ND = -(-D // 8)
+    nz = -(-ND // 16)
+    tpc = -(-ND // nz)
+    cmp = {"dot": lambda a, b: a * b, "ssd": lambda a, b: (a - b) ** 2,
+           "sad": lambda a, b: np.abs(a - b)}[kernel]
+    out = np.full((H, W, D), np.nan, np.float32)
+    ct = np.arange(32)
+    for i in range(H):
+        for j0 in range(0, W, 128):
+            for tA in range(0, ND, tpc):
+                nd = min(tpc, ND - tA)
+                dA = 8 * tA
+                ts = 128 + 8 * nd + 4
+                T0 = dA if step > 0 else D - dA - 8 * nd
+                s_t = np.full((F, 132), np.nan, np.float32)
+                js = j0 + np.arange(128)
+                s_t[:, :128][:, js < W] = src[i, js[js < W]].T
+                t_t = np.full((F, ts), np.nan, np.float32)
+                jt = j0 + lo + T0 + np.arange(128 + 8 * nd)
+                ok = (jt >= 0) & (jt < W)
+                t_t[:, :128 + 8 * nd] = 0.0
+                t_t[:, :128 + 8 * nd][:, ok] = tgt[i, jt[ok]].T
+                for dt in range(nd):
+                    c0, d0 = 4 * ct, dA + 8 * dt
+                    B = c0 + (8 * dt if step > 0 else 8 * (nd - 1 - dt))
+                    assert (B % 4 == 0).all() and B.min() >= 0
+                    assert B.max() + 12 <= 128 + 8 * nd
+                    av = s_t[:, c0[:, None] + np.arange(4)]   # (F, 32, 4)
+                    tv = t_t[:, B[:, None] + np.arange(12)]   # (F, 32, 12)
+                    a_ = np.arange(4)[:, None]
+                    b_ = np.arange(8)[None, :]
+                    idx = a_ + b_ if step > 0 else a_ + 7 - b_
+                    acc = np.zeros((32, 4, 8), np.float32)
+                    for f in range(F):
+                        acc += cmp(av[f][:, :, None], tv[f][:, idx])
+                    for a in range(4):
+                        for b in range(min(8, D - d0)):
+                            j = j0 + c0 + a
+                            out[i, j[j < W], d0 + b] = acc[j < W, a, b]
+    return out
+
+
+@pytest.mark.parametrize("shifts", [list(range(120)),
+                                    [-d for d in range(57)],
+                                    list(range(-9, 191)),
+                                    list(range(130, -3, -1))],
+                         ids=["r2l", "l2r", "offset_2_blocks",
+                              "down_2_blocks"])
+@pytest.mark.parametrize("kernel", ["dot", "ssd", "sad"])
+def test_k5_tiled_indexing_matches_plain(kernel, shifts):
+    """The tiled instance's indexing (`_k5_tiled_model`) covers every
+    entry exactly once and gives `fused_fv_cost_volume_plain` at 1e-5, at
+    W = 150 (a second, partial column tile), F = 21 (a partial feature
+    chunk), and D = 200 / 133 (two blocks of d-tiles, the last partial).
+    (The plain version is held to the JAX package's Pallas K5 above.)"""
+    rng = np.random.default_rng(len(shifts))
+    src, tgt = (rng.uniform(-0.5, 0.5, (2, 150, 21)).astype(np.float32)
+                for _ in range(2))
+    got = _k5_tiled_model(kernel, src, tgt, shifts)
+    assert not np.isnan(got).any()
+    want = fused_fv_cost_volume_plain(kernel, torch.from_numpy(src),
+                                      torch.from_numpy(tgt), shifts).numpy()
+    np.testing.assert_allclose(got, want, **TOL)
+
+
+@pytest.mark.parametrize("which", ["no stores", "no staging",
+                                   "no arithmetic"])
+def test_fv_probe_ablates_the_current_source(which):
+    """`fv_probe` (K5's tiled instance timed with one part taken out) patches
+    a copy of `csrc/fv_cv.cu` by string anchors: each is found once, so the
+    probe stays in step with the kernel."""
+    from libstevi_tpu_torch import _build, fv_probe
+    src = fv_probe.ablated_source(which)
+    assert src != (_build.CSRC / "fv_cv.cu").read_text()
+    if which == "no staging":
+        assert "cp_async4(sb" not in src and "commit_group" not in src

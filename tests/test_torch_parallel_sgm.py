@@ -169,8 +169,8 @@ def first_past_ring(elt: int, n_acc: int) -> int:
 def test_distributed_sgm_past_the_k2_ring_matches_jax(rng, nd):
     """C6's route: `distributed_sgm_routed` over 2 row shards at the first
     D past K2's any-D ring (f32, a pass that accumulates), where K4c's
-    carries do not fit either, so the K2s engine runs (plain here, its
-    global-carry kernels on the card), against JAX's single-device
+    carries do not fit either, so the K2s engine runs (plain here; on the
+    card the any-D K2's shared instance), against JAX's single-device
     volume, as `test_distributed_sgm_past_d320_matches_jax` does at
     D = 330."""
     D = first_past_ring(4, 1)
@@ -204,6 +204,39 @@ def test_routed_falls_back_to_k2s_where_k4c_does_not_fit(rng, monkeypatch):
         list(torch.from_numpy(cv).split(2)), 0.3, 1.1, 7.0, 16))
     np.testing.assert_allclose(got.numpy(), want, **TOL)
     assert calls                                  # the K2s engine ran
+
+
+@pytest.mark.parametrize("nd", [8, 16])
+def test_routed_takes_k2s_where_fused_fits_refuses_matches_jax(
+        rng, monkeypatch, nd):
+    """The 4K UHD step's route at a small shape: with one SM,
+    `fused_fits` refuses K4c's carries for a 30-column region at D = 330
+    (182 carries of 1320 bytes, over a block's 232,448), as it refuses
+    3840 columns at D = 384 on 132 SMs, so `distributed_sgm_routed` takes
+    the K2s engine (`distributed_sgm_fused_dhw`: K2 for the horizontal
+    passes, K2s relayed, any D), here over 4 row shards of 2 rows, against
+    the JAX package's distributed DHW SGM in `shard_map` (Pallas in
+    interpret mode)."""
+    from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+    from libstevi_tpu_torch.parallel import sgm_dist
+    cv = rng.uniform(0, 4, (8, 30, 330)).astype(np.float32)
+    assert lane.fused_fits(30, 330, nd) and not lane.fused_fits(30, 330, nd,
+                                                                n_sm=1)
+    assert not lane.fused_fits(3840, 384, 8)
+    monkeypatch.setattr(lane, "_sms", lambda t: 1)
+    calls = []
+    real = sgm_dist.distributed_sgm_fused_dhw
+
+    def spy(*a, **k):
+        calls.append(1)
+        return real(*a, **k)
+    monkeypatch.setattr(sgm_dist, "distributed_sgm_fused_dhw", spy)
+    want = _jax_tiles(lambda c: j_dist_dhw(
+        c, 0.3, 1.1, 7.0, n_directions=nd, interpret=True), cv)
+    got = _port_tiles(lambda s: distributed_sgm_routed(s, 0.3, 1.1, 7.0, nd),
+                      cv)
+    assert calls == [1]
+    np.testing.assert_allclose(got, want, **TOL)
 
 
 @pytest.mark.parametrize("direction", _KNIGHT_DIRS, ids=lambda d: d.name)

@@ -264,3 +264,88 @@ def test_one_launch_form_is_not_taken_on_the_cpu():
     (`test_direction_volumes_sum_to_the_sequential_accumulator`)."""
     from libstevi_tpu_torch.ops.sgm_cuda import _one_launch
     assert not _one_launch(torch.zeros(2, 3, 4), [SgmDirection.UP2DOWN])
+
+
+def _cu_constants(name):
+    """``constexpr int NAME = expr;`` of a source in csrc, evaluated."""
+    import re
+    from pathlib import Path
+    import libstevi_tpu_torch
+    src = (Path(libstevi_tpu_torch.__file__).parent / "csrc" / name
+           ).read_text()
+    consts = {}
+    for k, expr in re.findall(r"constexpr int (\w+) = ([^;]+);", src):
+        consts[k] = eval(expr, {}, dict(consts))
+    return consts
+
+
+def test_pass_layout_matches_the_cuda_source():
+    """`sgm_cuda.pass_layout`'s limits are its C++ twin's constants in
+    csrc/sgm_scan.cu: K = 4 up to 1024, registers up to 8192, 32 warps a
+    line at most, the shared instance's two carries within PASS_SMEM, and
+    the ring's depth."""
+    from libstevi_tpu_torch.ops import sgm_cuda as sc
+    c = _cu_constants("sgm_scan.cu")
+    for k in ("GROUP_K4_MAX_D", "GROUP_MAX_D", "MAX_GROUP", "PASS_SMEM",
+              "BUF_MAX_D", "RING"):
+        assert getattr(sc, k) == c[k], k
+    assert c["REG_K"] * 32 == sc.MAX_D
+
+
+def _instance(D, **kw):
+    from libstevi_tpu_torch.ops.sgm_cuda import pass_layout
+    return pass_layout(D, **kw)
+
+
+@pytest.mark.parametrize("D,carries,K", [
+    (321, "registers", 4), (1024, "registers", 4), (1025, "registers", 8),
+    (8192, "registers", 8), (8193, "shared", 0), (28544, "shared", 0),
+    (28545, "device", 0)])
+def test_pass_layout_first_d_of_each_instance(D, carries, K):
+    """The first and last D of each any-D K2 instance: registers from
+    D = 321 (K = 4, then K = 8 from 1025), shared carries from 8193 (32
+    warps), device carries from 28545 (r16(8 D) past PASS_SMEM)."""
+    from libstevi_tpu_torch.ops.sgm_cuda import PASS_SMEM
+    for elt, n_acc in ((4, 1), (4, 0), (2, 1)):
+        ly = _instance(D, elt=elt, n_acc=n_acc)
+        assert (ly.carries, ly.K) == (carries, K)
+        assert ly.smem <= PASS_SMEM
+        if carries == "shared":
+            assert ly.smem == -(-8 * D // 16) * 16
+        if carries == "device":
+            assert ly.smem == 0 and 8 * D > PASS_SMEM
+
+
+def test_pass_layout_covers_d_and_is_monotone():
+    """Over D = 321 .. 30000: the registers instance's G warps of 32 K
+    lanes cover D (G <= 32, K in {4, 8}, at most one warp more than
+    needed), the ring is 2 to RING stages within PASS_SMEM, fewer where a
+    launch has more lines; the instance, K and G never fall as D grows;
+    D <= 320 is not this kernel's."""
+    from libstevi_tpu_torch.ops.sgm_cuda import PASS_SMEM, RING
+    order = {"registers": 0, "shared": 1, "device": 2}
+    last = (0, 0, 0)
+    for D in list(range(321, 2100)) + list(range(2100, 30001, 97)):
+        ly = _instance(D)
+        key = (order[ly.carries], ly.K, ly.G if ly.K else 32)
+        assert key >= last, D
+        last = key
+        if ly.carries != "registers":
+            continue
+        assert ly.K in (4, 8) and 1 <= ly.G <= 32
+        assert ly.G * 32 * ly.K >= D > (ly.G - 1) * 32 * ly.K
+        assert 2 <= ly.stages <= RING and ly.smem <= PASS_SMEM
+        many = _instance(D, lines=4 * 3840)
+        assert 2 <= many.stages <= ly.stages
+    with pytest.raises(ValueError):
+        _instance(320)
+
+
+def test_pass_probe_instruments_the_current_source():
+    """`pass_probe` (the card's per-phase cycle counts of the any-D K2's
+    registers instance) patches a copy of `csrc/sgm_scan.cu`: every anchor
+    is found once, so the probe stays in step with the kernel, and 7 phase
+    marks go in."""
+    from libstevi_tpu_torch import pass_probe
+    src = pass_probe.instrumented_source()
+    assert src.count("PHASE(") == 8 and "probe_read" in src
