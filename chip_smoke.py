@@ -110,6 +110,20 @@ each with the launch counts set to 0 just before it and read just after:
   random pair;
 - `aggregate_cost` 'auto' with ZSAD r=5 (F=121) over D=448, past K5's
   tile: the shifted-compare loop on the card, against the CPU.
+- the matchers ported last (`matchers`): the hierarchical matcher
+  (`entry.hierarchical_forward`: ZNCC 7x7, D=120, depth 2, 480x640) on
+  both fixtures, held to the `hierarchical_d2` bars with one K1
+  statistics and one K1 volume launch a frame; HD depth 3
+  (`entry.hierarchical_hd_forward`: 720x1280, D=320) and ZSAD depth 2
+  (one K5 launch) on random pairs against the CPU (disp_estimate equal on
+  >= 0.999, the truncated volume within 1e-4 where equal), each frame
+  timed with its peak memory and device items; the 2-D volume (240x320,
+  (-8..8) x (-8..8)) with its 2-D WTA, band and refinement,
+  `patch_match_flow` (CENSUS, one replayed draw stream), `dp_stereo`,
+  `fastmatch_from_cv` and `fastmatch` (CENSUS) at 480x640, D=120, and
+  guided aggregation of a 480x640x120 volume, each timed and held to the
+  CPU; the CLI's `--matcher hierarchical --refine parabola` on both
+  fixtures at the same bars.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -169,6 +183,9 @@ SGM16_BARS = {"warp": (0.9986, 0.1474), "occluded": (0.9983, 0.2085)}
 CENSUS_BARS = {"warp": (0.9967, 0.1915), "occluded": (0.9388, 0.4475)}
 # PARITY_r05.json, row zncc_sgm8_f32, set as the flagship's
 F32_BARS = {"warp": (0.9985, 0.1392), "occluded": (0.9982, 0.209)}
+# PARITY_r05.json, row hierarchical_d2: prop_good_2.0 minus 0.001 and
+# inlier_mae plus 0.01
+H_BARS = {"warp": (0.9651, 0.2766), "occluded": (0.9529, 0.4715)}
 P1, P2, POUT = 0.1, 0.5, 100.0
 # an H100 SXM's published peaks (NVIDIA's data sheet): memory rate and f32
 # outside the tensor cores
@@ -653,6 +670,330 @@ def k4_cases(dev):
               f"scan over 8 knights {cols[1]}", flush=True)
         del cv, acc, carries
         torch.cuda.empty_cache()
+
+
+def hier_vs_cpu(tag, func, L, R, cfg):
+    """The hierarchical matcher on the card against the same call on the
+    CPU (the plain versions): disp_estimate equal on >= 0.999 of pixels,
+    the truncated volume within 1e-4 where the estimates agree.  Returns
+    the card's result."""
+    from libstevi_tpu_torch.ops.hierarchical import (
+        hierarchical_truncated_cost_volume as hier)
+    g = hier(func, L, R, **cfg)
+    c = hier(func, L.cpu(), R.cpu(), **cfg)
+    same = g.disp_estimate.cpu() == c.disp_estimate
+    share = same.float().mean().item()
+    assert share >= 0.999, (tag, share)
+    torch.testing.assert_close(g.truncated_cost_volume.cpu()[same],
+                               c.truncated_cost_volume[same], rtol=1e-4,
+                               atol=1e-4)
+    print(f"  {tag}: CUDA vs CPU disp_estimate agree {share:.6f}, truncated "
+          f"volume within 1e-4 where they agree", flush=True)
+    return g
+
+
+def n_items(items):
+    """Device items a frame in a `profile_frame` item table."""
+    return sum(c for _, c in items.values())
+
+
+def top_items(items, n=8):
+    """The ``n`` largest items, and the port's kernels (K1, K5) wherever
+    they rank: [name, us a frame, launches a frame]."""
+    ranked = sorted(items.items(), key=lambda kv: -kv[1][0])
+    kernels = [kv for kv in ranked[n:] if kv[0].startswith(("box_", "fv_"))]
+    return [[k, round(u, 1), round(c, 1)] for k, (u, c) in
+            ranked[:n] + kernels]
+
+
+def matchers(dev, pairs, smi):
+    """The matchers ported last, on the card.  The hierarchical matcher:
+    depth 2 at 480x640, D = 120, ZNCC 7x7 (`entry.hierarchical_forward`)
+    on both fixtures, held to the PARITY_r05 `hierarchical_d2` bars with
+    one K1 statistics and one K1 volume launch a frame; HD depth 3 at
+    720x1280, D = 320 (`entry.hierarchical_hd_forward`) on a random pair,
+    against the CPU, with its peak memory; ZSAD depth 2 on a random
+    480x640 pair, K5 launched, against the CPU; each frame timed and
+    profiled.  Then one timed run each of the other new paths, each held
+    to the CPU at its CPU test's tolerance: the 2-D volume (240x320,
+    (-8..8) x (-8..8)) with its 2-D WTA, bidirectional band and 2-D
+    refinement; `patch_match_flow` (240x320, CENSUS, replayed draws);
+    `dp_stereo` and `fastmatch_from_cv` on a 480x640x120 ZSSD volume and
+    `fastmatch` (CENSUS) at 480x640, D = 120; guided aggregation of a
+    480x640x120 volume; and the CLI's hierarchical matcher with parabola
+    refinement on the fixtures.  K1 (statistics and volume, bit for bit)
+    and K5 (at 1e-5) are held to their plain versions at the coarsest
+    levels' shapes: 120x160x30, 90x160x40, and ZSAD's 120x160 F = 49 over
+    30 shifts.  Returns the K1 and K5 launches of the hierarchical frames
+    and K5's largest error against its plain version there."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import (ExtractionStrategy, MATCH_TRAITS,
+                                         MatchingFunction, SearchOffset1,
+                                         SearchOffset2)
+    from libstevi_tpu_torch.io import read_stevimg
+    from libstevi_tpu_torch.ops import (
+        InterpolationKernel, extract_selected_2d_index,
+        normalize_feature_volume, patch_match_flow,
+        refine_disp_2d_cost_interpolation,
+        truncated_bidirectional_cost_volume, unfold,
+        unfold_based_2d_disparity_cost_volume, unfold_based_cost_volume)
+    from libstevi_tpu_torch.interpolation import average_pooling_downsample
+    from libstevi_tpu_torch.ops.box_cuda import (_prep_inputs, box_cv,
+                                                 box_cv_plain, window_stats)
+    from libstevi_tpu_torch.ops.dp_stereo import dp_stereo
+    from libstevi_tpu_torch.ops.fastmatch import fastmatch, fastmatch_from_cv
+    from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
+                                                   fused_fv_cost_volume_plain)
+    from libstevi_tpu_torch.ops.guided_filtering import (
+        guided_cost_volume_aggregation)
+    from libstevi_tpu_torch.profile_frames import profile_frame
+
+    ZNCC, ZSAD = MatchingFunction.ZNCC, MatchingFunction.ZSAD
+    CENSUS, ZSSD = MatchingFunction.CENSUS, MatchingFunction.ZSSD
+    counters = (window_stats, box_cv, fused_fv_cost_volume)
+
+    def launches():
+        return {"K1 stats": window_stats.launches, "K1": box_cv.launches,
+                "K5": fused_fv_cost_volume.launches}
+
+    def reset():
+        for fn in counters:
+            fn.launches = 0
+        torch.cuda.synchronize()
+
+    def coarsest(L, R, depth):
+        for _ in range(depth):
+            L, R = (average_pooling_downsample(x, 2) for x in (L, R))
+        return L, R
+
+    def k1_at_coarsest(L, R, depth, D):
+        """K1's two kernels at the coarsest level's shape, bit for bit."""
+        cl, cr = coarsest(L, R, depth)
+        got = window_stats(ZNCC, cl, cr, 3, 3)
+        for a, b in zip(got[2:6], _prep_inputs(ZNCC, cl, cr, 3, 3)[2:6]):
+            exact(a, b, ("K1 stats coarsest", depth))
+        exact(box_cv(ZNCC, cl, cr, 3, 3, D),
+              box_cv_plain(ZNCC, cl, cr, 3, 3, D), ("K1 coarsest", depth))
+        print(f"K1 at the coarsest level {tuple(cl.shape)}x{D}: statistics "
+              f"and volume equal their plain versions bit for bit",
+              flush=True)
+
+    # -- hierarchical depth 2, 480x640, D = 120: both fixtures ---------------
+    out = {}
+    for name in H_BARS:
+        reset()
+        out[name] = entry.hierarchical_forward(*pairs[name][0])
+        torch.cuda.synchronize()
+        n = launches()
+        print(f"hierarchical depth 2 {name}: launches {n}", flush=True)
+        assert n == {"K1 stats": 1, "K1": 1, "K5": 0}, (name, n)
+        d = out[name]
+        assert d.shape == (480, 640) and d.dtype == torch.int32
+        check_bars(f"hierarchical {name}", d.float(), pairs[name][1],
+                   H_BARS[name])
+    hier_launches = {"K1 stats": 1, "K1": 1}
+    Lw, Rw = pairs["warp"][0]
+    f2 = lambda: entry.hierarchical_forward(Lw, Rw)  # noqa: E731
+    h2_ms = median_ms(f2)
+    h2_peak = peak_bytes(f2)
+    busy, items = profile_frame(f2, 5)
+    print(f"time: hierarchical depth-2 frame 480x640 D=120 ZNCC: {h2_ms:.3f} "
+          f"ms (median of 5 after a warm-up; {smi}); memory: peak "
+          f"{h2_peak / 1e9:.3f} GB above the inputs; profile (5 frames): "
+          f"device busy {busy / 1e3:.3f} ms a frame, idle "
+          f"{1 - busy / 1e3 / h2_ms:.3f}, {n_items(items):.0f} "
+          f"device items a frame, top (name, us a frame, launches a frame) "
+          f"{top_items(items)}", flush=True)
+    hier_vs_cpu("hierarchical depth 2 warp", ZNCC, Lw, Rw, dict(
+        entry.HIERARCHICAL))
+    k1_at_coarsest(Lw, Rw, 2, 30)
+
+    # -- hierarchical HD depth 3, 720x1280, D = 320 --------------------------
+    Lh, Rh = pair(entry.HD_HEIGHT, entry.HD_WIDTH, 14, dev)
+    reset()
+    dh = entry.hierarchical_hd_forward(Lh, Rh)
+    torch.cuda.synchronize()
+    n = launches()
+    print(f"hierarchical HD depth 3 720x1280 D=320: launches {n}", flush=True)
+    assert n == {"K1 stats": 1, "K1": 1, "K5": 0}, n
+    assert dh.shape == (720, 1280) and dh.dtype == torch.int32
+    g = hier_vs_cpu("hierarchical HD depth 3", ZNCC, Lh, Rh,
+                    dict(entry.HIERARCHICAL_HD))
+    assert torch.equal(g.disp_estimate, dh)
+    k1_at_coarsest(Lh, Rh, 3, 40)
+    fh = lambda: entry.hierarchical_hd_forward(Lh, Rh)  # noqa: E731
+    hd_ms = median_ms(fh)
+    hd_peak = peak_bytes(fh)
+    busy, items = profile_frame(fh, 5)
+    print(f"time: hierarchical HD depth-3 frame 720x1280 D=320 ZNCC: "
+          f"{hd_ms:.3f} ms (median of 5 after a warm-up; {smi}); memory: "
+          f"peak {hd_peak / 1e9:.3f} GB above the inputs; profile (5 "
+          f"frames): device busy {busy / 1e3:.3f} ms a frame, idle "
+          f"{1 - busy / 1e3 / hd_ms:.3f}, {n_items(items):.0f} "
+          f"device items a frame, top {top_items(items)}", flush=True)
+    del Lh, Rh, g
+
+    # -- hierarchical ZSAD depth 2 on a random 480x640 pair (K5) -------------
+    Lz, Rz = pair(480, 640, 15, dev)
+    zcfg = dict(entry.HIERARCHICAL)
+    reset()
+    g = hier_vs_cpu("hierarchical ZSAD depth 2 random", ZSAD, Lz, Rz, zcfg)
+    torch.cuda.synchronize()
+    n = launches()
+    print(f"hierarchical ZSAD depth 2: launches {n}", flush=True)
+    assert n == {"K1 stats": 0, "K1": 0, "K5": 1}, n
+    hier_launches["K5"] = n["K5"]
+    # K5 at the coarsest level's shape: the normalized 7x7 unfolds of the
+    # 120x160 pair, 30 shifts (RIGHT_TO_LEFT: source = right)
+    cl, cr = coarsest(Lz, Rz, 2)
+    fs, ft = (normalize_feature_volume(ZSAD, unfold(3, 3, x))
+              for x in (cr, cl))
+    got = fused_fv_cost_volume("sad", fs, ft, range(30))
+    want = fused_fv_cost_volume_plain("sad", fs, ft, range(30))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    k5_err = (got - want).abs().max().item()
+    print(f"K5 at the coarsest level 120x160x30 F=49 'sad': within "
+          f"{k5_err:.3g} of its plain version", flush=True)
+    from libstevi_tpu_torch.ops.hierarchical import (
+        hierarchical_truncated_cost_volume as hier)
+    z_ms = median_ms(lambda: hier(ZSAD, Lz, Rz, **zcfg))
+    print(f"time: hierarchical ZSAD depth-2 frame 480x640 D=120: {z_ms:.3f} "
+          f"ms (median of 5; {smi})", flush=True)
+    del Lz, Rz, g
+
+    # -- 2-D volume + 2-D WTA + band + 2-D refinement, 240x320 --------------
+    full_l = pairs["warp"][0][0]
+    src = full_l[100:340, 100:420].contiguous()
+    tgt = full_l[97:337, 95:415].contiguous()      # flow (3, 5)
+    s2 = SearchOffset2(-8, 8, -8, 8)
+    strat = MATCH_TRAITS[ZNCC].strategy
+
+    def flow_chain(a, b):
+        cv = unfold_based_2d_disparity_cost_volume(ZNCC, a, b, 3, 3, s2)
+        idx = extract_selected_2d_index(cv, strat)
+        band = truncated_bidirectional_cost_volume(cv, idx, 1, 1)
+        ref = refine_disp_2d_cost_interpolation(
+            InterpolationKernel.PARABOLA, -band, idx)
+        return cv, idx, band, ref
+
+    # the 2-D volume is direction-free: source = the first image here
+    # (RIGHT_TO_LEFT roles: fv_l is the target)
+    cv_g, idx_g, band_g, ref_g = flow_chain(tgt, src)
+    cv_c = unfold_based_2d_disparity_cost_volume(ZNCC, tgt.cpu(), src.cpu(),
+                                                 3, 3, s2)
+    torch.testing.assert_close(cv_g.cpu(), cv_c, rtol=1e-5, atol=1e-5)
+    # each later stage on the same input on both devices: exact WTA
+    cv_h = cv_g.cpu()
+    idx_c = extract_selected_2d_index(cv_h, strat)
+    assert torch.equal(idx_g.cpu(), idx_c)
+    band_c = truncated_bidirectional_cost_volume(cv_h, idx_c, 1, 1)
+    torch.testing.assert_close(band_g.cpu(), band_c, rtol=1e-5, atol=1e-5,
+                               equal_nan=True)
+    ref_c = refine_disp_2d_cost_interpolation(InterpolationKernel.PARABOLA,
+                                              -band_g.cpu(), idx_c)
+    torch.testing.assert_close(ref_g.cpu(), ref_c, rtol=1e-5, atol=1e-5)
+    flow = idx_g + torch.tensor([s2.lower0, s2.lower1], device=dev,
+                                dtype=idx_g.dtype)
+    hit = ((flow[8:-8, 8:-8] == torch.tensor([3, 5], device=dev)).all(-1)
+           .float().mean().item())
+    assert hit > 0.95, hit
+    ms2 = median_ms(lambda: flow_chain(tgt, src))
+    print(f"2-D volume 240x320 over (-8..8)^2 ZNCC 7x7 + 2-D WTA + band + "
+          f"2-D parabola: CUDA vs CPU volume within 1e-5, WTA equal, band "
+          f"and refinement within 1e-5; flow (3, 5) found on {hit:.4f}; "
+          f"time {ms2:.3f} ms (median of 5; {smi})", flush=True)
+    del cv_g, cv_c, cv_h, band_g, band_c
+
+    # -- patch_match_flow, 240x320, CENSUS, one replayed draw stream ---------
+    fs = normalize_feature_volume(CENSUS, unfold(3, 3, src))
+    ft = normalize_feature_volume(CENSUS, unfold(3, 3, tgt))
+
+    def pm_flow(a, b, device):
+        rng = np.random.default_rng(21)
+
+        def draw(shape, lo, hi):
+            return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+                np.int32)).to(device)
+        return patch_match_flow(CENSUS, a, b, s2, 5, 4, draw=draw)
+
+    fl_g = pm_flow(fs, ft, dev)
+    fl_c = pm_flow(fs.cpu(), ft.cpu(), "cpu")
+    assert torch.equal(fl_g.cpu(), fl_c)
+    # a convergence check, not a parity bar: census ties on this smooth
+    # crop leave some pixels on equal-cost flows
+    hit = ((fl_g[8:-8, 8:-8] == torch.tensor([3, 5], device=dev)).all(-1)
+           .float().mean().item())
+    assert hit > 0.5, hit
+    pmf_ms = median_ms(lambda: pm_flow(fs, ft, dev), 3)
+    print(f"patch_match_flow 240x320 CENSUS 7x7 over (-8..8)^2, 5 it, 4 "
+          f"random: CUDA equals CPU with one replayed draw stream; flow "
+          f"(3, 5) on {hit:.4f}; time {pmf_ms:.3f} ms (median of 3; {smi})",
+          flush=True)
+
+    # -- dp_stereo, fastmatch_from_cv and fastmatch at 480x640, D = 120 ------
+    L, R = pairs["warp"][0]
+    cvz = unfold_based_cost_volume(ZSSD, L, R, 3, 3, 120)
+    cvz_c = cvz.cpu()
+    dp_g = dp_stereo(cvz, 0.05, 0.2)
+    dp_c = dp_stereo(cvz_c, 0.05, 0.2)
+    assert torch.equal(dp_g.disparity.cpu(), dp_c.disparity)
+    assert torch.equal(dp_g.occlusion.cpu(), dp_c.occlusion)
+    dp_ms = median_ms(lambda: dp_stereo(cvz, 0.05, 0.2), 3)
+    fm_g = fastmatch_from_cv(ZSSD, cvz)
+    assert torch.equal(fm_g.cpu(), fastmatch_from_cv(ZSSD, cvz_c))
+    fmcv_ms = median_ms(lambda: fastmatch_from_cv(ZSSD, cvz), 3)
+    cs = normalize_feature_volume(CENSUS, unfold(3, 3, R))
+    ct = normalize_feature_volume(CENSUS, unfold(3, 3, L))
+    fmc_g = fastmatch(CENSUS, cs, ct, SearchOffset1(0, 119))
+    assert torch.equal(fmc_g.cpu(), fastmatch(CENSUS, cs.cpu(), ct.cpu(),
+                                              SearchOffset1(0, 119)))
+    fm_ms = median_ms(lambda: fastmatch(CENSUS, cs, ct,
+                                        SearchOffset1(0, 119)), 3)
+    gt = pairs["warp"][1]
+    print(f"dp_stereo 480x640x120 ZSSD: path and occlusions equal the CPU's; "
+          f"time {dp_ms:.3f} ms; fastmatch_from_cv: equal, {fmcv_ms:.3f} ms; "
+          f"fastmatch CENSUS 7x7 D=120: equal, {fm_ms:.3f} ms (medians of 3; "
+          f"{smi}); prop_good_2.0 on the warp fixture: dp "
+          f"{prop_good_np(dp_g.disparity, gt):.4f}, fastmatch "
+          f"{prop_good_np(fmc_g, gt):.4f}", flush=True)
+    del cs, ct
+
+    # -- guided aggregation of a 480x640x120 volume ---------------------------
+    gd_g = guided_cost_volume_aggregation(cvz, L, 2, 3.0, 0.1)
+    gd_c = guided_cost_volume_aggregation(cvz_c, L.cpu(), 2, 3.0, 0.1)
+    torch.testing.assert_close(gd_g.cpu(), gd_c, rtol=1e-5, atol=1e-5)
+    gd_ms = median_ms(lambda: guided_cost_volume_aggregation(cvz, L, 2, 3.0,
+                                                             0.1), 3)
+    print(f"guided_cost_volume_aggregation 480x640x120, radius 2: CUDA vs "
+          f"CPU within 1e-5; time {gd_ms:.3f} ms (median of 3; {smi})",
+          flush=True)
+    del cvz, cvz_c, gd_g, gd_c
+
+    # -- the CLI's hierarchical matcher, parabola refinement, both fixtures --
+    for name, (suffix, _, _) in BARS.items():
+        with tempfile.TemporaryDirectory() as tmp:
+            out_path = str(Path(tmp) / "disph.stevimg")
+            res = subprocess.run(
+                [sys.executable, "-m", "libstevi_tpu_torch.cli.stereo_match",
+                 str(FIXTURES / f"left{suffix}.stevimg"),
+                 str(FIXTURES / f"right{suffix}.stevimg"), "-o", out_path,
+                 "-d", "120", "--matcher", "hierarchical", "--refine",
+                 "parabola", "--gt", str(FIXTURES / f"gt{suffix}.stevimg")],
+                cwd=ROOT, capture_output=True, text=True, timeout=300)
+            assert res.returncode == 0, res.stderr
+            report = json.loads(res.stdout.strip().splitlines()[-1])
+            assert read_stevimg(out_path).shape == (480, 640)
+        print(f"CLI hierarchical {name}: {json.dumps(report)}", flush=True)
+        pg_bar, mae_bar = H_BARS[name]
+        assert report["prop_good_2.0"] >= pg_bar, report
+        assert report["inlier_mae"] <= mae_bar, report
+    torch.cuda.empty_cache()
+    return hier_launches, k5_err
+
+
+def prop_good_np(disp, gt):
+    from libstevi_tpu_torch.statistics import prop_good
+    return prop_good(disp.float().cpu().numpy(), gt, 2.0)
 
 
 def distributed_uhd(dev, L4, R4, lane_idx, smi):
@@ -2784,6 +3125,11 @@ def main(argv=None) -> int:
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
 
+    # -- the matchers ported last: hierarchical (K1, K5), 2-D volumes and
+    # refinement, PatchMatch flow, DP, fastmatch, guided filtering, the CLI
+    hier_launches, e5 = matchers(dev, pairs, smi)
+    err["K5"] = max(err["K5"], e5)
+
     d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
                                                                   smi)
     for k, v in d_err.items():
@@ -2908,6 +3254,8 @@ def main(argv=None) -> int:
          "ms": ms[key][0], "plain_ms": ms[key][1],
          "bound_ms": bounds[key][0], "bound_by": bounds[key][1],
          "library_ms": library.get(key),
+         **({"hierarchical_launches": hier_launches[key]}
+            if key in hier_launches else {}),
          **({"device_ms": device_ms[key]} if key in device_ms else {}),
          **({"instances": instances[key]} if key in instances else {})}
         for name, src, rep, key in records]}), flush=True)

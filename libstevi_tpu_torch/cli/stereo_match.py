@@ -2,9 +2,9 @@
 `cli/stereo_match.py`).
 
 Reference parity: `examples/stereo-match/main.cpp` — load a rectified pair,
-run the selected matcher (dense WTA / SGM / PatchMatch) with a chosen
-matching cost, optional subpixel refinement, write the disparity map, and
-report accuracy against ground truth: the proportion of pixels with
+run the selected matcher (dense WTA / SGM / hierarchical / PatchMatch) with
+a chosen matching cost, optional subpixel refinement, write the disparity
+map, and report accuracy against ground truth: the proportion of pixels with
 |err| <= 2.0 ("prop good", `main.cpp:234-258`) and the inlier MAE
 (`main.cpp:275-303`).  The arguments and the JSON report keys are the JAX
 tool's, plus ``--device`` (default ``cuda``; without a GPU that is an
@@ -12,6 +12,9 @@ error, never a silent CPU run).  Images and the ground truth are
 ``.stevimg``, ``.pfm``, ``.flo`` or ``.exr`` files.  On the card SGM takes
 any ``-d`` with 4, 8 or 16 directions (past D = 320 through the
 lane-layout kernels K4b / K4d, with K2k's any-D instance for the knights).
+The hierarchical matcher runs depth 2 (its coarsest level through K1 for
+the dot family on the card), and ``--refine`` fits the negated SCORE band
+around its estimate, as the JAX tool does.
 
 Usage:
   python -m libstevi_tpu_torch.cli.stereo_match LEFT RIGHT -o disp.stevimg \\
@@ -74,6 +77,7 @@ def _match(args, func, img_l, img_r):
                        refine_disp_cost_interpolation,
                        selected_index_to_disp, truncated_cost_volume,
                        unfold_based_cost_volume)
+    from ..ops.hierarchical import hierarchical_truncated_cost_volume
     cv_dtype = torch.bfloat16 if args.precision == "bf16" else torch.float32
     rk = (None if args.refine == "none"
           else InterpolationKernel[args.refine.upper()])
@@ -83,8 +87,17 @@ def _match(args, func, img_l, img_r):
         disp = patch_match(func, img_l, img_r, SearchOffset1(0, D - 1),
                            h_radius=r, v_radius=r, generator=gen)
     elif args.matcher == "hierarchical":
-        raise NotImplementedError(
-            "the hierarchical matcher is not ported yet (ROADMAP.md A9)")
+        out = hierarchical_truncated_cost_volume(func, img_l, img_r, r, r, D,
+                                                 depth=2)
+        idx = out.disp_estimate
+        disp = idx.float()
+        if rk is not None:
+            tcv = out.truncated_cost_volume
+            if MATCH_TRAITS[func].strategy is ExtractionStrategy.SCORE:
+                tcv = -tcv
+            c = tcv.shape[-1] // 2
+            disp = refine_disp_cost_interpolation(rk, tcv[..., c - 1:c + 2],
+                                                  idx)
     elif args.matcher == "sgm":
         disp, _, _ = dense_sgm_stereo(
             func, img_l, img_r, r, r, D, P1=args.sgm_p1, P2=args.sgm_p2,

@@ -28,6 +28,13 @@ mesh; `dryrun_multichip(n)` is `__graft_entry__.dryrun_multichip`: the
 (batch, tile, dsh) factoring of n shards at its 96x256x32 shape, the n
 shards virtual on one device.
 
+`hierarchical_forward` is the coarse-to-fine matcher of `bench_grid.py:
+179-184` ("Hierarchical ZNCC depth-2 D=120", the `hierarchical_d2` row of
+`PARITY_r05`): ZNCC 7x7, D=120, depth 2 at 480x640, so its coarsest level
+is a full 120x160x30 volume (K1 on the card) and the two guided levels are
+gathers; `hierarchical_hd_forward` is the same at 720x1280, D=320, depth 3
+(`bench_grid.py:186-191`; coarsest 90x160x40).
+
 `patchmatch_forward` is the PatchMatch matcher in the `BENCH_GRID_r05` /
 `PARITY_r05` configuration (NCC, 7x7 window, disparities [0, 119], 5
 iterations, 4 random candidates); `wta_forward` is the per-matching-function
@@ -43,6 +50,7 @@ from .core import MATCH_TRAITS, MatchingFunction, SearchOffset1
 from .ops import (InterpolationKernel, dense_sgm_stereo,
                   extract_selected_index, patch_match,
                   unfold_based_cost_volume)
+from .ops.hierarchical import hierarchical_truncated_cost_volume
 
 FLAGSHIP = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
                 n_directions=8, cost_vol_radius=1,
@@ -56,6 +64,8 @@ HD_WIDE = dict(WIDE, disp_width=640)
 PATCHMATCH = dict(search=SearchOffset1(0, 119), h_radius=3, v_radius=3,
                   n_iter=5, n_random=4)
 WTA = dict(h_radius=3, v_radius=3, search=120)
+HIERARCHICAL = dict(h_radius=3, v_radius=3, disp_width=120, depth=2)
+HIERARCHICAL_HD = dict(HIERARCHICAL, disp_width=320, depth=3)
 DIST = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
             n_directions=8)
 HEIGHT, WIDTH = 480, 640
@@ -120,6 +130,22 @@ def patchmatch_forward(img_l: torch.Tensor, img_r: torch.Tensor,
     from ``generator`` (on the images' device)."""
     return patch_match(MatchingFunction.NCC, img_l, img_r,
                        generator=generator, **PATCHMATCH)
+
+
+def hierarchical_forward(img_l: torch.Tensor,
+                         img_r: torch.Tensor) -> torch.Tensor:
+    """Hierarchical ZNCC disparity estimate (H, W) int32 of a gray pair,
+    depth 2, D=120."""
+    return hierarchical_truncated_cost_volume(
+        MatchingFunction.ZNCC, img_l, img_r, **HIERARCHICAL).disp_estimate
+
+
+def hierarchical_hd_forward(img_l: torch.Tensor,
+                            img_r: torch.Tensor) -> torch.Tensor:
+    """Hierarchical ZNCC disparity estimate (H, W) int32 of a gray pair,
+    depth 3, D=320: the configuration meant for 720x1280."""
+    return hierarchical_truncated_cost_volume(
+        MatchingFunction.ZNCC, img_l, img_r, **HIERARCHICAL_HD).disp_estimate
 
 
 def wta_forward(func: MatchingFunction, img_l: torch.Tensor,

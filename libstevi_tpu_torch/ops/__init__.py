@@ -8,14 +8,20 @@ from .fv_backend import fused_fv_cost_volume, FUSABLE_KERNELS
 from .cost_volume import (normalize_feature_volume, channels_mean,
                           channels_norm, channels_zero_mean_norm,
                           aggregate_cost, feature_volume_to_cost_volume,
-                          unfold_based_cost_volume, extract_selected_index,
-                          selected_index_to_disp, selected_cost,
-                          truncated_cost_volume)
-from .refinement import (InterpolationKernel, refine_cost_triplet,
-                         refine_disp_cost_interpolation)
+                          unfold_based_cost_volume,
+                          unfold_based_2d_disparity_cost_volume,
+                          extract_selected_index, extract_selected_2d_index,
+                          selected_index_to_disp, selected_2d_index_to_disp,
+                          selected_cost, truncated_cost_volume,
+                          truncated_bidirectional_cost_volume,
+                          extract_in_bound_domain)
+from .refinement import (InterpolationKernel, IsotropyHypothesis,
+                         refine_cost_triplet, refine_disp_cost_interpolation,
+                         refine_disp_2d_cost_interpolation,
+                         refine_disp_2d_cost_patch_interpolation)
 from .sgm import (SgmDirection, directions_for, sgm_cost_volume,
                   sgm_wta_truncated, dense_sgm_stereo)
-from .patchmatch import patch_match, patch_match_stereo
+from .patchmatch import patch_match, patch_match_stereo, patch_match_flow
 
 __all__ = [
     "box_filter_2d", "mean_filter_2d", "sigma_filter",
@@ -28,11 +34,15 @@ __all__ = [
     "normalize_feature_volume", "channels_mean", "channels_norm",
     "channels_zero_mean_norm", "aggregate_cost",
     "feature_volume_to_cost_volume",
-    "unfold_based_cost_volume", "extract_selected_index",
-    "selected_index_to_disp", "selected_cost", "truncated_cost_volume",
-    "InterpolationKernel", "refine_cost_triplet",
-    "refine_disp_cost_interpolation",
+    "unfold_based_cost_volume", "unfold_based_2d_disparity_cost_volume",
+    "extract_selected_index", "extract_selected_2d_index",
+    "selected_index_to_disp", "selected_2d_index_to_disp", "selected_cost",
+    "truncated_cost_volume", "truncated_bidirectional_cost_volume",
+    "extract_in_bound_domain",
+    "InterpolationKernel", "IsotropyHypothesis", "refine_cost_triplet",
+    "refine_disp_cost_interpolation", "refine_disp_2d_cost_interpolation",
+    "refine_disp_2d_cost_patch_interpolation",
     "SgmDirection", "directions_for", "sgm_cost_volume",
     "sgm_wta_truncated", "dense_sgm_stereo",
-    "patch_match", "patch_match_stereo",
+    "patch_match", "patch_match_stereo", "patch_match_flow",
 ]

@@ -1,5 +1,5 @@
-"""PatchMatch stereo (1-D), counterpart of the 1-D half of
-`libstevi_tpu/ops/patchmatch.py`.
+"""PatchMatch stereo (1-D) and image-flow (2-D) correspondence search,
+counterpart of `libstevi_tpu/ops/patchmatch.py`.
 
 Reference parity: `correlation/patchmatch.h` — `randomDispInit` (:58 uniform
 init over the search range), `patchMatchTestCost` (:168; ties ACCEPT the
@@ -20,7 +20,9 @@ Both accept ties and reject invalid candidates before comparison
 (`patchmatch.h:199-218`).  Candidates come from a `torch.Generator` (or an
 injected ``draw``), so parity with the JAX package is statistical (the
 same convergence quality), not bitwise, unless both replay one stream.
-2-D PatchMatch (`patch_match_flow`) is not ported yet (ROADMAP.md A9).
+2-D PatchMatch (`patch_match_flow`) is cacheless: its sweeps are Python
+loops of torch ops carrying the updated line, as they are `lax.scan`s in
+the JAX package, on either device.
 """
 
 from __future__ import annotations
@@ -29,7 +31,7 @@ import torch
 
 from ..core.types import (MatchingFunction, MATCH_TRAITS, ExtractionStrategy,
                           disp_dtype)
-from ..core.search import SearchOffset1
+from ..core.search import SearchOffset1, SearchOffset2
 from .matching import feature_comparison
 from .patchmatch_cuda import (probe, scaled_candidate as _scaled_candidate,
                               search_probe, sweep)
@@ -240,6 +242,106 @@ def patch_match_stereo(func: MatchingFunction, source_fv: torch.Tensor,
         disp, cost, _ = _col_sweep(ev, disp, cost, col_fwd)
         disp, cost = _random_search(ev, disp, cost, search, n_random, draw)
     return disp
+
+
+class _FlowEval:
+    """cost(i, j, (di, dj)) = compare(source[i, j], target[i+di, j+dj]),
+    the worst cost where the target lies outside the image."""
+
+    def __init__(self, func, source_fv, target_fv):
+        self.func = func
+        self.traits = MATCH_TRAITS[func]
+        self.source = source_fv
+        self.target = target_fv
+        self.worst = (_INF if self.traits.strategy is ExtractionStrategy.COST
+                      else -_INF)
+
+    def costs(self, src, ti, tj):
+        """compare(src, target[ti, tj]) over any shape of positions."""
+        H, W = self.target.shape[:2]
+        inb = (ti >= 0) & (ti < H) & (tj >= 0) & (tj < W)
+        tgt = self.target[ti.clamp(0, H - 1).long(), tj.clamp(0, W - 1).long()]
+        return torch.where(inb, feature_comparison(self.func, src, tgt),
+                           self.worst)
+
+    def cost_field(self, flow: torch.Tensor) -> torch.Tensor:
+        H, W = flow.shape[:2]
+        ii = torch.arange(H, dtype=torch.int32, device=flow.device)[:, None]
+        jj = torch.arange(W, dtype=torch.int32, device=flow.device)[None, :]
+        return self.costs(self.source, ii + flow[..., 0], jj + flow[..., 1])
+
+
+def _flow_row_sweep(ev: _FlowEval, flow, cost, forward: bool):
+    """Sequential propagation along columns, all rows in parallel: pixel
+    (i, j) tests the (already updated) flow of (i, j -+ 1)."""
+    H, W = cost.shape
+    ii = torch.arange(H, dtype=torch.int32, device=flow.device)
+    for j in (range(1, W) if forward else range(W - 2, -1, -1)):
+        cand = flow[:, j - 1 if forward else j + 1]           # (H, 2)
+        cc = ev.costs(ev.source[:, j], ii + cand[:, 0], j + cand[:, 1])
+        accept = _better(ev.traits, cc, cost[:, j])
+        flow[:, j] = torch.where(accept[:, None], cand, flow[:, j])
+        cost[:, j] = torch.where(accept, cc, cost[:, j])
+
+
+def _flow_col_sweep(ev: _FlowEval, flow, cost, forward: bool):
+    """Sequential propagation along rows, all columns in parallel."""
+    H, W = cost.shape
+    jj = torch.arange(W, dtype=torch.int32, device=flow.device)
+    for i in (range(1, H) if forward else range(H - 2, -1, -1)):
+        cand = flow[i - 1 if forward else i + 1]              # (W, 2)
+        cc = ev.costs(ev.source[i], i + cand[:, 0], jj + cand[:, 1])
+        accept = _better(ev.traits, cc, cost[i])
+        flow[i] = torch.where(accept[:, None], cand, flow[i])
+        cost[i] = torch.where(accept, cc, cost[i])
+
+
+def _draw_flow(draw, shape, search: SearchOffset2) -> torch.Tensor:
+    """(H, W, 2) int32 uniform flow candidates over ``search``: the row
+    offsets drawn first, then the column offsets."""
+    return torch.stack([draw(shape, search.lower0, search.upper0 + 1),
+                        draw(shape, search.lower1, search.upper1 + 1)], -1)
+
+
+def patch_match_flow(func: MatchingFunction, source_fv: torch.Tensor,
+                     target_fv: torch.Tensor, search: SearchOffset2,
+                     n_iter: int = 5, n_random: int = 4,
+                     generator: torch.Generator | None = None,
+                     draw=None) -> torch.Tensor:
+    """2-D PatchMatch (image flow, `patchMatch` with searchSpaceDim == 2):
+    returns the (H, W, 2) int32 flow field (di, dj).  Propagation sweeps
+    (rows, then columns, their directions cycled per iteration) and the
+    scaled random search mirror the 1-D variant with 2-D candidates.
+    ``draw(shape, low, high)`` replaces the generator's uniform int32
+    draws (it lets a test replay another candidate stream): two a
+    candidate field, its row offsets first."""
+    ev = _FlowEval(func, source_fv, target_fv)
+    H, W, _ = source_fv.shape
+    if draw is None:
+        draw = _drawer(generator, source_fv.device)
+
+    flow = _draw_flow(draw, (H, W), search).to(disp_dtype)
+    cost = ev.cost_field(flow)
+    for it in range(n_iter):
+        row_fwd, col_fwd = _SWEEP_DIRS[it % 4]
+        _flow_row_sweep(ev, flow, cost, row_fwd)
+        _flow_col_sweep(ev, flow, cost, col_fwd)
+        for k in range(n_random):
+            cand = _draw_flow(draw, (H, W), search).to(disp_dtype)
+            # scaled toward the current flow; `//` floors negative values,
+            # as jnp's does
+            cand = flow + ((cand - flow) * (k + 1)) // (n_random + 1)
+            same = torch.all(cand == flow, dim=-1, keepdim=True)
+            cand = torch.where(same, flow + 1, cand)
+            in_rng = ((cand[..., 0] >= search.lower0)
+                      & (cand[..., 0] <= search.upper0)
+                      & (cand[..., 1] >= search.lower1)
+                      & (cand[..., 1] <= search.upper1))
+            cc = torch.where(in_rng, ev.cost_field(cand), ev.worst)
+            accept = in_rng & _better(ev.traits, cc, cost)
+            flow = torch.where(accept[..., None], cand, flow)
+            cost = torch.where(accept, cc, cost)
+    return flow
 
 
 def patch_match(func: MatchingFunction, img_or_fv_l, img_or_fv_r,

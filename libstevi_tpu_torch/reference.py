@@ -18,7 +18,7 @@ from .ops.unfold import PatchOrientation
 PORT_ENUMS = {cls.__name__: cls for cls in (
     types.MatchingFunction, types.ExtractionStrategy, types.DispDirection,
     types.TruncatedCvDirection, refinement.InterpolationKernel,
-    sgm.SgmDirection, PatchOrientation)}
+    refinement.IsotropyHypothesis, sgm.SgmDirection, PatchOrientation)}
 
 
 def to_port(obj):

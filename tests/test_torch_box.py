@@ -9,6 +9,7 @@ import torch
 
 from libstevi_tpu.core import MatchingFunction as JMF, DispDirection as JDir
 from libstevi_tpu.core.search import SearchOffset1 as JSearch1
+from libstevi_tpu.core.search import SearchOffset2 as JSearch2
 from libstevi_tpu.ops import filters as jfilters
 from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
 from libstevi_tpu.ops.box_pallas import box_cost_volume_fused_padded
@@ -87,18 +88,25 @@ def test_unfold_based_cost_volume_matches_jax(func):
 
 
 def test_non_dot_costs_are_not_ported_yet():
-    """Every 1-D matching function is ported now; what is left is the 2-D
-    search, and the box route refuses a function it cannot decompose, as
-    the JAX package does."""
+    """Every matching function and search is ported now: the box route
+    refuses a function it cannot decompose and a 2-D search, as the JAX
+    package does, and `unfold_based_cost_volume` takes a 2-D search on the
+    unfold route (it raised before the 2-D volumes were ported), equal to
+    JAX's for CENSUS."""
     L, R = (torch.zeros(8, 8),) * 2
     with pytest.raises(ValueError):
         box_cost_volume(to_port(JMF.CENSUS), L, R, 1, 1, 4)
     with pytest.raises(NotImplementedError):
         box_cost_volume(to_port(JMF.SSD), L, R, 1, 1,
                         SearchOffset2(-1, 1, -1, 1))
-    with pytest.raises(NotImplementedError):
-        unfold_based_cost_volume(to_port(JMF.CENSUS), L, R, 1, 1,
-                                 SearchOffset2(-1, 1, -1, 1))
+    Ln, Rn = _pair(9, (8, 8))
+    got = unfold_based_cost_volume(to_port(JMF.CENSUS), torch.from_numpy(Ln),
+                                   torch.from_numpy(Rn), 1, 1,
+                                   SearchOffset2(-1, 1, -1, 1))
+    want = j_unfold(JMF.CENSUS, jnp.asarray(Ln), jnp.asarray(Rn), 1, 1,
+                    JSearch2(-1, 1, -1, 1))
+    assert got.shape == (8, 8, 3, 3)
+    np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 @pytest.mark.parametrize("bake", [False, True], ids=["plain", "pout_baked"])

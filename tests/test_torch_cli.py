@@ -30,6 +30,9 @@ CASES = {
                    "--sgm-p2", "4"],
     "wta": ["--matcher", "wta", "--refine", "parabola"],
     "patchmatch": ["--matcher", "patchmatch", "-m", "ncc"],
+    "hierarchical": ["--matcher", "hierarchical"],
+    "hierarchical_parabola": ["--matcher", "hierarchical", "--refine",
+                              "parabola"],
 }
 
 
@@ -75,16 +78,20 @@ def test_cli_matches_jax(case, tmp_path, capsys):
 
 
 def test_cli_refuses_a_missing_gpu_and_the_hierarchical_matcher(tmp_path):
+    """Without a GPU the default ``--device cuda`` is refused for every
+    matcher, the hierarchical one too (never a silent CPU run); on the CPU
+    the hierarchical matcher runs (it raised before it was ported)."""
     args = [str(DATA / "left_small.stevimg"), str(DATA / "right_small.stevimg"),
             "-o", str(tmp_path / "d.stevimg"), "-d", "8"]
     if not torch.cuda.is_available():
-        with pytest.raises(SystemExit) as e:
-            stereo_match.main(args)            # --device cuda by default
-        assert e.value.code == 2
-        assert not (tmp_path / "d.stevimg").exists()
-    with pytest.raises(NotImplementedError, match="A9"):
-        stereo_match.main(args + ["--matcher", "hierarchical", "--device",
-                                  "cpu"])
+        for extra in ([], ["--matcher", "hierarchical"]):
+            with pytest.raises(SystemExit) as e:
+                stereo_match.main(args + extra)  # --device cuda by default
+            assert e.value.code == 2
+            assert not (tmp_path / "d.stevimg").exists()
+    assert stereo_match.main(args + ["--matcher", "hierarchical", "--device",
+                                     "cpu"]) == 0
+    assert read_image(str(tmp_path / "d.stevimg")).shape == (96, 128)
 
 
 def test_cli_runs_as_a_module(tmp_path):

@@ -7,7 +7,8 @@ import numpy as np
 import pytest
 import torch
 
-from libstevi_tpu_torch.core import MatchingFunction, Margins
+from libstevi_tpu_torch.core import (ExtractionStrategy, MatchingFunction,
+                                     Margins)
 from libstevi_tpu_torch.ops import (dense_sgm_stereo, sgm_cost_volume,
                                     InterpolationKernel)
 from libstevi_tpu_torch.ops.box_cuda import (box_cv, box_cv_plain,
@@ -1414,3 +1415,111 @@ def test_k5_instances_equal_plain(dev, kernel, F, shifts, dtype):
         torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
     else:
         _ulp_close(got.float(), want)
+
+
+def _hier_counts():
+    return (window_stats.launches, box_cv.launches,
+            fused_fv_cost_volume.launches)
+
+
+@pytest.mark.parametrize("func,depth,D", [("ZNCC", 2, 40), ("ZNCC", 3, 64),
+                                          ("ZSAD", 2, 40)])
+def test_hierarchical_frame_matches_cpu(dev, func, depth, D):
+    """The hierarchical matcher on the card against the same call on the
+    CPU: disp_estimate equal on >= 0.999 of pixels, the truncated volume
+    within 1e-4 where they agree.  ZNCC's coarsest level is one K1
+    statistics and one K1 volume launch; ZSAD's one K5 launch."""
+    from libstevi_tpu_torch.ops.hierarchical import (
+        hierarchical_truncated_cost_volume as hier)
+    f = MatchingFunction[func]
+    L, R = _pair(dev, 96, 160, seed=4)
+    before = _hier_counts()
+    g = hier(f, L, R, 3, 3, D, depth=depth)
+    after = _hier_counts()
+    want = (1, 1, 0) if func == "ZNCC" else (0, 0, 1)
+    assert tuple(a - b for a, b in zip(after, before)) == want
+    c = hier(f, L.cpu(), R.cpu(), 3, 3, D, depth=depth)
+    same = g.disp_estimate.cpu() == c.disp_estimate
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(g.truncated_cost_volume.cpu()[same],
+                               c.truncated_cost_volume[same], rtol=1e-4,
+                               atol=1e-4)
+
+
+@pytest.mark.parametrize("shapes", [((120, 160), (240, 320)),
+                                    ((360, 640), (720, 1280)),
+                                    ((45, 80), (90, 160))])
+def test_hierarchical_guide_is_device_independent(dev, shapes):
+    """The upsampled guide and the downsampled pyramid have the same bits
+    on the card as on the CPU (the positions divide by a tensor; the
+    window sums are elementwise adds)."""
+    from libstevi_tpu_torch.interpolation import average_pooling_downsample
+    from libstevi_tpu_torch.ops.hierarchical import _bilinear_guide
+    (hg, wg), (h, w) = shapes
+    g = torch.randint(0, 120, (hg, wg), dtype=torch.int32)
+    assert torch.equal(_bilinear_guide(g.to(dev), h, w).cpu(),
+                       _bilinear_guide(g, h, w))
+    img = torch.rand(h + 1, w + 3)
+    assert torch.equal(average_pooling_downsample(img.to(dev), 2).cpu(),
+                       average_pooling_downsample(img, 2))
+
+
+def test_new_matchers_match_cpu(dev):
+    """DP stereo, fastmatch (on demand, CENSUS, and over a volume) and a
+    2-D volume with its WTA and refinement on the card against the CPU on
+    the same inputs; `patch_match_flow` with one replayed draw stream."""
+    from libstevi_tpu_torch.core import SearchOffset2
+    from libstevi_tpu_torch.ops import (
+        extract_selected_2d_index, normalize_feature_volume,
+        patch_match_flow, refine_disp_2d_cost_interpolation,
+        truncated_bidirectional_cost_volume, unfold,
+        unfold_based_2d_disparity_cost_volume, unfold_based_cost_volume)
+    from libstevi_tpu_torch.ops.dp_stereo import dp_stereo
+    from libstevi_tpu_torch.ops.fastmatch import fastmatch, fastmatch_from_cv
+    from libstevi_tpu_torch.ops.guided_filtering import (
+        guided_cost_volume_aggregation)
+    L, R = _pair(dev, 40, 64, seed=5)
+    cv = unfold_based_cost_volume(MatchingFunction.ZSSD, L, R, 2, 2, 16)
+    g, c = dp_stereo(cv, 0.05, 0.2), dp_stereo(cv.cpu(), 0.05, 0.2)
+    assert torch.equal(g.disparity.cpu(), c.disparity)
+    assert torch.equal(g.occlusion.cpu(), c.occlusion)
+    assert torch.equal(fastmatch_from_cv(MatchingFunction.ZSSD, cv).cpu(),
+                       fastmatch_from_cv(MatchingFunction.ZSSD, cv.cpu()))
+    torch.testing.assert_close(
+        guided_cost_volume_aggregation(cv, L, 2).cpu(),
+        guided_cost_volume_aggregation(cv.cpu(), L.cpu(), 2), rtol=1e-5,
+        atol=1e-5)
+    CENSUS = MatchingFunction.CENSUS
+    fs, ft = (normalize_feature_volume(CENSUS, unfold(2, 2, x))
+              for x in (R, L))
+    assert torch.equal(fastmatch(CENSUS, fs, ft, 16).cpu(),
+                       fastmatch(CENSUS, fs.cpu(), ft.cpu(), 16))
+
+    s2 = SearchOffset2(-3, 3, -2, 4)
+    v = unfold_based_2d_disparity_cost_volume(MatchingFunction.ZNCC, L, R, 2,
+                                              2, s2)
+    torch.testing.assert_close(
+        v.cpu(), unfold_based_2d_disparity_cost_volume(
+            MatchingFunction.ZNCC, L.cpu(), R.cpu(), 2, 2, s2),
+        rtol=1e-5, atol=1e-5)
+    idx = extract_selected_2d_index(v, ExtractionStrategy.SCORE)
+    assert torch.equal(idx.cpu(), extract_selected_2d_index(
+        v.cpu(), ExtractionStrategy.SCORE))
+    band = truncated_bidirectional_cost_volume(v, idx)
+    ref = refine_disp_2d_cost_interpolation(InterpolationKernel.PARABOLA,
+                                            -band, idx)
+    torch.testing.assert_close(
+        ref.cpu(), refine_disp_2d_cost_interpolation(
+            InterpolationKernel.PARABOLA, -band.cpu(), idx.cpu()),
+        rtol=1e-5, atol=1e-5)
+
+    def flow(a, b, device):
+        rng = np.random.default_rng(3)
+
+        def draw(shape, lo, hi):
+            return torch.from_numpy(rng.integers(lo, hi, shape).astype(
+                np.int32)).to(device)
+        return patch_match_flow(CENSUS, a, b, s2, 3, 2, draw=draw)
+
+    assert torch.equal(flow(fs, ft, dev).cpu(), flow(fs.cpu(), ft.cpu(),
+                                                     "cpu"))

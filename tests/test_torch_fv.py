@@ -10,6 +10,7 @@ import torch
 
 from libstevi_tpu.core import MatchingFunction as JMF, DispDirection as JDir
 from libstevi_tpu.core.search import SearchOffset1 as JSearch1
+from libstevi_tpu.core.search import SearchOffset2 as JSearch2
 from libstevi_tpu.core.types import MATCH_TRAITS as J_TRAITS
 from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
 from libstevi_tpu.ops.cost_volume import (
@@ -217,12 +218,28 @@ def test_wta_forward_matches_jax(func):
 
 
 def test_two_d_searches_are_not_ported_yet():
-    fv = torch.zeros(4, 5, 3)
-    with pytest.raises(NotImplementedError):
-        aggregate_cost(to_port(JMF.SSD), fv, fv, SearchOffset2(-1, 1, -1, 1))
-    with pytest.raises(NotImplementedError):
-        unfold_based_cost_volume(to_port(JMF.SSD), fv[..., 0], fv[..., 0],
-                                 1, 1, SearchOffset2(-1, 1, -1, 1))
+    """2-D searches are ported now (they raised before): `aggregate_cost`
+    and `unfold_based_cost_volume` take a SearchOffset2, whatever the
+    backend asked for, and equal JAX's (H, W, D0, D1) volumes."""
+    rng = np.random.default_rng(12)
+    fv_l, fv_r = (rng.uniform(0, 1, (4, 5, 3)).astype(np.float32)
+                  for _ in range(2))
+    want = np.asarray(j_aggregate(JMF.SSD, jnp.asarray(fv_l),
+                                  jnp.asarray(fv_r), JSearch2(-1, 1, -1, 1)))
+    for backend in ("auto", "scan", "fused"):
+        got = aggregate_cost(to_port(JMF.SSD), torch.from_numpy(fv_l),
+                             torch.from_numpy(fv_r),
+                             SearchOffset2(-1, 1, -1, 1), backend=backend)
+        assert got.shape == (4, 5, 3, 3)
+        np.testing.assert_allclose(got.numpy(), want, **TOL)
+    want = np.asarray(j_unfold_cv(JMF.SSD, jnp.asarray(fv_l[..., 0]),
+                                  jnp.asarray(fv_r[..., 0]), 1, 1,
+                                  JSearch2(-1, 1, -1, 1)))
+    got = unfold_based_cost_volume(to_port(JMF.SSD),
+                                   torch.from_numpy(fv_l[..., 0]),
+                                   torch.from_numpy(fv_r[..., 0]), 1, 1,
+                                   SearchOffset2(-1, 1, -1, 1))
+    np.testing.assert_allclose(got.numpy(), want, **TOL)
 
 
 def test_auto_backend_takes_the_scan_past_k5s_tile():

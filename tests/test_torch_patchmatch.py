@@ -1,7 +1,8 @@
 """The port's PatchMatch against the JAX package: K6/K7's plain versions
 against the Pallas sweep and probe kernels in interpret mode, the whole
 CV-route matcher replaying JAX's candidate stream on one shared volume, the
-cacheless sweeps, and the matcher's quality on the small parity pairs."""
+cacheless sweeps, the matcher's quality on the small parity pairs, and
+2-D PatchMatch (`patch_match_flow`) replaying JAX's key schedule."""
 
 from pathlib import Path
 
@@ -13,6 +14,7 @@ import torch
 
 from libstevi_tpu.core import MatchingFunction as JMF
 from libstevi_tpu.core.search import SearchOffset1 as JSearch1
+from libstevi_tpu.core.search import SearchOffset2 as JSearch2
 from libstevi_tpu.ops import patchmatch as jpm
 from libstevi_tpu.ops.box_backend import box_cost_volume as j_box
 from libstevi_tpu.ops.cost_volume import normalize_feature_volume as j_norm
@@ -22,10 +24,12 @@ from libstevi_tpu.ops.patchmatch_pallas import (probe as j_probe,
 from libstevi_tpu.ops.unfold import unfold as j_unfold
 
 from libstevi_tpu_torch import entry
-from libstevi_tpu_torch.core import MatchingFunction, SearchOffset1
+from libstevi_tpu_torch.core import (MatchingFunction, SearchOffset1,
+                                     SearchOffset2)
 from libstevi_tpu_torch.io import read_stevimg
 from libstevi_tpu_torch.ops import patchmatch as tpm
-from libstevi_tpu_torch.ops import patch_match, patch_match_stereo
+from libstevi_tpu_torch.ops import (patch_match, patch_match_flow,
+                                    patch_match_stereo)
 from libstevi_tpu_torch.ops.cost_volume import normalize_feature_volume
 from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
                                                     search_probe,
@@ -437,3 +441,86 @@ def test_patchmatch_forward_matches_jax_quality(occ):
     pg_j, pg_t = prop_good(j, gt, 2.0), prop_good(t, gt, 2.0)
     assert pg_t > 0.95 and abs(pg_t - pg_j) < 0.01, (pg_t, pg_j)
     assert abs(inlier_mae(t, gt, 2.0) - inlier_mae(j, gt, 2.0)) < 0.03
+
+
+def _jax_flow_draws(seed, H, W, s, n_iter, n_random):
+    """JAX's candidate stream of `patch_match_flow`
+    (`libstevi_tpu/ops/patchmatch.py:334-338,397-404`): (draw, low, high)
+    in order, the row offsets of a field before its column offsets."""
+    def rnd(k, lo, hi):
+        return (np.array(jax.random.randint(k, (H, W), lo, hi + 1,
+                                            dtype=jnp.int32)), lo, hi + 1)
+
+    key = jax.random.PRNGKey(seed)
+    key, k0, k1 = jax.random.split(key, 3)
+    draws = [rnd(k0, s.lower0, s.upper0), rnd(k1, s.lower1, s.upper1)]
+    for _ in range(n_iter):
+        key, ka, _ = jax.random.split(key, 3)
+        for _ in range(n_random):
+            ka, k0, k1 = jax.random.split(ka, 3)
+            draws += [rnd(k0, s.lower0, s.upper0), rnd(k1, s.lower1, s.upper1)]
+    return draws
+
+
+def _replay_flow(draws):
+    """A ``draw`` that hands out ``draws`` in order, each at the shape and
+    bounds it was drawn with."""
+    queue = list(draws)
+
+    def draw(shape, lo, hi):
+        arr, low, high = queue.pop(0)
+        assert (tuple(shape), lo, hi) == (arr.shape, low, high)
+        return torch.from_numpy(arr)
+    draw.left = queue
+    return draw
+
+
+def _flow_pair(func, seed=80, H=16, W=20, di=1, dj=2):
+    """Normalized feature volumes of a pair related by a (di, dj) shift."""
+    rng = np.random.default_rng(seed)
+    base = rng.uniform(0.1, 1, (H + 8, W + 8)).astype(np.float32)
+    src = base[4:4 + H, 4:4 + W]
+    tgt = base[4 - di:4 - di + H, 4 - dj:4 - dj + W]
+    jv = [j_norm(func, j_unfold(1, 1, jnp.asarray(x))) for x in (src, tgt)]
+    conv = ((lambda x: np.array(x).astype(np.int64)) if func is JMF.CENSUS
+            else np.array)
+    return jv, [torch.from_numpy(conv(x)) for x in jv]
+
+
+@pytest.mark.parametrize("func,search", [
+    ("ZNCC", (-2, 3, -3, 3)), ("SAD", (0, 2, 1, 4)),
+    ("CENSUS", (-2, 3, -3, 3))],
+    ids=["zncc_signed", "sad_positive", "census_signed"])
+def test_patch_match_flow_matches_jax_exactly(func, search):
+    """`patch_match_flow` replaying JAX's key schedule: the (H, W, 2) flow
+    equals JAX's exactly (row and column sweeps, the 2-D random search
+    with its floored scaling and +1 nudge)."""
+    f = JMF[func]
+    (js, jt), (ts, tt) = _flow_pair(f)
+    H, W = ts.shape[:2]
+    n_iter, n_random = 3, 2
+    want = np.asarray(jpm.patch_match_flow(
+        f, js, jt, JSearch2(*search), n_iter, n_random,
+        jax.random.PRNGKey(4)))
+    draw = _replay_flow(_jax_flow_draws(4, H, W, JSearch2(*search), n_iter,
+                                        n_random))
+    got = patch_match_flow(to_port(f), ts, tt, SearchOffset2(*search),
+                           n_iter, n_random, draw=draw)
+    assert not draw.left
+    assert got.dtype == torch.int32 and got.shape == (H, W, 2)
+    np.testing.assert_array_equal(got.numpy(), want)
+    if search[0] <= 1 <= search[1] and search[2] <= 2 <= search[3]:
+        inner = got[2:-2, 3:-3].numpy()
+        assert ((inner[..., 0] == 1) & (inner[..., 1] == 2)).mean() > 0.5
+
+
+def test_patch_match_flow_generator_stays_in_range():
+    """With a `torch.Generator` the flow stays inside the search."""
+    (_, _), (ts, tt) = _flow_pair(JMF.SSD)
+    s = SearchOffset2(-1, 2, 0, 3)
+    g = torch.Generator().manual_seed(1)
+    flow = patch_match_flow(MatchingFunction.SSD, ts, tt, s, 2, 3,
+                            generator=g)
+    assert flow.dtype == torch.int32
+    assert ((flow[..., 0] >= -1) & (flow[..., 0] <= 2)).all()
+    assert ((flow[..., 1] >= 0) & (flow[..., 1] <= 3)).all()
