@@ -123,7 +123,26 @@ each with the launch counts set to 0 just before it and read just after:
   `fastmatch_from_cv` and `fastmatch` (CENSUS) at 480x640, D=120, and
   guided aggregation of a 480x640x120 volume, each timed and held to the
   CPU; the CLI's `--matcher hierarchical --refine parabola` on both
-  fixtures at the same bars.
+  fixtures at the same bars;
+- the feature-space subpixel refinement (`refine`):
+  `entry.stereo_refine_forward` (ZNCC 7x7, D=120) by its three methods
+  (barycentric, barycentric-symmetric, cost-symmetric) on both fixtures,
+  one K5 launch a frame, held to the JAX package's CPU bars
+  (`REFINE_BARS`) and to the CPU run of the same call (within 1e-3 px on
+  >= 0.999 of the pixels, < 1 px where the two runs' WTA indices agree,
+  which they do on >= 0.999), each frame timed, profiled and its peak
+  memory; SAD (the L1 IRLS) and SSD (K5) and MEDAD (no kernel) at
+  480x640, MEDAD held to the CPU on the 96x128 fixtures; the arbitrary
+  interpolation at n_pixels_cut = 100 (chunks of 16 candidates) with its
+  peak memory, held to the CPU on a 96x128 crop; the optical-flow chain
+  (240x320 over (-8..8)^2) against the CPU; both refinement CLIs against
+  their `--device cpu` runs; and
+  `optim` at users' sizes, each against the CPU: L0 of a 480x640x3
+  image, Gauss-Newton and RANSAC (30% outliers) over 1M points, the
+  distributed Gauss-Newton on 8 virtual shards of 1M residuals against
+  the single-device fit (1e-5), the Schur solve at P = 360, k = 200000,
+  s = 3 against its block system; and `small_lstsq` against a batched
+  `torch.linalg.svd`.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -989,6 +1008,459 @@ def matchers(dev, pairs, smi):
         assert report["inlier_mae"] <= mae_bar, report
     torch.cuda.empty_cache()
     return hier_launches, k5_err
+
+
+# the JAX package's CPU run of `cli/stereo_refine.py -d 120 -r 3 --gt` (ZNCC
+# 7x7) on the fixtures: prop_good_1.0 minus 0.001 and inlier_mae plus 0.01
+# (the CLI's definitions, `refine_stats`)
+REFINE_BARS = {
+    "warp": {"barycentric": (0.84226, 0.05221),
+             "barycentric-symmetric": (0.84214, 0.05943),
+             "cost-symmetric": (0.84233, 0.09162)},
+    "occluded": {"barycentric": (0.65561, 0.28754),
+                 "barycentric-symmetric": (0.65760, 0.27463),
+                 "cost-symmetric": (0.65468, 0.28899)}}
+
+
+def refine_stats(disp, gt, r=3, D=120):
+    """`cli/stereo_refine.py`'s (prop_good_1.0, inlier_mae): the border of
+    2r + 2 pixels and the first D columns left out, |err| <= 1 an inlier."""
+    b = 2 * r + 2
+    inner = np.s_[b:-b, b + D:-b]
+    err = np.abs(np.asarray(disp)[inner] - gt[inner])
+    return float((err <= 1.0).mean()), float(err[err <= 1.0].mean())
+
+
+def hold_to_cpu(tag, got, want, tol=1e-3, share=0.999, bound=1.0,
+                same=None):
+    """A refined field on the card against the CPU run of the same call:
+    finite where the CPU's is, |diff| <= ``tol`` on >= ``share`` of the
+    values and < ``bound`` where the two runs' WTA indices agree (``same``,
+    a pixel mask; every pixel when None: where K5 and the CPU's loop break
+    a near-tie apart the refinement starts from another index).  Returns
+    (share, max |diff| where the indices agree)."""
+    got = got.cpu()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got), fin), tag
+    d = torch.where(fin, (got - want).abs(), 0.0)
+    sh = (d[fin] <= tol).float().mean().item()
+    if same is None:
+        same = torch.ones(d.shape[:2], dtype=torch.bool)
+    same = same.cpu()
+    if d.ndim == 3:
+        same = same[..., None].expand_as(d)
+    mx = d[same].max().item() if same.any() else 0.0
+    assert sh >= share and mx < bound, (tag, sh, mx)
+    where = (" where the WTA indices agree" if not same.all() else "")
+    other = (f", max {d[~same].max().item():.3g} where they differ"
+             if (~same).any() else "")
+    print(f"  {tag}: CUDA vs CPU within {tol:g} on {sh:.6f} of the values, "
+          f"max {mx:.3g}{where}{other}", flush=True)
+    return sh, mx
+
+
+def wta_agreement(tag, func, L, R, search=120):
+    """The WTA index the image-level refinement starts from (7x7 unfolds,
+    the trait volumes, `aggregate_cost` 'auto': K5 on the card for the
+    dot/SSD/SAD families), on the card and on the CPU; asserts agreement
+    on >= 0.999 of the pixels and returns the mask where they agree."""
+    from libstevi_tpu_torch.core import MATCH_TRAITS
+    from libstevi_tpu_torch.ops import image_refinement as ir
+    from libstevi_tpu_torch.ops.cost_volume import (
+        aggregate_cost, extract_selected_2d_index)
+    from libstevi_tpu_torch.ops.unfold import unfold
+
+    def index(a, b):
+        (cl, cr), _ = ir._trait_volumes(func, unfold(3, 3, a),
+                                        unfold(3, 3, b), False)
+        if isinstance(search, int):
+            return ir._cv_and_index(func, cl, cr, search,
+                                    ir.DispDirection.RIGHT_TO_LEFT)
+        return extract_selected_2d_index(aggregate_cost(func, cl, cr, search),
+                                         MATCH_TRAITS[func].strategy)
+
+    g, c = index(L, R).cpu(), index(L.cpu(), R.cpu())
+    same = (g == c) if g.ndim == 2 else (g == c).all(-1)
+    agree = same.float().mean().item()
+    assert agree >= 0.999, (tag, agree)
+    print(f"  {tag}: WTA index CUDA vs CPU agree on {agree:.6f}", flush=True)
+    return same
+
+
+def refine(dev, smi):
+    """The feature-space subpixel refinement and the `optim` solvers on
+    the card (`refine` phase).  `entry.stereo_refine_forward` (ZNCC 7x7,
+    D = 120) by each method on both fixtures: one K5 launch a frame, the
+    JAX package's CPU bars (`REFINE_BARS`), held to the CPU run of the same
+    call; each method's frame timed, profiled and its peak memory.  Then
+    SAD (the L1 IRLS) and SSD at 480x640 (K5), MEDAD (the subpart
+    least-median route, no kernel) timed at 480x640 and held to the CPU
+    on the 96x128 fixtures, the arbitrary interpolation at n_pixels_cut =
+    100 (chunks of 16 candidates) with its peak memory, held to the CPU on
+    a 96x128 crop (at one candidate spacing).  The card's and the CPU's
+    refinements start from their own WTA indices, which agree on >=
+    0.999 of the pixels (`wta_agreement`).  Returns the K5 launches of a
+    refine frame."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.io import read_stevimg
+    from libstevi_tpu_torch.ops import image_refinement as ir
+    from libstevi_tpu_torch.ops.fv_backend import fused_fv_cost_volume as k5
+    from libstevi_tpu_torch.ops.unfold import unfold
+    from libstevi_tpu_torch.profile_frames import profile_frame
+
+    ZNCC = MatchingFunction.ZNCC
+
+    def fixture(suffix, dev_):
+        imgs = [torch.from_numpy(read_stevimg(str(
+            FIXTURES / f"{side}{suffix}.stevimg"))).to(dev_)
+            for side in ("left", "right")]
+        return imgs, read_stevimg(str(FIXTURES / f"gt{suffix}.stevimg"))
+
+    def frame_stats(tag, fn, reps=5):
+        ms = median_ms(fn, reps)
+        peak = peak_bytes(fn)
+        busy, items = profile_frame(fn, 3)
+        print(f"time: {tag}: {ms:.3f} ms (median of {reps} after a warm-up; "
+              f"{smi}); memory: peak {peak / 1e9:.3f} GB above the inputs; "
+              f"profile (3 frames): device busy {busy / 1e3:.3f} ms a frame, "
+              f"idle {1 - busy / 1e3 / ms:.3f}, {n_items(items):.0f} device "
+              f"items a frame, top {top_items(items)}", flush=True)
+
+    # -- stereo_refine's three methods, both fixtures, 480x640, D = 120 ------
+    for name, (suffix, _, _) in BARS.items():
+        (L, R), gt = fixture(suffix, dev)
+        Lc, Rc = L.cpu(), R.cpu()
+        same = wta_agreement(f"refine {name} ZNCC", ZNCC, L, R)
+        for m in entry.REFINE_METHODS:
+            k5.launches = 0
+            torch.cuda.synchronize()
+            d = entry.stereo_refine_forward(L, R, m)
+            torch.cuda.synchronize()
+            n = k5.launches
+            assert n == 1 and d.shape == (480, 640), (name, m, n)
+            pg, mae = refine_stats(d.cpu().numpy(), gt)
+            pg_bar, mae_bar = REFINE_BARS[name][m]
+            print(f"refine {name} {m}: K5 launches {n}, prop_good_1.0 = "
+                  f"{pg:.5f} (bar >= {pg_bar}), inlier_mae = {mae:.5f} (bar "
+                  f"<= {mae_bar})", flush=True)
+            assert pg >= pg_bar and mae <= mae_bar, (name, m, pg, mae)
+            hold_to_cpu(f"refine {name} {m}", d,
+                        entry.stereo_refine_forward(Lc, Rc, m), same=same)
+    (L, R), gt = fixture("", dev)
+    for m in entry.REFINE_METHODS:
+        frame_stats(f"refine frame {m} 480x640 D=120 ZNCC 7x7",
+                    lambda: entry.stereo_refine_forward(L, R, m))
+
+    # -- SAD (L1 IRLS) and SSD, barycentric-symmetric, 480x640 (K5) ----------
+    for f in ("SAD", "SSD"):
+        func = MatchingFunction[f]
+        k5.launches = 0
+        d = entry.stereo_refine_forward(L, R, "barycentric-symmetric", func)
+        torch.cuda.synchronize()
+        assert k5.launches == 1, (f, k5.launches)
+        pg, mae = refine_stats(d.cpu().numpy(), gt)
+        print(f"refine warp {f} barycentric-symmetric: K5 launches 1, "
+              f"prop_good_1.0 = {pg:.5f}, inlier_mae = {mae:.5f}", flush=True)
+        hold_to_cpu(f"refine {f} barycentric-symmetric", d,
+                    entry.stereo_refine_forward(L.cpu(), R.cpu(),
+                                                "barycentric-symmetric",
+                                                func),
+                    same=wta_agreement(f"refine warp {f}", func, L, R))
+        frame_stats(f"refine frame {f} barycentric-symmetric 480x640 D=120",
+                    lambda: entry.stereo_refine_forward(
+                        L, R, "barycentric-symmetric", func), reps=3)
+
+    # -- MEDAD: the subpart least-median route (no kernel) -------------------
+    MEDAD = MatchingFunction.MEDAD
+    k5.launches = 0
+    d = entry.stereo_refine_forward(L, R, "barycentric-symmetric", MEDAD)
+    torch.cuda.synchronize()
+    assert k5.launches == 0 and torch.isfinite(d).all()
+    pg, mae = refine_stats(d.cpu().numpy(), gt)
+    print(f"refine warp MEDAD barycentric-symmetric 480x640: K5 launches 0, "
+          f"prop_good_1.0 = {pg:.5f}, inlier_mae = {mae:.5f}", flush=True)
+    frame_stats("refine frame MEDAD barycentric-symmetric 480x640 D=120",
+                lambda: entry.stereo_refine_forward(
+                    L, R, "barycentric-symmetric", MEDAD), reps=3)
+    (Ls, Rs), _ = fixture("_small", dev)
+    same = wta_agreement("MEDAD 96x128 D=24", MEDAD, Ls, Rs, 24)
+    for m in ("barycentric", "barycentric-symmetric"):
+        cfg = dict(h_radius=3, v_radius=3, search_range=24)
+        fn = (ir.refined_barycentric_disp if m == "barycentric"
+              else ir.refined_barycentric_symmetric_disp)
+        hold_to_cpu(f"MEDAD {m} 96x128 D=24", fn(MEDAD, Ls, Rs, **cfg),
+                    fn(MEDAD, Ls.cpu(), Rs.cpu(), **cfg), same=same)
+
+    # -- refine_arbitrary_interpolation_disp, n_pixels_cut = 100 -------------
+    fl, fr = unfold(3, 3, L), unfold(3, 3, R)
+    (cl, cr), (rl, rr) = ir._trait_volumes(ZNCC, fl, fr, False)
+    idx = ir._cv_and_index(ZNCC, cl, cr, 120, ir.DispDirection.RIGHT_TO_LEFT)
+    del cl, cr, fl, fr
+
+    def arbitrary(a, b, i):
+        return ir.refine_arbitrary_interpolation_disp(ZNCC, a, b, i, 100)
+
+    da = arbitrary(rl, rr, idx)
+    pg, mae = refine_stats(da.cpu().numpy(), gt)
+    ms = median_ms(lambda: arbitrary(rl, rr, idx), 3)
+    peak = peak_bytes(lambda: arbitrary(rl, rr, idx))
+    print(f"time: arbitrary interpolation 480x640 ZNCC pyramid n_pixels_cut="
+          f"100 (200 candidates, chunks of 16): {ms:.3f} ms (median of 3; "
+          f"{smi}); memory: peak {peak / 1e9:.3f} GB above the inputs; "
+          f"prop_good_1.0 = {pg:.5f}, inlier_mae = {mae:.5f}", flush=True)
+    # held at one candidate spacing (1 / n_pixels_cut): candidates 0.01 px
+    # apart differ in cost by a few ulps, so the two devices' roundings
+    # may pick neighbours
+    crop = (slice(200, 296), slice(300, 428))
+    a, b, i = (x[crop].contiguous() for x in (rl, rr, idx))
+    hold_to_cpu("arbitrary interpolation 96x128 crop, n_pixels_cut=100",
+                arbitrary(a, b, i), arbitrary(a.cpu(), b.cpu(), i.cpu()),
+                tol=0.01 + 1e-5)
+    del rl, rr
+    torch.cuda.empty_cache()
+    return 1
+
+
+def refine_flow_and_clis(dev, smi):
+    """The optical-flow chain (`refined_barycentric_symmetric_2d_disp`,
+    240x320 crops of the warp fixture moved by (3, 5), over (-8..8)^2)
+    timed and held to the CPU, and both refinement CLIs on the card against
+    their ``--device cpu`` runs (the stereo one on the warp fixture at the
+    `REFINE_BARS`, the flow one on the 96x128 fixtures)."""
+    from libstevi_tpu_torch.core import MatchingFunction, SearchOffset2
+    from libstevi_tpu_torch.io import read_flo, read_stevimg
+    from libstevi_tpu_torch.ops import image_refinement as ir
+    ZNCC = MatchingFunction.ZNCC
+    L = torch.from_numpy(read_stevimg(str(FIXTURES / "left.stevimg"))).to(dev)
+
+    # -- the optical-flow chain, 240x320 over (-8..8)^2 ----------------------
+    src = L[100:340, 100:420].contiguous()
+    tgt = L[97:337, 95:415].contiguous()          # flow (3, 5)
+    s2 = SearchOffset2(-8, 8, -8, 8)
+
+    def flow(a, b):
+        return ir.refined_barycentric_symmetric_2d_disp(ZNCC, a, b, 3, 3, s2)
+
+    fg = flow(tgt, src)
+    hit = ((fg[8:-8, 8:-8] - torch.tensor([3.0, 5.0], device=dev)).abs()
+           .amax(-1) <= 0.05).float().mean().item()
+    assert hit > 0.9, hit
+    # the QUEEN neighbourhood's 9-column solves have condition numbers up
+    # to ~1e4 on this smooth crop: the devices' float32 roundings of the
+    # trait volumes move a flow by up to ~0.015 px
+    hold_to_cpu("optical-flow chain 240x320 (-8..8)^2", fg,
+                flow(tgt.cpu(), src.cpu()), tol=0.02,
+                same=wta_agreement("optical-flow chain", ZNCC, tgt, src, s2))
+    ms = median_ms(lambda: flow(tgt, src), 3)
+    print(f"time: optical-flow chain 240x320 over (-8..8)^2 ZNCC 7x7 (2-D "
+          f"volume, 2-D WTA, 9-point symmetric refinement): {ms:.3f} ms "
+          f"(median of 3; {smi}); flow (3, 5) within 0.05 px on {hit:.4f}",
+          flush=True)
+
+    # -- both refinement CLIs on the card, against their --device cpu runs --
+    def cli(tool, out, *extra, suffix=""):
+        res = subprocess.run(
+            [sys.executable, "-m", f"libstevi_tpu_torch.cli.{tool}",
+             str(FIXTURES / f"left{suffix}.stevimg"),
+             str(FIXTURES / f"right{suffix}.stevimg"), "-o", out, *extra],
+            cwd=ROOT, capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        return json.loads(res.stdout.strip().splitlines()[-1])
+
+    with tempfile.TemporaryDirectory() as tmp:
+        args = ("-d", "120", "-r", "3", "--gt", str(FIXTURES / "gt.stevimg"))
+        outs = [str(Path(tmp) / f"r{k}.stevimg") for k in range(2)]
+        report = cli("stereo_refine", outs[0], *args)
+        cpu = cli("stereo_refine", outs[1], *args, "--device", "cpu")
+        print(f"CLI stereo_refine warp: {json.dumps(report)}", flush=True)
+        for m, (pg_bar, mae_bar) in REFINE_BARS["warp"].items():
+            assert report[m]["prop_good_1.0"] >= pg_bar, report
+            assert report[m]["inlier_mae"] <= mae_bar, report
+        # the written cost-symmetric field; where the WTA indices differ
+        # (6 pixels in 1e6 on this pair) the two runs refine other indices
+        got, want = (torch.from_numpy(read_stevimg(o)) for o in outs)
+        assert got.shape == (480, 640)
+        hold_to_cpu("CLI stereo_refine output (cost-symmetric)", got, want,
+                    bound=float("inf"))
+        for m in report:
+            assert abs(report[m]["prop_good_1.0"]
+                       - cpu[m]["prop_good_1.0"]) <= 1e-4, (report, cpu)
+        # the flow tool on the 96x128 fixtures (its CPU run at 480x640
+        # takes ~2 minutes; the chain above runs at 240x320)
+        flos = [str(Path(tmp) / f"f{k}.flo") for k in range(2)]
+        report = cli("optical_flow_refine", flos[0], suffix="_small")
+        cli("optical_flow_refine", flos[1], "--device", "cpu",
+            suffix="_small")
+        fw, fc = (torch.from_numpy(read_flo(f)) for f in flos)
+        assert fw.shape == (96, 128, 2) and torch.isfinite(fw).all()
+        print(f"CLI optical_flow_refine 96x128 (r=2, -s 3): "
+              f"{json.dumps(report)}", flush=True)
+        hold_to_cpu("CLI optical_flow_refine output", fw, fc, tol=0.02,
+                    bound=float("inf"))
+
+
+def optim_at_scale(dev, smi):
+    """`optim` at users' sizes on the card, each held to the CPU: L0
+    smoothing of a 480x640x3 image, a Gauss-Newton fit and a RANSAC line
+    fit (30% outliers) of 1M points, the distributed Gauss-Newton on 8
+    virtual shards of the card (1M residuals a shard) against the
+    single-device fit, the Schur solve at P = 360, k = 200000, s = 3
+    against its block system; and the small-system solver against a
+    batched SVD and cuSOLVER's batched eigh."""
+    from libstevi_tpu_torch import optim
+    from libstevi_tpu_torch.optim.lsq import gram, small_lstsq
+    from libstevi_tpu_torch.optim.ransac import draw_index_sets
+    from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
+    from libstevi_tpu_torch.parallel.schur import (
+        distributed_multiview_alignment, schur_complement_solve)
+
+    # -- optim at users' sizes -----------------------------------------------
+    rng = np.random.default_rng(40)
+    img = np.zeros((480, 640, 3), np.float32)
+    for _ in range(40):
+        y, x = rng.integers(0, 440), rng.integers(0, 600)
+        img[y:y + rng.integers(20, 200), x:x + rng.integers(20, 200)] = \
+            rng.uniform(0, 1, 3)
+    img = torch.from_numpy(img + rng.normal(0, 0.02, img.shape).astype(
+        np.float32)).to(dev)
+    sm = optim.l0_smoothing(img)
+    hold_to_cpu("l0_smoothing 480x640x3", sm, optim.l0_smoothing(img.cpu()),
+                share=0.99, bound=float("inf"))
+    ms = median_ms(lambda: optim.l0_smoothing(img), 3)
+    print(f"time: l0_smoothing 480x640x3 (22 betas): {ms:.3f} ms (median "
+          f"of 3; {smi})", flush=True)
+
+    N = 1 << 20
+    t = torch.from_numpy(rng.uniform(0, 1, N).astype(np.float32)).to(dev)
+    y = 2.0 * torch.exp(-1.3 * t) + 0.01 * torch.from_numpy(
+        rng.normal(size=N).astype(np.float32)).to(dev)
+
+    def resid(p, tt, yy):
+        return p[0] * torch.exp(p[1] * tt) - yy
+
+    gn = optim.GaussNewton(resid, iters=10)
+    x0 = torch.tensor([1.0, 0.0], device=dev)
+    xg = gn.solve(x0, t, y).x
+    xc = gn.solve(x0.cpu(), t.cpu(), y.cpu()).x
+    torch.testing.assert_close(xg.cpu(), xc, rtol=1e-4, atol=1e-4)
+    ms = median_ms(lambda: gn.solve(x0, t, y), 3)
+    print(f"GaussNewton exp fit, 1M residuals, 10 steps: x {xg.tolist()}, "
+          f"CUDA vs CPU within 1e-4; time {ms:.3f} ms (median of 3; {smi})",
+          flush=True)
+
+    xs = torch.from_numpy(rng.uniform(-1, 1, N).astype(np.float32)).to(dev)
+    ys = 2.5 * xs + 0.7
+    out = torch.from_numpy(rng.random(N) < 0.3).to(dev)
+    ys = torch.where(out, torch.from_numpy(rng.uniform(-10, 10, N).astype(
+        np.float32)).to(dev), ys)
+    sets = draw_index_sets(N, 2, 64, torch.Generator(
+        device=dev).manual_seed(0))
+
+    def line(sub):
+        return optim.least_squares(torch.stack(
+            [sub[0], torch.ones_like(sub[0])], -1), sub[1])
+
+    def refit(dd, w):
+        return optim.least_squares(torch.stack(
+            [dd[0], torch.ones_like(dd[0])], -1) * w[:, None], dd[1] * w)
+
+    def run_ransac(a, b, s):
+        return optim.ransac(line, lambda m, dd: m[0] * dd[0] + m[1] - dd[1],
+                            (a, b), 2, 64, 0.05, refit_fn=refit,
+                            draw=lambda: s)
+
+    rg = run_ransac(xs, ys, sets)
+    rc = run_ransac(xs.cpu(), ys.cpu(), sets.cpu())
+    torch.testing.assert_close(rg.model.cpu(), rc.model, rtol=1e-4,
+                               atol=1e-4)
+    torch.testing.assert_close(rg.model.cpu(), torch.tensor([2.5, 0.7]),
+                               rtol=0, atol=1e-4)
+    agree = (rg.inliers.cpu() == rc.inliers).float().mean().item()
+    assert agree >= 0.9999, agree
+    ms = median_ms(lambda: run_ransac(xs, ys, sets), 3)
+    print(f"ransac line fit, 1M points (30% outliers), 64 hypotheses + "
+          f"refit: model {rg.model.tolist()}, inliers {int(rg.n_inliers)}, "
+          f"CUDA vs CPU model within 1e-4, inlier masks agree on {agree:.6f}; "
+          f"time {ms:.3f} ms (median of 3; {smi})", flush=True)
+
+    t8 = torch.from_numpy(rng.uniform(0, 1, 8 * N).astype(np.float32)).to(dev)
+    y8 = (2.0 * torch.exp(-1.3 * t8) + 0.01 * torch.from_numpy(
+        rng.normal(size=8 * N).astype(np.float32)).to(dev))
+    mesh = make_stereo_mesh(MeshSpec(batch=8), [dev] * 8)
+
+    def dist():
+        return distributed_multiview_alignment(
+            lambda p, dd: resid(p, *dd), x0, (t8, y8), mesh, "batch",
+            iters=10)
+
+    xd = dist()
+    xs1 = gn.solve(x0, t8, y8).x
+    torch.testing.assert_close(xd, xs1, rtol=1e-5, atol=1e-5)
+    ms_d = median_ms(dist, 3)
+    ms_s = median_ms(lambda: gn.solve(x0, t8, y8), 3)
+    print(f"distributed Gauss-Newton, 8 virtual shards of the card x 1M "
+          f"residuals, 10 steps: x {xd.tolist()}, within "
+          f"{(xd - xs1).abs().max().item():.3g} of the single-device fit "
+          f"(<= 1e-5); time {ms_d:.3f} ms, single device {ms_s:.3f} ms "
+          f"(medians of 3; {smi})", flush=True)
+    del t8, y8
+
+    P, k, s = 360, 200000, 3
+    g = torch.Generator(device=dev).manual_seed(5)
+    Bm = torch.randn(k, s, s, device=dev, generator=g)
+    C = Bm @ Bm.mT + torch.eye(s, device=dev)
+    E = 0.01 * torch.randn(P, k, s, device=dev, generator=g)
+    Q = torch.randn(P, P, device=dev, generator=g) / P ** 0.5
+    App = 200.0 * torch.eye(P, device=dev) + Q @ Q.T
+    bp = torch.randn(P, device=dev, generator=g)
+    bs = torch.randn(k, s, device=dev, generator=g)
+    dp, ds = schur_complement_solve(App, E, C, bp, bs)
+    rp = App @ dp + torch.einsum("pks,ks->p", E, ds) - bp
+    rs = torch.einsum("pks,p->ks", E, dp) + torch.einsum(
+        "kst,kt->ks", C, ds) - bs
+    rel = max(rp.norm().item() / bp.norm().item(),
+              rs.norm().item() / bs.norm().item())
+    assert rel < 1e-4, rel
+    dpc, dsc = schur_complement_solve(*(x.cpu() for x in (App, E, C, bp, bs)))
+    torch.testing.assert_close(dp.cpu(), dpc, rtol=1e-4, atol=1e-4)
+    torch.testing.assert_close(ds.cpu(), dsc, rtol=1e-4, atol=1e-4)
+    ms = median_ms(lambda: schur_complement_solve(App, E, C, bp, bs), 3)
+    print(f"schur_complement_solve P=360 k=200000 s=3: block-system relative "
+          f"residual {rel:.3g}, CUDA vs CPU within 1e-4; time {ms:.3f} ms "
+          f"(median of 3; {smi})", flush=True)
+    del E, C, Bm
+
+    # -- the small-system solver against a batched SVD -----------------------
+    A = torch.randn(307200, 49, 3, device=dev, generator=g)
+    bb = torch.randn(307200, 49, device=dev, generator=g)
+    ms_h = median_ms(lambda: small_lstsq(A, bb), 3)
+    n_svd = 4096
+    ms_svd = median_ms(lambda: torch.linalg.svd(A[:n_svd],
+                                                full_matrices=False), 1)
+    print(f"time: small_lstsq over 307200 (49, 3) systems (the symmetric "
+          f"ZNCC refinement's first solve: the Gram matrices through "
+          f"batched Jacobi rotations in float64): "
+          f"{ms_h:.3f} ms; torch.linalg.svd of {n_svd} of them: "
+          f"{ms_svd:.3f} ms, {ms_svd / n_svd * 1e3:.3f} us a matrix, "
+          f"{ms_svd / n_svd * 307200:.1f} ms for 307200 at that rate "
+          f"({smi})", flush=True)
+    # cuSOLVER's batched eigh (torch.linalg.eigh) on the same Gram
+    # matrices: its time at a batch of 1024, and whether it takes 32768
+    # (the measurement is the library's refusal, not a phase's failure)
+    G = gram(A[:32768].double(), A[:32768].double())
+    ms_e = median_ms(lambda: torch.linalg.eigh(G[:1024]), 3)
+    try:
+        torch.linalg.eigh(G)
+        takes = "takes"
+    except torch.linalg.LinAlgError:
+        takes = "refuses"
+    print(f"time: torch.linalg.eigh of 1024 of their (3, 3) float64 Gram "
+          f"matrices: {ms_e:.3f} ms ({ms_e / 1024 * 307200:.1f} ms for "
+          f"307200 at that rate); it {takes} a batch of 32768 ({smi})",
+          flush=True)
+    del A, bb, G
+    torch.cuda.empty_cache()
 
 
 def prop_good_np(disp, gt):
@@ -3130,6 +3602,11 @@ def main(argv=None) -> int:
     hier_launches, e5 = matchers(dev, pairs, smi)
     err["K5"] = max(err["K5"], e5)
 
+    # -- the feature-space refinement and the optim solvers (K5) -------------
+    refine_launches = {"K5": refine(dev, smi)}
+    refine_flow_and_clis(dev, smi)
+    optim_at_scale(dev, smi)
+
     d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
                                                                   smi)
     for k, v in d_err.items():
@@ -3256,6 +3733,8 @@ def main(argv=None) -> int:
          "library_ms": library.get(key),
          **({"hierarchical_launches": hier_launches[key]}
             if key in hier_launches else {}),
+         **({"refine_launches": refine_launches[key]}
+            if key in refine_launches else {}),
          **({"device_ms": device_ms[key]} if key in device_ms else {}),
          **({"instances": instances[key]} if key in instances else {})}
         for name, src, rep, key in records]}), flush=True)

@@ -10,6 +10,9 @@ from .types import (
 )
 from .margins import Margins, PaddingMargins
 from .search import SearchOffset1, SearchOffset2
+from .utils import (Contiguity, PropagationDirection, IndexPairMap,
+                    NumbersCache, accumulation_extended_dtype,
+                    equivalent_one_for_normalizing)
 
 __all__ = [
     "MatchingFunction",
@@ -24,4 +27,10 @@ __all__ = [
     "PaddingMargins",
     "SearchOffset1",
     "SearchOffset2",
+    "Contiguity",
+    "PropagationDirection",
+    "IndexPairMap",
+    "NumbersCache",
+    "accumulation_extended_dtype",
+    "equivalent_one_for_normalizing",
 ]

@@ -35,6 +35,14 @@ is a full 120x160x30 volume (K1 on the card) and the two guided levels are
 gathers; `hierarchical_hd_forward` is the same at 720x1280, D=320, depth 3
 (`bench_grid.py:186-191`; coarsest 90x160x40).
 
+`stereo_refine_forward` is the image-level subpixel refinement of
+`cli/stereo_refine.py` (the reference's `stereo_refine_test` example):
+unfold both images (ZNCC 7x7 by default), the cost volume over D = 120
+(K5 on the card for the dot/SSD/SAD families), WTA, then the feature-space
+refinement of one method: "barycentric" (two 2-point spherical / L2 / L1
+solves a pixel), "barycentric-symmetric" (one 3-point solve) or
+"cost-symmetric" (the volume's parabola averaged with a half-pixel one).
+
 `patchmatch_forward` is the PatchMatch matcher in the `BENCH_GRID_r05` /
 `PARITY_r05` configuration (NCC, 7x7 window, disparities [0, 119], 5
 iterations, 4 random candidates); `wta_forward` is the per-matching-function
@@ -68,6 +76,7 @@ HIERARCHICAL = dict(h_radius=3, v_radius=3, disp_width=120, depth=2)
 HIERARCHICAL_HD = dict(HIERARCHICAL, disp_width=320, depth=3)
 DIST = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
             n_directions=8)
+REFINE = dict(h_radius=3, v_radius=3, search_range=120)
 HEIGHT, WIDTH = 480, 640
 HD_HEIGHT, HD_WIDTH = 720, 1280
 UHD_HEIGHT, UHD_WIDTH = 2160, 3840
@@ -146,6 +155,24 @@ def hierarchical_hd_forward(img_l: torch.Tensor,
     depth 3, D=320: the configuration meant for 720x1280."""
     return hierarchical_truncated_cost_volume(
         MatchingFunction.ZNCC, img_l, img_r, **HIERARCHICAL_HD).disp_estimate
+
+
+REFINE_METHODS = ("barycentric", "barycentric-symmetric", "cost-symmetric")
+
+
+def stereo_refine_forward(img_l: torch.Tensor, img_r: torch.Tensor,
+                          method: str,
+                          func: MatchingFunction = MatchingFunction.ZNCC
+                          ) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair by one of
+    `REFINE_METHODS`, in the `REFINE` configuration."""
+    from .ops import image_refinement as ir
+    run = {"barycentric": ir.refined_barycentric_disp,
+           "barycentric-symmetric": ir.refined_barycentric_symmetric_disp,
+           "cost-symmetric": ir.refined_cost_symmetric_disp}
+    if method not in run:
+        raise ValueError(f"method {method!r}: one of {REFINE_METHODS}")
+    return run[method](func, img_l, img_r, **REFINE)
 
 
 def wta_forward(func: MatchingFunction, img_l: torch.Tensor,

@@ -22,6 +22,24 @@ from .refinement import (InterpolationKernel, IsotropyHypothesis,
 from .sgm import (SgmDirection, directions_for, sgm_cost_volume,
                   sgm_wta_truncated, dense_sgm_stereo)
 from .patchmatch import patch_match, patch_match_stereo, patch_match_flow
+from .image_refinement import (
+    refine_barycentric_disp, refine_barycentric_symmetric_disp,
+    refine_barycentric_2d_disp, refine_cost_symmetric_disp,
+    refine_subpart_barycentric_disp,
+    refine_subpart_barycentric_symmetric_disp,
+    refine_subpart_barycentric_2d_disp,
+    refine_barycentric_symmetric_2d_disp,
+    refine_subpart_barycentric_symmetric_2d_disp,
+    refine_arbitrary_interpolation_disp,
+    refine_arbitrary_interpolation_2d_disp,
+    refined_barycentric_symmetric_disp_fv, refined_barycentric_disp_fv,
+    refined_cost_symmetric_disp_fv, refined_barycentric_2d_disp_fv,
+    refined_barycentric_symmetric_2d_disp_fv,
+    refined_barycentric_symmetric_disp, refined_barycentric_disp,
+    refined_cost_symmetric_disp, refined_barycentric_2d_disp,
+    refined_barycentric_symmetric_2d_disp)
+from .compressor import (UnFoldCompressor, unfold_compressed,
+                         grpix17r3_filter, grpix17r4_filter)
 
 __all__ = [
     "box_filter_2d", "mean_filter_2d", "sigma_filter",
@@ -45,4 +63,21 @@ __all__ = [
     "SgmDirection", "directions_for", "sgm_cost_volume",
     "sgm_wta_truncated", "dense_sgm_stereo",
     "patch_match", "patch_match_stereo", "patch_match_flow",
+    "refine_barycentric_disp", "refine_barycentric_symmetric_disp",
+    "refine_barycentric_2d_disp", "refine_cost_symmetric_disp",
+    "refine_subpart_barycentric_disp",
+    "refine_subpart_barycentric_symmetric_disp",
+    "refine_subpart_barycentric_2d_disp",
+    "refine_barycentric_symmetric_2d_disp",
+    "refine_subpart_barycentric_symmetric_2d_disp",
+    "refine_arbitrary_interpolation_disp",
+    "refine_arbitrary_interpolation_2d_disp",
+    "refined_barycentric_symmetric_disp_fv", "refined_barycentric_disp_fv",
+    "refined_cost_symmetric_disp_fv", "refined_barycentric_2d_disp_fv",
+    "refined_barycentric_symmetric_2d_disp_fv",
+    "refined_barycentric_symmetric_disp", "refined_barycentric_disp",
+    "refined_cost_symmetric_disp", "refined_barycentric_2d_disp",
+    "refined_barycentric_symmetric_2d_disp",
+    "UnFoldCompressor", "unfold_compressed", "grpix17r3_filter",
+    "grpix17r4_filter",
 ]

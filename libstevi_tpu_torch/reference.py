@@ -11,13 +11,14 @@ from __future__ import annotations
 
 import enum
 
-from .core import types
+from .core import types, utils
 from .ops import refinement, sgm
 from .ops.unfold import PatchOrientation
 
 PORT_ENUMS = {cls.__name__: cls for cls in (
     types.MatchingFunction, types.ExtractionStrategy, types.DispDirection,
-    types.TruncatedCvDirection, refinement.InterpolationKernel,
+    types.TruncatedCvDirection, utils.Contiguity,
+    refinement.InterpolationKernel,
     refinement.IsotropyHypothesis, sgm.SgmDirection, PatchOrientation)}
 
 

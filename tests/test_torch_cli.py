@@ -104,3 +104,108 @@ def test_cli_runs_as_a_module(tmp_path):
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["output"] == str(out) and out.exists()
+
+
+# -- the refinement CLIs (`cli/stereo_refine.py`, `cli/optical_flow_refine.py`)
+
+def _root_main(name):
+    spec = importlib.util.spec_from_file_location(
+        f"jax_{name}", REPO / "cli" / f"{name}.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod.main
+
+
+def _report(capsys):
+    return json.loads(capsys.readouterr().out.strip().splitlines()[-1])
+
+
+@pytest.mark.parametrize("argv", [[], ["-m", "sad", "--methods",
+                                       "barycentric-symmetric"]],
+                         ids=["zncc", "sad"])
+def test_stereo_refine_cli_matches_jax(argv, tmp_path, capsys):
+    """`stereo_refine --device cpu` against the root tool on the 96x128
+    fixtures (D = 24, r = 2): the same report keys, each method's mean and
+    prop_good_1.0 within 1e-3 and inlier_mae within 1e-3, and the written
+    disparities within 1e-3 on >= 0.99 of the pixels, every pixel within
+    1 px (a tied WTA neighbour or another accepted candidate)."""
+    from libstevi_tpu_torch.cli import stereo_refine
+    args = [str(DATA / "left_small.stevimg"), str(DATA / "right_small.stevimg"),
+            "-d", "24", "-r", "2", "--gt", str(DATA / "gt_small.stevimg"),
+            *argv]
+    assert _root_main("stereo_refine")(
+        args + ["-o", str(tmp_path / "j.stevimg")]) == 0
+    rj = _report(capsys)
+    assert stereo_refine.main(args + ["-o", str(tmp_path / "t.stevimg"),
+                                      "--device", "cpu"]) == 0
+    rt = _report(capsys)
+    assert list(rt) == list(rj)
+    for m in rj:
+        assert list(rt[m]) == list(rj[m]) == ["mean", "inlier_mae",
+                                              "prop_good_1.0"]
+        for k in rj[m]:
+            assert abs(rt[m][k] - rj[m][k]) <= 1e-3, (m, k, rt[m], rj[m])
+    dt = read_image(str(tmp_path / "t.stevimg"))
+    dj = read_image(str(tmp_path / "j.stevimg"))
+    assert dt.shape == dj.shape == (96, 128)
+    assert np.isclose(dt, dj, rtol=0, atol=1e-3).mean() >= 0.99
+    assert (np.abs(dt - dj) <= 1 + 1e-3).all()
+
+
+def test_optical_flow_refine_cli_matches_jax(tmp_path, capsys):
+    """`optical_flow_refine --device cpu` against the root tool on the
+    96x128 fixtures over (-2..2)^2, with a .flo ground truth (the root
+    tool's own flow, rounded): the report within 1e-3
+    and the written flow within 0.1 px on >= 0.99 of its values, every
+    one within 2 px.  The 9-column solves of the QUEEN neighbourhood on
+    these smooth images have condition numbers up to ~1e4, where JAX's
+    float32 SVD is itself off by ~eps * cond (the port solves in float64):
+    ~4% of the values differ by 1e-3 to 1e-1 px."""
+    from libstevi_tpu.io import write_flo as j_write_flo
+    from libstevi_tpu_torch.cli import optical_flow_refine
+    from libstevi_tpu_torch.io import read_flo
+    args = [str(DATA / "left_small.stevimg"), str(DATA / "right_small.stevimg"),
+            "-s", "2"]
+    jmain = _root_main("optical_flow_refine")
+    assert jmain(args + ["-o", str(tmp_path / "g.flo")]) == 0
+    capsys.readouterr()
+    j_write_flo(str(tmp_path / "gt.flo"),
+                np.round(read_flo(str(tmp_path / "g.flo"))))
+    args += ["--gt", str(tmp_path / "gt.flo")]
+    assert jmain(args + ["-o", str(tmp_path / "j.flo")]) == 0
+    rj = _report(capsys)
+    assert optical_flow_refine.main(args + ["-o", str(tmp_path / "t.flo"),
+                                            "--device", "cpu"]) == 0
+    rt = _report(capsys)
+    assert list(rt) == list(rj) == ["shape", "mean_flow", "epe_mean",
+                                    "inlier_epe", "prop_inlier"]
+    assert rt["shape"] == rj["shape"] == [96, 128, 2]
+    np.testing.assert_allclose(rt["mean_flow"], rj["mean_flow"], atol=1e-3)
+    for k in ("epe_mean", "inlier_epe", "prop_inlier"):
+        assert abs(rt[k] - rj[k]) <= 1e-3, (k, rt[k], rj[k])
+    ft, fj = (read_flo(str(tmp_path / f)) for f in ("t.flo", "j.flo"))
+    assert np.isclose(ft, fj, rtol=0, atol=0.1).mean() >= 0.99
+    assert (np.abs(ft - fj) <= 2 + 1e-3).all()
+
+
+def test_refine_clis_refuse_a_missing_gpu(tmp_path):
+    """Without a GPU the default ``--device cuda`` is refused with exit 2,
+    nothing written; ``python -m`` runs them."""
+    from libstevi_tpu_torch.cli import optical_flow_refine, stereo_refine
+    pair = [str(DATA / "left_small.stevimg"), str(DATA / "right_small.stevimg")]
+    if not torch.cuda.is_available():
+        for main, out in ((stereo_refine.main, "d.stevimg"),
+                          (optical_flow_refine.main, "f.flo")):
+            with pytest.raises(SystemExit) as e:
+                main(pair + ["-o", str(tmp_path / out)])
+            assert e.value.code == 2
+            assert not (tmp_path / out).exists()
+    res = subprocess.run(
+        [sys.executable, "-m", "libstevi_tpu_torch.cli.stereo_refine", *pair,
+         "-d", "8", "--methods", "cost-symmetric", "-o",
+         str(tmp_path / "r.stevimg"), "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    assert list(json.loads(res.stdout.strip().splitlines()[-1])) == \
+        ["cost-symmetric"]
+    assert read_image(str(tmp_path / "r.stevimg")).shape == (96, 128)

@@ -139,12 +139,19 @@ d16 = entry.sgm16_forward(L, R)
 assert d16.shape == (12, 16) and d16.dtype == torch.float32
 dc = entry.census_sgm_forward(L, R)
 assert dc.shape == (12, 16)
-from libstevi_tpu_torch.cli import stereo_match
+from libstevi_tpu_torch.cli import stereo_match, stereo_refine, optical_flow_refine
+from libstevi_tpu_torch import optim
+for m in ("barycentric", "barycentric-symmetric", "cost-symmetric"):
+    assert entry.stereo_refine_forward(L, R, m).shape == (12, 16)
 from libstevi_tpu_torch import parallel
 from libstevi_tpu_torch.parallel import MeshSpec, make_stereo_mesh
 mesh = make_stereo_mesh(MeshSpec(batch=2, tile=2, dsh=2), ["cpu"] * 8)
 dd = entry.distributed_forward(torch.stack([L, R]), torch.stack([R, L]), mesh)
 assert dd.shape == (2, 12, 16) and dd.dtype == torch.int32
+x = parallel.distributed_multiview_alignment(
+    lambda p, d: p[0] * d - 2.0 * d, torch.zeros(1), torch.arange(8.0), mesh,
+    "batch", iters=3)
+assert abs(float(x[0]) - 2.0) < 1e-4
 assert not [m for m, v in sys.modules.items()
             if v is not None and (m == "jax" or m.startswith("jax."))]
 print("ran without jax")
@@ -154,8 +161,9 @@ print("ran without jax")
 def test_port_imports_and_runs_without_jax():
     """With jax and libstevi_tpu made unimportable, the port imports and
     runs the dense SGM (8 and 16 directions, ZNCC and census), PatchMatch,
-    WTA and distributed paths end to end on the CPU, and imports its CLI
-    (the card has no JAX)."""
+    WTA, the image-level refinement, the distributed paths and the
+    distributed Gauss-Newton end to end on the CPU, and imports its CLIs
+    and `optim` (the card has no JAX)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
@@ -173,3 +181,54 @@ _PORT_FILES = sorted(p.relative_to(REPO).as_posix() for p in
 def test_no_port_file_imports_jax(rel):
     text = (REPO / rel).read_text()
     assert not _IMPORT_JAX.search(text), rel
+
+
+# -- core.utils (`libstevi_tpu/core/utils.py`) --------------------------------
+
+from libstevi_tpu.core import utils as jutils  # noqa: E402
+from libstevi_tpu_torch.core import utils as tutils  # noqa: E402
+
+
+@pytest.mark.parametrize("name", ["QUEEN", "ROOK", "BISHOP"])
+def test_contiguity_matches_jax(name):
+    """Names, values and neighbour offsets equal; `to_port` maps it."""
+    j = jutils.Contiguity[name]
+    assert to_port(j) is tutils.Contiguity[name]
+    assert to_port(j).value == j.value and to_port(j).offsets == j.offsets
+
+
+def test_propagation_direction_and_index_pair_map_match_jax():
+    assert [(m.name, m.increments) for m in jutils.PropagationDirection] \
+        == [(m.name, m.increments) for m in tutils.PropagationDirection]
+    jm, tm = jutils.IndexPairMap(), tutils.IndexPairMap()
+    for m in (jm, tm):
+        m[(3, 1)] = "a"
+        m[(2, 5)] = "b"
+    assert dict(jm) == dict(tm) == {(1, 3): "a", (2, 5): "b"}
+    assert tm[(1, 3)] == "a" and (5, 2) in tm and (4, 4) not in tm
+
+
+@pytest.mark.parametrize("name", ["uint8", "int8", "uint16", "int16",
+                                  "uint32", "int32", "float32"])
+def test_dtype_helpers_match_jax(name):
+    """`accumulation_extended_dtype` names the JAX package's type (float32
+    for a float), `equivalent_one_for_normalizing` its value."""
+    import jax.numpy as jnp
+    got = tutils.accumulation_extended_dtype(getattr(torch, name))
+    want = np.dtype(jutils.accumulation_extended_dtype(getattr(jnp, name)))
+    assert str(got).split(".")[-1] == want.name
+    if name != "float32":
+        assert tutils.equivalent_one_for_normalizing(getattr(torch, name)) \
+            == jutils.equivalent_one_for_normalizing(getattr(jnp, name))
+
+
+def test_numbers_cache_is_deterministic():
+    """The same seed gives the same sequence (torch's draws, not
+    threefry's); `seed` moves the read position as the JAX class does."""
+    a, b = tutils.NumbersCache(64, 0, 10, seed=3), tutils.NumbersCache(
+        64, 0, 10, seed=3)
+    seq = [a() for _ in range(70)]
+    assert seq == [b() for _ in range(70)]
+    assert all(0 <= v < 10 for v in seq) and len(set(seq)) > 1
+    a.seed(66)
+    assert a() == seq[2]

@@ -1523,3 +1523,47 @@ def test_new_matchers_match_cpu(dev):
 
     assert torch.equal(flow(fs, ft, dev).cpu(), flow(fs.cpu(), ft.cpu(),
                                                      "cpu"))
+
+
+# -- the small-system solver and the image-level refinement ------------------
+
+@pytest.mark.parametrize("k", [1, 2, 3, 7])
+def test_small_lstsq_cuda_matches_cpu_on_rank_deficient(dev, k):
+    """`optim.lsq.small_lstsq` on the card against the CPU (the same
+    float64 arithmetic): full-rank, rank-1 (exact multiples) and all-zero
+    systems of 49 rows in one batch, within 1e-5; zero where the system
+    is zero, never NaN."""
+    from libstevi_tpu_torch.optim.lsq import small_lstsq
+    rng = np.random.default_rng(k)
+    A = rng.normal(size=(3000, 49, k)).astype(np.float32)
+    A[1000:2000] = A[1000:2000, :, :1] * np.arange(1, k + 1)
+    A[2000:] = 0
+    b = rng.normal(size=(3000, 49)).astype(np.float32)
+    At, bt = torch.from_numpy(A), torch.from_numpy(b)
+    got = small_lstsq(At.to(dev), bt.to(dev)).cpu()
+    want = small_lstsq(At, bt)
+    assert torch.isfinite(got).all()
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    assert not got[2000:].any()
+
+
+@pytest.mark.parametrize("method", ["barycentric", "barycentric-symmetric",
+                                    "cost-symmetric"])
+def test_refined_frame_480x640_matches_cpu(dev, method):
+    """`entry.stereo_refine_forward` (ZNCC 7x7, D = 120, one K5 launch) at
+    480x640 on a random pair with a flat patch, against the CPU run of the
+    same call: |diff| <= 1e-3 px on >= 0.999 of the pixels, < 1 px
+    everywhere."""
+    from libstevi_tpu_torch import entry
+    L, R = _pair(dev, 480, 640, seed=31)
+    L[100:200, 300:420] = 0.5
+    R[100:200, 300:420] = 0.5
+    fused_fv_cost_volume.launches = 0
+    got = entry.stereo_refine_forward(L, R, method)
+    assert fused_fv_cost_volume.launches == 1
+    want = entry.stereo_refine_forward(L.cpu(), R.cpu(), method)
+    d = (got.cpu() - want).abs()
+    fin = torch.isfinite(want)
+    assert torch.equal(torch.isfinite(got.cpu()), fin)
+    assert (d[fin] <= 1e-3).float().mean().item() >= 0.999
+    assert (d[fin] < 1).all()
