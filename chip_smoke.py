@@ -142,7 +142,21 @@ each with the launch counts set to 0 just before it and read just after:
   distributed Gauss-Newton on 8 virtual shards of 1M residuals against
   the single-device fit (1e-5), the Schur solve at P = 360, k = 200000,
   s = 3 against its block system; and `small_lstsq` against a batched
-  `torch.linalg.svd`.
+  `torch.linalg.svd`;
+- `geometry` (`geometry`): Gauss-Newton, relaxed and robust ray alignment
+  over 1M ray pairs made as `cli/ray_alignment_eval.py` makes them (noise
+  0.002, 10% outliers; robust with `draw_index_sets` shared with the CPU
+  run), each held to its CPU run (1e-3) and timed with its peak memory,
+  and on the unscrambled pairs to the JAX tool's robust medians; one
+  minimal fit of the robust solver profiled; the test rig with Brown
+  distortion (`RIG`) rectified at 480x640 (maps and resampled images
+  against the CPU at 1e-3 px), the pair through the flagship (K1, K2x7,
+  K3x7 counted) held to the CPU by the bf16 WTA rule (indices >= 0.999,
+  bands at the bf16 bars, refined disparities < 0.1 px where the indices
+  agree), the covering share to 1e-5, the maps, resampling and the
+  rectified frame timed; the rig at 720x1280 through `hd_forward`; the
+  ray-alignment CLI on the card against the JAX tool's report
+  (`JAX_RAY_CLI`); and `ImageRectifier` in each ROI mode against the CPU.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -1461,6 +1475,374 @@ def optim_at_scale(dev, smi):
           flush=True)
     del A, bb, G
     torch.cuda.empty_cache()
+
+
+# the JAX tool's report for `python cli/ray_alignment_eval.py -n 20 --rays
+# 60 --noise 0.002 --outliers 0.1` (seed 0, JAX_PLATFORMS=cpu): the port's
+# CLI on the card makes the same data; its Gauss-Newton and relaxed medians
+# are held to these within 1e-2 relative, its robust medians (torch's
+# draws, not JAX's keys) to 3x, the order of JAX's own error
+JAX_RAY_CLI = {
+    "gauss-newton": {"rot_deg_median": 10.614458084106445,
+                     "trans_median": 1.3948586564575345},
+    "relaxed": {"rot_deg_median": 15.141662120819092,
+                "trans_median": 2.177614197335447},
+    "robust": {"rot_deg_median": 0.969141274690628,
+               "trans_median": 0.11211040455942417}}
+# `tests/test_rig_and_stats.py:19-24`'s rig with Brown distortion added to
+# both cameras (`tests/test_torch_statistics.py`'s DIST)
+RIG = dict(r_cam2_to_cam1=[0.0, 0.02, 0.01], t_cam2_to_cam1=[1.0, 0.02, 0.01],
+           f1=500.0, pp1=(320.0, 240.0), f2=505.0, pp2=(318.0, 242.0),
+           k1=[-0.08, 0.02, 0.0], t1=[0.0005, -0.0003],
+           k2=[-0.06, 0.015, 0.0], t2=[-0.0004, 0.0002])
+
+
+def rig(scale, size, dev):
+    """`RIG` with focal lengths and principal points scaled, for images of
+    ``size`` (width, height)."""
+    from libstevi_tpu_torch.geometry.stereorigrectifier import (
+        StereoRigRectifier)
+    kw = dict(RIG, f1=RIG["f1"] * scale, f2=RIG["f2"] * scale,
+              pp1=tuple(p * scale for p in RIG["pp1"]),
+              pp2=tuple(p * scale for p in RIG["pp2"]))
+    return StereoRigRectifier(**kw, size1=size, size2=size, device=dev)
+
+
+def ray_pairs(N, seed=16, noise=0.002, outliers=0.1):
+    """N ray pairs made as `cli/ray_alignment_eval.py:52-79` makes one
+    trial's (numpy, from ``seed``): the true (R, t), the four (N, 3)
+    float32 arrays and the mask of the pairs left unscrambled."""
+    from libstevi_tpu_torch.geometry.rotations import rodrigues_formula
+    rng = np.random.default_rng(seed)
+    rvec = rng.normal(0, 0.4, 3)
+    t = rng.normal(0, 1.0, 3)
+    R = rodrigues_formula(torch.tensor(rvec, dtype=torch.float32)).numpy()
+    pts = rng.normal(0, 2.0, (N, 3)) + np.asarray([0, 0, 6.0])
+    o2 = rng.normal(0, 0.5, (N, 3))
+    v2 = pts - o2
+    v2 /= np.linalg.norm(v2, axis=1, keepdims=True)
+    o1 = rng.normal(0, 0.5, (N, 3))
+    v1 = (pts - t) @ R - o1
+    v1 /= np.linalg.norm(v1, axis=1, keepdims=True)
+    v1 = v1 + rng.normal(0, noise, v1.shape)
+    v1 /= np.linalg.norm(v1, axis=1, keepdims=True)
+    idx = rng.choice(N, int(outliers * N), replace=False)
+    v1[idx] = rng.normal(0, 1, (len(idx), 3))
+    v1[idx] /= np.linalg.norm(v1[idx], axis=1, keepdims=True)
+    keep = np.ones(N, bool)
+    keep[idx] = False
+    return R, t, [a.astype(np.float32) for a in (o1, v1, o2, v2)], keep
+
+
+def pose_error(T, R, t):
+    """(rotation error in degrees, translation error) as the CLI reports
+    them."""
+    dR = T.R.cpu().numpy() @ R.T
+    ang = np.degrees(np.arccos(np.clip((np.trace(dR) - 1) / 2, -1, 1)))
+    return float(ang), float(np.linalg.norm(T.t.cpu().numpy() - t))
+
+
+def geometry(dev, smi):
+    """The `geometry` phase: ray alignment at 1M pairs, a rectified pair
+    through the flagship (and the HD path), the ray-alignment CLI and the
+    single-camera rectifier, each held to the CPU.  The CLI (host-bound,
+    ~4 minutes) runs as a subprocess beside the checks and the CPU
+    references; every timing is taken after it has ended.  Returns the
+    rectified frame's launches {K1 stats, K1, K2x7, K3x7}."""
+    t_phase = time.perf_counter()
+
+    def stamp(what):
+        print(f"  [geometry] {what}: {time.perf_counter() - t_phase:.1f} s "
+              f"into the phase", flush=True)
+
+    cli = subprocess.Popen(
+        [sys.executable, "-m", "libstevi_tpu_torch.cli.ray_alignment_eval",
+         "-n", "20", "--rays", "60", "--noise", "0.002", "--outliers", "0.1"],
+        cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+    try:
+        state = geometry_checks(dev, stamp)
+        # -- (c) the ray-alignment CLI on the card -----------------------------
+        out, err = cli.communicate(timeout=900)
+    finally:
+        if cli.poll() is None:
+            cli.kill()
+            cli.communicate()
+    assert cli.returncode == 0, err
+    report = json.loads(out.strip().splitlines()[-1])
+    print(f"CLI ray_alignment_eval -n 20 --rays 60 --noise 0.002 --outliers "
+          f"0.1 on the card (beside the checks; "
+          f"{time.perf_counter() - t_phase:.1f} s from its start): "
+          f"{json.dumps(report)}", flush=True)
+    for s, want in JAX_RAY_CLI.items():
+        for k, v in want.items():
+            got = report[s][k]
+            if s == "robust":
+                assert got <= 3 * v, (s, k, got, v)
+            else:
+                assert abs(got - v) <= 1e-2 * v, (s, k, got, v)
+    stamp("the CLI")
+    geometry_times(dev, smi, state, stamp)
+    torch.cuda.empty_cache()
+    return state["launches"]
+
+
+def geometry_checks(dev, stamp):
+    """The `geometry` phase's checks, each against the CPU; returns what
+    `geometry_times` times."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.geometry import ImageRectifier
+    from libstevi_tpu_torch.geometry.raysalignment import (
+        align_rays_sets, relaxed_align_rays_sets, robust_align_rays_sets)
+    from libstevi_tpu_torch.ops import dense_sgm_stereo
+    from libstevi_tpu_torch.ops.box_cuda import box_cv, window_stats
+    from libstevi_tpu_torch.ops.sgm_cuda import direction_volumes, sgm_wta
+    from libstevi_tpu_torch.optim.ransac import draw_index_sets
+    from libstevi_tpu_torch.statistics import compute_covering_proportion
+
+    # -- (a) ray alignment at 1M pairs ---------------------------------------
+    N = 1 << 20
+    R, t, arrs, keep = ray_pairs(N)
+    full, full_c = geometry_rays(arrs, dev), geometry_rays(arrs, "cpu")
+    inl = geometry_rays([a[keep] for a in arrs], dev)
+    sets = draw_index_sets(N, 6, 64, torch.Generator(device=dev).manual_seed(0))
+    sets_in = draw_index_sets(int(keep.sum()), 6, 64,
+                              torch.Generator(device=dev).manual_seed(0))
+    solvers = {
+        "align_rays_sets (GN, 50 steps)": (align_rays_sets, {}),
+        "relaxed_align_rays_sets (thin SVD of the (N, 18) matrix)":
+            (relaxed_align_rays_sets, {}),
+        "robust_align_rays_sets (64 hypotheses, threshold 1e-3)":
+            (robust_align_rays_sets, dict(draw=lambda: sets)),
+    }
+    tol = 1e-3
+    for name, (fn, kw) in solvers.items():
+        got = fn(*full, **kw)
+        kw_c = dict(draw=lambda: sets.cpu()) if kw else {}
+        want = fn(*full_c, **kw_c)
+        dR = (got.R.cpu() - want.R).abs().max().item()
+        dt = (got.t.cpu() - want.t).abs().max().item()
+        rot, tr = pose_error(got, R, t)
+        print(f"geometry: {name}, {N} ray pairs (noise 0.002, 10% "
+              f"outliers): CUDA vs CPU R within {dR:.3g}, t within {dt:.3g} "
+              f"(<= {tol:g}); pose error {rot:.4f} deg, {tr:.4f}", flush=True)
+        assert dR <= tol and dt <= tol, (name, dR, dt)
+        stamp(name.split()[0])
+    # recovery on the unscrambled pairs, at the JAX tool's bars (its robust
+    # medians on 60 rays: 0.969 deg, 0.112)
+    bars = (JAX_RAY_CLI["robust"]["rot_deg_median"],
+            JAX_RAY_CLI["robust"]["trans_median"])
+    for name, fn, kw in (
+            ("align_rays_sets", align_rays_sets, {}),
+            ("relaxed_align_rays_sets", relaxed_align_rays_sets, {}),
+            ("robust_align_rays_sets", robust_align_rays_sets,
+             dict(draw=lambda: sets_in))):
+        rot, tr = pose_error(fn(*inl, **kw), R, t)
+        print(f"geometry: {name} on the {int(keep.sum())} unscrambled pairs: "
+              f"pose error {rot:.4f} deg, {tr:.4f} (bars {bars[0]:.3f} deg, "
+              f"{bars[1]:.3f})", flush=True)
+        assert rot <= bars[0] and tr <= bars[1], (name, rot, tr)
+    del full_c, inl
+    stamp("rays")
+
+    # -- (b) a rectified pair through the flagship ---------------------------
+    ZNCC = MatchingFunction.ZNCC
+    rg, rc = rig(1.0, (640, 480), dev), rig(1.0, (640, 480), "cpu")
+    assert rg.compute("minimal") and rc.compute("minimal")
+    errs = []
+    for a, b in ((rg.backward_cam1, rc.backward_cam1),
+                 (rg.backward_cam2, rc.backward_cam2)):
+        assert a.shape == (480, 640, 2), a.shape
+        errs.append((a.cpu() - b).abs().max().item())
+    print(f"geometry: rig maps 480x640x2 (minimal ROI, Brown distortion): "
+          f"CUDA vs CPU within {errs[0]:.3g} / {errs[1]:.3g} px (<= 1e-3); "
+          f"new focal {rg.reprojection_flen:.3f}, disp delta "
+          f"{rg.disp_delta:.3f}", flush=True)
+    assert max(errs) <= 1e-3, errs
+    L, Rr = pair(480, 640, 16, dev)
+    lc, rci = rectify(rc, L.cpu(), Rr.cpu())
+    for fn in (window_stats, box_cv, direction_volumes, sgm_wta):
+        fn.launches = 0
+    torch.cuda.synchronize()
+    lg, rgi = rectify(rg, L, Rr)
+    disp, idx, tcv = dense_sgm_stereo(ZNCC, lg, rgi, **entry.FLAGSHIP)
+    share = compute_covering_proportion(disp, disp)
+    torch.cuda.synchronize()
+    launches = {"K1 stats": window_stats.launches, "K1": box_cv.launches,
+                "K2x7": direction_volumes.launches,
+                "K3x7": sgm_wta.launches}
+    print(f"geometry: rectified 480x640 pair -> flagship: launches "
+          f"{launches}", flush=True)
+    assert all(n > 0 for n in launches.values()), launches
+    for a, b in ((lg, lc), (rgi, rci)):
+        err = (a.cpu() - b).abs().max().item()
+        assert err <= 1e-3, err
+    disp_c, idx_c, tcv_c = dense_sgm_stereo(ZNCC, lc, rci, **entry.FLAGSHIP)
+    stamp("the CPU's flagship")
+    same = idx.cpu() == idx_c
+    agree = same.float().mean().item()
+    # the repo's bf16 rule (`tests/test_torch_stereo.py`, the bars of
+    # `tests/test_sgm.py:240-259`): WTA indices agree, and where they do
+    # the bands within atol 0.1, rtol 0.02 (K1's bf16 volume, K2's f32 sums
+    # in another order); the parabola through them moves a refined
+    # disparity by up to a few 1e-2 px where the curvature is small
+    # (resampled noise is smooth): < 0.1 px
+    fin = torch.isfinite(tcv_c[same])
+    band_err = (tcv.cpu() - tcv_c)[same][fin].abs().max().item()
+    dd = (disp.cpu() - disp_c)[same & torch.isfinite(disp_c)].abs()
+    print(f"  rectified flagship: WTA index CUDA vs CPU agree on "
+          f"{agree:.6f}; where they agree the bands within {band_err:.3g}, "
+          f"the refined disparities within 1e-3 px on "
+          f"{(dd <= 1e-3).float().mean().item():.6f}, 1e-2 px on "
+          f"{(dd <= 1e-2).float().mean().item():.6f}, max "
+          f"{dd.max().item():.4f} px", flush=True)
+    assert agree >= 0.999, agree
+    assert torch.equal(torch.isfinite(tcv.cpu())[same], torch.isfinite(
+        tcv_c)[same])
+    torch.testing.assert_close(tcv.cpu()[same][fin], tcv_c[same][fin],
+                               rtol=0.02, atol=0.1)
+    assert torch.equal(torch.isfinite(disp.cpu())[same],
+                       torch.isfinite(disp_c)[same])
+    assert dd.max().item() < 0.1, dd.max().item()
+    share_c = compute_covering_proportion(disp.cpu(), disp.cpu())
+    print(f"  covering share {share.item():.6f}, CPU on the same disparity "
+          f"{share_c.item():.6f} (<= 1e-5); the CPU chain's "
+          f"{compute_covering_proportion(disp_c, disp_c).item():.6f}",
+          flush=True)
+    assert abs(share.item() - share_c.item()) <= 1e-5, (share, share_c)
+    del disp_c, idx_c, tcv_c, lc, rci
+
+    # the same rig at 720x1280 (focal lengths and principal points x1.5)
+    # through the HD path
+    rh, rhc = rig(1.5, (1280, 720), dev), rig(1.5, (1280, 720), "cpu")
+    assert rh.compute("minimal") and rhc.compute("minimal")
+    err_hd = max(
+        (rh.backward_cam1.cpu() - rhc.backward_cam1).abs().max().item(),
+        (rh.backward_cam2.cpu() - rhc.backward_cam2).abs().max().item())
+    assert rh.backward_cam1.shape == (720, 1280, 2), rh.backward_cam1.shape
+    assert err_hd <= 1e-3, err_hd
+    Lh, Rh = pair(720, 1280, 17, dev)
+    dh, ih, _ = dense_sgm_stereo(ZNCC, *rectify(rh, Lh, Rh),
+                                 **entry.HD_BF16)
+    print(f"geometry: rig maps 720x1280x2: CUDA vs CPU within {err_hd:.3g} "
+          f"px (<= 1e-3)", flush=True)
+    check_random("rectified HD", dh, ih, 320)
+    del dh, ih
+    stamp("rectified frames")
+
+    # -- (d) the single-camera rectifier at 480x640 ---------------------------
+    for roi in ("same", "maximal", "minimal"):
+        ir = [ImageRectifier(RIG["f1"], RIG["pp1"], (480, 640),
+                             k123=RIG["k1"], t12=RIG["t1"], device=d)
+              for d in (dev, "cpu")]
+        assert all(r.compute(roi) for r in ir), roi
+        assert np.array_equal(ir[0].roi_top_left, ir[1].roi_top_left)
+        assert np.array_equal(ir[0].roi_bottom_right, ir[1].roi_bottom_right)
+        err = (ir[0].backward_map.cpu() - ir[1].backward_map).abs().max().item()
+        print(f"geometry: ImageRectifier 480x640 '{roi}': map "
+              f"{tuple(ir[0].backward_map.shape)}, ROI "
+              f"{ir[0].roi_top_left.tolist()}-"
+              f"{ir[0].roi_bottom_right.tolist()}, CUDA vs CPU within "
+              f"{err:.3g} px (<= 1e-3)", flush=True)
+        assert err <= 1e-3, (roi, err)
+    stamp("ImageRectifier")
+    return dict(N=N, arrs=arrs, full=full, sets=sets, solvers=solvers,
+                rg=rg, L=L, Rr=Rr, disp=disp, rh=rh, Lh=Lh, Rh=Rh,
+                launches=launches)
+
+
+def geometry_rays(arrays, device):
+    """(rays1, rays2) of the four (N, 3) arrays on ``device``."""
+    from libstevi_tpu_torch.geometry.raysalignment import RayInfos
+    o1, v1, o2, v2 = (torch.from_numpy(a).to(device) for a in arrays)
+    return RayInfos(o1, v1), RayInfos(o2, v2)
+
+
+def rectify(r, a, b):
+    """A pair resampled through a rig's two backward maps."""
+    from libstevi_tpu_torch.interpolation import resample_image
+    return (resample_image(a, r.backward_cam1),
+            resample_image(b, r.backward_cam2))
+
+
+def geometry_times(dev, smi, st, stamp):
+    """The `geometry` phase's timings (CUDA events), peak memory and
+    profiles, on what `geometry_checks` left."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.geometry import ImageRectifier
+    from libstevi_tpu_torch.geometry.raysalignment import align_rays_sets
+    from libstevi_tpu_torch.profile_frames import profile_frame
+    from libstevi_tpu_torch.statistics import compute_covering_proportion
+
+    def timed(fn, reps):
+        """(median ms of ``reps`` CUDA-event timings after a warm-up, the
+        peak bytes above what was allocated before)."""
+        fn()
+        torch.cuda.synchronize()
+        base = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        ms = median_ms(fn, reps, warmup=0)
+        return ms, torch.cuda.max_memory_allocated() - base
+
+    full = st["full"]
+    for name, (fn, kw) in st["solvers"].items():
+        # the robust solver takes seconds a call (host-bound): one timing
+        reps = 1 if "robust" in name else 3
+        ms, peak = timed(lambda: fn(*full, **kw), reps)
+        print(f"time: {name}, {st['N']} ray pairs: {ms:.3f} ms (median of "
+              f"{reps} after a warm-up; {smi}); memory: peak "
+              f"{peak / 1e9:.3f} GB above the rays (0.050 GB)", flush=True)
+    # where the robust solver's time goes: 64 minimal fits of 20 GN steps
+    # in series (each step a jacfwd, a solve and a host read), then a
+    # weighted refit over all pairs.  One fit is profiled (the whole call
+    # issues ~250000 device items, and the profiler's own cost on that
+    # many host events is minutes)
+    six = geometry_rays([a[:6] for a in st["arrs"]], dev)
+    fit = lambda: align_rays_sets(*six, iters=20)  # noqa: E731
+    fit_ms = median_ms(fit, 5)
+    busy, items = profile_frame(fit, 3)
+    print(f"geometry: one minimal fit of robust_align_rays_sets (6 pairs, "
+          f"20 GN steps): {fit_ms:.3f} ms (median of 5), x64 = "
+          f"{64 * fit_ms:.1f} ms; device busy {busy / 1e3:.3f} ms a fit, "
+          f"idle {1 - busy / 1e3 / fit_ms:.3f}, {n_items(items):.0f} device "
+          f"items a fit, top {top_items(items, 4)} ({smi})", flush=True)
+    del st["full"], full
+    stamp("ray timings")
+
+    rg, L, Rr, disp = st["rg"], st["L"], st["Rr"], st["disp"]
+    maps_ms = median_ms(lambda: rig(1.0, (640, 480), dev).compute("minimal"))
+    res_ms = median_ms(lambda: rectify(rg, L, Rr))
+    cov_ms = median_ms(lambda: compute_covering_proportion(disp, disp))
+
+    def frame():
+        d = entry.flagship_forward(*rectify(rg, L, Rr))
+        return compute_covering_proportion(d, d)
+
+    frame_ms = median_ms(frame)
+    peak = peak_bytes(frame)
+    busy, items = profile_frame(frame, 3)
+    print(f"time: rig maps 480x640 (StereoRigRectifier.compute, both "
+          f"cameras): {maps_ms:.3f} ms; resample both images: {res_ms:.3f} "
+          f"ms; covering share: {cov_ms:.3f} ms; rectified frame (resample "
+          f"+ flagship + covering): {frame_ms:.3f} ms (medians of 5; {smi});"
+          f" memory: peak {peak / 1e9:.3f} GB above the inputs; profile (3 "
+          f"frames): device busy {busy / 1e3:.3f} ms a frame, idle "
+          f"{1 - busy / 1e3 / frame_ms:.3f}, top {top_items(items, 6)}",
+          flush=True)
+    rh, Lh, Rh = st["rh"], st["Lh"], st["Rh"]
+    hd_maps = median_ms(lambda: rig(1.5, (1280, 720), dev).compute(
+        "minimal"))
+    hd_ms = median_ms(lambda: entry.hd_forward(*rectify(rh, Lh, Rh)))
+    print(f"time: rig maps 720x1280: {hd_maps:.3f} ms; rectified HD frame "
+          f"(resample + hd_forward, D=320 bf16): {hd_ms:.3f} ms (medians of "
+          f"5; {smi})", flush=True)
+    for roi in ("same", "maximal", "minimal"):
+        ms = median_ms(lambda: ImageRectifier(
+            RIG["f1"], RIG["pp1"], (480, 640), k123=RIG["k1"],
+            t12=RIG["t1"], device=dev).compute(roi))
+        print(f"time: ImageRectifier 480x640 '{roi}' compute: {ms:.3f} ms "
+              f"(median of 5; {smi})", flush=True)
+    stamp("timings")
 
 
 def prop_good_np(disp, gt):
@@ -3607,6 +3989,9 @@ def main(argv=None) -> int:
     refine_flow_and_clis(dev, smi)
     optim_at_scale(dev, smi)
 
+    # -- geometry: rays at 1M pairs, a rectified pair through the flagship --
+    rectified_launches = geometry(dev, smi)
+
     d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
                                                                   smi)
     for k, v in d_err.items():
@@ -3735,6 +4120,8 @@ def main(argv=None) -> int:
             if key in hier_launches else {}),
          **({"refine_launches": refine_launches[key]}
             if key in refine_launches else {}),
+         **({"rectified_launches": rectified_launches[key]}
+            if key in rectified_launches else {}),
          **({"device_ms": device_ms[key]} if key in device_ms else {}),
          **({"instances": instances[key]} if key in instances else {})}
         for name, src, rep, key in records]}), flush=True)

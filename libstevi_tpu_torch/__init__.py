@@ -1,8 +1,9 @@
 """libstevi_tpu_torch: the PyTorch + CUDA port of libstevi_tpu.
 
-The port keeps the JAX package's module names (``core``, ``interpolation``,
-``io``, ``statistics``, ``ops``, ``optim``, ``parallel``, ``cli``) so each
-counterpart is easy to find, and carries the stereo engine: the 1-D and
+The port keeps the JAX package's module names (``core``, ``geometry``,
+``interpolation``, ``io``, ``statistics``, ``ops``, ``optim``,
+``parallel``, ``cli``) so each counterpart is easy to find, and carries
+the stereo engine: the 1-D and
 2-D cost volumes, 4/8/16-direction SGM, tie-last WTA, the truncated bands
 and 1-D and 2-D subpixel refinement (end to end in
 `ops.dense_sgm_stereo`), the matchers (PatchMatch stereo and flow, the
@@ -10,9 +11,11 @@ hierarchical matcher, fastmatch, DP stereo, guided filtering, template
 matching, on-demand volumes), the ``interpolation`` package, the `optim`
 solvers (L2 / spherical / L1 / least-median best approximations,
 Gauss-Newton, RANSAC, BFGS, L0, PCA) with the feature-space subpixel
-refinement they carry (`ops.image_refinement`), and the `stereo_match`,
-`stereo_refine` and `optical_flow_refine` CLIs.  Plain functions on
-tensors; the device comes from the inputs.  On a CUDA tensor the paths
+refinement they carry (`ops.image_refinement`), ``geometry`` (rotations,
+the lens model, two-view / PnP / point-cloud / ray alignment, the stereo
+rig rectifier) and ``statistics``, and the `stereo_match`,
+`stereo_refine`, `optical_flow_refine` and `ray_alignment_eval` CLIs.
+Plain functions on tensors; the device comes from the inputs.  On a CUDA tensor the paths
 run hand-written kernels (``csrc/``, built with nvcc on first use by
 `_build`); on a CPU tensor each kernel's plain PyTorch version runs
 instead.
@@ -20,6 +23,7 @@ instead.
 Importing the package builds nothing and needs neither a GPU nor nvcc.
 """
 
-from . import core, interpolation, io, ops, optim, statistics
+from . import core, geometry, interpolation, io, ops, optim, statistics
 
-__all__ = ["core", "interpolation", "io", "ops", "optim", "statistics"]
+__all__ = ["core", "geometry", "interpolation", "io", "ops", "optim",
+           "statistics"]

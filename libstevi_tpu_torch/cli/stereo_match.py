@@ -9,7 +9,8 @@ map, and report accuracy against ground truth: the proportion of pixels with
 (`main.cpp:275-303`).  The arguments and the JSON report keys are the JAX
 tool's, plus ``--device`` (default ``cuda``; without a GPU that is an
 error, never a silent CPU run).  Images and the ground truth are
-``.stevimg``, ``.pfm``, ``.flo`` or ``.exr`` files.  On the card SGM takes
+``.stevimg``, ``.pfm``, ``.flo`` or ``.exr`` files, or any format imageio
+reads (PNG, JPEG, ...) where it is installed.  On the card SGM takes
 any ``-d`` with 4, 8 or 16 directions (past D = 320 through the
 lane-layout kernels K4b / K4d, with K2k's any-D instance for the knights).
 The hierarchical matcher runs depth 2 (its coarsest level through K1 for

@@ -7,7 +7,8 @@ feature-space barycentric families) on a stereo pair and report each
 method's accuracy against a ground-truth disparity.  The arguments and the
 JSON report are the JAX tool's, plus ``--device`` (default ``cuda``;
 without a GPU that is an error, never a silent CPU run).  Images and the
-ground truth are ``.stevimg``, ``.pfm``, ``.flo`` or ``.exr`` files.
+ground truth are ``.stevimg``, ``.pfm``, ``.flo`` or ``.exr`` files, or
+any format imageio reads (PNG, JPEG, ...) where it is installed.
 
 Usage:
   python -m libstevi_tpu_torch.cli.stereo_refine LEFT RIGHT -d 120 -r 3 \\

@@ -1,7 +1,9 @@
 from .image_io import (read_flo, read_image, read_pfm, read_stevimg,
                        write_flo, write_image, write_pfm, write_stevimg)
-from .exr_io import read_exr, write_exr
+from .exr_io import (read_exr, read_exr_channel, write_exr, is_exr_file,
+                     exr_channels)
 
-__all__ = ["read_exr", "read_flo", "read_image", "read_pfm", "read_stevimg",
+__all__ = ["exr_channels", "is_exr_file", "read_exr", "read_exr_channel",
+           "read_flo", "read_image", "read_pfm", "read_stevimg",
            "write_exr", "write_flo", "write_image", "write_pfm",
            "write_stevimg"]

@@ -2,9 +2,10 @@
 ``.stevimg`` (the reference's raw format), ``.flo`` (Middlebury optical
 flow), ``.pfm`` (float disparities) and ``.exr`` (`exr_io`), and
 `read_image`/`write_image`, which dispatch on the extension as the JAX
-package's do.  Other formats (PNG, JPEG, ...) need an image library
-(imageio in the JAX package), which the port does not use: they raise
-ValueError.
+package's do.  Every other extension (PNG, JPEG, BMP, ...) goes to
+imageio, imported where it is used as the JAX package imports it: where
+imageio is not installed those formats raise its ImportError, and the
+four formats above still work.
 
 Reference parity: `io/image_io.h:49-160` — a ``.stevimg`` file is a text
 header line ``<dtype> <ndim> <shape...> <strides...>`` with dtype
@@ -132,26 +133,18 @@ def read_pfm(path: str) -> np.ndarray:
     return img
 
 
-def _ext(path: str) -> str:
-    ext = os.path.splitext(path)[1].lower()
-    if ext not in (".stevimg", ".pfm", ".flo", ".exr"):
-        raise ValueError(f"{path}: {ext or 'no extension'} needs an image "
-                         "library; the port reads and writes .stevimg, "
-                         ".pfm, .flo and .exr (ROADMAP.md A11)")
-    return ext
-
-
 def read_image(path: str, dtype=None) -> np.ndarray:
-    """`IO::readImage` (`image_io.h:171`) for ``.stevimg``, ``.pfm``,
-    ``.flo`` and ``.exr`` files."""
-    ext = _ext(path)
+    """`IO::readImage` (`image_io.h:171`): ``.stevimg``, ``.pfm``,
+    ``.flo`` and ``.exr`` natively, any other extension through
+    ``imageio.v3.imread``."""
+    ext = os.path.splitext(path)[1].lower()
     if ext == ".stevimg":
         img = read_stevimg(path)
     elif ext == ".pfm":
         img = read_pfm(path)
     elif ext == ".flo":
         img = read_flo(path)
-    else:
+    elif ext == ".exr":
         from .exr_io import read_exr
         planes = read_exr(path)
         if len(planes) == 1:
@@ -161,22 +154,35 @@ def read_image(path: str, dtype=None) -> np.ndarray:
             order = [c for c in ("R", "G", "B", "A", "Y") if c in planes]
             order += [c for c in sorted(planes) if c not in order]
             img = np.stack([planes[c] for c in order], -1)
+    else:
+        import imageio.v3 as iio
+        img = iio.imread(path)
     return img if dtype is None else img.astype(dtype)
 
 
 def write_image(path: str, image: np.ndarray) -> bool:
-    """`IO::writeImage` (`image_io.h:177`) for ``.stevimg``, ``.pfm``,
-    ``.flo`` and ``.exr`` files."""
-    ext = _ext(path)
+    """`IO::writeImage` (`image_io.h:177`): ``.stevimg``, ``.pfm``,
+    ``.flo`` and ``.exr`` natively, any other extension through
+    ``imageio.v3.imwrite``, float images scaled by 255 and clipped to
+    uint8 for ``.png``, ``.jpg``, ``.jpeg`` and ``.bmp``."""
+    ext = os.path.splitext(path)[1].lower()
     if ext == ".stevimg":
         return write_stevimg(path, image)
     if ext == ".pfm":
         return write_pfm(path, image)
     if ext == ".flo":
         return write_flo(path, image)
-    from .exr_io import write_exr
-    img = np.asarray(image, np.float32)
-    if img.ndim == 2:
-        return write_exr(path, {"Y": img})
-    names = ["R", "G", "B", "A"][:img.shape[-1]]
-    return write_exr(path, {n: img[..., i] for i, n in enumerate(names)})
+    if ext == ".exr":
+        from .exr_io import write_exr
+        img = np.asarray(image, np.float32)
+        if img.ndim == 2:
+            return write_exr(path, {"Y": img})
+        names = ["R", "G", "B", "A"][:img.shape[-1]]
+        return write_exr(path, {n: img[..., i] for i, n in enumerate(names)})
+    import imageio.v3 as iio
+    img = image
+    if img.dtype in (np.float32, np.float64) and ext in (".png", ".jpg",
+                                                         ".jpeg", ".bmp"):
+        img = np.clip(img * 255.0, 0, 255).astype(np.uint8)
+    iio.imwrite(path, img)
+    return True

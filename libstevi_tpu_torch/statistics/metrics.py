@@ -1,4 +1,4 @@
-"""Disparity accuracy metrics in numpy (the stereo part of
+"""Disparity and flow accuracy metrics in numpy (counterpart of
 `libstevi_tpu/statistics/metrics.py`).
 
 Reference parity: `examples/stereo-match/main.cpp:234-258` (proportion of
@@ -37,3 +37,16 @@ def inlier_mae(disp, gt, threshold: float = 2.0) -> float:
     err = np.abs(disp - gt)[valid]
     inl = err[err <= threshold]
     return float(inl.mean()) if inl.size else float("nan")
+
+
+def end_point_error(flow, gt_flow) -> float:
+    """Mean euclidean end-point error of an (H, W, 2) flow field vs GT
+    (the optical-flow analogue of the disparity MAE).  Validity masks on
+    the GROUND TRUTH only: a non-finite *estimate* at a GT-valid pixel
+    propagates NaN into the mean, consistent with `prop_good`'s
+    invalid-estimate-counts-as-bad semantics."""
+    flow = np.asarray(flow, np.float64)
+    gt = np.asarray(gt_flow, np.float64)
+    d = np.linalg.norm(flow - gt, axis=-1)
+    valid = np.isfinite(gt).all(-1)
+    return float(d[valid].mean()) if valid.any() else float("nan")

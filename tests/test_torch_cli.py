@@ -209,3 +209,42 @@ def test_refine_clis_refuse_a_missing_gpu(tmp_path):
     assert list(json.loads(res.stdout.strip().splitlines()[-1])) == \
         ["cost-symmetric"]
     assert read_image(str(tmp_path / "r.stevimg")).shape == (96, 128)
+
+
+@pytest.mark.parametrize("solver", ["gauss-newton", "relaxed"])
+def test_ray_alignment_eval_cli_matches_jax(solver, capsys):
+    """`ray_alignment_eval --device cpu` against the root tool at the same
+    seed (4 trials of 60 rays, noise 0.002, 10% outliers): the same
+    report keys and each median and p90 within 1e-4 relative (the same
+    numpy data and the same float32 solver).  The robust solver draws
+    from torch, not JAX's keys, so it is compared on the card at the
+    JAX tool's order of error (`chip_smoke.py`)."""
+    from libstevi_tpu_torch.cli import ray_alignment_eval
+    argv = ["-n", "4", "--rays", "60", "--noise", "0.002", "--outliers",
+            "0.1", "--solvers", solver, "--seed", "3"]
+    assert _root_main("ray_alignment_eval")(argv) == 0
+    rj = _report(capsys)
+    assert ray_alignment_eval.main(argv + ["--device", "cpu"]) == 0
+    rt = _report(capsys)
+    assert list(rt) == list(rj) == [solver]
+    assert list(rt[solver]) == list(rj[solver]) == [
+        "rot_deg_median", "trans_median", "rot_deg_p90"]
+    for k, v in rj[solver].items():
+        assert rt[solver][k] == pytest.approx(v, rel=1e-4, abs=1e-6), k
+
+
+def test_ray_alignment_eval_cli_refuses_a_missing_gpu():
+    """Without a GPU the default ``--device cuda`` is refused with exit 2;
+    ``python -m`` runs the robust solver on the CPU."""
+    from libstevi_tpu_torch.cli import ray_alignment_eval
+    if not torch.cuda.is_available():
+        with pytest.raises(SystemExit) as e:
+            ray_alignment_eval.main(["-n", "1"])
+        assert e.value.code == 2
+    res = subprocess.run(
+        [sys.executable, "-m", "libstevi_tpu_torch.cli.ray_alignment_eval",
+         "-n", "1", "--rays", "30", "--solvers", "robust", "--device", "cpu"],
+        cwd=REPO, capture_output=True, text=True, timeout=300)
+    assert res.returncode == 0, res.stderr
+    report = json.loads(res.stdout.strip().splitlines()[-1])
+    assert report["robust"]["rot_deg_median"] < 1.0

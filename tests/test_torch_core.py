@@ -92,11 +92,15 @@ def test_read_write_image_dispatch_stevimg(tmp_path):
     got = read_image(str(DATA / "left_small.stevimg"), np.float64)
     np.testing.assert_array_equal(
         got, j_read_image(str(DATA / "left_small.stevimg"), np.float64))
-    for bad in ("a.png", "a.jpg"):       # these need an image library
-        with pytest.raises(ValueError):
-            read_image(str(tmp_path / bad))
-        with pytest.raises(ValueError):
-            write_image(str(tmp_path / bad), img)
+    for name in ("a.png", "a.jpg"):      # through imageio, as in JAX
+        assert write_image(str(tmp_path / name), img)
+        np.testing.assert_array_equal(read_image(str(tmp_path / name)),
+                                      j_read_image(str(tmp_path / name)))
+        missing = str(tmp_path / ("missing" + name[1:]))
+        with pytest.raises(Exception) as e_jax:
+            j_read_image(missing)
+        with pytest.raises(type(e_jax.value)):
+            read_image(missing)
     flow = np.stack([img, -img], -1)     # .flo is numpy, as in JAX
     assert write_image(str(tmp_path / "a.flo"), flow)
     np.testing.assert_array_equal(j_read_image(str(tmp_path / "a.flo")), flow)
@@ -152,6 +156,26 @@ x = parallel.distributed_multiview_alignment(
     lambda p, d: p[0] * d - 2.0 * d, torch.zeros(1), torch.arange(8.0), mesh,
     "batch", iters=3)
 assert abs(float(x[0]) - 2.0) < 1e-4
+from libstevi_tpu_torch import geometry, statistics
+from libstevi_tpu_torch.geometry import bsp, posesmath, sensorframes
+from libstevi_tpu_torch.geometry import pointcloudalignment, raysalignment
+from libstevi_tpu_torch.geometry.stereorigrectifier import StereoRigRectifier
+from libstevi_tpu_torch.cli import ray_alignment_eval
+rig = StereoRigRectifier([0.0, 0.02, 0.01], [1.0, 0.02, 0.01], 75.0,
+                         [48.0, 32.0], (96, 64), k1=[-0.05, 0.01, 0.0],
+                         device="cpu")
+assert rig.compute("minimal") and rig.backward_cam1.shape == (64, 96, 2)
+from libstevi_tpu_torch.interpolation import resample_image
+rect = resample_image(L, rig.backward_cam1[:12, :16])
+cov = statistics.compute_covering_proportion(d16, d16)
+assert rect.shape == (12, 16) and 0 <= float(cov) <= 1
+assert bsp.GenericBSP(np.random.default_rng(1).uniform(size=(40, 3))).nearest(
+    np.zeros(3)) >= 0
+assert sensorframes.get_sensor_frame_conversion(sensorframes.NED,
+                                                sensorframes.ENU).shape == (3, 3)
+assert ray_alignment_eval.main(["-n", "1", "--rays", "20", "--solvers",
+                                "gauss-newton", "relaxed", "--device",
+                                "cpu"]) == 0
 assert not [m for m, v in sys.modules.items()
             if v is not None and (m == "jax" or m.startswith("jax."))]
 print("ran without jax")
@@ -162,8 +186,11 @@ def test_port_imports_and_runs_without_jax():
     """With jax and libstevi_tpu made unimportable, the port imports and
     runs the dense SGM (8 and 16 directions, ZNCC and census), PatchMatch,
     WTA, the image-level refinement, the distributed paths and the
-    distributed Gauss-Newton end to end on the CPU, and imports its CLIs
-    and `optim` (the card has no JAX)."""
+    distributed Gauss-Newton end to end on the CPU, imports its CLIs,
+    `optim`, `geometry` (the numpy copies `bsp` and `sensorframes` too)
+    and `statistics`, rectifies and resamples through the rig rectifier,
+    takes a covering share and runs the ray-alignment CLI (the card has
+    no JAX)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)

@@ -4,6 +4,7 @@ format written by one package and read by the other, both ways, and the
 port's CLI reading a ``.pfm`` ground truth."""
 
 import json
+import sys
 
 import numpy as np
 import pytest
@@ -83,13 +84,70 @@ def test_exr_channels_cross(tmp_path, compression, writer):
         np.testing.assert_array_equal(got[n], p)
 
 
-def test_formats_that_need_an_image_library_raise(tmp_path):
-    img = np.zeros((4, 4), np.float32)
-    for name in ("a.png", "a.jpg", "noext"):
-        with pytest.raises(ValueError, match="image library"):
-            t_io.write_image(str(tmp_path / name), img)
-        with pytest.raises(ValueError, match="image library"):
-            t_io.read_image(str(tmp_path / name))
+IMAGE_LIBRARY_CASES = ["a.png", "a.jpg", "noext", "a.png without imageio"]
+
+
+@pytest.mark.parametrize("case", IMAGE_LIBRARY_CASES)
+def test_formats_that_need_an_image_library_raise(tmp_path, monkeypatch,
+                                                  case):
+    """The formats the JAX package hands to imageio, as it does: a PNG
+    written by either package reads back through both the same
+    (`array_equal`; floats scaled by 255 to uint8), a JPEG reads the same
+    through both from one file, and both writers' JPEGs decode equal; a
+    path without an extension raises what JAX's call raises, and so does
+    any of them where imageio cannot be imported."""
+    rng = np.random.default_rng(9)
+    images = [rng.uniform(0, 1, (12, 17)).astype(np.float32),
+              rng.integers(0, 255, (9, 8, 3)).astype(np.uint8)]
+    name = case.split()[0]
+    if case.endswith("without imageio"):
+        monkeypatch.setitem(sys.modules, "imageio", None)
+        monkeypatch.setitem(sys.modules, "imageio.v3", None)
+    if name == "noext" or case.endswith("without imageio"):
+        for op in ("write", "read"):
+            errors = []
+            for io in (j_io, t_io):
+                with pytest.raises(Exception) as e:
+                    if op == "write":
+                        io.write_image(str(tmp_path / name), images[0])
+                    else:
+                        io.read_image(str(tmp_path / name))
+                errors.append(e.value)
+            assert type(errors[1]) is type(errors[0]), (op, errors)
+            assert str(errors[1]) == str(errors[0])
+        return
+    for k, img in enumerate(images):
+        got = {}
+        for writer, io in (("jax", j_io), ("port", t_io)):
+            path = str(tmp_path / f"{writer}{k}{name[1:]}")
+            assert io.write_image(path, img)
+            a, b = j_io.read_image(path), t_io.read_image(path)
+            np.testing.assert_array_equal(b, a)
+            assert b.dtype == a.dtype == np.uint8
+            got[writer] = b
+        np.testing.assert_array_equal(got["port"], got["jax"])
+        if name == "a.png":
+            want = img if img.dtype == np.uint8 else np.clip(
+                img * 255.0, 0, 255).astype(np.uint8)
+            np.testing.assert_array_equal(got["port"], want)
+            f32 = t_io.read_image(str(tmp_path / f"port{k}.png"), np.float32)
+            np.testing.assert_array_equal(f32, want.astype(np.float32))
+
+
+def test_io_exports_the_exr_helpers(tmp_path):
+    """`read_exr_channel`, `is_exr_file` and `exr_channels` from the
+    package, as the JAX package exports them."""
+    from libstevi_tpu_torch.io import (exr_channels, is_exr_file,
+                                       read_exr_channel, write_exr)
+    import libstevi_tpu.io as jio
+    planes = {"Z": rng.uniform(0, 1, (5, 6)).astype(np.float32),
+              "R": rng.uniform(0, 1, (5, 6)).astype(np.float32)}
+    path = str(tmp_path / "p.exr")
+    assert write_exr(path, planes)
+    assert is_exr_file(path) and jio.is_exr_file(path)
+    assert not is_exr_file(str(tmp_path / "missing.exr"))
+    assert exr_channels(path) == jio.exr_channels(path)
+    np.testing.assert_array_equal(read_exr_channel(path, "Z"), planes["Z"])
 
 
 def test_cli_takes_a_pfm_ground_truth(tmp_path, capsys):
