@@ -156,7 +156,24 @@ each with the launch counts set to 0 just before it and read just after:
   agree), the covering share to 1e-5, the maps, resampling and the
   rectified frame timed; the rig at 720x1280 through `hd_forward`; the
   ray-alignment CLI on the card against the JAX tool's report
-  (`JAX_RAY_CLI`); and `ImageRectifier` in each ROI mode against the CPU.
+  (`JAX_RAY_CLI`); and `ImageRectifier` in each ROI mode against the CPU;
+- the sparse chain and calibration targets (`sparse`; torch ops, no
+  kernel): the `tie_points` CLI on the 480x640 fixture (-n 256 --f 500,
+  Harris and FAST) on the card and on the CPU, held to the JAX tool's
+  counts (`JAX_TIE_POINTS`) and the card to the CPU (inliers; rotation and
+  translation within 1e-4; the same RANSAC draws), and its pipeline timed
+  warm with and without the pose; the chain at 4K UHD (`UHD_SPARSE`, a
+  smoothed-noise pair shifted by `UHD_SHIFT`: Harris, NMS n = 1024 r = 4,
+  the border cut, whitened descriptors, the host assignment) held to the
+  shift (>= 0.95 of the matches within 1 px) and to JAX's keypoint counts
+  (1%), with FAST, orientation, oriented descriptors and BRIEF on the same
+  keypoints, each stage timed, the NMS profiled (idle share) with its peak
+  memory; `detect_checkerboard` at 1080x1920 (`BOARD`: the 13x8 grid, 104
+  corners within `BOARD_BARS` of the ground truth and 1e-3 px of the CPU
+  run; response, candidates, fit and call timed; the CLI on both
+  devices); and hex targets, connected components (queen, rook), edges
+  and the median filter (r = 1, 2) at 1080x1920, exactly against the CPU,
+  with the sweeps each fixed point took.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -1843,6 +1860,357 @@ def geometry_times(dev, smi, st, stamp):
         print(f"time: ImageRectifier 480x640 '{roi}' compute: {ms:.3f} ms "
               f"(median of 5; {smi})", flush=True)
     stamp("timings")
+
+
+# -- the sparse chain and calibration targets (`sparse`) ---------------------
+
+# the JAX tools' reports on the parity fixture (cli/tie_points.py -n 256
+# --f 500, JAX_PLATFORMS=cpu)
+JAX_TIE_POINTS = {"harris": {"n_left": 244, "n_right": 248, "n_matches": 244},
+                  "fast": {"n_left": 0, "n_right": 24, "n_matches": 0}}
+# the 4K UHD texture pair: right = T[12:12 + H, 37:37 + W], so a left
+# keypoint (x, y) lies at (x - 37, y - 12) on the right; the JAX package's
+# chain on the CPU keeps 1006 / 1005 keypoints (0.963 of the matches
+# within 1 px of the shift)
+UHD_SPARSE = (2160, 3840)
+UHD_SHIFT = (12, 37)
+JAX_UHD_KEYPOINTS = (1006, 1005)
+UHD_GOOD = 0.95
+# the rotated-perspective board at 1080x1920: 9x14 squares of 48 px, the
+# JAX package's 104 corners (13x8) at 0.0309 px mean and 0.0796 px max
+# from the ground truth
+BOARD = dict(H=1080, W=1920, n_sq=(9, 14), sq=48.0, origin=(200.0, 150.0),
+             theta=0.1, persp=(0.01, 0.005))
+BOARD_GRID = (13, 8)
+BOARD_BARS = (0.05, 0.1)
+
+
+def render_board(H=200, W=260, n_sq=(6, 8), theta=0.0, persp=(0.0, 0.0),
+                 sharp=2.0, origin=(30.0, 30.0), sq=24.0):
+    """A projective checkerboard with its (rows, cols, 2) [x, y] interior
+    corners (a numpy copy of `TestCheckerboard._render`,
+    `tests/test_imageproc_pipelines.py`): board (u, v) maps to pixels by
+    origin + sq * R(theta) (u, v) / w, w = 1 + persp . (u, v), intensity
+    0.5 + 0.45 tanh(sharp sin(pi u) sin(pi v)), a white quiet zone."""
+    nv, nu = n_sq
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    c, s_ = np.cos(theta), np.sin(theta)
+    u = ((xx - origin[0]) * c + (yy - origin[1]) * s_) / sq
+    v = (-(xx - origin[0]) * s_ + (yy - origin[1]) * c) / sq
+    for _ in range(8):
+        w = 1.0 + persp[0] * u + persp[1] * v
+        u = ((xx - origin[0]) * c + (yy - origin[1]) * s_) / sq * w
+        v = (-(xx - origin[0]) * s_ + (yy - origin[1]) * c) / sq * w
+    inside = (u >= 0) & (u <= nu) & (v >= 0) & (v <= nv)
+    field = np.sin(np.pi * u) * np.sin(np.pi * v)
+    img = np.where(inside, 0.5 + 0.45 * np.tanh(sharp * field), 0.95)
+    gt = np.zeros((nv - 1, nu - 1, 2))
+    for a in range(1, nv):
+        for b in range(1, nu):
+            w = 1.0 / (1.0 + persp[0] * b + persp[1] * a)
+            bu, bv = b * w, a * w
+            gt[a - 1, b - 1] = (origin[0] + sq * (c * bu - s_ * bv),
+                                origin[1] + sq * (s_ * bu + c * bv))
+    return img.astype(np.float32), gt
+
+
+HEX_COLORS = {"r": (1.0, 0.08, 0.08), "g": (0.08, 1.0, 0.08),
+              "b": (0.08, 0.08, 1.0)}
+
+
+def render_hex(center=(32.0, 32.0), radius=12.0, phase=0.3, code="bggrgr",
+               H=64, W=64, dot_rad=2.6):
+    """Six coloured dots on a hexagon on white (a numpy copy of
+    `TestHexTargets._render`, `tests/test_imageproc_pipelines.py`)."""
+    img = np.ones((H, W, 3), np.float32)
+    yy, xx = np.mgrid[0:H, 0:W].astype(np.float64)
+    for k, ch in enumerate(code):
+        a = phase + k * np.pi / 3
+        r = center[0] + radius * np.sin(a)
+        c = center[1] + radius * np.cos(a)
+        img[(yy - r) ** 2 + (xx - c) ** 2 <= dot_rad ** 2] = HEX_COLORS[ch]
+    return img
+
+
+def run_cli(module, argv):
+    """(exit code, the last JSON object printed) of a port CLI's main."""
+    import contextlib
+    import io
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        rc = module.main(argv)
+    out = buf.getvalue()
+    return rc, json.loads(out[out.index("{"):])
+
+
+def host_ms(fn, reps=5):
+    """Median host wall time of ``fn()`` in ms (work that ends on the
+    host, synchronised before and after)."""
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return statistics.median(times)
+
+
+def sparse(dev, smi):
+    """The `sparse` phase: the port's `tie_points` CLI on the parity
+    fixture (card and CPU), the sparse chain at 4K UHD against a known
+    shift with each stage timed, `detect_checkerboard` at 1080x1920 (card
+    against CPU and the ground truth, the CLI too), and hex targets,
+    connected components, edges and the median filter at 1080x1920,
+    exactly against the CPU."""
+    from libstevi_tpu_torch.cli import detect_checkerboard as dc_cli
+    from libstevi_tpu_torch.cli import tie_points as tp_cli
+    from libstevi_tpu_torch.imageproc import checkerboard as cb
+    from libstevi_tpu_torch.imageproc import median_filter
+    from libstevi_tpu_torch.imageproc import connected_components
+    from libstevi_tpu_torch.imageproc.edges import detect_edges
+    from libstevi_tpu_torch.imageproc.targets import detect_hex_targets
+    from libstevi_tpu_torch.io import write_image
+    from libstevi_tpu_torch.optim.assignment import match_descriptors
+    from libstevi_tpu_torch.profile_frames import profile_frame
+    from libstevi_tpu_torch.sparse import descriptors as D
+    from libstevi_tpu_torch.sparse.corners import (fast_corner_detection,
+                                                   harris_corner_score)
+    from libstevi_tpu_torch.sparse.nms import \
+        non_local_maximum_point_selection
+    from libstevi_tpu_torch.sparse.orientation import \
+        intensity_oriented_coordinates
+    from scipy.ndimage import gaussian_filter
+    cc_mod = sys.modules["libstevi_tpu_torch.imageproc.connected_components"]
+    t_phase = time.perf_counter()
+
+    # -- (1) the tie_points CLI on the 480x640 parity fixture ---------------
+    pair_args = [str(FIXTURES / "left.stevimg"), str(FIXTURES / "right.stevimg"),
+                 "-n", "256", "--f", "500"]
+    for det, want in JAX_TIE_POINTS.items():
+        argv = pair_args + ["--detector", det]
+        t0 = time.perf_counter()
+        rc, card_rep = run_cli(tp_cli, argv)
+        card_s = time.perf_counter() - t0
+        assert rc == 0
+        rc, cpu_rep = run_cli(tp_cli, argv + ["--device", "cpu"])
+        assert rc == 0
+        for rep in (card_rep, cpu_rep):
+            assert {k: rep[k] for k in want} == want, (det, rep, want)
+        assert list(card_rep) == list(cpu_rep)
+        if "n_inliers" in cpu_rep:
+            # the same draws (seed 3 on the CPU): the same hypotheses
+            assert card_rep["n_inliers"] == cpu_rep["n_inliers"]
+            for k in ("rotation", "translation"):
+                d = np.abs(np.subtract(card_rep[k], cpu_rep[k])).max()
+                assert d <= 1e-4, (k, d)
+        print(f"sparse: tie_points CLI 480x640 -n 256 --f 500 --detector "
+              f"{det} on the card ({card_s:.2f} s host wall, first call): "
+              f"{json.dumps(card_rep)}; the CPU run: {json.dumps(cpu_rep)}",
+              flush=True)
+
+    # the pipeline behind the CLI, warm: with the pose (256 RANSAC fits in
+    # series) and without it
+    from libstevi_tpu_torch.cli.stereo_refine import gray_pair
+    fixture = gray_pair(pair_args[:2], dev)
+    tp_ms = {f"--f {f}" if f else "no pose": host_ms(
+        lambda: tp_cli.tie_points(*fixture, 256, f=f), 3)
+        for f in (500.0, None)}
+    print(f"time: tie_points 480x640 -n 256 on the card, warm (host clock, "
+          f"medians of 3; {smi}): "
+          + ", ".join(f"{k} {v:.1f} ms" for k, v in tp_ms.items()),
+          flush=True)
+
+    # -- (2) the sparse chain at 4K UHD on a textured pair ------------------
+    H, W = UHD_SPARSE
+    dy, dx = UHD_SHIFT
+    rng = np.random.default_rng(0)
+    T = gaussian_filter(rng.uniform(0, 1, (H + 64, W + 64)), 2.0)
+    T = ((T - T.min()) / (T.max() - T.min())).astype(np.float32)
+    L = torch.from_numpy(np.ascontiguousarray(T[:H, :W])).to(dev)
+    R = torch.from_numpy(np.ascontiguousarray(T[dy:dy + H, dx:dx + W])).to(
+        dev)
+    del T
+    radius, m = 4, 2 * 4 + 2
+
+    def keypoints(img):
+        coords, _, valid = non_local_maximum_point_selection(
+            harris_corner_score(img), 4.0, 1024, 0.0)
+        c = coords[valid]
+        keep = ((c[:, 0] > m) & (c[:, 0] < W - m) & (c[:, 1] > m)
+                & (c[:, 1] < H - m))
+        return c[keep]
+
+    cl, cr = keypoints(L), keypoints(R)
+    assert cl.device.type == dev.type
+    dl = D.whitened_pixels_descriptor(cl.flip(-1), L, radius=radius)
+    dr = D.whitened_pixels_descriptor(cr.flip(-1), R, radius=radius)
+    t0 = time.perf_counter()
+    ia, ib = match_descriptors(dl.cpu().numpy(), dr.cpu().numpy())
+    assign_first = time.perf_counter() - t0
+    off = cl.cpu().numpy()[ia] - cr.cpu().numpy()[ib]
+    good = float((np.abs(off - np.array([dx, dy])).max(1) <= 1.0).mean())
+    nl, nr = len(cl), len(cr)
+    print(f"sparse: 4K UHD chain {H}x{W} (Harris, NMS n=1024 r=4, whitened "
+          f"r=4, assignment): n_left {nl}, n_right {nr} (JAX "
+          f"{JAX_UHD_KEYPOINTS}), n_matches {len(ia)}, {good:.4f} of the "
+          f"matches within 1 px of the shift (JAX on the CPU: 0.963)",
+          flush=True)
+    assert good >= UHD_GOOD, good
+    for n, want in zip((nl, nr), JAX_UHD_KEYPOINTS):
+        assert abs(n - want) <= 0.01 * want, (n, want)
+
+    score = harris_corner_score(L)
+    rc_l = cl.flip(-1)
+    dirs = intensity_oriented_coordinates(rc_l, L, 3)
+    pat = D.random_sampling_pattern(256, radius, seed=7)
+    words = D.brief_descriptor(rc_l, L, pat, dirs)
+    assert words.shape == (nl, 8) and torch.isfinite(dirs).all()
+    nms = lambda: non_local_maximum_point_selection(  # noqa: E731
+        score, 4.0, 1024, 0.0)
+    stages = {
+        "Harris": lambda: harris_corner_score(L),
+        "FAST (0.05)": lambda: fast_corner_detection(L, 0.05),
+        "NMS (n=1024, r=4)": nms,
+        "whitened descriptors (r=4)": lambda: D.whitened_pixels_descriptor(
+            rc_l, L, radius=radius),
+        "orientation (r=3)": lambda: intensity_oriented_coordinates(
+            rc_l, L, 3),
+        "oriented whitened descriptors (r=4)":
+            lambda: D.oriented_whitened_pixels_descriptor(rc_l, L, dirs,
+                                                          radius=radius),
+        "BRIEF (256 pairs, seed 7, oriented)": lambda: D.brief_descriptor(
+            rc_l, L, pat, dirs),
+    }
+    times = {k: median_ms(fn) for k, fn in stages.items()}
+    dl_h, dr_h = dl.cpu().numpy(), dr.cpu().numpy()
+    times["assignment (host, scipy)"] = host_ms(
+        lambda: match_descriptors(dl_h, dr_h))
+    nms_ms = times["NMS (n=1024, r=4)"]
+    busy, items = profile_frame(nms, 1)
+    nms_peak = peak_bytes(nms)
+    print(f"time: sparse chain stages at {H}x{W}, one image (medians of 5 "
+          f"after a warm-up, CUDA events; the assignment a host clock, "
+          f"first call {assign_first * 1e3:.1f} ms; {smi}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items())
+          + f"; NMS profile: device busy {busy / 1e3:.3f} ms, idle "
+          f"{1 - busy / 1e3 / nms_ms:.3f}, {n_items(items):.0f} device items"
+          f", top {top_items(items, 4)}; NMS peak {nms_peak / 1e6:.1f} MB "
+          f"above the score map", flush=True)
+    del L, R, score, dl, dr, words
+    torch.cuda.empty_cache()
+
+    # -- (3) detect_checkerboard at 1080x1920 --------------------------------
+    img, gt = render_board(**BOARD)
+    img_d = torch.from_numpy(img).to(dev)
+    board = cb.detect_checkerboard(img_d)
+    board_cpu = cb.detect_checkerboard(torch.from_numpy(img))
+    assert board is not None and board_cpu is not None
+    assert board.corners.shape[:2] == board_cpu.corners.shape[:2] \
+        == BOARD_GRID, (board.corners.shape, board_cpu.corners.shape)
+    assert board.n_points_found == gt[..., 0].size
+    det = board.corners.reshape(-1, 2)
+    d_gt = np.linalg.norm(det[:, None] - gt.reshape(-1, 2)[None],
+                          axis=-1).min(1)
+    card_cpu = float(np.abs(board.corners - board_cpu.corners).max())
+    print(f"sparse: detect_checkerboard {BOARD['H']}x{BOARD['W']} (9x14 "
+          f"squares of 48 px, theta 0.1, persp (0.01, 0.005)): "
+          f"{board.rows}x{board.cols} grid, {board.n_points_found} corners, "
+          f"{d_gt.mean():.4f} px mean and {d_gt.max():.4f} px max from the "
+          f"ground truth (JAX: 0.0309 / 0.0796); card vs CPU {card_cpu:.2e} "
+          f"px", flush=True)
+    assert d_gt.mean() <= BOARD_BARS[0] and d_gt.max() <= BOARD_BARS[1]
+    assert card_cpu <= 1e-3
+    cands = cb.checkerboard_corner_candidates(img_d)
+    thr = 0.05 * float((-cands.lmin).max())
+    cands = cb.filter_checkerboard_candidates(
+        img_d, cands[(cands.lmin <= -thr) & (cands.lmax >= thr)])
+    grid = cb.isolate_checkerboard(cands)
+    ks = grid._candidate_idx[grid._candidate_idx >= 0]
+    fit_args = (img_d, cands.x[ks], cands.y[ks], cands.main_dir[ks])
+    cb_times = {
+        "response": median_ms(lambda: cb.checkerboard_response(img_d)),
+        "candidates (with the host copy)": median_ms(
+            lambda: cb.checkerboard_corner_candidates(img_d)),
+        f"corner fit ({len(ks)} corners)": median_ms(
+            lambda: cb.fit_checkerboard_corners(*fit_args)),
+        "detect_checkerboard": median_ms(lambda: cb.detect_checkerboard(
+            img_d)),
+    }
+    with tempfile.TemporaryDirectory() as tmp:
+        path = str(Path(tmp) / "board.stevimg")
+        write_image(path, img)
+        reps = [run_cli(dc_cli, [path] + extra)
+                for extra in ([], ["--device", "cpu"])]
+    assert reps[0] == reps[1] and reps[0][0] == 0 \
+        and reps[0][1]["n_points"] == gt[..., 0].size, reps
+    print(f"time: checkerboard {BOARD['H']}x{BOARD['W']} (medians of 5; "
+          f"{smi}): " + ", ".join(f"{k} {v:.3f} ms" for k, v in
+                                  cb_times.items())
+          + f"; the CLI on the card and on the CPU: {json.dumps(reps[0][1])}",
+          flush=True)
+
+    # -- (4) targets, labels, edges and the median at 1080x1920 --------------
+    Hb, Wb = BOARD["H"], BOARD["W"]
+    frame = np.ones((Hb, Wb, 3), np.float32)
+    codes = ["bggrgr", "grbgrg", "rrbggr", "gbrrgg"]
+    spots = [(y, x) for y in (200, 700) for x in (200, 650, 1100, 1550)]
+    for i, (y, x) in enumerate(spots):
+        frame[y:y + 64, x:x + 64] = render_hex(phase=0.3 + 0.4 * i,
+                                               code=codes[i % 4])
+    n_targets = len(spots)
+    frame_d = torch.from_numpy(frame).to(dev)
+    targets = detect_hex_targets(frame_d)
+    targets_cpu = detect_hex_targets(torch.from_numpy(frame))
+    assert len(targets) == len(targets_cpu) == n_targets, \
+        (len(targets), len(targets_cpu), n_targets)
+    for a, b in zip(targets, targets_cpu):
+        for f in ("pos_ref_dot", "dots_positives", "dots_positions"):
+            assert np.array_equal(getattr(a, f), getattr(b, f)), f
+    hex_sweeps = cc_mod.connected_components.sweeps
+
+    noise = gaussian_filter(np.random.default_rng(1).uniform(0, 1, (Hb, Wb)),
+                            4.0)
+    mask = noise > np.quantile(noise, 0.7)
+    mask_d = torch.from_numpy(mask).to(dev)
+    sweeps = {"hex targets' components": hex_sweeps}
+    for contiguity in ("queen", "rook"):
+        lab = connected_components(mask_d, contiguity)
+        sweeps[f"components ({contiguity})"] = \
+            cc_mod.connected_components.sweeps
+        exact(lab.cpu(), connected_components(torch.from_numpy(mask),
+                                              contiguity),
+              f"connected_components {contiguity} {Hb}x{Wb}")
+    edges = detect_edges(img_d)
+    sweeps["edge hysteresis"] = detect_edges.sweeps
+    exact(edges.cpu(), detect_edges(torch.from_numpy(img)),
+          f"detect_edges {Hb}x{Wb}")
+    noisy = img + np.random.default_rng(2).normal(0, 0.05, img.shape).astype(
+        np.float32)
+    for r in (1, 2):
+        exact(median_filter(torch.from_numpy(noisy).to(dev), r).cpu(),
+              median_filter(torch.from_numpy(noisy), r),
+              f"median_filter r={r} {Hb}x{Wb}")
+    noisy_d = torch.from_numpy(noisy).to(dev)
+    im_times = {
+        # host-bound (a full-frame mask a dot): 3 timings
+        "detect_hex_targets (median of 3)": median_ms(
+            lambda: detect_hex_targets(frame_d), 3),
+        "connected_components (queen)": median_ms(
+            lambda: connected_components(mask_d)),
+        "detect_edges": median_ms(lambda: detect_edges(img_d)),
+        "median_filter r=1": median_ms(lambda: median_filter(noisy_d, 1)),
+        "median_filter r=2": median_ms(lambda: median_filter(noisy_d, 2)),
+    }
+    print(f"sparse: at {Hb}x{Wb}, {n_targets} hex targets, the labels "
+          f"(queen, rook), the edges ({int(edges.sum())} pixels) and the "
+          f"median (r = 1, 2) equal the CPU's; sweeps to the fixed point "
+          f"(blocks of 16): {sweeps}", flush=True)
+    print(f"time: imageproc at {Hb}x{Wb} (medians of 5; {smi}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in im_times.items()),
+          flush=True)
+    torch.cuda.empty_cache()
+    print(f"sparse phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
 
 
 def prop_good_np(disp, gt):
@@ -3991,6 +4359,9 @@ def main(argv=None) -> int:
 
     # -- geometry: rays at 1M pairs, a rectified pair through the flagship --
     rectified_launches = geometry(dev, smi)
+
+    # -- the sparse chain and calibration targets: torch ops, no kernel ------
+    sparse(dev, smi)
 
     d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
                                                                   smi)

@@ -1,10 +1,9 @@
 """libstevi_tpu_torch: the PyTorch + CUDA port of libstevi_tpu.
 
 The port keeps the JAX package's module names (``core``, ``geometry``,
-``interpolation``, ``io``, ``statistics``, ``ops``, ``optim``,
-``parallel``, ``cli``) so each counterpart is easy to find, and carries
-the stereo engine: the 1-D and
-2-D cost volumes, 4/8/16-direction SGM, tie-last WTA, the truncated bands
+``imageproc``, ``interpolation``, ``io``, ``statistics``, ``ops``,
+``optim``, ``parallel``, ``sparse``, ``cli``) so each counterpart is easy
+to find, and carries the stereo engine: the 1-D and 2-D cost volumes, 4/8/16-direction SGM, tie-last WTA, the truncated bands
 and 1-D and 2-D subpixel refinement (end to end in
 `ops.dense_sgm_stereo`), the matchers (PatchMatch stereo and flow, the
 hierarchical matcher, fastmatch, DP stereo, guided filtering, template
@@ -13,8 +12,13 @@ solvers (L2 / spherical / L1 / least-median best approximations,
 Gauss-Newton, RANSAC, BFGS, L0, PCA) with the feature-space subpixel
 refinement they carry (`ops.image_refinement`), ``geometry`` (rotations,
 the lens model, two-view / PnP / point-cloud / ray alignment, the stereo
-rig rectifier) and ``statistics``, and the `stereo_match`,
-`stereo_refine`, `optical_flow_refine` and `ray_alignment_eval` CLIs.
+rig rectifier) and ``statistics``, ``sparse`` (Harris / FAST corners,
+non-local-maximum selection, orientation, BRIEF / whitened / circular-FFT
+descriptors), the first half of ``imageproc`` (the N-d convolution
+engine, filters, colour, histograms, morphology, connected components,
+edges, checkerboard and hexagonal-target detection), and the
+`stereo_match`, `stereo_refine`, `optical_flow_refine`,
+`ray_alignment_eval`, `tie_points` and `detect_checkerboard` CLIs.
 Plain functions on tensors; the device comes from the inputs.  On a CUDA tensor the paths
 run hand-written kernels (``csrc/``, built with nvcc on first use by
 `_build`); on a CPU tensor each kernel's plain PyTorch version runs
@@ -23,7 +27,8 @@ instead.
 Importing the package builds nothing and needs neither a GPU nor nvcc.
 """
 
-from . import core, geometry, interpolation, io, ops, optim, statistics
+from . import (core, geometry, imageproc, interpolation, io, ops, optim,
+               sparse, statistics)
 
-__all__ = ["core", "geometry", "interpolation", "io", "ops", "optim",
-           "statistics"]
+__all__ = ["core", "geometry", "imageproc", "interpolation", "io", "ops",
+           "optim", "sparse", "statistics"]

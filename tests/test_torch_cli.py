@@ -248,3 +248,97 @@ def test_ray_alignment_eval_cli_refuses_a_missing_gpu():
     assert res.returncode == 0, res.stderr
     report = json.loads(res.stdout.strip().splitlines()[-1])
     assert report["robust"]["rot_deg_median"] < 1.0
+
+
+# -- the sparse and calibration CLIs (`cli/tie_points.py`,
+# `cli/detect_checkerboard.py`)
+
+def _json_out(capsys):
+    """The JSON object a tool printed last (``tie_points`` indents it)."""
+    lines = capsys.readouterr().out.strip().splitlines()
+    start = max(i for i, line in enumerate(lines) if line.startswith("{"))
+    return json.loads("\n".join(lines[start:]))
+
+
+@pytest.mark.parametrize("argv", [
+    ["-n", "96"], ["-n", "96", "--descriptor", "oriented"],
+    ["-n", "96", "--f", "120"], ["-n", "96", "--f", "120", "--detector",
+                                 "fast"]], ids=["whitened", "oriented",
+                                                "pose", "fast_empty"])
+def test_tie_points_cli_matches_jax(argv, tmp_path, capsys):
+    """`tie_points --device cpu` against the root tool on the 96x128
+    parity pair: the counts and the match pairs equal (FAST finds no left
+    corner: 0 / 9 / 0, no pose).  With ``--f`` the port's RANSAC draws
+    come from torch (seed 3), not JAX's keys, so the pose keys are
+    compared, and the inliers against the JAX draws in
+    `tests/test_torch_sparse.py`."""
+    from libstevi_tpu_torch.cli import tie_points
+    pair = [str(DATA / "left_small.stevimg"), str(DATA / "right_small.stevimg")]
+    assert _root_main("tie_points")(pair + argv + [
+        "-o", str(tmp_path / "j.json")]) == 0
+    rj = _json_out(capsys)
+    assert tie_points.main(pair + argv + ["-o", str(tmp_path / "t.json"),
+                                          "--device", "cpu"]) == 0
+    rt = _json_out(capsys)
+    assert list(rt) == list(rj)
+    for k in ("n_left", "n_right", "n_matches"):
+        assert rt[k] == rj[k], k
+    mj, mt = (json.loads((tmp_path / f).read_text())["matches"]
+              for f in ("j.json", "t.json"))
+    np.testing.assert_array_equal(np.asarray(mt, np.float32),
+                                  np.asarray(mj, np.float32))
+    if "n_inliers" in rj:
+        assert rt["n_inliers"] >= 8 and np.asarray(rt["rotation"]).shape \
+            == (3, 3)
+
+
+def test_detect_checkerboard_cli_matches_jax(tmp_path, capsys):
+    """`detect_checkerboard --device cpu` against the root tool on
+    TestCheckerboard's rotated board written as a .stevimg: the report
+    equal, the corners within 1e-3 px."""
+    import test_imageproc_pipelines as pipelines
+    from libstevi_tpu_torch.cli import detect_checkerboard
+    from libstevi_tpu_torch.io import write_image
+    img, _ = pipelines.TestCheckerboard._render(theta=0.3,
+                                                persp=(0.01, 0.005))
+    path = str(tmp_path / "board.stevimg")
+    write_image(path, img)
+    assert _root_main("detect_checkerboard")(
+        [path, "-o", str(tmp_path / "j.json")]) == 0
+    rj = _json_out(capsys)
+    assert detect_checkerboard.main(
+        [path, "-o", str(tmp_path / "t.json"), "--device", "cpu"]) == 0
+    rt = _json_out(capsys)
+    assert rt == rj and rt["found"] and rt["n_points"] >= 35
+    cj, ct = (np.asarray(json.loads((tmp_path / f).read_text())["corners"],
+                         np.float64) for f in ("j.json", "t.json"))
+    np.testing.assert_allclose(ct, cj, rtol=0, atol=1e-3, equal_nan=True)
+
+
+def test_sparse_clis_refuse_a_missing_gpu(tmp_path):
+    """Without a GPU the default ``--device cuda`` is refused with exit 2;
+    ``python -m`` runs them on the CPU."""
+    import test_imageproc_pipelines as pipelines
+    from libstevi_tpu_torch.cli import detect_checkerboard, tie_points
+    from libstevi_tpu_torch.io import write_image
+    pair = [str(DATA / "left_small.stevimg"), str(DATA / "right_small.stevimg")]
+    if not torch.cuda.is_available():
+        for main, argv in ((tie_points.main, pair),
+                           (detect_checkerboard.main, pair[:1])):
+            with pytest.raises(SystemExit) as e:
+                main(argv)
+            assert e.value.code == 2
+    board = str(tmp_path / "board.stevimg")
+    write_image(board, pipelines.TestCheckerboard._render()[0])
+    reports = []
+    for argv in (["tie_points", *pair, "-n", "32"],
+                 ["detect_checkerboard", board]):
+        res = subprocess.run(
+            [sys.executable, "-m", f"libstevi_tpu_torch.cli.{argv[0]}",
+             *argv[1:], "--device", "cpu"],
+            cwd=REPO, capture_output=True, text=True, timeout=300)
+        assert res.returncode == 0, res.stderr
+        reports.append(json.loads(res.stdout[res.stdout.index("{"):]))
+    assert 0 < reports[0]["n_matches"] <= 32
+    assert reports[1] == {"found": True, "rows": 7, "cols": 9,
+                          "n_points": 63}
