@@ -173,7 +173,26 @@ each with the launch counts set to 0 just before it and read just after:
   run; response, candidates, fit and call timed; the CLI on both
   devices); and hex targets, connected components (queen, rook), edges
   and the median filter (r = 1, 2) at 1080x1920, exactly against the CPU,
-  with the sweeps each fixed point took.
+  with the sweeps each fixed point took;
+- the pipelines (`pipelines`): `entry.bg_fg_forward` after
+  `entry.bg_fg_background` at 1080x1920, D = 192, ZNCC r = 3 on
+  `entry.bg_fg_scene` (K5 launched exactly twice: background and live
+  volume, and held to its plain version at that shape), the mask held to
+  the pasted rectangle (>= 0.95 inside, <= 0.01 outside), the card to the
+  port's CPU run on a crop across the rectangle's edge (mask and
+  disparities equal wherever the WTA indices agree within the rule's reach
+  and the ratio is off the threshold), the `bg_fg_stereo` CLI on the same
+  scene (2 K5 launches, the entry's disparities), and both 480x640
+  fixtures with a rectangle pasted at disparity 100 (D = 120) against the
+  CPU; `retinex_fft` at 1080x1920 on a rendered dome against the CPU, the
+  normal-map chain (`cli/normal_map_estimation.py`'s steps) at 1080x1920,
+  each stage timed, held to the dome's true normals (the median angle,
+  also with the input one ulp lower) and against the CPU at 68x120; the
+  RGB non-local retinex at 96x96 (its O(N^2) clustering on the host)
+  against the CPU;
+  graph-cut segmentation at 1080x1920 (global and hierarchical, JAX's
+  test rule >= 0.97), inpainting of a 200x300 hole and mean shift over
+  16384 RGB features, against the CPU on a crop / the first 1024.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -203,10 +222,13 @@ prints one JSON line of kernel records (each with its
 least time on the card, ``bound_ms``, from this run's shapes), the card's
 name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
 failed check raises: the exit code is then non-zero and no result line is
-printed.  There is no CPU path.
+printed.  There is no CPU path.  The CPU runs of the full-size refinement
+holds (`CPU_JOBS`) go to a second Python process, started after the
+build and ended with the script.
 """
 
 import json
+import os
 import statistics
 import subprocess
 import sys
@@ -1070,7 +1092,7 @@ def hold_to_cpu(tag, got, want, tol=1e-3, share=0.999, bound=1.0,
     a pixel mask; every pixel when None: where K5 and the CPU's loop break
     a near-tie apart the refinement starts from another index).  Returns
     (share, max |diff| where the indices agree)."""
-    got = got.cpu()
+    got, want = got.cpu(), torch.as_tensor(want)
     fin = torch.isfinite(want)
     assert torch.equal(torch.isfinite(got), fin), tag
     d = torch.where(fin, (got - want).abs(), 0.0)
@@ -1090,32 +1112,159 @@ def hold_to_cpu(tag, got, want, tol=1e-3, share=0.999, bound=1.0,
     return sh, mx
 
 
-def wta_agreement(tag, func, L, R, search=120):
+def wta_index(func, a, b, search=120):
     """The WTA index the image-level refinement starts from (7x7 unfolds,
     the trait volumes, `aggregate_cost` 'auto': K5 on the card for the
-    dot/SSD/SAD families), on the card and on the CPU; asserts agreement
-    on >= 0.999 of the pixels and returns the mask where they agree."""
+    dot/SSD/SAD families) on the inputs' device."""
     from libstevi_tpu_torch.core import MATCH_TRAITS
     from libstevi_tpu_torch.ops import image_refinement as ir
     from libstevi_tpu_torch.ops.cost_volume import (
         aggregate_cost, extract_selected_2d_index)
     from libstevi_tpu_torch.ops.unfold import unfold
+    (cl, cr), _ = ir._trait_volumes(func, unfold(3, 3, a), unfold(3, 3, b),
+                                    False)
+    if isinstance(search, int):
+        return ir._cv_and_index(func, cl, cr, search,
+                                ir.DispDirection.RIGHT_TO_LEFT)
+    return extract_selected_2d_index(aggregate_cost(func, cl, cr, search),
+                                     MATCH_TRAITS[func].strategy)
 
-    def index(a, b):
-        (cl, cr), _ = ir._trait_volumes(func, unfold(3, 3, a),
-                                        unfold(3, 3, b), False)
-        if isinstance(search, int):
-            return ir._cv_and_index(func, cl, cr, search,
-                                    ir.DispDirection.RIGHT_TO_LEFT)
-        return extract_selected_2d_index(aggregate_cost(func, cl, cr, search),
-                                         MATCH_TRAITS[func].strategy)
 
-    g, c = index(L, R).cpu(), index(L.cpu(), R.cpu())
+def wta_agreement(tag, func, L, R, search=120, cpu=None):
+    """`wta_index` on the card and on the CPU (``cpu``: the CPU's index,
+    where computed already); asserts agreement on >= 0.999 of the pixels
+    and returns the mask where they agree."""
+    g = wta_index(func, L, R, search).cpu()
+    c = (wta_index(func, L.cpu(), R.cpu(), search) if cpu is None
+         else torch.as_tensor(cpu))
     same = (g == c) if g.ndim == 2 else (g == c).all(-1)
     agree = same.float().mean().item()
     assert agree >= 0.999, (tag, agree)
     print(f"  {tag}: WTA index CUDA vs CPU agree on {agree:.6f}", flush=True)
     return same
+
+
+
+# -- CPU references computed beside the card ---------------------------------
+# The CPU runs that the full-size refinement holds compare with (the SAD
+# IRLS and the optical-flow chain) take minutes of the host.  `main` starts
+# them in a second Python process (`cpu_worker`; it never touches the card)
+# as soon as the kernels are built, so they run while the card works; a
+# phase run on its own computes them in place.  Each job returns numpy
+# arrays.
+FLOW_SEARCH = (-8, 8, -8, 8)
+
+
+def warp_fixture():
+    """The warp fixture's pair as CPU tensors."""
+    from libstevi_tpu_torch.io import read_stevimg
+    return tuple(torch.from_numpy(read_stevimg(str(
+        FIXTURES / f"{side}.stevimg"))) for side in ("left", "right"))
+
+
+def flow_pair():
+    """(source, target): 240x320 crops of the warp fixture's left image,
+    the target moved by the flow (3, 5)."""
+    L = warp_fixture()[0]
+    return L[100:340, 100:420].contiguous(), L[97:337, 95:415].contiguous()
+
+
+def flow_chain(a, b):
+    """The optical-flow chain: ZNCC 7x7 over `FLOW_SEARCH`, the 2-D WTA
+    and the 9-point symmetric refinement."""
+    from libstevi_tpu_torch.core import MatchingFunction, SearchOffset2
+    from libstevi_tpu_torch.ops import image_refinement as ir
+    return ir.refined_barycentric_symmetric_2d_disp(
+        MatchingFunction.ZNCC, a, b, 3, 3, SearchOffset2(*FLOW_SEARCH))
+
+
+def refine_cpu(f):
+    """The CPU run of the barycentric-symmetric refinement by ``f`` (SAD,
+    SSD) on the whole warp fixture, and its WTA index."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import MatchingFunction
+    L, R = warp_fixture()
+    func = MatchingFunction[f]
+    return (entry.stereo_refine_forward(L, R, "barycentric-symmetric",
+                                        func).numpy(),
+            wta_index(func, L, R).numpy())
+
+
+def flow_cpu():
+    """The CPU run of the optical-flow chain on `flow_pair`, and its 2-D
+    WTA index."""
+    from libstevi_tpu_torch.core import MatchingFunction, SearchOffset2
+    src, tgt = flow_pair()
+    return (flow_chain(tgt, src).numpy(),
+            wta_index(MatchingFunction.ZNCC, tgt, src,
+                      SearchOffset2(*FLOW_SEARCH)).numpy())
+
+
+CPU_JOBS = {"refine SAD": (refine_cpu, ("SAD",)),
+            "refine SSD": (refine_cpu, ("SSD",)),
+            "flow": (flow_cpu, ())}
+_cpu_worker = None
+
+
+def cpu_worker(out_dir, threads):
+    """Run every `CPU_JOBS` entry in order on ``threads`` cores, each
+    result saved as ``out_dir/<key>.npz`` (written whole, then renamed)."""
+    torch.set_num_threads(threads)
+    for key, (fn, args) in CPU_JOBS.items():
+        part = Path(out_dir) / f"{key}.part.npz"
+        np.savez(part, *fn(*args))
+        part.rename(Path(out_dir) / f"{key}.npz")
+
+
+def start_cpu_jobs():
+    """Start `cpu_worker` in a second Python process on half the host's
+    cores (it never touches the card)."""
+    global _cpu_worker
+    out = tempfile.TemporaryDirectory()
+    threads = max(1, (os.cpu_count() or 2) // 2)
+    err = open(Path(out.name) / "stderr.txt", "w")
+    proc = subprocess.Popen(
+        [sys.executable, "-c",
+         f"import sys; sys.path.insert(0, {str(ROOT)!r}); import chip_smoke;"
+         f" chip_smoke.cpu_worker({out.name!r}, {threads})"],
+        cwd=ROOT, stdout=err, stderr=subprocess.STDOUT)
+    _cpu_worker = (proc, out, err)
+
+
+def cpu_job(key):
+    """``CPU_JOBS[key]``'s result: the second process's where
+    `start_cpu_jobs` started it (its failure raises here), else computed
+    in place."""
+    if _cpu_worker is None:
+        fn, args = CPU_JOBS[key]
+        return fn(*args)
+    proc, out, _ = _cpu_worker
+    path = Path(out.name) / f"{key}.npz"
+    t0 = time.perf_counter()
+    while not path.exists():
+        if proc.poll() is not None and not path.exists():
+            raise RuntimeError(
+                f"the CPU jobs' process ended ({proc.returncode}) without "
+                f"{key!r}: "
+                + (Path(out.name) / "stderr.txt").read_text()[-3000:])
+        time.sleep(0.05)
+    with np.load(path) as z:
+        res = tuple(z[f"arr_{i}"] for i in range(len(z.files)))
+    print(f"  [cpu job] {key}: waited {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    return res
+
+
+def stop_cpu_jobs():
+    """End the second process, finished or not."""
+    global _cpu_worker
+    if _cpu_worker is not None:
+        proc, out, err = _cpu_worker
+        proc.kill()
+        proc.wait()
+        err.close()
+        out.cleanup()
+        _cpu_worker = None
 
 
 def refine(dev, smi):
@@ -1193,11 +1342,11 @@ def refine(dev, smi):
         pg, mae = refine_stats(d.cpu().numpy(), gt)
         print(f"refine warp {f} barycentric-symmetric: K5 launches 1, "
               f"prop_good_1.0 = {pg:.5f}, inlier_mae = {mae:.5f}", flush=True)
-        hold_to_cpu(f"refine {f} barycentric-symmetric", d,
-                    entry.stereo_refine_forward(L.cpu(), R.cpu(),
-                                                "barycentric-symmetric",
-                                                func),
-                    same=wta_agreement(f"refine warp {f}", func, L, R))
+        # the CPU run of the same call and its WTA index (`CPU_JOBS`)
+        d_cpu, idx_cpu = cpu_job(f"refine {f}")
+        hold_to_cpu(f"refine {f} barycentric-symmetric", d, d_cpu,
+                    same=wta_agreement(f"refine warp {f}", func, L, R,
+                                       cpu=idx_cpu))
         frame_stats(f"refine frame {f} barycentric-symmetric 480x640 D=120",
                     lambda: entry.stereo_refine_forward(
                         L, R, "barycentric-symmetric", func), reps=3)
@@ -1261,29 +1410,23 @@ def refine_flow_and_clis(dev, smi):
     `REFINE_BARS`, the flow one on the 96x128 fixtures)."""
     from libstevi_tpu_torch.core import MatchingFunction, SearchOffset2
     from libstevi_tpu_torch.io import read_flo, read_stevimg
-    from libstevi_tpu_torch.ops import image_refinement as ir
     ZNCC = MatchingFunction.ZNCC
-    L = torch.from_numpy(read_stevimg(str(FIXTURES / "left.stevimg"))).to(dev)
 
     # -- the optical-flow chain, 240x320 over (-8..8)^2 ----------------------
-    src = L[100:340, 100:420].contiguous()
-    tgt = L[97:337, 95:415].contiguous()          # flow (3, 5)
-    s2 = SearchOffset2(-8, 8, -8, 8)
-
-    def flow(a, b):
-        return ir.refined_barycentric_symmetric_2d_disp(ZNCC, a, b, 3, 3, s2)
-
-    fg = flow(tgt, src)
+    src, tgt = (x.to(dev) for x in flow_pair())
+    s2 = SearchOffset2(*FLOW_SEARCH)
+    fg = flow_chain(tgt, src)
     hit = ((fg[8:-8, 8:-8] - torch.tensor([3.0, 5.0], device=dev)).abs()
            .amax(-1) <= 0.05).float().mean().item()
     assert hit > 0.9, hit
     # the QUEEN neighbourhood's 9-column solves have condition numbers up
     # to ~1e4 on this smooth crop: the devices' float32 roundings of the
     # trait volumes move a flow by up to ~0.015 px
-    hold_to_cpu("optical-flow chain 240x320 (-8..8)^2", fg,
-                flow(tgt.cpu(), src.cpu()), tol=0.02,
-                same=wta_agreement("optical-flow chain", ZNCC, tgt, src, s2))
-    ms = median_ms(lambda: flow(tgt, src), 3)
+    flow_c, idx_c = cpu_job("flow")
+    hold_to_cpu("optical-flow chain 240x320 (-8..8)^2", fg, flow_c, tol=0.02,
+                same=wta_agreement("optical-flow chain", ZNCC, tgt, src, s2,
+                                   cpu=idx_c))
+    ms = median_ms(lambda: flow_chain(tgt, src), 3)
     print(f"time: optical-flow chain 240x320 over (-8..8)^2 ZNCC 7x7 (2-D "
           f"volume, 2-D WTA, 9-point symmetric refinement): {ms:.3f} ms "
           f"(median of 3; {smi}); flow (3, 5) within 0.05 px on {hit:.4f}",
@@ -2211,6 +2354,494 @@ def sparse(dev, smi):
           flush=True)
     torch.cuda.empty_cache()
     print(f"sparse phase: {time.perf_counter() - t_phase:.1f} s", flush=True)
+
+
+# a rectangle where both fixtures' background disparity is at most 28 (their
+# ground truth), pasted at disparity 100
+BGFG_FIXTURE = dict(rect=(280, 440, 30, 230), d_fg=100, D=120)
+BGFG_BARS = (0.95, 0.01)
+NORMAL_CPU = (68, 120)
+# the bar on the median angle (degrees) of the chain's normals to the
+# dome's true ones where the shading is below 0.999 (at 1 the clip leaves
+# only rounding noise): `tests/test_torch_cli_pipelines.py` holds the
+# chain under it on a 48x80 dome and the initial estimate above it
+NORMAL_TRUTH_BAR = 18.0
+MEANSHIFT_N = (16384, 1024)
+
+
+def render_dome(H, W, light=(0.3, 0.1, 0.95)):
+    """A shallow sphere cap (radius 1.2 H) under a Lambertian light,
+    shading n.l clipped to [0, 1] (no plateau at 1 away from n = l).
+    Returns the float32 shading and the float64 normals."""
+    ii, jj = np.mgrid[0:H, 0:W].astype(np.float64)
+    R = 1.2 * H
+    z = np.sqrt(np.maximum(R * R - (ii - H / 2) ** 2 - (jj - W / 2) ** 2,
+                           1e-6))
+    n = np.stack([(jj - W / 2) / R, (ii - H / 2) / R, z / R], -1)
+    lhat = np.asarray(light, np.float64)
+    lhat /= np.linalg.norm(lhat)
+    return np.clip(n @ lhat, 0, 1).astype(np.float32), n
+
+
+def bgfg_occluded(rect, bg_idx, d_fg):
+    """Pixels outside ``rect`` (a bool mask in the right image) whose
+    background match (column + bg_idx) falls on the object pasted
+    ``d_fg`` columns right in the left image: background hidden behind the
+    object, which the estimator rightly calls dissimilar."""
+    rows, cols = np.nonzero(rect)
+    c0, c1 = cols.min(), cols.max() + 1
+    jj = np.arange(rect.shape[1])[None, :] + bg_idx
+    band = (jj >= c0 + d_fg) & (jj < c1 + d_fg)
+    band[:rows.min()] = False
+    band[rows.max() + 1:] = False
+    return band & ~rect
+
+
+def dilate_np(mask, radius):
+    """A bool mask dilated by a (2 radius + 1)^2 square (the port's
+    `morphology.dilation` on the CPU)."""
+    from libstevi_tpu_torch.imageproc.morphology import dilation
+    return dilation(torch.from_numpy(mask.astype(np.float32)),
+                    radius=radius).numpy() > 0.5
+
+
+def hold_bgfg(tag, mask, rect, excluded=None):
+    """The foreground mask against the pasted rectangle: >= BGFG_BARS[0]
+    inside, <= BGFG_BARS[1] outside (outside ``excluded`` where given).
+    Returns (inside, outside, outside raw)."""
+    inside = float(mask[rect].mean())
+    outside_raw = float(mask[~rect].mean())
+    keep = ~rect if excluded is None else ~(rect | excluded)
+    outside = float(mask[keep].mean())
+    print(f"  {tag}: foreground share {inside:.5f} inside the rectangle "
+          f"(bar >= {BGFG_BARS[0]}), {outside:.5f} outside"
+          + ("" if excluded is None else
+             f" the rectangle's reach and the occluded band "
+             f"({outside_raw:.5f} with them)")
+          + f" (bar <= {BGFG_BARS[1]})", flush=True)
+    assert inside >= BGFG_BARS[0] and outside <= BGFG_BARS[1], (tag, inside,
+                                                                 outside)
+    return inside, outside, outside_raw
+
+
+def bgfg_card_vs_cpu(tag, card, cpu, cpu_ratio, bg_idx, live_idx, thr):
+    """Card against the CPU run: the WTA indices' agreement; the mask and
+    the disparities equal wherever both runs' indices agree within the
+    rule's reach (radius 3: the opening and the dilation) and the CPU's
+    cost ratio is not within 1e-4 of the threshold."""
+    agree_bg = bg_idx[0] == bg_idx[1]
+    agree_live = live_idx[0] == live_idx[1]
+    shaky = ~(agree_bg & agree_live) | (np.abs(cpu_ratio - thr) < 1e-4)
+    reach = dilate_np(shaky, 3)
+    m_eq = card.fg_mask.cpu().numpy() == cpu.fg_mask.numpy()
+    d_eq = card.disp.cpu().numpy() == cpu.disp.numpy()
+    share = (float(agree_bg.mean()), float(agree_live.mean()))
+    print(f"  {tag}: card vs CPU: background / live WTA indices agree on "
+          f"{share[0]:.6f} / {share[1]:.6f}; mask and disparities equal on "
+          f"{float((m_eq & d_eq).mean()):.6f} of the pixels, on all "
+          f"{int((~reach).sum())} where the indices agree within radius 3 "
+          f"and the ratio is off the threshold", flush=True)
+    assert min(share) >= 0.999, (tag, share)
+    assert (m_eq & d_eq)[~reach].all(), tag
+    return share
+
+
+def bgfg_cpu_run(bl, br, ll, lr, D):
+    """The estimator's CPU run, keeping its live volume for the ratio."""
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.core import MATCH_TRAITS
+    from libstevi_tpu_torch.ops.cost_volume import (
+        extract_selected_index, feature_volume_to_cost_volume)
+    from libstevi_tpu_torch.ops.unfold import unfold
+    t = [torch.from_numpy(np.ascontiguousarray(x)) for x in (bl, br, ll, lr)]
+    est = entry.bg_fg_background(t[0], t[1], disp_width=D)
+    r = entry.BGFG["radius"]
+    live_cv = feature_volume_to_cost_volume(est.func, unfold(r, r, t[2]),
+                                            unfold(r, r, t[3]), est.search)
+    res = est.compute_disp_and_foreground_mask(live_cv)
+    idx = est.bg_idx[..., None].long()
+    c_bg = torch.gather(est.bg_cv, -1, idx)[..., 0]
+    c_fg = torch.gather(live_cv, -1, idx)[..., 0]
+    lo, hi = torch.minimum(c_bg, c_fg), torch.maximum(c_bg, c_fg)
+    ratio = (lo / torch.where(hi.abs() > 1e-12, hi, 1e-12)).numpy()
+    live_idx = extract_selected_index(live_cv,
+                                      MATCH_TRAITS[est.func].strategy)
+    return res, ratio, est.bg_idx.numpy(), live_idx.numpy()
+
+
+def pipelines(dev, smi):
+    """The `pipelines` phase: `entry.bg_fg_forward`
+    and the `bg_fg_stereo` CLI at 1080x1920, D = 192 (K5 twice a frame,
+    held to its plain version there; the mask to the pasted rectangle; the
+    card to the CPU) and on the 480x640 fixtures at D = 120; the FFT
+    retinex and the normal-map chain at 1080x1920 on a rendered dome (the
+    chain held to the dome's true normals; it is ill-conditioned, so to
+    the CPU only at 68x120), the RGB non-local retinex at 96x96;
+    graph-cut segmentation at 1080x1920, inpainting and mean shift; each
+    stage timed (CUDA events on the card, the host clock for host stages)
+    and held to the CPU."""
+    import importlib
+    from libstevi_tpu_torch import entry
+    from libstevi_tpu_torch.cli import bg_fg_stereo as bgfg_cli
+    from libstevi_tpu_torch.cli.normal_map_estimation import normal_map_chain
+    from libstevi_tpu_torch.core import MATCH_TRAITS
+    from libstevi_tpu_torch.imageproc import (
+        diffusion_inpainting, mean_shift_clustering,
+        nearest_neighbor_inpainting, retinex_fft)
+    from libstevi_tpu_torch.imageproc import foreground_segmentation as fgs
+    from libstevi_tpu_torch.io import read_stevimg, write_image
+    from libstevi_tpu_torch.ops import normalize_feature_volume, unfold
+    from libstevi_tpu_torch.ops.cost_volume import (
+        extract_selected_index, feature_volume_to_cost_volume)
+    from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
+                                                   fused_fv_cost_volume_plain)
+    from libstevi_tpu_torch.profile_frames import profile_frame
+    ID = importlib.import_module(
+        "libstevi_tpu_torch.imageproc.intrinsic_decomposition")
+    t_phase = time.perf_counter()
+    K5 = fused_fv_cost_volume
+    times = {}
+
+    # -- (1) bg/fg at 1080x1920, D = 192 ------------------------------------
+    H, W = entry.BGFG_HEIGHT, entry.BGFG_WIDTH
+    D, r = entry.BGFG["disp_width"], entry.BGFG["radius"]
+    K5.launches = 0
+    forward, (ll_d, lr_d, est) = entry.bg_fg_entry(dev, seed=0)
+    res = forward(ll_d, lr_d, est)
+    torch.cuda.synchronize()
+    bgfg_launches = K5.launches
+    # the same scene on the host, for the CPU run, the CLI and the timing
+    (bl, br, ll, lr), rect = entry.bg_fg_scene(H, W, seed=0)
+    bl_d, br_d = (torch.from_numpy(x).to(dev) for x in (bl, br))
+    print(f"pipelines: bg/fg {H}x{W} D={D} ZNCC r={r}: K5 launches "
+          f"{bgfg_launches} (background + live volume)", flush=True)
+    assert bgfg_launches == 2, bgfg_launches
+    hold_bgfg(f"bg/fg {H}x{W}", res.fg_mask.cpu().numpy(), rect)
+    # K5 at this shape against its plain version (the live volume's inputs)
+    func = entry.BGFG["func"]
+    kernel = MATCH_TRAITS[func].kernel
+    src = normalize_feature_volume(func, unfold(r, r, lr_d))
+    tgt = normalize_feature_volume(func, unfold(r, r, ll_d))
+    got = K5(kernel, src, tgt, range(D))
+    want = fused_fv_cost_volume_plain(kernel, src, tgt, range(D))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-5)
+    k5_err = (got - want).abs().max().item()
+    k5_ms = median_ms(lambda: K5(kernel, src, tgt, range(D)))
+    # both feature volumes read once and the volume written once; 'dot'
+    # spends one multiply-add (2 operations) an element and feature
+    F = src.shape[-1]
+    k5_bound = bound((2 * H * W * F + H * W * D) * 4, 2 * F * H * W * D)
+    plain_ms = median_ms(lambda: fused_fv_cost_volume_plain(
+        kernel, src, tgt, range(D)), 3)
+    del got, want, src, tgt
+    times[f"background ({H}x{W}, D={D})"] = median_ms(
+        lambda: entry.bg_fg_background(bl_d, br_d))
+    times["bg_fg_forward (one live frame)"] = median_ms(
+        lambda: entry.bg_fg_forward(ll_d, lr_d, est))
+    peak = peak_bytes(lambda: entry.bg_fg_forward(ll_d, lr_d, est))
+    live_ms = times["bg_fg_forward (one live frame)"]
+    busy, items = profile_frame(
+        lambda: entry.bg_fg_forward(ll_d, lr_d, est), 3)
+    print(f"  K5 {H}x{W}x{D} F={F} '{kernel}': max |kernel - plain| = "
+          f"{k5_err:.3g}; {k5_ms:.3f} ms (plain {plain_ms:.3f}, bound "
+          f"{k5_bound[0]:.3f} by {k5_bound[1]}); a live "
+          f"frame's peak {peak / 1e9:.3f} GB above its inputs; its profile: "
+          f"device busy {busy / 1e3:.3f} ms, idle {1 - busy / 1e3 / live_ms:.3f}"
+          f", {n_items(items):.0f} device items, top {top_items(items, 6)}",
+          flush=True)
+    # card vs the port's CPU run, on a crop across the rectangle's top
+    # edge (its corners, sides, inside and the occluded band beside it):
+    # each output pixel reads rows within 3 + 3 of it and columns up to
+    # D + 6 to its right, so the crop's interior equals the full frame's
+    rows, cols = np.nonzero(rect)
+    y0, y1 = rows.min() - 16, rows.min() + 80
+    x0, x1 = cols.min() - 16, cols.max() + 41
+    crop = (slice(y0, y1), slice(x0, x1 + D + 8))
+    t0 = time.perf_counter()
+    cpu, ratio, bg_idx_c, live_idx_c = bgfg_cpu_run(
+        *(x[crop] for x in (bl, br, ll, lr)), D)
+    times["the CPU run of the crop (host)"] = (time.perf_counter() - t0) * 1e3
+    inner = (slice(8, y1 - y0 - 8), slice(8, x1 - x0 - 8))
+    full = (slice(y0 + 8, y1 - 8), slice(x0 + 8, x1 - 8))
+    live_idx_d = extract_selected_index(
+        feature_volume_to_cost_volume(
+            func, unfold(r, r, ll_d), unfold(r, r, lr_d), est.search),
+        MATCH_TRAITS[func].strategy).cpu().numpy()
+    bgfg_card_vs_cpu(
+        f"bg/fg {H}x{W} (the CPU on rows {y0}:{y1}, columns {x0}:"
+        f"{x1 + D + 8}; compared across the rectangle's top edge)",
+        type(res)(res.disp[full], res.fg_mask[full]),
+        type(cpu)(cpu.disp[inner], cpu.fg_mask[inner]), ratio[inner],
+        (est.bg_idx.cpu().numpy()[full], bg_idx_c[inner]),
+        (live_idx_d[full], live_idx_c[inner]), entry.BGFG["rel_threshold"])
+    # the CLI on the card: the same mask
+    with tempfile.TemporaryDirectory() as tmp:
+        paths = []
+        for nm, img in (("bl", bl), ("br", br), ("ll", ll), ("lr", lr)):
+            paths.append(str(Path(tmp) / f"{nm}.stevimg"))
+            write_image(paths[-1], img)
+        out = str(Path(tmp) / "disp.stevimg")
+        K5.launches = 0
+        t0 = time.perf_counter()
+        rc, rep = run_cli(bgfg_cli, paths + ["-d", str(D), "-o", out])
+        cli_s = time.perf_counter() - t0
+        assert rc == 0 and K5.launches == 2, (rc, K5.launches)
+        disp_cli = read_stevimg(out)
+    want_frac = round(float(res.fg_mask.float().mean().item()), 4)
+    assert rep["fg_fraction"] == want_frac, (rep, want_frac)
+    assert np.array_equal(disp_cli, res.disp.cpu().numpy().astype(
+        np.float32))
+    print(f"  the bg_fg_stereo CLI on the card ({cli_s:.2f} s host wall, "
+          f"writes included): {json.dumps(rep)}, K5 launches 2, its "
+          f"disparities the entry's", flush=True)
+    del bl_d, br_d, ll_d, lr_d, est, res
+    torch.cuda.empty_cache()
+
+    # -- the 480x640 fixtures at D = 120 -------------------------------------
+    y0, y1, x0, x1 = BGFG_FIXTURE["rect"]
+    d_fg, Df = BGFG_FIXTURE["d_fg"], BGFG_FIXTURE["D"]
+    for name, suffix in (("warp", ""), ("occluded", "_occ")):
+        fl = read_stevimg(str(FIXTURES / f"left{suffix}.stevimg"))
+        fr = read_stevimg(str(FIXTURES / f"right{suffix}.stevimg"))
+        fl, fr = (np.ascontiguousarray(x, np.float32) for x in (fl, fr))
+        obj = np.random.default_rng(3).uniform(
+            0.1, 1.0, (y1 - y0, x1 - x0)).astype(np.float32)
+        lr_f, ll_f = fr.copy(), fl.copy()
+        lr_f[y0:y1, x0:x1] = obj
+        ll_f[y0:y1, x0 + d_fg:x1 + d_fg] = obj
+        frect = np.zeros(fl.shape, bool)
+        frect[y0:y1, x0:x1] = True
+        t = [torch.from_numpy(x).to(dev) for x in (fl, fr, ll_f, lr_f)]
+        K5.launches = 0
+        est = entry.bg_fg_background(t[0], t[1], disp_width=Df)
+        res = entry.bg_fg_forward(t[2], t[3], est)
+        torch.cuda.synchronize()
+        assert K5.launches == 2, K5.launches
+        bg_idx = est.bg_idx.cpu().numpy()
+        # outside: away from the rectangle's window reach and from the
+        # background it hides in the left image
+        near = dilate_np(bgfg_occluded(frect, bg_idx, d_fg) | frect, r)
+        hold_bgfg(f"bg/fg fixture {name} 480x640 D={Df} (a rectangle at "
+                  f"disparity {d_fg})", res.fg_mask.cpu().numpy(), frect,
+                  near)
+        cpu, ratio, bg_idx_c, live_idx_c = bgfg_cpu_run(fl, fr, ll_f, lr_f,
+                                                        Df)
+        live_idx_d = extract_selected_index(
+            feature_volume_to_cost_volume(
+                func, unfold(r, r, t[2]), unfold(r, r, t[3]), est.search),
+            MATCH_TRAITS[func].strategy).cpu().numpy()
+        bgfg_card_vs_cpu(f"bg/fg fixture {name}", res, cpu, ratio,
+                         (bg_idx, bg_idx_c), (live_idx_d, live_idx_c),
+                         entry.BGFG["rel_threshold"])
+        times[f"bg_fg_forward fixture {name} 480x640 D={Df}"] = median_ms(
+            lambda: entry.bg_fg_forward(t[2], t[3], est))
+    del t, est, res
+    torch.cuda.empty_cache()
+
+    # -- (2) intrinsic: FFT retinex and the normal-map chain at 1080x1920 ----
+    dome, n_true = render_dome(H, W)
+    dome_d = torch.from_numpy(dome).to(dev)
+    dec = retinex_fft(dome_d)
+    t0 = time.perf_counter()
+    dec_cpu = retinex_fft(torch.from_numpy(dome))
+    times["retinex_fft CPU run (host)"] = (time.perf_counter() - t0) * 1e3
+    shares = []
+    for g, w in ((dec.shading, dec_cpu.shading),
+                 (dec.reflectance, dec_cpu.reflectance)):
+        shares.append(float(torch.isclose(g.cpu(), w, rtol=0, atol=1e-3)
+                            .float().mean()))
+    print(f"  retinex_fft {H}x{W} dome: card vs CPU within 1e-3 on "
+          f"{shares[0]:.6f} (shading) / {shares[1]:.6f} (reflectance) of "
+          f"the pixels (bar >= 0.99, the L0 rule)", flush=True)
+    assert min(shares) >= 0.99, shares
+    times[f"retinex_fft ({H}x{W})"] = median_ms(lambda: retinex_fft(dome_d))
+
+    def chain(img, marks):
+        def on_stage(name, _):
+            ev = torch.cuda.Event(enable_timing=True)
+            ev.record()
+            marks.append((name, ev))
+        start = torch.cuda.Event(enable_timing=True)
+        start.record()
+        marks.append(("start", start))
+        return normal_map_chain(img, on_stage=on_stage)
+
+    Hc, Wc = NORMAL_CPU
+    small, _ = render_dome(Hc, Wc)
+    n_s, h_s, l_s = chain(torch.from_numpy(small).to(dev), [])  # warm-up
+    t0 = time.perf_counter()
+    n_c, h_c, l_c = normal_map_chain(torch.from_numpy(small))
+    times[f"normal-map chain CPU run {Hc}x{Wc} (host)"] = \
+        (time.perf_counter() - t0) * 1e3
+    n_err = (n_s.cpu() - n_c).abs().max().item()
+    h_err = ((h_s.cpu() - h_c).abs().max()
+             / (h_c.max() - h_c.min())).item()
+    print(f"  normal-map chain {Hc}x{Wc} dome, card vs CPU: light "
+          f"{l_s.tolist()} / {l_c.tolist()}, normals within {n_err:.3g} "
+          f"(bar 1e-3), the flattened height within {h_err:.3g} of its "
+          f"range (bar 1e-2)", flush=True)
+    assert np.abs(l_s - l_c).max() <= 1e-5 and n_err <= 1e-3 \
+        and h_err <= 1e-2
+    marks = []
+    normals, flat, light = chain(dome_d, marks)
+    torch.cuda.synchronize()
+    sfs = importlib.import_module(
+        "libstevi_tpu_torch.imageproc.shape_from_shading")
+    steps = sfs._solve_normals.steps
+    for (_, a), (name, b) in zip(marks, marks[1:]):
+        times[f"chain: {name}"] = a.elapsed_time(b)
+    # the truth: the dome's normals away from the clip.  The same chain on
+    # the dome moved by one float32 ulp toward 0 is held to it too, and
+    # the two runs' spread printed: it is why the card is not held to a
+    # CPU run here pixel by pixel
+    n_true = torch.from_numpy(n_true).to(dev)
+    keep = dome_d < 0.999
+
+    def truth_angles(n):
+        cos = (n.double() * n_true).sum(-1) / n.double().norm(dim=-1)
+        return torch.rad2deg(torch.arccos(cos.clamp(-1, 1)))[keep]
+
+    normals_u, _, _ = normal_map_chain(
+        torch.nextafter(dome_d, torch.zeros_like(dome_d)))
+    med = [truth_angles(n).median().item() for n in (normals, normals_u)]
+    p90 = truth_angles(normals).quantile(0.9).item()
+    spread = (normals - normals_u).abs().amax(-1)
+    run_angle = torch.rad2deg(torch.arccos(
+        (normals.double() * normals_u).sum(-1).clamp(-1, 1)))
+    norm = normals.norm(dim=-1)
+    assert torch.isfinite(normals).all() and torch.isfinite(flat).all()
+    assert (norm - 1).abs().max().item() <= 1e-4
+    mean_up = normals[..., 2].mean().item()
+    print(f"  normal-map chain {H}x{W} dome (the tool's steps, light "
+          f"estimated {light.tolist()}): {steps[0]} Gauss-Newton steps, "
+          f"{steps[1]} CG steps, height CG {sfs._cg.steps} steps; mean_up "
+          f"{mean_up:.4f}, height range {(flat.max() - flat.min()).item():.3f}"
+          f"; to the true normals (shading < 0.999, "
+          f"{keep.float().mean().item():.4f} of the pixels): median angle "
+          f"{med[0]:.3f} deg (bar <= {NORMAL_TRUTH_BAR}), p90 {p90:.3f}; the "
+          f"input one ulp lower: median {med[1]:.3f} deg, the two runs' "
+          f"normals within 1e-3 on {(spread <= 1e-3).float().mean().item():.4f}"
+          f" of the pixels, max {spread.max().item():.3g}, median angle "
+          f"between them {run_angle.median().item():.3f} deg", flush=True)
+    assert mean_up > 0.6 and max(med) <= NORMAL_TRUTH_BAR, (mean_up, med)
+    del dome_d, dec, normals, flat, normals_u, n_true, keep, spread
+    del run_angle
+    torch.cuda.empty_cache()
+
+    # the RGB non-local retinex at 96x96 (clustering on the host)
+    rng = np.random.default_rng(5)
+    rgb = np.kron(rng.uniform(0.2, 1.0, (12, 12, 3)), np.ones((8, 8, 1)))
+    rgb = (rgb * np.linspace(0.3, 1.0, 96)[None, :, None]).astype(np.float32)
+    log = np.log(np.maximum(rgb, 1e-8))
+    t0 = time.perf_counter()
+    chains = ID._texture_chains(ID._rg_chromaticity(log), log, 0.01)
+    times["texture clustering 96x96 (host, O(N^2))"] = \
+        (time.perf_counter() - t0) * 1e3
+    rgb_d = torch.from_numpy(rgb).to(dev)
+    solve = lambda x: ID.retinex_with_nonlocal_texture_constraint(  # noqa
+        x, 2e-3, _chains=chains)
+    dec = solve(rgb_d)
+    dec_c = solve(torch.from_numpy(rgb))
+    s_err = ((dec.shading.cpu() - dec_c.shading).abs()
+             / dec_c.shading.abs()).max().item()
+    rs_err = (dec.reflectance * dec.shading - rgb_d).abs().max().item()
+    print(f"  non-local retinex 96x96 RGB ({len(chains[0])} chain pairs, "
+          f"600 CG steps): card vs CPU shading within {s_err:.3g} relative "
+          f"(bar 1e-3), R * S = the image within {rs_err:.3g} (bar 1e-4)",
+          flush=True)
+    assert s_err <= 1e-3 and rs_err <= 1e-4
+    times["non-local retinex solve 96x96 (600 CG steps)"] = median_ms(
+        lambda: solve(rgb_d), 3)
+
+    # -- (3) segmentation, inpainting, mean shift -----------------------------
+    rng = np.random.default_rng(6)
+    yy, xx = np.mgrid[0:H, 0:W]
+    truth = ((yy - H / 2) / (0.3 * H)) ** 2 + ((xx - W / 2) / (0.3 * W)) ** 2 \
+        < 1
+    noise = rng.normal(0, 0.3, (H, W))
+    cost = np.zeros((H, W, 2), np.float32)
+    cost[..., 1] = np.where(truth, 0.2, 1.0) + noise
+    cost[..., 0] = np.where(truth, 1.0, 0.2) - noise
+    cost_d = torch.from_numpy(cost).to(dev)
+    t0 = time.perf_counter()
+    mask = fgs.get_global_refined_mask(cost_d, 0.6)
+    times[f"graph cut {H}x{W} (host: build + native max-flow)"] = \
+        (time.perf_counter() - t0) * 1e3
+    acc = float((mask == truth).mean())
+    levels = [cost_d[::4, ::4], cost_d[::2, ::2], cost_d]
+    t0 = time.perf_counter()
+    hmask = fgs.hierarchical_global_refined_mask(levels, 0.6)
+    times["hierarchical graph cut, 3 levels (host; band dilations on the "
+          "card)"] = (time.perf_counter() - t0) * 1e3
+    hacc = float((hmask == truth).mean())
+    hmask_c = fgs.hierarchical_global_refined_mask(
+        [c.cpu() for c in levels], 0.6)
+    print(f"  graph-cut segmentation {H}x{W} (noise 0.3): accuracy "
+          f"{acc:.5f} global, {hacc:.5f} hierarchical (bar >= 0.97); the "
+          f"hierarchical mask with the dilations on the CPU equal: "
+          f"{np.array_equal(hmask, hmask_c)}", flush=True)
+    assert acc >= 0.97 and hacc >= 0.97 and np.array_equal(hmask, hmask_c)
+    del cost_d, levels
+
+    img = np.random.default_rng(7).uniform(0, 1, (H, W, 3)).astype(np.float32)
+    hole = np.zeros((H, W), bool)
+    hy, hx = (H - 200) // 2, (W - 300) // 2
+    hole[hy:hy + 200, hx:hx + 300] = True
+    img_d, hole_d = torch.from_numpy(img).to(dev), torch.from_numpy(hole).to(
+        dev)
+    nn_d = nearest_neighbor_inpainting(img_d, hole_d)
+    df_d = diffusion_inpainting(img_d, hole_d)
+    # the CPU on a crop with a margin of 4 around the hole: a hole pixel's
+    # nearest valid pixel and the diffusion's fixed boundary lie inside it
+    cr = (slice(hy - 4, hy + 204), slice(hx - 4, hx + 304))
+    nn_c = nearest_neighbor_inpainting(torch.from_numpy(img[cr]),
+                                       torch.from_numpy(hole[cr]))
+    df_c = diffusion_inpainting(torch.from_numpy(img[cr]),
+                                torch.from_numpy(hole[cr]))
+    assert torch.equal(nn_d[cr].cpu(), nn_c)
+    df_err = (df_d[cr].cpu() - df_c).abs().max().item()
+    assert df_err <= 1e-5, df_err
+    times[f"nearest inpainting, a 200x300 hole in {H}x{W}x3"] = median_ms(
+        lambda: nearest_neighbor_inpainting(img_d, hole_d))
+    times["diffusion inpainting (200 iterations)"] = median_ms(
+        lambda: diffusion_inpainting(img_d, hole_d))
+    print(f"  inpainting: a 200x300 hole in {H}x{W}x3, the nearest fill "
+          f"equal to the CPU's on the hole's crop, diffusion within "
+          f"{df_err:.3g} (bar 1e-5)", flush=True)
+    del img_d, hole_d, nn_d, df_d
+
+    N, Nc = MEANSHIFT_N
+    centers = np.array([[0.2, 0.3, 0.8], [0.7, 0.6, 0.1], [0.5, 0.9, 0.5],
+                        [0.9, 0.2, 0.3]])
+    which = np.random.default_rng(8).integers(0, 4, N)
+    feats = (centers[which] + np.random.default_rng(9).normal(
+        0, 0.03, (N, 3))).astype(np.float32)
+    f_d = torch.from_numpy(feats).to(dev)
+    modes, labels = mean_shift_clustering(f_d, 0.1)
+    lab = labels.cpu().numpy()
+    groups = {int(k): set(lab[which == k].tolist()) for k in range(4)}
+    assert all(len(v) == 1 for v in groups.values()) \
+        and len(set(lab.tolist())) == 4, groups
+    mc, lc = mean_shift_clustering(torch.from_numpy(feats[:Nc]), 0.1)
+    ms_, ls_ = mean_shift_clustering(f_d[:Nc], 0.1)
+    ms_err = (ms_.cpu() - mc).abs().max().item()
+    assert ms_err <= 1e-4 and torch.equal(ls_.cpu(), lc), ms_err
+    times[f"mean shift, {N} RGB features (30 steps + closure)"] = median_ms(
+        lambda: mean_shift_clustering(f_d, 0.1), 3)
+    print(f"  mean shift {N} RGB features: 4 clusters, one label each; the "
+          f"first {Nc} against the CPU: modes within {ms_err:.3g} (bar 1e-4),"
+          f" labels equal", flush=True)
+    del f_d, modes, labels
+    torch.cuda.empty_cache()
+
+    print(f"time: pipelines (CUDA events, medians of 5 unless said; the "
+          f"normal-map chain one run after a warm-up at {Hc}x{Wc}; host "
+          f"stages and CPU runs on the host clock; {smi}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()),
+          flush=True)
+    print(f"pipelines phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+    return bgfg_launches
 
 
 def prop_good_np(disp, gt):
@@ -3222,6 +3853,12 @@ def main(argv=None) -> int:
     from libstevi_tpu_torch.statistics import prop_good, inlier_mae
 
     dev = torch.device("cuda")
+
+    def mark(what):
+        """The script's elapsed seconds as the section ``what`` starts."""
+        print(f"[script] {what}: {time.perf_counter() - t_script:.1f} s",
+              flush=True)
+
     n_sms = torch.cuda.get_device_properties(dev).multi_processor_count
     smi = card()
     print(f"card: {smi}; torch {torch.__version__}, CUDA {torch.version.cuda}",
@@ -3245,6 +3882,8 @@ def main(argv=None) -> int:
     # the checkouts' timing first, while this process holds no volume: a
     # parent's 4K frame holds ~64 GB of the card
     parent_and_change(parent, smi)
+    # the CPU references of the full-size holds, beside the card's work
+    start_cpu_jobs()
 
     ZNCC = MatchingFunction.ZNCC
     R2L = SgmDirection.RIGHT2LEFT
@@ -3271,6 +3910,7 @@ def main(argv=None) -> int:
               f"_prep_inputs and the volume box_cv_plain bit for bit",
               flush=True)
 
+    mark("kernel phases: each kernel against its plain version")
     # -- kernel phases: each kernel against its plain version ----------------
     # D=300 takes K = 10 values a lane in K2, K2k and K3; the HD path's
     # shape (720x1280, D=320, bf16) fills every slice of every lane
@@ -3436,6 +4076,7 @@ def main(argv=None) -> int:
                 dict(entry.FLAGSHIP, P1=0.5, P2=0.1), 24)
     cuda_vs_cpu("wide settings, D > 320", ZNCC, 20, 400, entry.WIDE, 330)
 
+    mark("K5 against its plain version")
     # -- K5 against its plain version ----------------------------------------
     NCC, ZSAD = MatchingFunction.NCC, MatchingFunction.ZSAD
     K5_FUNCS = {"dot": MatchingFunction.ZNCC, "ssd": MatchingFunction.SSD,
@@ -3487,6 +4128,7 @@ def main(argv=None) -> int:
         # a list of step 2: the general instance
         check_k5(kernel, fr, fl, range(0, 26, 2), "37x101x13 F=49 step 2")
 
+    mark("K6 and K7 against their plain versions, exactly")
     # -- K6 and K7 against their plain versions, exactly ---------------------
     def state_err(got, want):
         d_eq = torch.equal(got[0], want[0])
@@ -3561,6 +4203,7 @@ def main(argv=None) -> int:
           "32, lower < 0, +inf and ties, costs not the volume's own), 4 "
           "directions each: equal to plain", flush=True)
 
+    mark("K4a, K4b, K4d against their plain versions")
     # -- K4a, K4b, K4d against their plain versions ---------------------------
     err.update({"K4a": 0.0, "K4b": 0.0, "K4d": 0.0, "K4b stack": 0.0})
     INF = float("inf")
@@ -3701,6 +4344,7 @@ def main(argv=None) -> int:
           f"a chunk), K4b's forward and WTA column scans and K2k's 8 knight "
           f"volumes equal their plain versions bitwise", flush=True)
 
+    mark("the main path: three full-size pairs")
     # -- the main path: three full-size pairs --------------------------------
     pairs = {}
     for name, (suffix, _, _) in BARS.items():
@@ -3740,6 +4384,7 @@ def main(argv=None) -> int:
         else:
             check_bars(name, disp, pairs[name][1], BARS[name][1:])
 
+    mark("the SGM-16 path: both fixtures and the random pair")
     # -- the SGM-16 path: both fixtures and the random pair -------------------
     reset(*K2K_COUNTERS, fused_fv_cost_volume)
     t0 = time.perf_counter()
@@ -3767,6 +4412,7 @@ def main(argv=None) -> int:
         assert torch.equal(torch.nan_to_num(a, 9.0), torch.nan_to_num(b, 9.0))
     print("  warp, cv_dtype=bfloat16: equal to the float32 result", flush=True)
 
+    mark("census + SGM-8: both fixtures")
     # -- census + SGM-8: both fixtures ---------------------------------------
     reset(*K2K_COUNTERS, fused_fv_cost_volume)
     t0 = time.perf_counter()
@@ -3786,6 +4432,7 @@ def main(argv=None) -> int:
         assert disp.shape == (480, 640) and disp.dtype == torch.float32
         check_bars(name, disp, pairs[name][1], CENSUS_BARS[name])
 
+    mark("HD 720x1280, D=320, bf16, SGM-8: a random pair")
     # -- HD 720x1280, D=320, bf16, SGM-8: a random pair ----------------------
     Lh, Rh = pair(entry.HD_HEIGHT, entry.HD_WIDTH, 12, dev)
     reset(*K2K_COUNTERS)
@@ -3802,6 +4449,7 @@ def main(argv=None) -> int:
     assert dh.shape == (720, 1280) and th.shape == (720, 1280, 3)
     check_random("HD random", dh, ih, 320)
 
+    mark("the wide path: 480x640, D=384, f32, SGM-8 (K1 x2, K4b)")
     # -- the wide path: 480x640, D=384, f32, SGM-8 (K1 x2, K4b) --------------
     LANE_K4B = (lane.fused_rows_pass, lane.fused_cols_pass,
                 lane.fused_cols_wta)
@@ -3867,6 +4515,7 @@ def main(argv=None) -> int:
               f"{agree:.6f} on K1's volume (equal off near-ties), "
               f"{agree_pp:.6f} with plain K1", flush=True)
 
+    mark("HD wide: 720x1280, D=640, f32, SGM-8 (K1 x2, K4b)")
     # -- HD wide: 720x1280, D=640, f32, SGM-8 (K1 x2, K4b) -------------------
     HH, HW, HD = entry.HD_HEIGHT, entry.HD_WIDTH, entry.HD_WIDE["disp_width"]
     reset(box_cv, *LANE, *K2K_COUNTERS)
@@ -3887,6 +4536,7 @@ def main(argv=None) -> int:
     cv_hd = box_cv(ZNCC, Lh, Rh, 3, 3, HD, torch.float32, negate=True)
     k4b_check(cv_hd, f"{HH}x{HW}x{HD} f32")
 
+    mark("K4d at full size: chunked_adj on the HD D=640 volume")
     # -- K4d at full size: chunked_adj on the HD D=640 volume ----------------
     # K4b's carries fit on chip at this size, so no public entry takes K4d
     # here on an H100; `chunked_adj` is called directly, as the JAX tests call
@@ -3937,6 +4587,7 @@ def main(argv=None) -> int:
           f"chunked_adj (K4d) within {e_hd:.3g}, fused_adj (K4b) within "
           f"{e_hb:.3g}", flush=True)
 
+    mark("route cross-check at the flagship geometry (D=120, f32)")
     # -- route cross-check at the flagship geometry (D=120, f32) -------------
     for name in F32_BARS:
         imgs, gt = pairs[name]
@@ -3966,6 +4617,7 @@ def main(argv=None) -> int:
                   f"agree with K2/K3 {agree:.6f}", flush=True)
             check_bars(f"{name} via {route}", disp_r, gt, F32_BARS[name])
 
+    mark("4K UHD: 2160x3840, D=384, f32, SGM-8 (K1, K4d, K4b's scans)")
     # -- 4K UHD: 2160x3840, D=384, f32, SGM-8 (K1, K4d, K4b's scans) -------
     # K4b's carries do not fit on chip at this width (`fused_fits`), so the
     # entry runs K1 (one launch), K4d's four one-launch sweeps and K4b's two
@@ -4051,12 +4703,14 @@ def main(argv=None) -> int:
     k1_exact(L4, R4, WD, (torch.float32,), f"{UH}x{UW}x{WD}")
     del uhd
     torch.cuda.empty_cache()
+    mark("the distributed 4K UHD step (K1 and the K2s engine's any-D K2)")
     # -- the distributed 4K UHD step (K1 and the K2s engine's any-D K2) -----
     k2_uhd_launches, e = distributed_uhd(dev, L4, R4, i4, smi)
     err["K2 any-D"] = max(err.get("K2 any-D", 0.0), e)
     del L4, R4, i4
     torch.cuda.empty_cache()
 
+    mark("the CLI, as a subprocess, SGM-16 on the warp fixture")
     # -- the CLI, as a subprocess, SGM-16 on the warp fixture ----------------
     with tempfile.TemporaryDirectory() as tmp:
         out_path = str(Path(tmp) / "disp16.stevimg")
@@ -4090,6 +4744,7 @@ def main(argv=None) -> int:
     print(f"CLI -d {WD}: {json.dumps(report)}", flush=True)
     assert report["disp_width"] == WD, report
 
+    mark("the PatchMatch path: both fixtures")
     # -- the PatchMatch path: both fixtures -----------------------------------
     # a small run against the plain route on the CPU: one volume, one
     # replayed candidate stream, equal disparities
@@ -4129,6 +4784,7 @@ def main(argv=None) -> int:
         assert 0 <= disp.min().item() and disp.max().item() <= 119
         check_bars(name, disp.float(), pairs[name][1], PM_BARS[name])
 
+    mark("aggregate_cost 'auto' past K5's tile: ZSAD r = 5 (F = 121), D = 448")
     # -- aggregate_cost 'auto' past K5's tile: ZSAD r = 5 (F = 121), D = 448 --
     # K5's block would need 249,600 bytes of shared memory, so 'auto' takes
     # the shifted-compare loop on the card (no K5 launch), as JAX's 'auto'
@@ -4144,6 +4800,7 @@ def main(argv=None) -> int:
           flush=True)
     del cv_z
 
+    mark("the WTA path with ZSAD: both fixtures")
     # -- the WTA path with ZSAD: both fixtures --------------------------------
     # small, against the plain route on the CPU: volumes within float
     # tolerance, indices equal away from near-ties
@@ -4180,6 +4837,7 @@ def main(argv=None) -> int:
               f"inlier_mae = {inlier_mae(d, gt, 2.0):.4f} (no bar)",
               flush=True)
 
+    mark("timing (CUDA events, median of 5, flagship shape)")
     # -- timing (CUDA events, median of 5, flagship shape) -------------------
     L, R = pair(480, 640, 3, dev)
     frame_ms = median_ms(lambda: entry.flagship_forward(L, R))
@@ -4347,24 +5005,34 @@ def main(argv=None) -> int:
     print(f"time: WTA ZSAD frame 480x640 D=120: {wta_ms:.3f} ms (median of "
           f"5; {smi})", flush=True)
 
+    mark("the matchers ported last: hierarchical (K1, K5), 2-D volumes and")
     # -- the matchers ported last: hierarchical (K1, K5), 2-D volumes and
     # refinement, PatchMatch flow, DP, fastmatch, guided filtering, the CLI
     hier_launches, e5 = matchers(dev, pairs, smi)
     err["K5"] = max(err["K5"], e5)
 
+    mark("the feature-space refinement and the optim solvers (K5)")
     # -- the feature-space refinement and the optim solvers (K5) -------------
     refine_launches = {"K5": refine(dev, smi)}
     refine_flow_and_clis(dev, smi)
     optim_at_scale(dev, smi)
 
+    mark("geometry: rays at 1M pairs, a rectified pair through the flagship")
     # -- geometry: rays at 1M pairs, a rectified pair through the flagship --
     rectified_launches = geometry(dev, smi)
 
+    mark("the sparse chain and calibration targets: torch ops, no kernel")
     # -- the sparse chain and calibration targets: torch ops, no kernel ------
     sparse(dev, smi)
 
+    mark("the pipelines: bg/fg (K5 twice a frame), intrinsic, segmentation")
+    # -- the pipelines: bg/fg (K5 twice a frame), intrinsic, segmentation ---
+    bgfg_launches = {"K5": pipelines(dev, smi)}
+
+    mark("the distributed paths")
     d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
                                                                   smi)
+    mark("the kernels line")
     for k, v in d_err.items():
         err[k] = max(err.get(k, 0.0), v)
     ms.update(d_ms)
@@ -4493,6 +5161,8 @@ def main(argv=None) -> int:
             if key in refine_launches else {}),
          **({"rectified_launches": rectified_launches[key]}
             if key in rectified_launches else {}),
+         **({"bgfg_launches": bgfg_launches[key]}
+            if key in bgfg_launches else {}),
          **({"device_ms": device_ms[key]} if key in device_ms else {}),
          **({"instances": instances[key]} if key in instances else {})}
         for name, src, rep, key in records]}), flush=True)
@@ -4506,4 +5176,8 @@ def main(argv=None) -> int:
 
 
 if __name__ == "__main__":
-    sys.exit(main())
+    try:
+        rc = main()
+    finally:
+        stop_cpu_jobs()
+    sys.exit(rc)

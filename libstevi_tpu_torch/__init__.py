@@ -16,9 +16,15 @@ rig rectifier) and ``statistics``, ``sparse`` (Harris / FAST corners,
 non-local-maximum selection, orientation, BRIEF / whitened / circular-FFT
 descriptors), the first half of ``imageproc`` (the N-d convolution
 engine, filters, colour, histograms, morphology, connected components,
-edges, checkerboard and hexagonal-target detection), and the
-`stereo_match`, `stereo_refine`, `optical_flow_refine`,
-`ray_alignment_eval`, `tie_points` and `detect_checkerboard` CLIs.
+edges, checkerboard and hexagonal-target detection) and its pipelines
+(Fourier, inpainting, mean shift, intrinsic decomposition, shape from
+shading, graph-cut foreground segmentation), ``graphs`` (max-flow / min-cut
+on the port's own native solver, ``native/maxflow.cpp``, built with g++ on
+first use), the disparity estimator with background removal
+(`ops.bg_segmentation`), and the `stereo_match`, `stereo_refine`,
+`optical_flow_refine`, `ray_alignment_eval`, `tie_points`,
+`detect_checkerboard`, `bg_fg_stereo`, `intrinsic_decomposition` and
+`normal_map_estimation` CLIs.
 Plain functions on tensors; the device comes from the inputs.  On a CUDA tensor the paths
 run hand-written kernels (``csrc/``, built with nvcc on first use by
 `_build`); on a CPU tensor each kernel's plain PyTorch version runs
@@ -27,8 +33,8 @@ instead.
 Importing the package builds nothing and needs neither a GPU nor nvcc.
 """
 
-from . import (core, geometry, imageproc, interpolation, io, ops, optim,
-               sparse, statistics)
+from . import (core, geometry, graphs, imageproc, interpolation, io, ops,
+               optim, sparse, statistics)
 
-__all__ = ["core", "geometry", "imageproc", "interpolation", "io", "ops",
-           "optim", "sparse", "statistics"]
+__all__ = ["core", "geometry", "graphs", "imageproc", "interpolation", "io",
+           "ops", "optim", "sparse", "statistics"]

@@ -43,6 +43,16 @@ refinement of one method: "barycentric" (two 2-point spherical / L2 / L1
 solves a pixel), "barycentric-symmetric" (one 3-point solve) or
 "cost-symmetric" (the volume's parabola averaged with a half-pixel one).
 
+`bg_fg_forward` is one live frame of `cli/bg_fg_stereo.py` (the
+reference's `bg_fg_stereo` example) after `bg_fg_background` has computed
+the background from a background pair: ZNCC over 7x7 windows (r = 3),
+D = 192, relative threshold 0.9, meant for 1080x1920 (`BGFG_HEIGHT` x
+`BGFG_WIDTH`): the live cost volume (K5 on the card, as is the
+background's), the cost ratio at the background disparity, the seed /
+opening / dilation / grow rule and the WTA disparities.  `bg_fg_scene`
+makes a synthetic scene for it from a seed, `bg_fg_entry(device)` returns
+the forward and its arguments at that size.
+
 `patchmatch_forward` is the PatchMatch matcher in the `BENCH_GRID_r05` /
 `PARITY_r05` configuration (NCC, 7x7 window, disparities [0, 119], 5
 iterations, 4 random candidates); `wta_forward` is the per-matching-function
@@ -77,7 +87,10 @@ HIERARCHICAL_HD = dict(HIERARCHICAL, disp_width=320, depth=3)
 DIST = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
             n_directions=8)
 REFINE = dict(h_radius=3, v_radius=3, search_range=120)
+BGFG = dict(func=MatchingFunction.ZNCC, radius=3, disp_width=192,
+            rel_threshold=0.9)
 HEIGHT, WIDTH = 480, 640
+BGFG_HEIGHT, BGFG_WIDTH = 1080, 1920
 HD_HEIGHT, HD_WIDTH = 720, 1280
 UHD_HEIGHT, UHD_WIDTH = 2160, 3840
 
@@ -173,6 +186,70 @@ def stereo_refine_forward(img_l: torch.Tensor, img_r: torch.Tensor,
     if method not in run:
         raise ValueError(f"method {method!r}: one of {REFINE_METHODS}")
     return run[method](func, img_l, img_r, **REFINE)
+
+
+def bg_fg_background(bg_l: torch.Tensor, bg_r: torch.Tensor,
+                     func: MatchingFunction = BGFG["func"],
+                     radius: int = BGFG["radius"],
+                     disp_width: int = BGFG["disp_width"],
+                     rel_threshold: float = BGFG["rel_threshold"]):
+    """A `DisparityEstimatorWithBackgroundRemoval` holding the background
+    volume and WTA disparities of a gray background pair (the CLI's
+    `compute_background_disp`, the right image as the source)."""
+    from .ops.bg_segmentation import DisparityEstimatorWithBackgroundRemoval
+    from .ops.unfold import unfold
+    est = DisparityEstimatorWithBackgroundRemoval(
+        func, relative_threshold=rel_threshold)
+    est.compute_background_disp(unfold(radius, radius, bg_r),
+                                unfold(radius, radius, bg_l),
+                                SearchOffset1(0, disp_width - 1))
+    return est
+
+
+def bg_fg_forward(live_l: torch.Tensor, live_r: torch.Tensor, estimator,
+                  radius: int = BGFG["radius"]):
+    """The `StereoDispWithBgMask` (int32 disparities, bool foreground) of
+    a gray live pair against ``estimator``'s background
+    (`bg_fg_background`)."""
+    from .ops.cost_volume import feature_volume_to_cost_volume
+    from .ops.unfold import unfold
+    live_cv = feature_volume_to_cost_volume(
+        estimator.func, unfold(radius, radius, live_l),
+        unfold(radius, radius, live_r), estimator.search)
+    return estimator.compute_disp_and_foreground_mask(live_cv)
+
+
+def bg_fg_scene(H: int = BGFG_HEIGHT, W: int = BGFG_WIDTH, d_bg: int = 24,
+                d_fg: int = 40, seed: int = 0):
+    """A synthetic background / live scene: uniform noise in [0.1, 1) as
+    the background's right image, its left image that noise shifted by
+    ``d_bg`` columns; the live pair is the background pair with a textured
+    rectangle (the middle (0.37 H) x (0.31 W), its own noise) pasted into
+    the right image and, ``d_fg`` columns to the right, into the left one.
+    Returns (bg_l, bg_r, live_l, live_r) float32 numpy arrays and the
+    rectangle's (H, W) bool mask in the right (source) image."""
+    rng = np.random.default_rng(seed)
+    bg_r = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    bg_l = np.roll(bg_r, d_bg, axis=1)
+    h, w = int(0.37 * H), int(0.31 * W)
+    r0, c0 = (H - h) // 2, (W - w) // 2
+    obj = rng.uniform(0.1, 1.0, (h, w)).astype(np.float32)
+    live_r, live_l = bg_r.copy(), bg_l.copy()
+    live_r[r0:r0 + h, c0:c0 + w] = obj
+    live_l[r0:r0 + h, c0 + d_fg:c0 + d_fg + w] = obj
+    rect = np.zeros((H, W), bool)
+    rect[r0:r0 + h, c0:c0 + w] = True
+    return (bg_l, bg_r, live_l, live_r), rect
+
+
+def bg_fg_entry(device="cuda", seed: int = 0):
+    """Returns (fn, example_args): `bg_fg_forward` and a `bg_fg_scene`
+    live pair at 1080x1920 on ``device`` with its background estimator
+    (the background already computed there)."""
+    (bg_l, bg_r, live_l, live_r), _ = bg_fg_scene(BGFG_HEIGHT, BGFG_WIDTH,
+                                                  seed=seed)
+    t = [torch.from_numpy(x).to(device) for x in (bg_l, bg_r, live_l, live_r)]
+    return bg_fg_forward, (t[2], t[3], bg_fg_background(t[0], t[1]))
 
 
 def wta_forward(func: MatchingFunction, img_l: torch.Tensor,

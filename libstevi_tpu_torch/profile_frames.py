@@ -7,7 +7,8 @@ Needs one CUDA device.  For each frame (a random pair from seed 3, at the
 frame's own size; ``dist`` is `entry.distributed_forward` on that pair and
 its mirror as a batch of 2, over a (batch=2, tile=2, dsh=2) mesh of 8
 virtual shards on the card) it runs 3 warm-ups, times the frame with CUDA events
-(median of 5), then profiles ``--reps`` frames and prints:
+(median of 5), then profiles ``--reps`` frames after one traced warm-up
+frame that it drops, and prints:
 - device busy ms a frame: the union of the device intervals of every
   kernel, memcpy and memset, over the profiled frames, divided by ``reps``;
 - the idle share: 1 - busy / the CUDA-event frame time;
@@ -90,17 +91,25 @@ def event_ms(fn, reps=5):
 
 
 def profile_frame(fn, reps: int):
-    """(busy µs a frame, {item: [µs a frame, launches a frame]})."""
+    """(busy µs a frame, {item: [µs a frame, launches a frame]}) over
+    ``reps`` frames, after one frame that runs under the tracer and is
+    dropped (a `torch.profiler.schedule` warm-up): late in a long process
+    a trace without it has lost its first frame's device events."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
-    with profile(activities=[ProfilerActivity.CPU,
-                             ProfilerActivity.CUDA]) as prof:
-        for _ in range(reps):
+    from torch.profiler import ProfilerActivity, profile, schedule
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=reps,
+                                   repeat=1)) as prof:
+        for _ in range(1 + reps):
             fn()
-        torch.cuda.synchronize()
+            torch.cuda.synchronize()
+            prof.step()
     spans, items = [], defaultdict(lambda: [0.0, 0.0])
     for e in prof.events():
-        if e.device_type != DeviceType.CUDA:
+        # the schedule's step annotation spans the whole step on the device
+        # timeline: not device work
+        if e.device_type != DeviceType.CUDA or e.name.startswith(
+                "ProfilerStep"):
             continue
         spans.append((e.time_range.start, e.time_range.end))
         item = items[short_name(e.name)]

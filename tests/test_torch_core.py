@@ -176,6 +176,24 @@ assert sensorframes.get_sensor_frame_conversion(sensorframes.NED,
 assert ray_alignment_eval.main(["-n", "1", "--rays", "20", "--solvers",
                                 "gauss-newton", "relaxed", "--device",
                                 "cpu"]) == 0
+from libstevi_tpu_torch import graphs
+from libstevi_tpu_torch.cli import (bg_fg_stereo, intrinsic_decomposition,
+                                    normal_map_estimation)
+from libstevi_tpu_torch.imageproc import (foreground_segmentation,
+                                          mean_shift_clustering, retinex_fft)
+(bl, br, ll, lr), rect = entry.bg_fg_scene(24, 40, 2, 5, 0)
+est = entry.bg_fg_background(torch.from_numpy(bl), torch.from_numpy(br),
+                             disp_width=8)
+res = entry.bg_fg_forward(torch.from_numpy(ll), torch.from_numpy(lr), est)
+assert res.fg_mask.shape == (24, 40) and res.disp.dtype == torch.int32
+cut = graphs.max_flow_min_cut(4, [(0, 1), (1, 3), (0, 2), (2, 3)],
+                              [3.0, 2.0, 2.0, 3.0], 0, 3)
+assert cut.max_flow == 4.0
+cost = np.stack([rect * 1.0, 1.0 - rect], -1)
+assert (foreground_segmentation.get_global_refined_mask(cost, 0.1)
+        == rect).all()
+assert retinex_fft(L + 0.1).shading.shape == (12, 16)
+assert mean_shift_clustering(L.reshape(-1, 2), 0.5)[1].shape == (96,)
 assert not [m for m, v in sys.modules.items()
             if v is not None and (m == "jax" or m.startswith("jax."))]
 print("ran without jax")
@@ -189,8 +207,9 @@ def test_port_imports_and_runs_without_jax():
     distributed Gauss-Newton end to end on the CPU, imports its CLIs,
     `optim`, `geometry` (the numpy copies `bsp` and `sensorframes` too)
     and `statistics`, rectifies and resamples through the rig rectifier,
-    takes a covering share and runs the ray-alignment CLI (the card has
-    no JAX)."""
+    takes a covering share, runs the ray-alignment CLI, the bg/fg entry
+    points, the native max-flow and a graph cut, the FFT retinex and mean
+    shift, and imports the pipeline CLIs (the card has no JAX)."""
     env = dict(os.environ, PYTHONPATH=str(REPO))
     res = subprocess.run([sys.executable, "-c", _NO_JAX_RUN], cwd=REPO,
                          env=env, capture_output=True, text=True, timeout=300)
