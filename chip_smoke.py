@@ -192,7 +192,24 @@ each with the launch counts set to 0 just before it and read just after:
   against the CPU;
   graph-cut segmentation at 1080x1920 (global and hierarchical, JAX's
   test rule >= 0.97), inpainting of a 200x300 hole and mean shift over
-  16384 RGB features, against the CPU on a crop / the first 1024.
+  16384 RGB features, against the CPU on a crop / the first 1024;
+- the point clouds (`pointclouds`; torch ops and host C++, no kernel): a
+  synthetic airborne LiDAR tile (`lidar_tile`: 1000 m x 1000 m, 2^24
+  points, box buildings, a lake with no returns) written as LAS point
+  format 1 by the port's `write_las_v2` and read back equal; the
+  `points_cloud2depth_map` CLI on the card (a nadir view from 1500 m at
+  1080x1920, `--inpaint`) held to the JAX tool's coverage
+  (`JAX_POINTCLOUD`), its depth map to the port's CPU run (equal on >=
+  0.9999 of pixels before inpainting, within 1e-3 m on >= 0.999 after);
+  the `detrend_terrain` CLI (5 m tiles, a 200x200 raster) held to the JAX
+  tool's report and its raster to the CPU's bit for bit (terrain within
+  1e-5); `split_pt_cloud` (the own points partition the cloud),
+  `io_pointcloud` info and a LAS -> PCD -> binary_compressed PCD (LZF) ->
+  LAS round trip of 1M points, `stevimg_viewer` on the depth map (gray);
+  `utils.profiling` on the projection (`device_time` within 20% of the
+  phase's median, the roofline fraction <= 1.05, a trace naming the
+  scatter kernel) and `utils.checkpointing` (6 Gauss-Newton steps stopped
+  after 3 and resumed: the uninterrupted run's bits); each stage timed.
 Each path also runs small against its plain version on the CPU, and the
 port's CLI (`python -m libstevi_tpu_torch.cli.stereo_match --matcher sgm
 --sgm-dirs 16`) runs as a subprocess on the warp fixture, held to the
@@ -223,8 +240,8 @@ least time on the card, ``bound_ms``, from this run's shapes), the card's
 name and power limit, the script's wall time, and a last JSON line ``{"ok": true, "device": ...}``.  Any
 failed check raises: the exit code is then non-zero and no result line is
 printed.  There is no CPU path.  The CPU runs of the full-size refinement
-holds (`CPU_JOBS`) go to a second Python process, started after the
-build and ended with the script.
+holds and of the point-cloud phase (`CPU_JOBS`) go to a second Python
+process, started after the build and ended with the script.
 """
 
 import json
@@ -241,6 +258,12 @@ import torch
 
 ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "data" / "parity"
+try:
+    from libstevi_tpu_torch.utils.profiling import (H100_HBM_BYTES_PER_S,
+                                                    H100_PEAK_FLOPS_F32)
+except ImportError:
+    sys.exit("chip_smoke: libstevi_tpu_torch not found; run the script from "
+             "a checkout of the repository")
 
 # PARITY_r05.json, row zncc_sgm8_bf16 (480x640, D=120): prop_good_2.0 minus
 # 0.001 and inlier_mae plus about 0.01
@@ -259,10 +282,10 @@ F32_BARS = {"warp": (0.9985, 0.1392), "occluded": (0.9982, 0.209)}
 # inlier_mae plus 0.01
 H_BARS = {"warp": (0.9651, 0.2766), "occluded": (0.9529, 0.4715)}
 P1, P2, POUT = 0.1, 0.5, 100.0
-# an H100 SXM's published peaks (NVIDIA's data sheet): memory rate and f32
-# outside the tensor cores
-HBM_BYTES_PER_MS = 3.35e9
-F32_FLOPS_PER_MS = 67e9
+# an H100 SXM's published peaks (NVIDIA's data sheet), written once in the
+# port's `utils.profiling`: memory rate and f32 outside the tensor cores
+HBM_BYTES_PER_MS = H100_HBM_BYTES_PER_S / 1e3
+F32_FLOPS_PER_MS = H100_PEAK_FLOPS_F32 / 1e3
 # f32 operations an SGM DP step spends per element and direction (the min
 # reduction, two mins against m + P2 and the d +- 1 neighbours, + P1, the
 # min, - m, + Pout, the new carry and the accumulation)
@@ -2844,6 +2867,381 @@ def pipelines(dev, smi):
     return bgfg_launches
 
 
+# a synthetic airborne LiDAR tile: 1000 m x 1000 m, 2^24 points (16.8 a
+# square metre, twice USGS 3DEP QL1's 8), boxes of 20 m x 20 m with flat
+# roofs 6-25 m up (class 6) on one 50 m cell each of a 20 x 20 lattice,
+# ground elsewhere (class 2), a lake of 150 m x 150 m with no returns
+LIDAR = dict(n=1 << 24, side=1000.0, cell=50.0, box=20.0, roof=(6.0, 25.0),
+             lake=(600.0, 250.0, 150.0), seed=19)
+# the depth-map call: a nadir view from 1500 m over the tile's centre
+# (~5.6 points a pixel), and the detrend call
+DEPTH_CALL = dict(size=(1080, 1920), f=2600.0, rvec=(3.14159265, 0.0, 0.0),
+                  t=(-500.0, 500.0, 1500.0))
+DETREND_CALL = dict(tile=5.0, smooth=1.0)
+
+
+def cli_args(call):
+    """A call's keywords as the CLI's arguments (``--size 1080 1920 ...``)."""
+    return [a for k, v in call.items()
+            for a in (f"--{k}", *(str(x) for x in np.atleast_1d(v)))]
+
+
+# the JAX tools' reports on that tile as `write_las_v2` writes it
+# (`python cli/points_cloud2depth_map.py tile.las d.stevimg --size 1080 1920
+# --f 2600 --rvec 3.14159265 0 0 --t -500 500 1500 --inpaint` and `python
+# cli/detrend_terrain.py tile.las -o flat.las --tile 5 --smooth 1`,
+# JAX_PLATFORMS=cpu); the port's CLIs on the card are held to them within
+# 1e-4
+JAX_POINTCLOUD = {"coverage": 0.8548, "raster": [200, 200],
+                  "terrain_range": [-4.209965705871582, 55.49462890625],
+                  "z_after": [-13.068951037463076, 23.90541338209259]}
+# the points of the io_pointcloud convert round trip (LAS -> PCD ->
+# binary_compressed PCD -> LAS)
+CONVERT_N = 1 << 20
+
+
+def lidar_ground(x, y):
+    return 0.03 * x + 8.0 * np.sin(x / 90.0) * np.cos(y / 140.0)
+
+
+def lidar_tile():
+    """`LIDAR`'s tile from its seed: (positions (n, 3) float64, the LAS
+    point format 1 attributes: intensity, return numbers, classification
+    and gps_time, one 2 us pulse apart in point order)."""
+    c = LIDAR
+    rng = np.random.default_rng(c["seed"])
+    n, side, cell, box = c["n"], c["side"], c["cell"], c["box"]
+    lx, ly, ls = c["lake"]
+    x, y = (rng.uniform(0.0, side, n + n // 16) for _ in range(2))
+    dry = ~((x >= lx) & (x < lx + ls) & (y >= ly) & (y < ly + ls))
+    x, y = x[dry][:n], y[dry][:n]
+    k = int(side // cell)
+    corner = rng.uniform(0.0, cell - box, (2, k, k))
+    height = rng.uniform(*c["roof"], (k, k))
+    edge = np.arange(k) * cell
+    bx0 = (edge[:, None] + corner[0]).ravel()
+    by0 = (edge[None, :] + corner[1]).ravel()
+    roof_z = lidar_ground(bx0 + box / 2, by0 + box / 2) + height.ravel()
+    # no box on a cell that touches the lake
+    wet = ((edge[:, None] + cell > lx) & (edge[:, None] < lx + ls)
+           & (edge[None, :] + cell > ly) & (edge[None, :] < ly + ls)).ravel()
+    cid = (np.minimum((x / cell).astype(np.int64), k - 1) * k
+           + np.minimum((y / cell).astype(np.int64), k - 1))
+    bx, by = bx0[cid], by0[cid]
+    roof = (x >= bx) & (x < bx + box) & (y >= by) & (y < by + box) \
+        & ~wet[cid]
+    z = lidar_ground(x, y)
+    z[roof] = roof_z[cid[roof]]
+    intensity = rng.integers(50, 400, n, dtype=np.uint16)
+    intensity[roof] += 300
+    nr = (1 + (rng.random(n) < 0.2)).astype(np.uint8)
+    attrs = {
+        "intensity": intensity,
+        "return_number": (1 + ((nr == 2) & (rng.random(n) < 0.5))
+                          ).astype(np.uint8),
+        "number_of_returns": nr,
+        "classification": np.where(roof, 6, 2).astype(np.uint8),
+        "gps_time": 3.0e5 + 2e-6 * np.arange(n, dtype=np.float64),
+    }
+    return np.column_stack([x, y, z]), attrs
+
+
+def read_tile(path, n):
+    """The tile's LAS file read back whole: (positions (n, 3) float64, the
+    chunk of attributes)."""
+    from libstevi_tpu_torch.io.las_stream import LasReader
+    ch = LasReader(path).read_chunk(0, n)
+    return ch.pop("xyz"), ch
+
+
+def pointcloud_cpu():
+    """The `pointclouds` phase's CPU references (a `CPU_JOBS` entry): the
+    tile written by `write_las_v2` and read back, as on the card; the
+    depth map before and after inpainting and its coverage; the detrend's
+    min-z raster and terrain."""
+    from libstevi_tpu_torch.cli.detrend_terrain import detrend
+    from libstevi_tpu_torch.cli.points_cloud2depth_map import (inpaint_depth,
+                                                               project_depth)
+    from libstevi_tpu_torch.io.las_stream import write_las_v2
+    pos, attrs = lidar_tile()
+    with tempfile.TemporaryDirectory() as d:
+        write_las_v2(f"{d}/tile.las", pos, attrs)
+        xyz, _ = read_tile(f"{d}/tile.las", len(pos))
+    depth, cov = project_depth(torch.from_numpy(xyz.astype(np.float32)),
+                               **DEPTH_CALL)
+    filled = inpaint_depth(depth)
+    _, zmap, terrain = detrend(torch.from_numpy(xyz), **DETREND_CALL)
+    return (depth.numpy(), filled.numpy(), cov.numpy(), zmap.numpy(),
+            terrain.numpy())
+
+
+CPU_JOBS["pointclouds"] = (pointcloud_cpu, ())
+
+
+def pointclouds(dev, smi):
+    """The `pointclouds` phase: a 16.8M-point airborne LiDAR tile
+    (`lidar_tile`) through the point-cloud path, in a temporary directory:
+    written and read back as LAS; `points_cloud2depth_map` and
+    `detrend_terrain` on the card against the JAX tools' reports and the
+    CPU; `split_pt_cloud`, `io_pointcloud` (info, convert through LZF) and
+    `stevimg_viewer` on the host; `utils.profiling` and
+    `utils.checkpointing` on the card.  Each stage timed (CUDA events on
+    the card, the host clock for host work and whole CLI calls)."""
+    with tempfile.TemporaryDirectory() as work:
+        _pointclouds(dev, smi, Path(work))
+
+
+def _pointclouds(dev, smi, d):
+    import glob
+    from libstevi_tpu_torch.cli import detrend_terrain as dt_cli
+    from libstevi_tpu_torch.cli import io_pointcloud as io_cli
+    from libstevi_tpu_torch.cli import points_cloud2depth_map as pc_cli
+    from libstevi_tpu_torch.cli import split_pt_cloud as split_cli
+    from libstevi_tpu_torch.cli import stevimg_viewer as view_cli
+    from libstevi_tpu_torch.io import open_point_cloud, read_pcd, write_pcd
+    from libstevi_tpu_torch.io import read_stevimg
+    from libstevi_tpu_torch.io.las_stream import write_las_v2
+    from libstevi_tpu_torch.optim.gauss_newton import (damped_step,
+                                                       normal_equations)
+    from libstevi_tpu_torch.profile_frames import profile_frame
+    from libstevi_tpu_torch.utils import checkpointing, profiling
+    t_phase = time.perf_counter()
+    times = {}
+
+    def host(key, fn):
+        """``fn()`` once, its host wall time kept under ``key``."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        times[key] = (time.perf_counter() - t0) * 1e3
+        return out
+
+    # -- (1) the tile, written as LAS point format 1 and read back ---------
+    pos, attrs = host("tile (numpy)", lidar_tile)
+    N = len(pos)
+    tile = str(d / "tile.las")
+    host("write_las_v2", lambda: write_las_v2(tile, pos, attrs))
+    xyz, ch = host("LasReader", lambda: read_tile(tile, N))
+    for k, v in attrs.items():
+        assert np.array_equal(ch[k], v), k
+    q_err = float(np.abs(xyz - pos).max())
+    assert q_err <= 0.5e-4 + 1e-9, q_err
+    print(f"pointclouds: tile of {N} points ({N / 1e6:.2f} pts/m^2, roofs "
+          f"{(attrs['classification'] == 6).mean():.4f}), LAS format 1 "
+          f"{os.path.getsize(tile) / 1e6:.1f} MB: attributes read back "
+          f"equal, positions within {q_err:.3g} (the 1e-4 LAS unit)",
+          flush=True)
+    del pos, ch
+
+    # -- (2) points_cloud2depth_map on the card -----------------------------
+    depth_file = str(d / "depth.stevimg")
+    rc, rep = host("points_cloud2depth_map CLI", lambda: run_cli(
+        pc_cli, [tile, depth_file, *cli_args(DEPTH_CALL), "--inpaint"]))
+    assert rc == 0 and rep["n_points"] == N, rep
+    assert abs(rep["coverage"] - JAX_POINTCLOUD["coverage"]) <= 1e-4, rep
+    pts = torch.from_numpy(xyz.astype(np.float32)).to(dev)
+
+    def project(p):
+        return pc_cli.project_depth(p, **DEPTH_CALL)
+
+    depth, cov = project(pts)
+    filled = pc_cli.inpaint_depth(depth)
+    c_depth, c_filled, c_cov, c_zmap, c_terrain = cpu_job("pointclouds")
+    same = float((depth.cpu().numpy() == c_depth).mean())
+    assert same >= 0.9999, same
+    fill_ok = float((np.abs(filled.cpu().numpy() - c_filled)
+                     <= 1e-3).mean())
+    assert fill_ok >= 0.999, fill_ok
+    written = read_stevimg(depth_file)
+    want = filled.cpu().numpy()
+    want[~np.isfinite(want)] = 0.0
+    assert np.array_equal(written, want)
+    print(f"  points_cloud2depth_map {DEPTH_CALL['size'][0]}x"
+          f"{DEPTH_CALL['size'][1]} on the card: coverage {rep['coverage']}"
+          f" (JAX tool {JAX_POINTCLOUD['coverage']}, CPU "
+          f"{float(c_cov):.6f}, card {float(cov):.6f}); the depth map "
+          f"before inpainting equals the CPU's on {same:.6f} of pixels (bar "
+          f">= 0.9999), after inpainting within 1e-3 m on {fill_ok:.6f} "
+          f"(bar >= 0.999); the CLI's file is the card's map", flush=True)
+    times["projection"] = median_ms(lambda: project(pts))
+    times["inpainting"] = median_ms(lambda: pc_cli.inpaint_depth(depth), 3)
+
+    # -- (3) detrend_terrain on the card ------------------------------------
+    rc, rep = host("detrend_terrain CLI", lambda: run_cli(
+        dt_cli, [tile, "-o", str(d / "flat.las"),
+                 *cli_args(DETREND_CALL)]))
+    assert rc == 0 and rep["raster"] == JAX_POINTCLOUD["raster"], rep
+    for k in ("terrain_range", "z_after"):
+        assert np.abs(np.subtract(rep[k], JAX_POINTCLOUD[k])).max() \
+            <= 1e-4, (k, rep[k])
+    os.remove(d / "flat.las")
+    pos_d = torch.from_numpy(xyz).to(dev)
+    z, zmap, terrain = dt_cli.detrend(pos_d, **DETREND_CALL)
+    assert np.array_equal(zmap.cpu().numpy(), c_zmap)
+    t_err = float(np.abs(terrain.cpu().numpy() - c_terrain).max())
+    assert t_err <= 1e-5, t_err
+    print(f"  detrend_terrain on the card: raster {rep['raster']} "
+          f"({int((~torch.isfinite(zmap)).sum())} empty tiles) equal to the "
+          f"CPU's bit for bit, terrain within {t_err:.3g} of the CPU's (bar "
+          f"1e-5), terrain_range {rep['terrain_range']} and z_after "
+          f"{rep['z_after']} within 1e-4 of the JAX tool's", flush=True)
+    times["detrend"] = median_ms(lambda: dt_cli.detrend(pos_d,
+                                                        **DETREND_CALL))
+    del z, zmap, terrain, pos_d
+
+    # -- (4) split_pt_cloud and io_pointcloud on the host -------------------
+    rc, rep = host("split_pt_cloud CLI", lambda: run_cli(
+        split_cli, [tile, "-o", str(d / "part"), "-n", "2", "2", "-c",
+                    "20"]))
+    assert rc == 0 and sum(t["n_own"] for t in rep["tiles"]) == N, rep
+    own_gps = []
+    for t in rep["tiles"]:
+        txyz, tch = read_tile(t["path"], t["n_own"] + t["n_context"])
+        own = tch["is_context"] == 0
+        assert len(txyz) == t["n_own"] + t["n_context"] \
+            and own.sum() == t["n_own"], t
+        own_gps.append(tch["gps_time"][own])
+        os.remove(t["path"])
+    # gps_time is one value a point: the own points are the cloud's, once
+    assert np.array_equal(np.sort(np.concatenate(own_gps)),
+                          attrs["gps_time"])
+    print(f"  split_pt_cloud -n 2 2 -c 20: own points "
+          f"{[t['n_own'] for t in rep['tiles']]}, context "
+          f"{[t['n_context'] for t in rep['tiles']]}; the own points "
+          f"partition the cloud", flush=True)
+    del own_gps
+
+    rc, info = host("io_pointcloud info", lambda: run_cli(
+        io_cli, ["info", tile]))
+    assert rc == 0 and info["n_points"] == N and info["point_format"] == 1
+    assert np.abs(np.subtract(info["mins"], xyz.min(0))).max() == 0.0
+    assert np.abs(np.subtract(info["maxs"], xyz.max(0))).max() == 0.0
+    sub = str(d / "sub.las")
+    write_las_v2(sub, xyz[:CONVERT_N], {k: v[:CONVERT_N]
+                                        for k, v in attrs.items()})
+    rc, _ = host("io_pointcloud convert LAS -> PCD", lambda: run_cli(
+        io_cli, ["convert", sub, str(d / "sub.pcd")]))
+    cloud = read_pcd(str(d / "sub.pcd"))
+    host("write_pcd binary_compressed (LZF)", lambda: write_pcd(
+        str(d / "subc.pcd"), cloud, compressed=True))
+    rc, _ = host("io_pointcloud convert PCD (LZF) -> LAS", lambda: run_cli(
+        io_cli, ["convert", str(d / "subc.pcd"), str(d / "back.las")]))
+    cloud_c = read_pcd(str(d / "subc.pcd"))
+    back = open_point_cloud(str(d / "back.las"))
+    assert np.array_equal(cloud_c.positions, cloud.positions)
+    assert np.abs(back.positions - cloud.positions).max() <= 0.5e-4 + 1e-9
+    for k, v in attrs.items():
+        assert np.array_equal(cloud_c.attributes[k], v[:CONVERT_N]), k
+        assert np.array_equal(back.attributes[k], v[:CONVERT_N]), k
+    ratio = os.path.getsize(d / "subc.pcd") / os.path.getsize(d / "sub.pcd")
+    print(f"  io_pointcloud: info over {N} points (streamed, mins / maxs "
+          f"exact); convert of {CONVERT_N} points LAS -> PCD -> PCD "
+          f"binary_compressed (LZF, {ratio:.3f} of the binary size) -> LAS: "
+          f"attributes equal, positions the PCD's float32 within the LAS "
+          f"unit", flush=True)
+    del cloud, cloud_c, back
+
+    # -- (5) stevimg_viewer on the depth map (gray: no matplotlib) ----------
+    rc, rep = host("stevimg_viewer CLI", lambda: run_cli(
+        view_cli, [depth_file, "--colormap", "gray", "-o",
+                   str(d / "view.stevimg")]))
+    fin = written[np.isfinite(written)]
+    assert rc == 0 and rep["shape"] == list(written.shape)
+    assert (rep["min"], rep["max"], rep["mean"], rep["n_nonfinite"]) == (
+        float(fin.min()), float(fin.max()), float(fin.mean()),
+        int(written.size - fin.size)), rep
+    view = read_stevimg(str(d / "view.stevimg"))
+    assert view.shape == (*written.shape, 3) and view.dtype == np.uint8
+    print(f"  stevimg_viewer --colormap gray -o: stats equal the depth "
+          f"map's (min {rep['min']:.4f}, max {rep['max']:.4f}, mean "
+          f"{rep['mean']:.4f}), render {list(view.shape)} uint8", flush=True)
+
+    # -- (6) utils.profiling on the projection ------------------------------
+    rl = profiling.roofline(project, pts)
+    dev_ms = rl["measured_s"] * 1e3
+    assert abs(dev_ms - times["projection"]) <= 0.2 * times["projection"], (
+        dev_ms, times["projection"])
+    assert rl["fraction_of_roofline"] <= 1.05, rl
+    trace_dir = d / "trace"
+    with profiling.trace(str(trace_dir)):
+        project(pts)
+        project(pts)
+    files = glob.glob(str(trace_dir / "*.pt.trace.json"))
+    assert len(files) == 1, files
+    with open(files[0]) as f:
+        kernels = {e["name"] for e in json.load(f)["traceEvents"]
+                   if e.get("cat") == "kernel"}
+    scatter = sorted(k for k in kernels if "scatter" in k.lower())
+    assert scatter, sorted(kernels)[:20]
+    busy, items = profile_frame(lambda: project(pts), 5)
+    print(f"  utils.profiling: device_time of the projection "
+          f"{dev_ms:.3f} ms (the phase's median {times['projection']:.3f} "
+          f"ms); roofline: {rl['bytes_accessed'] / 1e6:.1f} MB, "
+          f"{rl['flops']:.0f} matmul flops, bound "
+          f"{max(rl['memory_bound_s'], rl['compute_bound_s']) * 1e3:.3f} ms "
+          f"by {rl['bound_by']}, fraction {rl['fraction_of_roofline']:.3f} "
+          f"(<= 1.05); trace: {len(kernels)} kernels, the scatter kernel "
+          f"{scatter[0][:60]!r}; a projection's device items (busy "
+          f"{busy / 1e3:.3f} ms, idle "
+          f"{1 - busy / 1e3 / times['projection']:.3f}): "
+          f"{top_items(items, 6)}", flush=True)
+
+    # -- (7) utils.checkpointing: Gauss-Newton stopped and resumed ----------
+    rng = np.random.default_rng(7)
+    n = 1 << 20
+    tt = torch.from_numpy(rng.uniform(0, 1, n).astype(np.float32)).to(dev)
+    yy = 2.0 * torch.exp(-1.3 * tt) + 0.01 * torch.from_numpy(
+        rng.normal(size=n).astype(np.float32)).to(dev)
+
+    def resid(p, a, b):
+        return p[0] * torch.exp(p[1] * a) - b
+
+    def step(s):
+        JtJ, Jtr = normal_equations(resid, s["x"], tt, yy)
+        return {"x": s["x"] - damped_step(JtJ, Jtr, 1e-8),
+                "steps": s["steps"] + 1, "note": None}
+
+    s0 = {"x": torch.tensor([1.0, 0.0], device=dev),
+          "steps": torch.tensor(0, device=dev), "note": None}
+    whole = host("resumable_iterate 6 GN steps", lambda:
+                 checkpointing.resumable_iterate(step, s0, 6, str(d / "a"),
+                                                 checkpoint_every=2))
+    calls = []
+
+    def stopping(s):
+        if len(calls) == 3:
+            raise KeyboardInterrupt
+        calls.append(1)
+        return step(s)
+
+    try:
+        checkpointing.resumable_iterate(stopping, s0, 6, str(d / "b"),
+                                        checkpoint_every=2)
+        raise AssertionError("the run was not stopped")
+    except KeyboardInterrupt:
+        pass
+    assert checkpointing.latest_checkpoint(str(d / "b"))[0] == 2
+    resumed = checkpointing.resumable_iterate(step, s0, 6, str(d / "b"),
+                                              checkpoint_every=2)
+    assert resumed["x"].device == s0["x"].device \
+        and resumed["x"].dtype == torch.float32
+    assert torch.equal(resumed["x"], whole["x"]), (resumed, whole)
+    assert resumed["steps"].item() == 6
+    print(f"  utils.checkpointing: Gauss-Newton over {n} residuals, 6 steps "
+          f"with a checkpoint every 2, stopped after 3 and resumed from "
+          f"step 2: x {resumed['x'].tolist()} equal to the uninterrupted "
+          f"run's bit for bit", flush=True)
+
+    print(f"time: pointclouds ({N} points; CUDA events, medians of 5 "
+          f"(inpainting 3) for projection, inpainting and detrend, one host "
+          f"wall run for the rest; {smi}): "
+          + ", ".join(f"{k} {v:.3f} ms" for k, v in times.items()),
+          flush=True)
+    print(f"pointclouds phase: {time.perf_counter() - t_phase:.1f} s",
+          flush=True)
+
+
 def prop_good_np(disp, gt):
     from libstevi_tpu_torch.statistics import prop_good
     return prop_good(disp.float().cpu().numpy(), gt, 2.0)
@@ -5028,6 +5426,10 @@ def main(argv=None) -> int:
     mark("the pipelines: bg/fg (K5 twice a frame), intrinsic, segmentation")
     # -- the pipelines: bg/fg (K5 twice a frame), intrinsic, segmentation ---
     bgfg_launches = {"K5": pipelines(dev, smi)}
+
+    mark("point clouds: a 16.8M-point LiDAR tile projected and detrended")
+    # -- point clouds: IO, the depth map and the detrend; no kernel ----------
+    pointclouds(dev, smi)
 
     mark("the distributed paths")
     d_err, d_launches, d_ms, d_bounds, k2_instances = distributed(dev, pairs,
