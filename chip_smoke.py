@@ -260,7 +260,8 @@ ROOT = Path(__file__).resolve().parent
 FIXTURES = ROOT / "tests" / "data" / "parity"
 try:
     from libstevi_tpu_torch.utils.profiling import (H100_HBM_BYTES_PER_S,
-                                                    H100_PEAK_FLOPS_F32)
+                                                    H100_PEAK_FLOPS_F32,
+                                                    counters, reset_counters)
 except ImportError:
     sys.exit("chip_smoke: libstevi_tpu_torch not found; run the script from "
              "a checkout of the repository")
@@ -290,6 +291,12 @@ F32_FLOPS_PER_MS = H100_PEAK_FLOPS_F32 / 1e3
 # reduction, two mins against m + P2 and the d +- 1 neighbours, + P1, the
 # min, - m, + Pout, the new carry and the accumulation)
 SGM_OPS = 9
+
+
+def launched(kernel: str) -> int:
+    """Launches of a kernel wrapper since the counters were last reset
+    (the registry's ``launches.<wrapper>``)."""
+    return counters()["launches." + kernel]
 
 
 def card() -> str:
@@ -845,15 +852,12 @@ def matchers(dev, pairs, smi):
 
     ZNCC, ZSAD = MatchingFunction.ZNCC, MatchingFunction.ZSAD
     CENSUS, ZSSD = MatchingFunction.CENSUS, MatchingFunction.ZSSD
-    counters = (window_stats, box_cv, fused_fv_cost_volume)
-
     def launches():
-        return {"K1 stats": window_stats.launches, "K1": box_cv.launches,
-                "K5": fused_fv_cost_volume.launches}
+        return {"K1 stats": launched("window_stats"), "K1": launched("box_cv"),
+                "K5": launched("fused_fv_cost_volume")}
 
     def reset():
-        for fn in counters:
-            fn.launches = 0
+        reset_counters()
         torch.cuda.synchronize()
 
     def coarsest(L, R, depth):
@@ -1308,7 +1312,6 @@ def refine(dev, smi):
     from libstevi_tpu_torch.core import MatchingFunction
     from libstevi_tpu_torch.io import read_stevimg
     from libstevi_tpu_torch.ops import image_refinement as ir
-    from libstevi_tpu_torch.ops.fv_backend import fused_fv_cost_volume as k5
     from libstevi_tpu_torch.ops.unfold import unfold
     from libstevi_tpu_torch.profile_frames import profile_frame
 
@@ -1336,11 +1339,11 @@ def refine(dev, smi):
         Lc, Rc = L.cpu(), R.cpu()
         same = wta_agreement(f"refine {name} ZNCC", ZNCC, L, R)
         for m in entry.REFINE_METHODS:
-            k5.launches = 0
+            reset_counters()
             torch.cuda.synchronize()
             d = entry.stereo_refine_forward(L, R, m)
             torch.cuda.synchronize()
-            n = k5.launches
+            n = launched("fused_fv_cost_volume")
             assert n == 1 and d.shape == (480, 640), (name, m, n)
             pg, mae = refine_stats(d.cpu().numpy(), gt)
             pg_bar, mae_bar = REFINE_BARS[name][m]
@@ -1358,10 +1361,11 @@ def refine(dev, smi):
     # -- SAD (L1 IRLS) and SSD, barycentric-symmetric, 480x640 (K5) ----------
     for f in ("SAD", "SSD"):
         func = MatchingFunction[f]
-        k5.launches = 0
+        reset_counters()
         d = entry.stereo_refine_forward(L, R, "barycentric-symmetric", func)
         torch.cuda.synchronize()
-        assert k5.launches == 1, (f, k5.launches)
+        n = launched("fused_fv_cost_volume")
+        assert n == 1, (f, n)
         pg, mae = refine_stats(d.cpu().numpy(), gt)
         print(f"refine warp {f} barycentric-symmetric: K5 launches 1, "
               f"prop_good_1.0 = {pg:.5f}, inlier_mae = {mae:.5f}", flush=True)
@@ -1376,10 +1380,10 @@ def refine(dev, smi):
 
     # -- MEDAD: the subpart least-median route (no kernel) -------------------
     MEDAD = MatchingFunction.MEDAD
-    k5.launches = 0
+    reset_counters()
     d = entry.stereo_refine_forward(L, R, "barycentric-symmetric", MEDAD)
     torch.cuda.synchronize()
-    assert k5.launches == 0 and torch.isfinite(d).all()
+    assert launched("fused_fv_cost_volume") == 0 and torch.isfinite(d).all()
     pg, mae = refine_stats(d.cpu().numpy(), gt)
     print(f"refine warp MEDAD barycentric-symmetric 480x640: K5 launches 0, "
           f"prop_good_1.0 = {pg:.5f}, inlier_mae = {mae:.5f}", flush=True)
@@ -1778,8 +1782,6 @@ def geometry_checks(dev, stamp):
     from libstevi_tpu_torch.geometry.raysalignment import (
         align_rays_sets, relaxed_align_rays_sets, robust_align_rays_sets)
     from libstevi_tpu_torch.ops import dense_sgm_stereo
-    from libstevi_tpu_torch.ops.box_cuda import box_cv, window_stats
-    from libstevi_tpu_torch.ops.sgm_cuda import direction_volumes, sgm_wta
     from libstevi_tpu_torch.optim.ransac import draw_index_sets
     from libstevi_tpu_torch.statistics import compute_covering_proportion
 
@@ -1844,16 +1846,15 @@ def geometry_checks(dev, stamp):
     assert max(errs) <= 1e-3, errs
     L, Rr = pair(480, 640, 16, dev)
     lc, rci = rectify(rc, L.cpu(), Rr.cpu())
-    for fn in (window_stats, box_cv, direction_volumes, sgm_wta):
-        fn.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     lg, rgi = rectify(rg, L, Rr)
     disp, idx, tcv = dense_sgm_stereo(ZNCC, lg, rgi, **entry.FLAGSHIP)
     share = compute_covering_proportion(disp, disp)
     torch.cuda.synchronize()
-    launches = {"K1 stats": window_stats.launches, "K1": box_cv.launches,
-                "K2x7": direction_volumes.launches,
-                "K3x7": sgm_wta.launches}
+    launches = {"K1 stats": launched("window_stats"), "K1": launched("box_cv"),
+                "K2x7": launched("direction_volumes"),
+                "K3x7": launched("sgm_wta")}
     print(f"geometry: rectified 480x640 pair -> flagship: launches "
           f"{launches}", flush=True)
     assert all(n > 0 for n in launches.values()), launches
@@ -2528,11 +2529,11 @@ def pipelines(dev, smi):
     # -- (1) bg/fg at 1080x1920, D = 192 ------------------------------------
     H, W = entry.BGFG_HEIGHT, entry.BGFG_WIDTH
     D, r = entry.BGFG["disp_width"], entry.BGFG["radius"]
-    K5.launches = 0
+    reset_counters()
     forward, (ll_d, lr_d, est) = entry.bg_fg_entry(dev, seed=0)
     res = forward(ll_d, lr_d, est)
     torch.cuda.synchronize()
-    bgfg_launches = K5.launches
+    bgfg_launches = launched("fused_fv_cost_volume")
     # the same scene on the host, for the CPU run, the CLI and the timing
     (bl, br, ll, lr), rect = entry.bg_fg_scene(H, W, seed=0)
     bl_d, br_d = (torch.from_numpy(x).to(dev) for x in (bl, br))
@@ -2604,11 +2605,12 @@ def pipelines(dev, smi):
             paths.append(str(Path(tmp) / f"{nm}.stevimg"))
             write_image(paths[-1], img)
         out = str(Path(tmp) / "disp.stevimg")
-        K5.launches = 0
+        reset_counters()
         t0 = time.perf_counter()
         rc, rep = run_cli(bgfg_cli, paths + ["-d", str(D), "-o", out])
         cli_s = time.perf_counter() - t0
-        assert rc == 0 and K5.launches == 2, (rc, K5.launches)
+        n = launched("fused_fv_cost_volume")
+        assert rc == 0 and n == 2, (rc, n)
         disp_cli = read_stevimg(out)
     want_frac = round(float(res.fg_mask.float().mean().item()), 4)
     assert rep["fg_fraction"] == want_frac, (rep, want_frac)
@@ -2635,11 +2637,12 @@ def pipelines(dev, smi):
         frect = np.zeros(fl.shape, bool)
         frect[y0:y1, x0:x1] = True
         t = [torch.from_numpy(x).to(dev) for x in (fl, fr, ll_f, lr_f)]
-        K5.launches = 0
+        reset_counters()
         est = entry.bg_fg_background(t[0], t[1], disp_width=Df)
         res = entry.bg_fg_forward(t[2], t[3], est)
         torch.cuda.synchronize()
-        assert K5.launches == 2, K5.launches
+        n = launched("fused_fv_cost_volume")
+        assert n == 2, n
         bg_idx = est.bg_idx.cpu().numpy()
         # outside: away from the rectangle's window reach and from the
         # background it hides in the left image
@@ -3287,19 +3290,17 @@ def distributed_uhd(dev, L4, R4, lane_idx, smi):
 
     step4, step1 = step(4), step(1)
     f4 = lambda: step4(L4[None], R4[None])  # noqa: E731
-    counters = (box_cv, sgm_pass, sgm_shard_pass, lane.fused_rows_shard_pass,
-                lane.fused_cols_pass)
-    for fn in counters:
-        fn.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out4 = f4()
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": box_cv.launches, "K2 (sgm_pass)": sgm_pass.launches,
-                "K2s (sgm_shard_pass)": sgm_shard_pass.launches,
-                "K4c": lane.fused_rows_shard_pass.launches,
-                "K4b cols": lane.fused_cols_pass.launches}
+    launches = {"K1": launched("box_cv"),
+                "K2 (sgm_pass)": launched("sgm_pass"),
+                "K2s (sgm_shard_pass)": launched("sgm_shard_pass"),
+                "K4c": launched("fused_rows_shard_pass"),
+                "K4b cols": launched("fused_cols_pass")}
     print(f"distributed 4K UHD step {UH}x{UW} D={D} SGM-8 (batch 1, tile "
           f"4; K4c's carries do not fit: the K2s engine; the any-D K2's "
           f"last launch ran {sgm_shard_pass.layout}, as its launcher "
@@ -3384,7 +3385,6 @@ def distributed(dev, pairs, smi):
                                         sgm_cost_volume,
                                         unfold_based_cost_volume)
     from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
-    from libstevi_tpu_torch.ops.box_cuda import box_cv
     from libstevi_tpu_torch.ops.sgm import (_KNIGHT_DIRS, SgmDirection,
                                             directions_for)
     from libstevi_tpu_torch.ops.sgm import knight_adj
@@ -3530,10 +3530,7 @@ def distributed(dev, pairs, smi):
     mesh24 = make_stereo_mesh(MeshSpec(batch=2, tile=4), devs8)
     full = distributed_full_step(mesh222, ZNCC, **F)
     dense = distributed_dense_stereo_step(mesh24, ZNCC, **F)
-    counters = (box_cv, sgm_pass, sgm_shard_pass, sgm_knight_shard_pass,
-                lane.fused_rows_shard_pass, lane.fused_cols_pass)
-    for fn in counters:
-        fn.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d8 = torch.cat(distributed_sgm_fused_dhw(sh8, *Q, 8))
@@ -3544,11 +3541,11 @@ def distributed(dev, pairs, smi):
     dry = entry.dryrun_multichip(8, device=dev)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
-                "K2s": sgm_shard_pass.launches
-                + sgm_knight_shard_pass.launches,
-                "K4c": lane.fused_rows_shard_pass.launches,
-                "K4b cols": lane.fused_cols_pass.launches}
+    launches = {"K1": launched("box_cv"), "K2": launched("sgm_pass"),
+                "K2s": launched("sgm_shard_pass")
+                + launched("sgm_knight_shard_pass"),
+                "K4c": launched("fused_rows_shard_pass"),
+                "K4b cols": launched("fused_cols_pass")}
     print(f"distributed path (8 virtual shards of the card): flagship "
           f"geometry SGM-8 and SGM-16 (tile 8), K4c at {H}x{W}x{DW} (tile "
           f"4; SGM-16: with the knight relays), the full step (2, 2, 2) and "
@@ -3567,8 +3564,7 @@ def distributed(dev, pairs, smi):
     del d8, d16, dw, dw16, ref8, ref16, refw, refw16
     # SGM-4/8/16 past D = 320 over row shards: K2 and K2s take any D (their
     # registers instances at D = 330), against the same engines on the CPU
-    for fn in counters:
-        fn.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     da = [torch.cat(distributed_sgm(sha, *Q))]
@@ -3576,12 +3572,13 @@ def distributed(dev, pairs, smi):
            for n in (8, 16)]
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches["K2 any-D"] = sgm_pass.launches + sgm_shard_pass.launches
+    launches["K2 any-D"] = launched("sgm_pass") + launched("sgm_shard_pass")
     print(f"distributed SGM-4/8/16 at {tuple(cv_a.shape)} (tile 4): "
           f"{wall:.3f} s host wall (first calls), launches K2 "
-          f"{sgm_pass.launches}, K2s {sgm_shard_pass.launches} (principal), "
-          f"{sgm_knight_shard_pass.launches} (knights)", flush=True)
-    assert sgm_pass.launches > 0 and sgm_shard_pass.launches > 0
+          f"{launched('sgm_pass')}, K2s {launched('sgm_shard_pass')} "
+          f"(principal), "
+          f"{launched('sgm_knight_shard_pass')} (knights)", flush=True)
+    assert launched("sgm_pass") > 0 and launched("sgm_shard_pass") > 0
     sha_c = [x.cpu() for x in sha]
     want = [torch.cat(distributed_sgm(sha_c, *Q))]
     want += [torch.cat(distributed_sgm_fused_dhw(sha_c, *Q, n))
@@ -3609,13 +3606,12 @@ def distributed(dev, pairs, smi):
             sgm_pass_plain(vol, acc, d, *Q, accumulate=k > 0)
         for d in (x for x in dirs if x.knight):
             acc.add_(knight_volumes_plain(vol, [d], *Q)[0])
-        for fn in counters:
-            fn.launches = 0
+        reset_counters()
         got = torch.cat(distributed_sgm_routed(list(vol.split(
             vol.shape[0] // 4)), *Q, n))
-        l6 = {"K2": sgm_pass.launches, "K2s": sgm_shard_pass.launches,
-              "K2s knights": sgm_knight_shard_pass.launches,
-              "K4c": lane.fused_rows_shard_pass.launches}
+        l6 = {"K2": launched("sgm_pass"), "K2s": launched("sgm_shard_pass"),
+              "K2s knights": launched("sgm_knight_shard_pass"),
+              "K4c": launched("fused_rows_shard_pass")}
         assert l6["K2"] > 0 and l6["K2s"] > 0 and l6["K4c"] == 0, l6
         err["K2 any-D"] = max(err["K2 any-D"],
                               exact(got, vol + acc, ("C6 relay", n)))
@@ -3640,17 +3636,15 @@ def distributed(dev, pairs, smi):
     # -- 16-direction SGM past D = 320 (K4b and the any-D K2k) ---------------
     L, R = pair(H, W, 22, dev)
     cfg = dict(entry.SGM16, disp_width=DW)
-    for fn in (box_cv, lane.fused_rows_pass, knight_volumes,
-               lane.fused_cols_wta):
-        fn.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     d384, i384, t384 = dense_sgm_stereo(ZNCC, L, R, **cfg)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    l16 = {"K1": box_cv.launches, "K4b rows": lane.fused_rows_pass.launches,
-           "K2k any-D": knight_volumes.launches,
-           "K4b WTA": lane.fused_cols_wta.launches}
+    l16 = {"K1": launched("box_cv"), "K4b rows": launched("fused_rows_pass"),
+           "K2k any-D": launched("knight_volumes"),
+           "K4b WTA": launched("fused_cols_wta")}
     print(f"SGM-16 path {H}x{W}x{DW} f32: {wall:.3f} s host wall (first "
           f"call), launches {l16}", flush=True)
     assert all(n > 0 for n in l16.values()), l16
@@ -4424,7 +4418,7 @@ def main(argv=None) -> int:
     L, R = pair(37, 101, 11, dev)
     cv = box_cv(ZNCC, L, R, 3, 3, 13, torch.float32, negate=True)
     m = Margins(2, 1, 3, 2)
-    sgm_pass.launches = knight_volumes.launches = 0
+    reset_counters()
     for nd in (8, 16):
         got = sgm_cost_volume(cv, P1, P2, m, n_directions=nd)
         want = sgm_cost_volume(cv.cpu(), P1, P2, m, n_directions=nd)
@@ -4442,8 +4436,8 @@ def main(argv=None) -> int:
               flush=True)
     # `sgm_cost_volume`'s path (with margins, also `sgm_wta_truncated`'s):
     # K2 a direction a launch into one accumulator, the knight volumes
-    margin_launches = {"K2": sgm_pass.launches,
-                       "K2k": knight_volumes.launches}
+    margin_launches = {"K2": launched("sgm_pass"),
+                       "K2k": launched("knight_volumes")}
     print(f"margins path SGM-8 and SGM-16: launches {margin_launches}",
           flush=True)
     assert all(n > 0 for n in margin_launches.values()), margin_launches
@@ -4695,10 +4689,10 @@ def main(argv=None) -> int:
                 err["K4d"] = max(err["K4d"], exact(got, want,
                                                    (kind, accumulate, cw)))
     del got, want, acc_o
-    before = lane.chunked_sweep.launches
+    before = launched("chunked_sweep")
     e4d = close(lane.chunked_adj(cvo, 0, 300, P1, P2, POUT, 8, cw=32),
                 _grouped_adj(cvo, P1, P2, POUT, 8, 0, 300))
-    assert lane.chunked_sweep.launches == before + 4
+    assert launched("chunked_sweep") == before + 4
     print(f"K4d 40x300x352 f32: the four sweep kinds, writing and adding, "
           f"at {cws[0]} columns a chunk ({-(-300 // cws[0])} chunks) and at "
           f"2 (150 chunks, more than the {n_sms} SMs), one launch each, "
@@ -4753,24 +4747,21 @@ def main(argv=None) -> int:
         pairs[name] = (imgs, gt)
     _, (Lr, Rr) = entry.entry(dev)
     pairs["random"] = ([Lr, Rr], None)
-    K2K_COUNTERS = (window_stats, box_cv, sgm_pass, direction_volumes,
-                    knight_volumes, sgm_wta)
-
-    def reset(*fns):
-        for fn in fns:
-            fn.launches = 0
+    def reset():
+        reset_counters()
         torch.cuda.synchronize()
 
-    reset(*K2K_COUNTERS)
+    reset()
     t0 = time.perf_counter()
     out = {name: dense_sgm_stereo(ZNCC, *imgs, **entry.FLAGSHIP)
            for name, (imgs, _) in pairs.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches = {"K1 stats": window_stats.launches, "K1": box_cv.launches,
-                "K2x7": direction_volumes.launches, "K3x7": sgm_wta.launches}
+    launches = {"K1 stats": launched("window_stats"), "K1": launched("box_cv"),
+                "K2x7": launched("direction_volumes"),
+                "K3x7": launched("sgm_wta")}
     print(f"main path: 3 pairs in {wall:.3f} s host wall (first calls), "
-          f"launches {launches}, K2 one direction {sgm_pass.launches}",
+          f"launches {launches}, K2 one direction {launched('sgm_pass')}",
           flush=True)
     # the flagship takes the one-launch form (its 7 volumes, 1.03 GB, fit)
     assert all(n > 0 for n in launches.values()), launches
@@ -4784,17 +4775,19 @@ def main(argv=None) -> int:
 
     mark("the SGM-16 path: both fixtures and the random pair")
     # -- the SGM-16 path: both fixtures and the random pair -------------------
-    reset(*K2K_COUNTERS, fused_fv_cost_volume)
+    reset()
     t0 = time.perf_counter()
     out16 = {name: dense_sgm_stereo(ZNCC, *imgs, **entry.SGM16)
              for name, (imgs, _) in pairs.items()}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches16 = {"K1": box_cv.launches, "K2x7": direction_volumes.launches,
-                  "K2k": knight_volumes.launches, "K3": sgm_wta.launches}
+    launches16 = {"K1": launched("box_cv"),
+                  "K2x7": launched("direction_volumes"),
+                  "K2k": launched("knight_volumes"), "K3": launched("sgm_wta")}
     print(f"SGM-16 path: 3 pairs in {wall:.3f} s host wall (first calls), "
-          f"launches {launches16}, K2 one direction {sgm_pass.launches}, K5 "
-          f"{fused_fv_cost_volume.launches}", flush=True)
+          f"launches {launches16}, K2 one direction "
+          f"{launched('sgm_pass')}, K5 {launched('fused_fv_cost_volume')}",
+          flush=True)
     assert all(n > 0 for n in launches16.values()), launches16
     for name, (disp, idx, tcv) in out16.items():
         assert disp.shape == idx.shape == (480, 640)
@@ -4812,16 +4805,17 @@ def main(argv=None) -> int:
 
     mark("census + SGM-8: both fixtures")
     # -- census + SGM-8: both fixtures ---------------------------------------
-    reset(*K2K_COUNTERS, fused_fv_cost_volume)
+    reset()
     t0 = time.perf_counter()
     out_cs = {name: entry.census_sgm_forward(*pairs[name][0])
               for name in CENSUS_BARS}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    cs_launches = {"K1": box_cv.launches, "K2": sgm_pass.launches,
-                   "K2x7": direction_volumes.launches,
-                   "K2k": knight_volumes.launches, "K3": sgm_wta.launches,
-                   "K5": fused_fv_cost_volume.launches}
+    cs_launches = {"K1": launched("box_cv"), "K2": launched("sgm_pass"),
+                   "K2x7": launched("direction_volumes"),
+                   "K2k": launched("knight_volumes"),
+                   "K3": launched("sgm_wta"),
+                   "K5": launched("fused_fv_cost_volume")}
     print(f"census SGM-8 path: 2 pairs in {wall:.3f} s host wall, launches "
           f"{cs_launches} (the census volume runs on the shifted-compare "
           f"loop)", flush=True)
@@ -4833,15 +4827,16 @@ def main(argv=None) -> int:
     mark("HD 720x1280, D=320, bf16, SGM-8: a random pair")
     # -- HD 720x1280, D=320, bf16, SGM-8: a random pair ----------------------
     Lh, Rh = pair(entry.HD_HEIGHT, entry.HD_WIDTH, 12, dev)
-    reset(*K2K_COUNTERS)
+    reset()
     t0 = time.perf_counter()
     dh, ih, th = dense_sgm_stereo(ZNCC, Lh, Rh, **entry.HD_BF16)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    hd_launches = {"K1": box_cv.launches, "K2x7": direction_volumes.launches,
-                   "K3": sgm_wta.launches}
+    hd_launches = {"K1": launched("box_cv"),
+                   "K2x7": launched("direction_volumes"),
+                   "K3": launched("sgm_wta")}
     print(f"HD path 720x1280x320 bf16: {wall:.3f} s host wall (first call), "
-          f"launches {hd_launches}, K2 one direction {sgm_pass.launches}",
+          f"launches {hd_launches}, K2 one direction {launched('sgm_pass')}",
           flush=True)
     assert all(n > 0 for n in hd_launches.values()), hd_launches
     assert dh.shape == (720, 1280) and th.shape == (720, 1280, 3)
@@ -4849,15 +4844,13 @@ def main(argv=None) -> int:
 
     mark("the wide path: 480x640, D=384, f32, SGM-8 (K1 x2, K4b)")
     # -- the wide path: 480x640, D=384, f32, SGM-8 (K1 x2, K4b) --------------
-    LANE_K4B = (lane.fused_rows_pass, lane.fused_cols_pass,
-                lane.fused_cols_wta)
-    LANE = LANE_K4B + (lane.chunked_sweep, lane.shift_rows)
+    LANE_K4B = ("fused_rows_pass", "fused_cols_pass", "fused_cols_wta")
 
     def lane_launches():
-        return {"K1": box_cv.launches, "K4a": lane.shift_rows.launches,
-                "K4b": sum(fn.launches for fn in LANE_K4B),
-                "K4d": lane.chunked_sweep.launches,
-                "K2": sgm_pass.launches, "K3": sgm_wta.launches}
+        return {"K1": launched("box_cv"), "K4a": launched("shift_rows"),
+                "K4b": sum(launched(k) for k in LANE_K4B),
+                "K4d": launched("chunked_sweep"),
+                "K2": launched("sgm_pass"), "K3": launched("sgm_wta")}
 
     def wide_plain(cv, r=1):
         """The plain route of the wide path on the card: K4b's plain
@@ -4869,7 +4862,7 @@ def main(argv=None) -> int:
         adj = lane.fused_cols_pass_plain(cv, adj, False, **kw)
         return lane.fused_cols_wta_plain(cv, adj, r, **kw), adj
 
-    reset(box_cv, *LANE, *K2K_COUNTERS)
+    reset()
     t0 = time.perf_counter()
     out_w = {name: dense_sgm_stereo(ZNCC, *imgs, **entry.WIDE)
              for name, (imgs, _) in pairs.items()}
@@ -4916,7 +4909,7 @@ def main(argv=None) -> int:
     mark("HD wide: 720x1280, D=640, f32, SGM-8 (K1 x2, K4b)")
     # -- HD wide: 720x1280, D=640, f32, SGM-8 (K1 x2, K4b) -------------------
     HH, HW, HD = entry.HD_HEIGHT, entry.HD_WIDTH, entry.HD_WIDE["disp_width"]
-    reset(box_cv, *LANE, *K2K_COUNTERS)
+    reset()
     t0 = time.perf_counter()
     dhw, ihw, thw = dense_sgm_stereo(ZNCC, Lh, Rh, **entry.HD_WIDE)
     torch.cuda.synchronize()
@@ -4939,7 +4932,7 @@ def main(argv=None) -> int:
     # K4b's carries fit on chip at this size, so no public entry takes K4d
     # here on an H100; `chunked_adj` is called directly, as the JAX tests call
     # `sgm_chunked_adj`
-    reset(box_cv, *LANE, *K2K_COUNTERS)
+    reset()
     t0 = time.perf_counter()
     adj_hd = lane.chunked_adj(cv_hd, 0, HW, P1, P2, POUT, 8)
     C = cv_hd + adj_hd
@@ -5024,15 +5017,15 @@ def main(argv=None) -> int:
     UH, UW = entry.UHD_HEIGHT, entry.UHD_WIDTH
     assert not lane.fused_fits(UW, WD, 8, n_sm=n_sms)
     L4, R4 = pair(UH, UW, 25, dev)
-    reset(box_cv, *LANE, *K2K_COUNTERS)
+    reset()
     t0 = time.perf_counter()
     d4 = entry.uhd_wide_forward(L4, R4)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     uhd_launches = dict(lane_launches(),
-                        rows=lane.fused_rows_pass.launches,
-                        cols=lane.fused_cols_pass.launches,
-                        wta=lane.fused_cols_wta.launches)
+                        rows=launched("fused_rows_pass"),
+                        cols=launched("fused_cols_pass"),
+                        wta=launched("fused_cols_wta"))
     cw4 = lane.chunk_width(WD, 8, UW, n_sms)
     print(f"4K UHD path {UH}x{UW}x{WD} f32 (entry.uhd_wide_forward; K4d "
           f"chunk width {cw4}, {-(-UW // cw4)} chunks): {wall:.3f} s host "
@@ -5162,8 +5155,7 @@ def main(argv=None) -> int:
     print("PatchMatch 64x96x24: CUDA equals CPU with one replayed candidate "
           "stream", flush=True)
 
-    box_cv.launches = sweep.launches = probe.launches = 0
-    fused_fv_cost_volume.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_pm = {name: entry.patchmatch_forward(
@@ -5171,10 +5163,10 @@ def main(argv=None) -> int:
         for name in PM_BARS}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches.update(K6=sweep.launches, K7=probe.launches)
-    pm_k1 = box_cv.launches
+    launches.update(K6=launched("sweep"), K7=launched("probe"))
+    pm_k1 = launched("box_cv")
     print(f"PatchMatch path: 2 pairs in {wall:.3f} s host wall, launches "
-          f"K1 {pm_k1}, K5 {fused_fv_cost_volume.launches}, K6 "
+          f"K1 {pm_k1}, K5 {launched('fused_fv_cost_volume')}, K6 "
           f"{launches['K6']}, K7 {launches['K7']}", flush=True)
     assert pm_k1 > 0 and launches["K6"] > 0 and launches["K7"] > 0
     for name, disp in out_pm.items():
@@ -5188,9 +5180,9 @@ def main(argv=None) -> int:
     # the shifted-compare loop on the card (no K5 launch), as JAX's 'auto'
     # falls back past its VMEM budget; against the CPU
     Lz, Rz = pair(24, 470, 19, dev)
-    k5_before = fused_fv_cost_volume.launches
+    k5_before = launched("fused_fv_cost_volume")
     cv_z = unfold_based_cost_volume(ZSAD, Lz, Rz, 5, 5, 448)
-    assert fused_fv_cost_volume.launches == k5_before
+    assert launched("fused_fv_cost_volume") == k5_before
     e_z = close(cv_z.cpu(), unfold_based_cost_volume(ZSAD, Lz.cpu(), Rz.cpu(),
                                                      5, 5, 448), 1e-5)
     print(f"aggregate_cost 'auto' ZSAD r=5 (F=121) D=448 24x470: the "
@@ -5215,17 +5207,16 @@ def main(argv=None) -> int:
           f"{(idx_g == idx_c).float().mean().item():.6f}, equal on the "
           f"{clear.float().mean().item():.4f} clear of near-ties", flush=True)
 
-    box_cv.launches = sweep.launches = probe.launches = 0
-    fused_fv_cost_volume.launches = 0
+    reset_counters()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
     out_wta = {name: entry.wta_forward(ZSAD, *pairs[name][0])
                for name in PM_BARS}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    launches["K5"] = fused_fv_cost_volume.launches
+    launches["K5"] = launched("fused_fv_cost_volume")
     print(f"WTA ZSAD path: 2 pairs in {wall:.3f} s host wall, launches K5 "
-          f"{launches['K5']}, K1 {box_cv.launches}", flush=True)
+          f"{launches['K5']}, K1 {launched('box_cv')}", flush=True)
     assert launches["K5"] > 0
     for name, idx in out_wta.items():
         assert idx.shape == (480, 640) and idx.dtype == torch.int32

@@ -24,7 +24,8 @@ first use), the disparity estimator with background removal
 (`ops.bg_segmentation`), the point-cloud IO (``io``: LAS through the
 port's own ``native/las_codec.cpp``, PCD with LZF through
 ``native/lzf_codec.cpp``, SDC, metacloud), ``utils`` (profiling against
-the H100's peaks, checkpoints in the JAX package's format), ``gui`` (the
+the H100's peaks, the program's spans and counters (`counters`: kernel
+launches, SGM routes and forms), checkpoints in the JAX package's format), ``gui`` (the
 display adapters and the matplotlib viewer), and every CLI of the JAX
 package's `cli/`.
 Plain functions on tensors; the device comes from the inputs.  On a CUDA tensor the paths
@@ -37,6 +38,7 @@ Importing the package builds nothing and needs neither a GPU nor nvcc.
 
 from . import (core, geometry, graphs, gui, imageproc, interpolation, io,
                ops, optim, sparse, statistics, utils)
+from .utils.profiling import counters
 
 __all__ = ["core", "geometry", "graphs", "gui", "imageproc", "interpolation",
-           "io", "ops", "optim", "sparse", "statistics", "utils"]
+           "io", "ops", "optim", "sparse", "statistics", "utils", "counters"]

@@ -18,7 +18,8 @@ on flat windows (the variance cancels to a few ulps), so any other order
 of the sums moves such entries by O(1); a tolerance cannot hold them.
 
 Each wrapper launches its kernel for CUDA tensors, counting launches in
-``.launches``, and runs its plain version for CPU tensors.
+the counter ``launches.<wrapper>`` (`utils.profiling.counters`), and runs
+its plain version for CPU tensors.
 """
 
 from __future__ import annotations
@@ -26,6 +27,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.profiling import count
 from ..core.types import MatchingFunction
 from .filters import box_filter_2d
 
@@ -85,7 +87,7 @@ def _stats_launch(lib, func, img_l, img_r, h_radius, v_radius, stream):
         src.data_ptr(), tgt.data_ptr(), stats.data_ptr(), H, W, h_radius,
         v_radius, int(func is MatchingFunction.NCC), n, stream)
     _build.check(lib, err, "box_stats_launch")
-    window_stats.launches += 1
+    count("launches.window_stats")
     return src, tgt, stats[0, 0], stats[0, 1], stats[1, 0], stats[1, 1], n
 
 
@@ -100,9 +102,6 @@ def window_stats(func: MatchingFunction, img_l: torch.Tensor,
     with torch.cuda.device(img_l.device):
         return _stats_launch(lib, func, img_l, img_r, h_radius, v_radius,
                              torch.cuda.current_stream().cuda_stream)
-
-
-window_stats.launches = 0
 
 
 def box_cv_plain(func: MatchingFunction, img_l: torch.Tensor,
@@ -167,8 +166,7 @@ def box_cv(func: MatchingFunction, img_l: torch.Tensor, img_r: torch.Tensor,
             h_radius, v_radius, _KIND[func], 1.0 / n, int(negate),
             int(cv_dtype == torch.bfloat16), stream)
     _build.check(lib, err, "box_cv_launch")
-    box_cv.launches += 1
+    count("launches.box_cv")
     return out
 
 
-box_cv.launches = 0

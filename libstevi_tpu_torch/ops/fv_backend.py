@@ -20,6 +20,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.profiling import count
 from .matching import _KERNELS
 
 FUSABLE_KERNELS = ("dot", "ssd", "sad")
@@ -136,8 +137,7 @@ def fused_fv_cost_volume(kernel: str, source_fv: torch.Tensor,
             int(cv_dtype == torch.bfloat16), unit_step(shifts),
             torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "fv_cv_launch")
-    fused_fv_cost_volume.launches += 1
+    count("launches.fused_fv_cost_volume")
     return _layout(out, layout)
 
 
-fused_fv_cost_volume.launches = 0

@@ -28,6 +28,7 @@ from __future__ import annotations
 import torch
 
 from .. import _build
+from ..utils.profiling import count
 
 _INF = float("inf")
 
@@ -150,11 +151,8 @@ def sweep(cv: torch.Tensor, disp: torch.Tensor, cost: torch.Tensor,
     _launch(cv, "pm_sweep_launch", cv.data_ptr(), disp.data_ptr(),
             cost.data_ptr(), d_out.data_ptr(), c_out.data_ptr(),
             runs.data_ptr(), H, W, D, lower, axis, reverse)
-    sweep.launches += 1
+    count("launches.sweep")
     return d_out, c_out
-
-
-sweep.launches = 0
 
 
 def _probe_launches(cv, cand, base, disp, cost, lower, n_random):
@@ -189,11 +187,8 @@ def probe(cv: torch.Tensor, cand: torch.Tensor, disp: torch.Tensor,
     if cand.shape[0] == 0:
         return disp.clone(), cost.clone()
     d_out, c_out, n = _probe_launches(cv, cand, None, disp, cost, lower, 0)
-    probe.launches += n
+    count("launches.probe", n)
     return d_out, c_out
-
-
-probe.launches = 0
 
 
 def search_probe(cv: torch.Tensor, draws: torch.Tensor, disp: torch.Tensor,
@@ -211,5 +206,5 @@ def search_probe(cv: torch.Tensor, draws: torch.Tensor, disp: torch.Tensor,
         raise ValueError("search_probe: n_random >= 1 and one or more draws")
     d_out, c_out, n = _probe_launches(cv, draws, disp, disp, cost, lower,
                                       n_random)
-    probe.launches += n                    # K7's kernel, one count
+    count("launches.probe", n)      # K7's kernel, one count
     return d_out, c_out

@@ -51,6 +51,7 @@ import torch
 
 from ..core.types import ExtractionStrategy, MATCH_TRAITS
 from ..core.margins import Margins
+from ..utils.profiling import count, span
 
 
 class SgmDirection(enum.Enum):
@@ -334,10 +335,12 @@ def _lane_adj(region, col0, W_pout, P1, P2, Pout, n_directions,
     directions both run the knight directions (K2k) before their last
     column scan, which sums their 8 volumes where they fit (else they are
     added in place first: the same bits).  With ``wta_radius`` the last
-    scan is the WTA scan and the result is (idx, bands)."""
+    scan is the WTA scan and the result is (idx, bands).  The form counts
+    in ``form.lane_fused`` or ``form.lane_chunked``."""
     from .sgm_lane_cuda import chunked_adj, fused_adj
     res = fused_adj(region, col0, W_pout, P1, P2, Pout, n_directions,
                     wta_radius=wta_radius)
+    count("form.lane_chunked" if res is None else "form.lane_fused")
     if res is None:
         res = chunked_adj(region, col0, W_pout, P1, P2, Pout, n_directions,
                           wta_radius=wta_radius)
@@ -439,12 +442,21 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
     directions: the WTA scan sums the knight volumes as it reads them, or
     they are added to its accumulator first).  Elsewhere (margins, P2 <
     P1) both devices run the chain itself, as the JAX package does
-    (`libstevi_tpu/ops/sgm.py:571-600`)."""
+    (`libstevi_tpu/ops/sgm.py:571-600`).  The route (`sgm_route`) counts
+    in ``route.<route>``."""
+    route = sgm_route(cv.shape[-1], n_directions, P1, P2, cv.is_cuda)
+    count("route." + route)
+    return _wta_truncated(route, cv, P1, P2, margins, Pout, n_directions,
+                          strategy, h_radius, v_radius, cost_vol_radius)
+
+
+def _wta_truncated(route, cv, P1, P2, margins, Pout, n_directions, strategy,
+                   h_radius, v_radius, cost_vol_radius):
+    """`sgm_wta_truncated` on the route `sgm_route` gave."""
     from .cost_volume import extract_selected_index, truncated_cost_volume
     H, W, D = cv.shape
     r = cost_vol_radius
     if margins == Margins() and H and W:
-        route = sgm_route(D, n_directions, P1, P2, cv.is_cuda)
         res = None
         if (route == "scan" and cv.is_cuda) or route == "lane":
             vol = cv if strategy is ExtractionStrategy.COST else -cv
@@ -456,8 +468,9 @@ def sgm_wta_truncated(cv: torch.Tensor, P1: float, P2: float,
             else:
                 res = _lane_adj(vol, 0, W, *P, n_directions, wta_radius=r)
         if res is not None:
-            return _tcv_from_bands(res[0], res[1], H, W, D, h_radius,
-                                   v_radius, r)
+            with span("stevi.bands"):
+                return _tcv_from_bands(res[0], res[1], H, W, D, h_radius,
+                                       v_radius, r)
     sgm = sgm_cost_volume(cv, P1, P2, margins, Pout, n_directions, strategy)
     idx = extract_selected_index(sgm, strategy)
     vol = sgm if strategy is ExtractionStrategy.COST else -sgm
@@ -493,49 +506,60 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     directions builds a float32 volume, the JAX package's TPU rule
     (`libstevi_tpu/ops/sgm.py:477-478`).
 
+    The call is the span ``stevi.dense_sgm_stereo`` (`utils.profiling.span`),
+    with its stages' spans inside: ``stevi.k1``, ``stevi.route``,
+    ``stevi.k2`` and ``stevi.k3`` (scan) or ``stevi.k4d`` and ``stevi.k4b``
+    (lane), ``stevi.bands``, ``stevi.refine``; its route counts in
+    ``route.<route>``.
+
     Returns ``(disp, idx, tcv)``: refined disparity (H, W) float32 (equal
     to ``idx`` when ``refine_kernel`` is None), the raw WTA index map, and
     the truncated cost volume (COST orientation)."""
-    from .box_backend import DOT_FAMILY
-    from .refinement import InterpolationKernel, refine_disp_cost_interpolation
-    strategy = MATCH_TRAITS[func].strategy
-    H, W = img_l.shape[:2]
-    D = int(disp_width)
-    r = cost_vol_radius
-    if n_directions >= 16:
-        cv_dtype = torch.float32
-    route = sgm_route(D, n_directions, P1, P2, img_l.is_cuda)
+    with span("stevi.dense_sgm_stereo"):
+        from .box_backend import DOT_FAMILY
+        from .refinement import (InterpolationKernel,
+                                 refine_disp_cost_interpolation)
+        strategy = MATCH_TRAITS[func].strategy
+        H, W = img_l.shape[:2]
+        D = int(disp_width)
+        r = cost_vol_radius
+        if n_directions >= 16:
+            cv_dtype = torch.float32
+        route = sgm_route(D, n_directions, P1, P2, img_l.is_cuda)
+        count("route." + route)
 
-    if func in DOT_FAMILY and img_l.ndim == 2 and route != "dense":
-        from .box_cuda import box_cv
-        dt = torch.bfloat16 if cv_dtype == torch.bfloat16 else torch.float32
-        cv = box_cv(func, img_l, img_r, h_radius, v_radius, D, dt,
-                    negate=strategy is ExtractionStrategy.SCORE)
-        if route == "scan":
-            from .sgm_cuda import sgm_wta_fused
-            fuse_refine = (refine_kernel is InterpolationKernel.PARABOLA
-                           and r >= 1)
-            idx, bands, disp = sgm_wta_fused(cv, float(P1), float(P2),
-                                             float(Pout), n_directions, r,
-                                             h_radius, v_radius, fuse_refine)
-            idx, tcv = _tcv_from_bands(idx, bands, H, W, D, h_radius,
-                                       v_radius, r)
-            if fuse_refine:
-                return disp, idx, tcv
+        if func in DOT_FAMILY and img_l.ndim == 2 and route != "dense":
+            from .box_cuda import box_cv
+            dt = torch.bfloat16 if cv_dtype == torch.bfloat16 else torch.float32
+            with span("stevi.k1"):
+                cv = box_cv(func, img_l, img_r, h_radius, v_radius, D, dt,
+                            negate=strategy is ExtractionStrategy.SCORE)
+            if route == "scan":
+                from .sgm_cuda import sgm_wta_fused
+                fuse_refine = (refine_kernel is InterpolationKernel.PARABOLA
+                               and r >= 1)
+                idx, bands, disp = sgm_wta_fused(cv, float(P1), float(P2),
+                                                 float(Pout), n_directions, r,
+                                                 h_radius, v_radius,
+                                                 fuse_refine)
+                with span("stevi.bands"):
+                    idx, tcv = _tcv_from_bands(idx, bands, H, W, D,
+                                               h_radius, v_radius, r)
+                if fuse_refine:
+                    return disp, idx, tcv
+            else:
+                idx, tcv = _wta_truncated(
+                    route, cv, P1, P2, Margins(), Pout, n_directions,
+                    ExtractionStrategy.COST, h_radius, v_radius, r)
         else:
-            idx, tcv = sgm_wta_truncated(
-                cv, P1, P2, Pout=Pout, n_directions=n_directions,
-                h_radius=h_radius, v_radius=v_radius, cost_vol_radius=r)
-    else:
-        from .cost_volume import unfold_based_cost_volume
-        cv = unfold_based_cost_volume(func, img_l, img_r, h_radius, v_radius,
-                                      D, cv_dtype=cv_dtype)
-        idx, tcv = sgm_wta_truncated(
-            cv, P1, P2, Pout=Pout, n_directions=n_directions,
-            strategy=strategy, h_radius=h_radius, v_radius=v_radius,
-            cost_vol_radius=r)
-    if refine_kernel is None:
-        disp = idx.float()
-    else:
-        disp = refine_disp_cost_interpolation(refine_kernel, tcv, idx)
-    return disp, idx, tcv
+            from .cost_volume import unfold_based_cost_volume
+            cv = unfold_based_cost_volume(func, img_l, img_r, h_radius,
+                                          v_radius, D, cv_dtype=cv_dtype)
+            idx, tcv = _wta_truncated(
+                route, cv, P1, P2, Margins(), Pout, n_directions, strategy,
+                h_radius, v_radius, r)
+        if refine_kernel is None:
+            return idx.float(), idx, tcv
+        with span("stevi.refine"):
+            disp = refine_disp_cost_interpolation(refine_kernel, tcv, idx)
+        return disp, idx, tcv

@@ -64,6 +64,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils.profiling import count, span
 from .sgm_lane_cuda import H100_SMS
 from .sgm import (SgmDirection, directions_for, direction_adj,
                   direction_shard_adj, wta_bands, _dp_step, _tcv_from_bands)
@@ -205,11 +206,10 @@ def sgm_pass(cv: torch.Tensor, acc: torch.Tensor, direction: SgmDirection,
     sgm_pass.layout = _pass_launch(cv, acc, None, None, [direction], P1, P2,
                                    Pout, accumulate, col0, W_pout, 0,
                                    cv.shape[0])
-    sgm_pass.launches += 1
+    count("launches.sgm_pass")
     return acc
 
 
-sgm_pass.launches = 0
 sgm_pass.layout = None  # the last launch's `PassLayout` (None: D <= 320)
 
 
@@ -284,11 +284,10 @@ def sgm_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
     sgm_shard_pass.layout = _pass_launch(cv, acc, carry, cout, [direction],
                                          P1, P2, Pout, accumulate, 0, W, i0,
                                          H_img)
-    sgm_shard_pass.launches += 1
+    count("launches.sgm_shard_pass")
     return cout
 
 
-sgm_shard_pass.launches = 0
 sgm_shard_pass.layout = None  # the last launch's `PassLayout`, as sgm_pass's
 
 
@@ -395,11 +394,8 @@ def knight_volumes(cv: torch.Tensor, directions, P1: float, P2: float,
     col0, W_pout = _pout_args(cv, col0, W_pout)
     _knight_launch(cv, out, None, None, directions, P1, P2, Pout, col0,
                    W_pout, 0, 0)
-    knight_volumes.launches += 2
+    count("launches.knight_volumes", 2)
     return out
-
-
-knight_volumes.launches = 0
 
 
 def _knight_launch(cv, vol, cin, cout, directions, P1, P2, Pout, col0,
@@ -512,12 +508,9 @@ def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
     cout = torch.zeros((2, X, D), dtype=torch.float32, device=cv.device)
     _knight_launch(cv, vol, carries, cout, [direction], P1, P2, Pout, col0,
                    W_pout, s0, N_img)
-    sgm_knight_shard_pass.launches += 2
+    count("launches.sgm_knight_shard_pass", 2)
     acc.add_(vol[0])
     return cout
-
-
-sgm_knight_shard_pass.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -592,11 +585,8 @@ def sgm_wta(cv: torch.Tensor, acc: torch.Tensor, P1: float, P2: float,
             disp.data_ptr() if refine else None, H, W, D, P1, P2, Pout, r,
             h_radius, v_radius, torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_wta_launch")
-    sgm_wta.launches += 1
+    count("launches.sgm_wta")
     return idx, bands, disp
-
-
-sgm_wta.launches = 0
 
 
 # ---------------------------------------------------------------------------
@@ -649,11 +639,8 @@ def direction_volumes(cv: torch.Tensor, directions, P1: float, P2: float,
     H, W, _ = cv.shape
     _pass_launch(cv, adj, None, None, directions, P1, P2, Pout, False, 0, W,
                  0, H)
-    direction_volumes.launches += 1
+    count("launches.direction_volumes")
     return adj
-
-
-direction_volumes.launches = 0
 
 
 def one_launch_fits(stack_bytes: int, free_bytes: int) -> bool:
@@ -691,19 +678,27 @@ def sgm_wta_fused(cv: torch.Tensor, P1: float, P2: float, Pout: float,
     knights into theirs (`knight_volumes`, two launches), and K3 sums the
     stack (up to 15 volumes) in order; else the K2 launches accumulate into
     one volume, one after another, and the knight volumes are added after
-    them (`sgm_accumulate`): the same bits.  Returns what `sgm_wta`
-    returns."""
+    them (`sgm_accumulate`): the same bits.  The choice counts in
+    ``form.k2_one_launch`` or ``form.k2_accumulate``.  Returns what
+    `sgm_wta` returns."""
     cv = kernel_volume(cv)
     dirs = [d for d in directions_for(n_directions)
             if d is not SgmDirection.RIGHT2LEFT]
-    if not _one_launch(cv, len(dirs)):
-        acc = sgm_accumulate(cv, dirs, P1, P2, Pout)
+    with span("stevi.route"):
+        one_launch = _one_launch(cv, len(dirs))
+    count("form.k2_one_launch" if one_launch else "form.k2_accumulate")
+    with span("stevi.k2"):
+        if one_launch:
+            principal = [d for d in dirs if not d.knight]
+            knights = [d for d in dirs if d.knight]
+            acc = torch.empty((len(dirs),) + tuple(cv.shape),
+                              dtype=torch.float32, device=cv.device)
+            direction_volumes(cv, principal, P1, P2, Pout,
+                              acc[:len(principal)])
+            if knights:
+                knight_volumes(cv, knights, P1, P2, Pout,
+                               out=acc[len(principal):])
+        else:
+            acc = sgm_accumulate(cv, dirs, P1, P2, Pout)
+    with span("stevi.k3"):
         return sgm_wta(cv, acc, P1, P2, Pout, r, h_radius, v_radius, refine)
-    principal = [d for d in dirs if not d.knight]
-    knights = [d for d in dirs if d.knight]
-    acc = torch.empty((len(dirs),) + tuple(cv.shape), dtype=torch.float32,
-                      device=cv.device)
-    direction_volumes(cv, principal, P1, P2, Pout, acc[:len(principal)])
-    if knights:
-        knight_volumes(cv, knights, P1, P2, Pout, out=acc[len(principal):])
-    return sgm_wta(cv, acc, P1, P2, Pout, r, h_radius, v_radius, refine)

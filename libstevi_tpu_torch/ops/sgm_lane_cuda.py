@@ -41,8 +41,9 @@ the region's first column and ``W_pout`` the image width, for the Pout test
 ``j + d >= W``.  The DP step is `_fused_step` (no isfinite guards; the TPU
 padded d with +inf, here d = -1 and d = D read +inf), and every sum runs in
 the TPU kernels' order, so a kernel and its plain version agree to the bit.
-Each wrapper launches its kernel for CUDA tensors (counting the launch) and
-runs its plain version (`*_plain`) for CPU tensors.
+Each wrapper launches its kernel for CUDA tensors (counting the launch in
+``launches.<wrapper>``, `utils.profiling.counters`) and runs its plain
+version (`*_plain`) for CPU tensors.
 """
 
 from __future__ import annotations
@@ -52,6 +53,7 @@ from typing import NamedTuple
 import torch
 
 from .. import _build
+from ..utils.profiling import count, span
 
 SMEM_BLOCK = 232448      # bytes of shared memory one block can opt into (H100)
 SMEM_SM = 233472         # bytes of shared memory an SM holds
@@ -341,11 +343,8 @@ def shift_rows(x: torch.Tensor, W_out: int, base: int,
         err = lib.shift_rows_launch(x.data_ptr(), out.data_ptr(), H, W_in,
                                     W_out, Dp, base, slope, _stream())
     _build.check(lib, err, "shift_rows_launch")
-    shift_rows.launches += 1
+    count("launches.shift_rows")
     return out
-
-
-shift_rows.launches = 0
 
 
 def shear(cv: torch.Tensor, neg: bool) -> torch.Tensor:
@@ -477,11 +476,8 @@ def fused_rows_pass(cv: torch.Tensor, acc: torch.Tensor | None,
     out, _ = _rows_launch(cv, acc, None, 0, cv.shape[0], reverse, diag, col0,
                           W_pout, P1, P2, Pout, "fused_rows_pass", False,
                           budget)
-    fused_rows_pass.launches += 1
+    count("launches.fused_rows_pass")
     return out
-
-
-fused_rows_pass.launches = 0
 
 
 def fused_rows_shard_pass(cv: torch.Tensor, acc: torch.Tensor | None,
@@ -502,11 +498,8 @@ def fused_rows_shard_pass(cv: torch.Tensor, acc: torch.Tensor | None,
     out = _rows_launch(cv, acc, carries, i0, H_img, reverse, diag, col0,
                        W_pout, P1, P2, Pout, "fused_rows_shard_pass", True,
                        budget)
-    fused_rows_shard_pass.launches += 1
+    count("launches.fused_rows_shard_pass")
     return out
-
-
-fused_rows_shard_pass.launches = 0
 
 
 def _knight_sum(acc_j, knights, j):
@@ -576,11 +569,8 @@ def fused_cols_pass(cv: torch.Tensor, acc: torch.Tensor, reverse: bool,
     _check_cuda("fused_cols_pass", cv, acc)
     _cols_launch(cv, acc, knights, acc, None, None, reverse, 0, col0, W_pout,
                  P1, P2, Pout, "fused_cols_pass")
-    fused_cols_pass.launches += 1
+    count("launches.fused_cols_pass")
     return acc
-
-
-fused_cols_pass.launches = 0
 
 
 def fused_cols_wta_plain(cv, acc, r: int, col0: int, W_pout: int, P1: float,
@@ -626,11 +616,8 @@ def fused_cols_wta(cv: torch.Tensor, acc: torch.Tensor, r: int, col0: int,
                         device=cv.device)
     _cols_launch(cv, acc, knights, None, idx, bands, True, r, col0, W_pout,
                  P1, P2, Pout, "fused_cols_wta")
-    fused_cols_wta.launches += 1
+    count("launches.fused_cols_wta")
     return idx, bands
-
-
-fused_cols_wta.launches = 0
 
 
 def _region_f32(region: torch.Tensor) -> torch.Tensor:
@@ -655,23 +642,27 @@ def fused_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
     if separate and wta_radius is not None:
         raise ValueError("fused_adj: separate accumulation has no WTA pass")
     H, W, D = region.shape
-    if not fused_fits(W, D, n_directions, budget, _sms(region)):
+    with span("stevi.route"):
+        fits = fused_fits(W, D, n_directions, budget, _sms(region))
+    if not fits:
         return None
     cv = _region_f32(region)
     P1, P2, Pout = float(P1), float(P2), float(Pout)
     diag = n_directions >= 8
     kw = dict(col0=col0, W_pout=W_pout, P1=P1, P2=P2, Pout=Pout)
-    adj = fused_rows_pass(cv, None, False, diag, budget=budget, **kw)
-    if separate:
-        adj_up = fused_rows_pass(cv, None, True, diag, budget=budget, **kw)
-    else:
-        adj = fused_rows_pass(cv, adj, True, diag, budget=budget, **kw)
-    adj = fused_cols_pass(cv, adj, False, **kw)
-    knights = _knight_stack(cv, adj, n_directions, one_launch, **kw)
-    if wta_radius is not None:
-        return fused_cols_wta(cv, adj, wta_radius, knights=knights, **kw)
-    adj = fused_cols_pass(cv, adj, True, knights=knights, **kw)
-    return adj + adj_up if separate else adj
+    with span("stevi.k4b"):
+        adj = fused_rows_pass(cv, None, False, diag, budget=budget, **kw)
+        if separate:
+            adj_up = fused_rows_pass(cv, None, True, diag, budget=budget,
+                                     **kw)
+        else:
+            adj = fused_rows_pass(cv, adj, True, diag, budget=budget, **kw)
+        adj = fused_cols_pass(cv, adj, False, **kw)
+        knights = _knight_stack(cv, adj, n_directions, one_launch, **kw)
+        if wta_radius is not None:
+            return fused_cols_wta(cv, adj, wta_radius, knights=knights, **kw)
+        adj = fused_cols_pass(cv, adj, True, knights=knights, **kw)
+        return adj + adj_up if separate else adj
 
 
 def _knight_stack(cv, adj, n_directions, one_launch, col0, W_pout, P1, P2,
@@ -813,11 +804,8 @@ def chunked_sweep(cv: torch.Tensor, adj: torch.Tensor, *, cw: int,
             kw["P2"], kw["Pout"], int(reverse), int(shift_down), corner_c0,
             corner_slope, int(with_vertical), int(with_diag), _stream())
     _build.check(lib, err, "chunked_sweep_launch")
-    chunked_sweep.launches += 1
+    count("launches.chunked_sweep")
     return adj
-
-
-chunked_sweep.launches = 0
 
 
 def chunk_sweeps(H: int, W: int, n_directions: int) -> dict:
@@ -857,16 +845,19 @@ def chunked_adj(region: torch.Tensor, col0: int, W_pout: int, P1: float,
         raise ValueError("chunked_adj takes 4, 8 or 16 directions")
     cv = _region_f32(region)
     H, W, D = cv.shape
-    cw = (chunk_width(D, n_directions, W, _sms(cv)) if cw is None
-          else min(W, cw))
+    with span("stevi.route"):
+        cw = (chunk_width(D, n_directions, W, _sms(cv)) if cw is None
+              else min(W, cw))
     kw = dict(col0=col0, W_pout=W_pout, P1=float(P1), P2=float(P2),
               Pout=float(Pout))
-    adj = torch.empty_like(cv)
-    for k, sweep in enumerate(chunk_sweeps(H, W, n_directions).values()):
-        # the first sweep writes, the later ones add
-        chunked_sweep(cv, adj, cw=cw, accumulate=k > 0, **sweep, **kw)
-    adj = fused_cols_pass(cv, adj, False, **kw)
-    knights = _knight_stack(cv, adj, n_directions, None, **kw)
-    if wta_radius is not None:
-        return fused_cols_wta(cv, adj, wta_radius, knights=knights, **kw)
-    return fused_cols_pass(cv, adj, True, knights=knights, **kw)
+    with span("stevi.k4d"):
+        adj = torch.empty_like(cv)
+        for k, sweep in enumerate(chunk_sweeps(H, W, n_directions).values()):
+            # the first sweep writes, the later ones add
+            chunked_sweep(cv, adj, cw=cw, accumulate=k > 0, **sweep, **kw)
+    with span("stevi.k4b"):
+        adj = fused_cols_pass(cv, adj, False, **kw)
+        knights = _knight_stack(cv, adj, n_directions, None, **kw)
+        if wta_radius is not None:
+            return fused_cols_wta(cv, adj, wta_radius, knights=knights, **kw)
+        return fused_cols_pass(cv, adj, True, knights=knights, **kw)

@@ -21,6 +21,19 @@
   For one (64, 128) @ (128, 32) float32 product both packages give 524288
   flops and 57344 bytes.
 - `roofline` returns the JAX function's keys, against the peaks below.
+- `span` marks a stage of the program, `stevi.<stage>` by convention
+  (nesting gives the parent): under `torch.profiler` (or
+  `torch.autograd.profiler.emit_nvtx`) a `record_function` event of the
+  same trace as the device's activity, whose host nanoseconds also go to
+  the counters (``spans.<name>``, ``span_ns.<name>``); with no profiler
+  running, one shared null context, which costs one C call.
+- `count`, `counters` and `reset_counters` are the one registry of the
+  program's counts: ``launches.<wrapper>`` (each CUDA kernel wrapper's
+  launches), ``route.<scan|lane|dense>`` (the SGM engine of each
+  `dense_sgm_stereo` / `sgm_wta_truncated` call), ``form.k2_one_launch``
+  / ``form.k2_accumulate`` (K2's form in `sgm_wta_fused`) and
+  ``form.lane_fused`` / ``form.lane_chunked`` (K4b or K4d in the lane
+  route), and the traced spans' counts and host nanoseconds.
 
 The peaks are an H100 SXM5 80GB HBM3's at its 700 W power limit, from
 NVIDIA's data sheet (a card set to a lower limit runs slower under load).
@@ -30,6 +43,7 @@ from __future__ import annotations
 
 import contextlib
 import time
+from collections import Counter
 
 import torch
 from torch.utils._python_dispatch import TorchDispatchMode
@@ -41,6 +55,55 @@ H100_HBM_BYTES_PER_S = 3.35e12
 H100_PEAK_FLOPS_F32 = 67e12
 # H100 SXM5 80GB HBM3, 700 W: dense bfloat16 on the tensor cores
 H100_PEAK_FLOPS_BF16 = 989e12
+
+
+_counts: Counter = Counter()
+_NULL_SPAN = contextlib.nullcontext()
+
+
+def count(name: str, n: int = 1) -> None:
+    """Add ``n`` to the counter ``name``."""
+    _counts[name] += n
+
+
+def counters() -> Counter:
+    """A copy of every counter (a name never counted reads 0)."""
+    return _counts.copy()
+
+
+def reset_counters() -> None:
+    """Zero every counter."""
+    _counts.clear()
+
+
+class _Span:
+    """`record_function(name)`, whose host time inside it also goes to
+    the counters ``spans.<name>`` (entries) and ``span_ns.<name>``."""
+
+    __slots__ = ("name", "rf", "t0")
+
+    def __init__(self, name: str):
+        self.name = name
+        self.rf = torch.profiler.record_function(name)
+
+    def __enter__(self):
+        self.rf.__enter__()
+        self.t0 = time.perf_counter_ns()
+        return self
+
+    def __exit__(self, *exc):
+        _counts["span_ns." + self.name] += time.perf_counter_ns() - self.t0
+        _counts["spans." + self.name] += 1
+        return self.rf.__exit__(*exc)
+
+
+def span(name: str):
+    """A context marking a stage of the program: while a profiler records
+    (`torch.autograd._profiler_enabled`), a `record_function` span that
+    also counts its host time; else one shared null context."""
+    if torch.autograd._profiler_enabled():
+        return _Span(name)
+    return _NULL_SPAN
 
 
 @contextlib.contextmanager

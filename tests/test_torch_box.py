@@ -21,6 +21,7 @@ from libstevi_tpu_torch.ops import box_cost_volume, unfold_based_cost_volume
 from libstevi_tpu_torch.ops.box_cuda import (box_cv, box_cv_plain,
                                              window_stats, _prep_inputs)
 from libstevi_tpu_torch.reference import to_port
+from libstevi_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -283,10 +284,11 @@ def test_k1_wrapper_on_cpu_is_the_plain_version():
     L, R = _pair(5, (10, 13))
     args = (to_port(JMF.ZNCC), torch.from_numpy(L), torch.from_numpy(R),
             1, 2, 6, torch.bfloat16, True)
-    before = (box_cv.launches, window_stats.launches)
+    kernels = ("launches.box_cv", "launches.window_stats")
+    before = [counters()[k] for k in kernels]
     np.testing.assert_array_equal(box_cv(*args).float().numpy(),
                                   box_cv_plain(*args).float().numpy())
     for got, want in zip(window_stats(*args[:5]), _prep_inputs(*args[:5])):
         assert got == want if isinstance(got, float) else torch.equal(got,
                                                                       want)
-    assert (box_cv.launches, window_stats.launches) == before
+    assert [counters()[k] for k in kernels] == before

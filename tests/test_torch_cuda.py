@@ -37,11 +37,20 @@ from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
                                                     search_probe_plain,
                                                     sweep, sweep_plain)
 from libstevi_tpu_torch.ops import sgm_lane_cuda as lane
+from libstevi_tpu_torch.utils.profiling import counters, reset_counters
 
 pytestmark = pytest.mark.cuda
 
 SHAPES = [(37, 101, 13), (64, 96, 40)]
 DTYPES = [torch.float32, torch.bfloat16]
+
+
+def launched(*kernels):
+    """The launch counters (``launches.<wrapper>``) of the named kernel
+    wrappers: a count for one name, a tuple for several."""
+    c = counters()
+    n = tuple(c["launches." + k] for k in kernels)
+    return n[0] if len(n) == 1 else n
 
 
 @pytest.fixture
@@ -80,7 +89,7 @@ def test_k1_matches_plain(dev, func, shape, pair):
     H, W, D = shape
     L, R = (_flat_pair if pair == "flat" else _pair)(dev, H, W)
     f = MatchingFunction[func]
-    before = (box_cv.launches, window_stats.launches)
+    before = launched("box_cv", "window_stats")
     got = window_stats(f, L, R, 3, 2)
     for a, b in zip(got, _prep_inputs(f, L, R, 3, 2)):
         assert a == b if isinstance(a, float) else torch.equal(a, b)
@@ -88,7 +97,7 @@ def test_k1_matches_plain(dev, func, shape, pair):
     assert torch.equal(box_cv(f, L, R, 3, 2, D, negate=True), want)
     assert torch.equal(box_cv(f, L, R, 3, 2, D, torch.bfloat16, negate=True),
                        want.to(torch.bfloat16))
-    assert (box_cv.launches, window_stats.launches) == (before[0] + 2,
+    assert launched("box_cv", "window_stats") == (before[0] + 2,
                                                         before[1] + 3)
 
 
@@ -137,11 +146,11 @@ def test_k2_any_d_and_unaligned_match_plain(dev, shape, dtype, offset):
     cv = flat[offset:offset + H * W * D].view(H, W, D)
     acc = torch.empty(cv.shape, device=dev)
     acc2 = torch.empty(cv.shape, device=dev)
-    before = sgm_pass.launches
+    before = launched("sgm_pass")
     for k, d in enumerate(directions_for(8)):
         sgm_pass(cv, acc, d, 0.1, 0.5, 100.0, accumulate=k > 0)
         sgm_pass_plain(cv, acc2, d, 0.1, 0.5, 100.0, accumulate=k > 0)
-    assert sgm_pass.launches == before + 8
+    assert launched("sgm_pass") == before + 8
     torch.cuda.synchronize()
     torch.testing.assert_close(acc, acc2, rtol=1e-4, atol=1e-4)
 
@@ -168,8 +177,8 @@ def test_k3_matches_plain(dev, shape, dtype):
 def _path_counts():
     """The launch counts of K1, K2 (one direction a launch), K2 (up to 7
     directions in one launch), K2k and K3."""
-    return (box_cv.launches, sgm_pass.launches, direction_volumes.launches,
-            knight_volumes.launches, sgm_wta.launches)
+    return launched("box_cv", "sgm_pass", "direction_volumes",
+                    "knight_volumes", "sgm_wta")
 
 
 @pytest.mark.parametrize("dtype", DTYPES)
@@ -181,9 +190,9 @@ def test_k2_one_launch_matches_plain(dev, shape, dtype):
     than 7 directions in one launch raise."""
     cv = _volume(dev, shape, dtype)
     dirs = [d for d in directions_for(8) if d is not SgmDirection.RIGHT2LEFT]
-    before = (sgm_pass.launches, direction_volumes.launches)
+    before = launched("sgm_pass", "direction_volumes")
     stack = direction_volumes(cv, dirs, 0.1, 0.5, 100.0)
-    assert (sgm_pass.launches, direction_volumes.launches) == \
+    assert launched("sgm_pass", "direction_volumes") == \
         (before[0], before[1] + 1)
     for d, a in zip(dirs, stack):
         want = sgm_pass_plain(cv, torch.empty_like(a), d, 0.1, 0.5, 100.0,
@@ -215,9 +224,9 @@ def test_dense_path_matches_cpu(dev):
 
 def test_sgm_cost_volume_runs_the_kernel(dev):
     cv = _volume(dev, (30, 44, 11), torch.float32)
-    before = sgm_pass.launches
+    before = launched("sgm_pass")
     got = sgm_cost_volume(cv, 0.1, 0.5, n_directions=8)
-    assert sgm_pass.launches == before + 8
+    assert launched("sgm_pass") == before + 8
     want = sgm_cost_volume(cv.cpu(), 0.1, 0.5, n_directions=8)
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
 
@@ -231,20 +240,19 @@ def test_unsupported_configurations_raise(dev):
     route)."""
     from libstevi_tpu_torch.parallel.sgm_dist import distributed_sgm_routed
     L, R = _pair(dev, 8, 340)
-    counts = (lane.fused_rows_pass.launches, knight_volumes.launches)
+    counts = launched("fused_rows_pass", "knight_volumes")
     disp, idx, _ = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 1, 1, 330,
                                     0.1, 0.5, n_directions=16)
     # the 8 knight volumes fit: two K2k launches for all of them
-    assert (lane.fused_rows_pass.launches, knight_volumes.launches) == \
+    assert launched("fused_rows_pass", "knight_volumes") == \
         (counts[0] + 2, counts[1] + 2)
     assert idx.shape == (8, 340)
     cv = torch.rand(8, 20, 330, device=dev)
-    before = (lane.fused_rows_shard_pass.launches,
-              sgm_knight_shard_pass.launches)
+    before = launched("fused_rows_shard_pass", "sgm_knight_shard_pass")
     got = torch.cat(distributed_sgm_routed(list(cv.split(4)), 0.1, 0.5,
                                            n_directions=16))
-    assert lane.fused_rows_shard_pass.launches == before[0] + 4
-    assert sgm_knight_shard_pass.launches == before[1] + 32
+    assert launched("fused_rows_shard_pass") == before[0] + 4
+    assert launched("sgm_knight_shard_pass") == before[1] + 32
     assert torch.equal(got, sgm_cost_volume(cv, 0.1, 0.5, n_directions=16))
     want = torch.cat(distributed_sgm_routed(list(cv.cpu().split(4)), 0.1,
                                             0.5, n_directions=16))
@@ -270,9 +278,9 @@ def test_distributed_sgm_past_d320_matches_cpu(dev, n_dirs):
         fns.append(lambda s: distributed_sgm(s, 0.3, 1.1, 7.0))
     ref = cv + sgm_accumulate(cv, directions_for(n_dirs), 0.3, 1.1, 7.0)
     for fn in fns:
-        before = sgm_shard_pass.launches
+        before = launched("sgm_shard_pass")
         got = torch.cat(fn(_shards(cv, sizes)))
-        assert sgm_shard_pass.launches > before
+        assert launched("sgm_shard_pass") > before
         assert torch.equal(got, ref)
         want = torch.cat(fn(_shards(cv.cpu(), sizes)))
         torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
@@ -285,9 +293,9 @@ def test_aggregate_cost_auto_past_k5_tile_matches_cpu(dev):
     from libstevi_tpu_torch.ops import unfold_based_cost_volume
     from libstevi_tpu_torch.ops.cost_volume import aggregate_cost
     L, R = _pair(dev, 14, 470, seed=5)
-    before = fused_fv_cost_volume.launches
+    before = launched("fused_fv_cost_volume")
     got = unfold_based_cost_volume(MatchingFunction.ZSAD, L, R, 5, 5, 448)
-    assert fused_fv_cost_volume.launches == before
+    assert launched("fused_fv_cost_volume") == before
     want = unfold_based_cost_volume(MatchingFunction.ZSAD, L.cpu(), R.cpu(),
                                     5, 5, 448)
     assert got.is_cuda and got.shape == (14, 470, 448)
@@ -302,12 +310,11 @@ def test_p2_below_p1_runs_plain_on_the_card(dev, n_dirs):
     """P2 < P1 runs the dense-penalty steps as torch ops on the card, with
     no kernel launch, and equals the CPU run."""
     L, R = _pair(dev, 24, 40, seed=7)
-    counts = (sgm_pass.launches, knight_volumes.launches, sgm_wta.launches,
-              lane.fused_rows_pass.launches)
+    kernels = ("sgm_pass", "knight_volumes", "sgm_wta", "fused_rows_pass")
+    counts = launched(*kernels)
     dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 2, 2, 8, 0.5,
                                   0.1, n_directions=n_dirs)
-    assert (sgm_pass.launches, knight_volumes.launches, sgm_wta.launches,
-            lane.fused_rows_pass.launches) == counts
+    assert launched(*kernels) == counts
     assert ig.is_cuda
     dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(), 2,
                                   2, 8, 0.5, 0.1, n_directions=n_dirs)
@@ -327,9 +334,9 @@ LANE_SHAPES = [(37, 101, 333), (18, 7, 5), (5, 21, 40), (30, 300, 352),
 @pytest.mark.parametrize("neg", [False, True])
 def test_k4a_equals_plain(dev, shape, neg):
     x = torch.rand(shape, device=dev)
-    before = lane.shift_rows.launches
+    before = launched("shift_rows")
     S = lane.shear(x, neg)
-    assert lane.shift_rows.launches == before + 1
+    assert launched("shift_rows") == before + 1
     H = shape[0]
     pad = torch.nn.functional.pad(x, (0, 0, H - 1, H), value=float("inf"))
     args = (shape[1] + H - 1, H - 1, -1) if neg else (shape[1] + H - 1, 0, 1)
@@ -375,7 +382,7 @@ def test_fused_and_chunked_adj_match_grouped(dev, shape, n_dirs):
     from libstevi_tpu_torch.ops.sgm import _grouped_adj
     cv = torch.rand(shape, device=dev) * 3
     want = _grouped_adj(cv, 0.3, 1.1, 7.0, n_dirs, 2, shape[1] + 4)
-    before = (lane.fused_rows_pass.launches, lane.chunked_sweep.launches)
+    before = launched("fused_rows_pass", "chunked_sweep")
     for got in (lane.fused_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs),
                 lane.fused_adj(cv, 2, shape[1] + 4, 0.3, 1.1, 7.0, n_dirs,
                                separate=True),
@@ -383,7 +390,7 @@ def test_fused_and_chunked_adj_match_grouped(dev, shape, n_dirs):
                                  cw=32)):
         torch.testing.assert_close(got, want, rtol=1e-4, atol=1e-4)
     # K4d: one launch a sweep, whatever the number of chunks
-    assert (lane.fused_rows_pass.launches, lane.chunked_sweep.launches) == \
+    assert launched("fused_rows_pass", "chunked_sweep") == \
         (before[0] + 4, before[1] + (4 if n_dirs == 8 else 2))
 
 
@@ -419,10 +426,10 @@ def test_k4d_pass_equals_plain(dev, reverse, shift_down, vertical,
     cw = lane.chunk_width(D, 8, W)
     assert cw == 3
     want = lane.chunked_sweep_plain(cv, acc.clone(), cw=W, **kw)
-    before = lane.chunked_sweep.launches
+    before = launched("chunked_sweep")
     got = _ten_runs(lambda: (lane.chunked_sweep(cv, acc.clone(), cw=cw,
                                                 **kw),))
-    assert lane.chunked_sweep.launches == before + 10
+    assert launched("chunked_sweep") == before + 10
     assert torch.equal(got[0], want)
 
 
@@ -476,12 +483,12 @@ def test_past_the_column_scan_limit_runs_the_kernels_on_the_card(dev):
     assert sgm_route(D, 4, 0.3, 1.1, True) == "lane"
     g = torch.Generator(device=dev).manual_seed(5)
     cv = torch.rand((2, 3, D), generator=g, device=dev) * 3
-    counters = (lane.fused_rows_pass, lane.fused_cols_pass,
-                lane.fused_cols_wta, lane.chunked_sweep)
-    before = [fn.launches for fn in counters]
+    kernels = ("fused_rows_pass", "fused_cols_pass", "fused_cols_wta",
+               "chunked_sweep")
+    before = launched(*kernels)
     ig, tg = sgm_wta_truncated(cv, 0.3, 1.1, Pout=7.0, n_directions=4)
     torch.cuda.synchronize()
-    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+    assert [n - b for n, b in zip(launched(*kernels), before)] == \
         [2, 1, 1, 0]
     ic, tc = sgm_wta_truncated(cv.cpu(), 0.3, 1.1, Pout=7.0, n_directions=4)
     assert torch.equal(ig.cpu(), ic)
@@ -502,15 +509,15 @@ def test_past_the_shared_memory_equals_plain(dev, n_dirs, shape):
     D = shape[-1]
     g = torch.Generator(device=dev).manual_seed(D + n_dirs)
     cv = torch.rand(shape, generator=g, device=dev) * 3
-    counters = (lane.chunked_sweep, lane.fused_cols_pass,
-                lane.fused_cols_wta, knight_volumes)
-    before = [fn.launches for fn in counters]
+    kernels = ("chunked_sweep", "fused_cols_pass", "fused_cols_wta",
+               "knight_volumes")
+    before = launched(*kernels)
     got = sgm_cost_volume(cv, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
     ig, tg = sgm_wta_truncated(cv, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
     torch.cuda.synchronize()
     sweeps = 4 if n_dirs >= 8 else 2
     knights = 4 if n_dirs == 16 else 0
-    assert [fn.launches - b for fn, b in zip(counters, before)] == \
+    assert [n - b for n, b in zip(launched(*kernels), before)] == \
         [2 * sweeps, 3, 1, knights]
     assert torch.equal(got.cpu(), sgm_cost_volume(cv.cpu(), 0.3, 1.1,
                                                   Pout=7.0,
@@ -526,13 +533,11 @@ def test_wide_path_matches_cpu(dev):
     K4b with WTA) against the CPU run."""
     L, R = _pair(dev, 20, 400, seed=8)
     kw = dict(n_directions=8, refine_kernel=InterpolationKernel.PARABOLA)
-    counts = (box_cv.launches, lane.fused_rows_pass.launches,
-              lane.fused_cols_wta.launches)
+    counts = launched("box_cv", "fused_rows_pass", "fused_cols_wta")
     dg, ig, tg = dense_sgm_stereo(MatchingFunction.ZNCC, L, R, 3, 3, 330,
                                   0.1, 0.5, **kw)
-    assert (box_cv.launches, lane.fused_rows_pass.launches,
-            lane.fused_cols_wta.launches) == (counts[0] + 1, counts[1] + 2,
-                                              counts[2] + 1)
+    assert launched("box_cv", "fused_rows_pass", "fused_cols_wta") == \
+        (counts[0] + 1, counts[1] + 2, counts[2] + 1)
     dc, ic, tc = dense_sgm_stereo(MatchingFunction.ZNCC, L.cpu(), R.cpu(),
                                   3, 3, 330, 0.1, 0.5, **kw)
     same = ig.cpu() == ic
@@ -551,9 +556,9 @@ def test_k2k_matches_plain(dev, direction, shape, dtype):
     within 1e-4."""
     cv = _volume(dev, shape, dtype)
     want = knight_volumes_plain(cv, [direction], 0.1, 0.5, 100.0)
-    before = knight_volumes.launches
+    before = launched("knight_volumes")
     got = knight_volumes(cv, [direction], 0.1, 0.5, 100.0)
-    assert knight_volumes.launches == before + 2
+    assert launched("knight_volumes") == before + 2
     torch.cuda.synchronize()
     assert torch.equal(got, want)
     torch.testing.assert_close(got[0], knight_adj(cv.float(), direction, 0.1,
@@ -576,18 +581,18 @@ def test_knight_volumes_equal_plain(dev, shape, dtype):
     cv = (torch.rand(shape, generator=g, device=dev) * 3).to(dtype)
     want = knight_volumes_plain(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0)
     out = torch.full((8,) + shape, float("nan"), device=dev)
-    before = knight_volumes.launches
+    before = launched("knight_volumes")
     got = knight_volumes(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0, out=out)
-    assert knight_volumes.launches == before + 2 and got is out
+    assert launched("knight_volumes") == before + 2 and got is out
     assert torch.equal(got, want)
     assert torch.equal(knight_volumes(cv, _KNIGHT_DIRS, 0.1, 0.5, 100.0), got)
     acc = torch.rand(shape, generator=g, device=dev)
     one = add_knight_volumes(cv, acc.clone(), _KNIGHT_DIRS, 0.1, 0.5, 100.0,
                              one_launch=True)
-    before = knight_volumes.launches
+    before = launched("knight_volumes")
     fallback = add_knight_volumes(cv, acc.clone(), _KNIGHT_DIRS, 0.1, 0.5,
                                   100.0, one_launch=False)
-    assert knight_volumes.launches == before + 16
+    assert launched("knight_volumes") == before + 16
     assert torch.equal(one, fallback)
 
 
@@ -664,13 +669,11 @@ def test_margins_match_cpu(dev, n_dirs):
     torch.testing.assert_close(got.cpu(), want, rtol=1e-4, atol=1e-4)
     assert torch.equal(got[:1].cpu(), cv[:1].cpu())    # outside: untouched
     # with margins: sgm_cost_volume (K2 x8, K2k) -> WTA -> band, as in JAX
-    counts = (sgm_pass.launches, knight_volumes.launches, sgm_wta.launches)
+    counts = launched("sgm_pass", "knight_volumes", "sgm_wta")
     ig, tg = sgm_wta_truncated(cv, 0.1, 0.5, m, n_directions=n_dirs,
                                h_radius=2, v_radius=1)
-    assert (sgm_pass.launches, knight_volumes.launches,
-            sgm_wta.launches) == (counts[0] + 8,
-                                  counts[1] + (2 if n_dirs == 16 else 0),
-                                  counts[2])
+    assert launched("sgm_pass", "knight_volumes", "sgm_wta") == \
+        (counts[0] + 8, counts[1] + (2 if n_dirs == 16 else 0), counts[2])
     ic, tc = sgm_wta_truncated(cv.cpu(), 0.1, 0.5, m, n_directions=n_dirs,
                                h_radius=2, v_radius=1)
     same = ig.cpu() == ic
@@ -722,9 +725,9 @@ def test_k5_matches_plain(dev, kernel, F, shifts, dtype):
     H, W = (37, 101) if F == 49 else (20, 45)
     src = torch.rand(H, W, F, generator=g, device=dev) - 0.5
     tgt = torch.rand(H, W, F, generator=g, device=dev) - 0.5
-    before = fused_fv_cost_volume.launches
+    before = launched("fused_fv_cost_volume")
     got = fused_fv_cost_volume(kernel, src, tgt, shifts, dtype)
-    assert fused_fv_cost_volume.launches == before + 1
+    assert launched("fused_fv_cost_volume") == before + 1
     want = fused_fv_cost_volume_plain(kernel, src, tgt, shifts)
     torch.cuda.synchronize()
     assert got.shape == (H, W, len(shifts)) and got.dtype == dtype
@@ -761,9 +764,9 @@ def _pm_state(dev, shape, seed):
 @pytest.mark.parametrize("axis", [0, 1])
 def test_k6_equals_plain(dev, axis, reverse, shape):
     costc, disp, cost, _ = _pm_state(dev, shape, 3)
-    before = sweep.launches
+    before = launched("sweep")
     got = sweep(costc, disp, cost, 0, axis, reverse)
-    assert sweep.launches == before + 1
+    assert launched("sweep") == before + 1
     want = sweep_plain(costc, disp, cost, 0, axis, reverse)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -777,9 +780,9 @@ def test_k7_equals_plain(dev, K, shape):
     cand = torch.randint(-3, D + 3, (K,) + shape[:2], generator=g,
                          device=dev, dtype=torch.int32)
     cand[0, :3] = disp[:3]                       # ties with the current cost
-    before = probe.launches
+    before = launched("probe")
     got = probe(costc, cand, disp, cost, 0)
-    assert probe.launches == before + 1
+    assert launched("probe") == before + 1
     want = probe_plain(costc, cand, disp, cost, 0)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -856,9 +859,9 @@ def test_k6_edge_cases_equal_plain(dev, axis, reverse, case):
     flood whose run crosses 2/3 of every line (many batches in A), and
     costs that are not the pixels' own volume values."""
     cv, disp, cost, lower = _k6_case(case, axis, reverse, dev)
-    before = sweep.launches
+    before = launched("sweep")
     got = sweep(cv, disp, cost, lower, axis, reverse)
-    assert sweep.launches == before + 1
+    assert launched("sweep") == before + 1
     want = sweep_plain(cv, disp, cost, lower, axis, reverse)
     torch.cuda.synchronize()
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -899,9 +902,9 @@ def test_k7_and_search_probe_equal_plain(dev, K, shape):
     for fn, plain, args in ((probe, probe_plain, (cand, disp, cost, 0)),
                             (search_probe, search_probe_plain,
                              (draws, disp, cost, 0, K))):
-        before = probe.launches
+        before = launched("probe")
         got = fn(cv, *args)
-        assert probe.launches == before + (K + 7) // 8
+        assert launched("probe") == before + (K + 7) // 8
         want = plain(cv, *args)
         torch.cuda.synchronize()
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
@@ -925,9 +928,9 @@ def test_cv_patchmatch_matches_cpu_with_one_draw_stream(dev):
             MatchingFunction.NCC, None, None, SearchOffset1(0, 23), 5, 4,
             cv=vol, draw=lambda *a: draw(*a).to(device))
 
-    counts = (sweep.launches, probe.launches)
+    counts = launched("sweep", "probe")
     got = run(cv, dev)
-    assert (sweep.launches, probe.launches) == (counts[0] + 10,
+    assert launched("sweep", "probe") == (counts[0] + 10,
                                                 counts[1] + 6)
     want = run(cv.cpu(), "cpu")
     assert torch.equal(got.cpu(), want)
@@ -953,10 +956,10 @@ def test_k2s_equals_plain(dev, direction, shape, dtype):
     for accumulate in (True, False):
         acc = torch.rand(shape, generator=g, device=dev)
         acc_p = acc.clone()
-        before = sgm_shard_pass.launches
+        before = launched("sgm_shard_pass")
         co = sgm_shard_pass(cv, acc, direction, 0.3, 1.1, 7.0, accumulate,
                             carry, 5, H + 12)
-        assert sgm_shard_pass.launches == before + 1
+        assert launched("sgm_shard_pass") == before + 1
         co_p = sgm_shard_pass_plain(cv, acc_p, direction, 0.3, 1.1, 7.0,
                                     accumulate, carry, 5, H + 12)
         assert torch.equal(acc, acc_p) and torch.equal(co, co_p)
@@ -981,10 +984,10 @@ def test_k2s_knight_equals_plain(dev, direction, shape, dtype):
           else dict(s0=3, N_img=W + 10, col0=3, W_pout=W + 10))
     acc = torch.rand(shape, generator=g, device=dev)
     acc_p = acc.clone()
-    before = sgm_knight_shard_pass.launches
+    before = launched("sgm_knight_shard_pass")
     co = sgm_knight_shard_pass(cv, acc, direction, 0.3, 1.1, 7.0, carries,
                                **kw)
-    assert sgm_knight_shard_pass.launches == before + 2
+    assert launched("sgm_knight_shard_pass") == before + 2
     co_p = sgm_knight_shard_pass_plain(cv, acc_p, direction, 0.3, 1.1, 7.0,
                                        carries, **kw)
     assert torch.equal(acc, acc_p) and torch.equal(co, co_p)
@@ -1027,10 +1030,10 @@ def test_k4c_equals_plain(dev, shape, diag, reverse):
         want = lane.fused_rows_shard_pass_plain(
             cv, None if acc is None else acc.clone(), carries, 3, H + 9,
             reverse, diag, **kw)
-        before = lane.fused_rows_shard_pass.launches
+        before = launched("fused_rows_shard_pass")
         got = lane.fused_rows_shard_pass(cv, acc, carries, 3, H + 9, reverse,
                                          diag, **kw)
-        assert lane.fused_rows_shard_pass.launches == before + 1
+        assert launched("fused_rows_shard_pass") == before + 1
         assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
@@ -1073,11 +1076,11 @@ def test_k4b_k4c_equal_plain_ten_runs(dev, case, part):
             for a in (None, acc):
                 want = lane.fused_rows_pass_plain(
                     cv, None if a is None else a.clone(), rev, True, **kw)
-                before = lane.fused_rows_pass.launches
+                before = launched("fused_rows_pass")
                 got = _ten_runs(lambda: (lane.fused_rows_pass(
                     cv, None if a is None else a.clone(), rev, True,
                     budget=budget, **kw),))
-                assert lane.fused_rows_pass.launches == before + 10
+                assert launched("fused_rows_pass") == before + 10
                 assert torch.equal(got[0], want), (rev, a is None)
     elif part == "k4c":
         carries = torch.rand((3, W, D), generator=g, device=dev) * 2
@@ -1117,10 +1120,10 @@ def test_fused_adj_sixteen_stack_equals_in_place(dev):
     adds bit for bit, volume and WTA, with two K2k launches a call."""
     cv = torch.rand(30, 140, 333, device=dev) * 3
     args = (cv, 1, 143, 0.3, 1.1, 7.0, 16)
-    before = knight_volumes.launches
+    before = launched("knight_volumes")
     assert torch.equal(lane.fused_adj(*args, one_launch=True),
                        lane.fused_adj(*args, one_launch=False))
-    assert knight_volumes.launches == before + 2 + 16
+    assert launched("knight_volumes") == before + 2 + 16
     for a, b in zip(lane.fused_adj(*args, wta_radius=1, one_launch=True),
                     lane.fused_adj(*args, wta_radius=1, one_launch=False)):
         assert torch.equal(a, b)
@@ -1155,9 +1158,9 @@ def test_k2_past_the_ring_equals_plain(dev, dtype, accumulate):
     for d in directions_for(8):
         acc = torch.rand(cv.shape, generator=g, device=dev)
         acc_p = acc.clone()
-        before = sgm_pass.launches
+        before = launched("sgm_pass")
         sgm_pass(cv, acc, d, 0.3, 1.1, 7.0, accumulate)
-        assert sgm_pass.launches == before + 1
+        assert launched("sgm_pass") == before + 1
         sgm_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0, accumulate)
         torch.cuda.synchronize()
         assert torch.equal(acc, acc_p), d.name
@@ -1207,10 +1210,10 @@ def test_distributed_sgm_past_the_ring_equals_plain(dev, n_dirs):
     for d in dirs:
         if d.knight:
             acc.add_(knight_volumes_plain(cv, [d], 0.3, 1.1, 7.0)[0])
-    before = sgm_shard_pass.launches
+    before = launched("sgm_shard_pass")
     got = torch.cat(distributed_sgm_routed(_shards(cv, [3, 3]), 0.3, 1.1,
                                            7.0, n_dirs))
-    assert sgm_shard_pass.launches > before
+    assert launched("sgm_shard_pass") > before
     torch.cuda.synchronize()
     assert torch.equal(got, cv + acc)
 
@@ -1228,22 +1231,22 @@ def test_distributed_sgm_equals_single_device(dev, n_dirs):
     cv = torch.rand((29, 37, 24), generator=g, device=dev) * 4
     sizes = [7, 9, 5, 8]
     want = sgm_cost_volume(cv, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
-    before = (sgm_shard_pass.launches, sgm_knight_shard_pass.launches)
+    before = launched("sgm_shard_pass", "sgm_knight_shard_pass")
     got = torch.cat(distributed_sgm_fused_dhw(_shards(cv, sizes), 0.3, 1.1,
                                               7.0, n_dirs))
-    assert sgm_shard_pass.launches > before[0]
-    assert (sgm_knight_shard_pass.launches > before[1]) == (n_dirs == 16)
+    assert launched("sgm_shard_pass") > before[0]
+    assert (launched("sgm_knight_shard_pass") > before[1]) == (n_dirs == 16)
     assert torch.equal(got, want)
     if n_dirs == 16:
         return
     wide = torch.rand((21, 30, 330), generator=g, device=dev) * 4
     want = sgm_cost_volume(wide, 0.3, 1.1, Pout=7.0, n_directions=n_dirs)
-    before = lane.fused_rows_shard_pass.launches
+    before = launched("fused_rows_shard_pass")
     for fn in (distributed_sgm_fused, distributed_sgm_routed):
         got = torch.cat(fn(_shards(wide, [5, 6, 4, 6]), 0.3, 1.1, 7.0,
                            n_dirs))
         assert torch.equal(got, want)
-    assert lane.fused_rows_shard_pass.launches == before + 16
+    assert launched("fused_rows_shard_pass") == before + 16
 
 
 @pytest.mark.parametrize("n_dirs", [4, 8, 16])
@@ -1301,9 +1304,9 @@ def test_k2_any_d_instances_equal_plain(dev, D, dtype, accumulate):
     for d in directions_for(8):
         acc = torch.rand(cv.shape, generator=g, device=dev)
         acc_p = acc.clone()
-        before = sgm_pass.launches
+        before = launched("sgm_pass")
         sgm_pass(cv, acc, d, 0.3, 1.1, 7.0, accumulate)
-        assert sgm_pass.launches == before + 1
+        assert launched("sgm_pass") == before + 1
         assert sgm_pass.layout.carries == want_inst
         sgm_pass_plain(cv, acc_p, d, 0.3, 1.1, 7.0, accumulate)
         torch.cuda.synchronize()
@@ -1405,9 +1408,9 @@ def test_k5_instances_equal_plain(dev, kernel, F, shifts, dtype):
     H, W = 3, 301
     src = torch.rand(H, W, F, generator=g, device=dev) - 0.5
     tgt = torch.rand(H, W, F, generator=g, device=dev) - 0.5
-    before = fused_fv_cost_volume.launches
+    before = launched("fused_fv_cost_volume")
     got = fused_fv_cost_volume(kernel, src, tgt, sh, dtype)
-    assert fused_fv_cost_volume.launches == before + 1
+    assert launched("fused_fv_cost_volume") == before + 1
     want = fused_fv_cost_volume_plain(kernel, src, tgt, sh)
     torch.cuda.synchronize()
     assert got.shape == (H, W, len(sh)) and got.dtype == dtype
@@ -1418,8 +1421,7 @@ def test_k5_instances_equal_plain(dev, kernel, F, shifts, dtype):
 
 
 def _hier_counts():
-    return (window_stats.launches, box_cv.launches,
-            fused_fv_cost_volume.launches)
+    return launched("window_stats", "box_cv", "fused_fv_cost_volume")
 
 
 @pytest.mark.parametrize("func,depth,D", [("ZNCC", 2, 40), ("ZNCC", 3, 64),
@@ -1558,9 +1560,9 @@ def test_refined_frame_480x640_matches_cpu(dev, method):
     L, R = _pair(dev, 480, 640, seed=31)
     L[100:200, 300:420] = 0.5
     R[100:200, 300:420] = 0.5
-    fused_fv_cost_volume.launches = 0
+    reset_counters()
     got = entry.stereo_refine_forward(L, R, method)
-    assert fused_fv_cost_volume.launches == 1
+    assert launched("fused_fv_cost_volume") == 1
     want = entry.stereo_refine_forward(L.cpu(), R.cpu(), method)
     d = (got.cpu() - want).abs()
     fin = torch.isfinite(want)

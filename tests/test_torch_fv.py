@@ -28,6 +28,7 @@ from libstevi_tpu_torch.ops import (aggregate_cost, box_cost_volume,
 from libstevi_tpu_torch.ops.fv_backend import (fused_fv_cost_volume,
                                                fused_fv_cost_volume_plain)
 from libstevi_tpu_torch.reference import to_port
+from libstevi_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -112,11 +113,11 @@ def test_k5_plain_bf16_matches_jax():
 
 def test_k5_wrapper_on_cpu_is_the_plain_version():
     fs, ft = (torch.from_numpy(x) for x in _fvs(5, (4, 6, 3)))
-    before = fused_fv_cost_volume.launches
+    before = counters()["launches.fused_fv_cost_volume"]
     np.testing.assert_array_equal(
         fused_fv_cost_volume("ssd", fs, ft, [0, -2, 1]).numpy(),
         fused_fv_cost_volume_plain("ssd", fs, ft, [0, -2, 1]).numpy())
-    assert fused_fv_cost_volume.launches == before
+    assert counters()["launches.fused_fv_cost_volume"] == before
 
 
 def _pair(seed, shape):

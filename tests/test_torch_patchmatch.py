@@ -38,6 +38,7 @@ from libstevi_tpu_torch.ops.patchmatch_cuda import (probe, probe_plain,
 from libstevi_tpu_torch.ops.unfold import unfold
 from libstevi_tpu_torch.reference import to_port
 from libstevi_tpu_torch.statistics import inlier_mae, prop_good
+from libstevi_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -117,7 +118,8 @@ def test_wrappers_on_cpu_are_the_plain_versions():
     cv, disp, cost = (torch.from_numpy(x) for x in _state(30, 6, 7, 5, 0))
     draws = torch.from_numpy(np.random.default_rng(31).integers(
         0, 5, (3, 6, 7)).astype(np.int32))
-    before = (sweep.launches, probe.launches)
+    kernels = ("launches.sweep", "launches.probe")
+    before = [counters()[k] for k in kernels]
     for got, want in ((sweep(cv, disp, cost, 0, 1, True),
                        sweep_plain(cv, disp, cost, 0, 1, True)),
                       (probe(cv, disp, disp, cost, 0),
@@ -126,7 +128,7 @@ def test_wrappers_on_cpu_are_the_plain_versions():
                        search_probe_plain(cv, draws, disp, cost, 0, 3))):
         for g, w in zip(got, want):
             assert torch.equal(g, w)
-    assert (sweep.launches, probe.launches) == before
+    assert [counters()[k] for k in kernels] == before
 
 
 def flood_state(L, S, D, lower, seed):

@@ -28,6 +28,7 @@ from libstevi_tpu_torch.ops.sgm import SgmDirection, _tcv_from_bands
 from libstevi_tpu_torch.ops.sgm_cuda import (sgm_pass, sgm_wta, sgm_wta_fused,
                                              sgm_wta_plain)
 from libstevi_tpu_torch.reference import to_port
+from libstevi_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -203,13 +204,14 @@ def test_k2_k3_plain_match_pallas_kernels(n_dirs):
 def test_k3_wrapper_on_cpu_is_the_plain_version():
     cv = torch.from_numpy(_cv(7, (9, 12, 5)))
     acc = torch.from_numpy(_cv(8, (9, 12, 5)))
-    before = (sgm_pass.launches, sgm_wta.launches)
+    kernels = ("launches.sgm_pass", "launches.sgm_wta")
+    before = [counters()[k] for k in kernels]
     got = sgm_wta(cv, acc, 0.1, 0.5, 100.0, 1, 1, 1, True)
     want = sgm_wta_plain(cv, acc, 0.1, 0.5, 100.0, 1, 1, 1, True)
     for g, w in zip(got, want):
         np.testing.assert_array_equal(g.numpy(), w.numpy())
     sgm_pass(cv, acc.clone(), SgmDirection.UP2DOWN, 0.1, 0.5, 100.0)
-    assert (sgm_pass.launches, sgm_wta.launches) == before
+    assert [counters()[k] for k in kernels] == before
 
 
 @pytest.mark.parametrize("n_dirs", [4, 8])
@@ -225,11 +227,12 @@ def test_direction_volumes_sum_to_the_sequential_accumulator(n_dirs):
     cv = torch.from_numpy(_cv(9, (11, 17, 6), 3.0))
     dirs = [d for d in directions_for(n_dirs)
             if d is not SgmDirection.RIGHT2LEFT]
-    before = (sgm_pass.launches, direction_volumes.launches)
+    kernels = ("launches.sgm_pass", "launches.direction_volumes")
+    before = [counters()[k] for k in kernels]
     stack = direction_volumes(cv, dirs, 0.1, 0.5, 100.0)
     assert stack.shape == (len(dirs), 11, 17, 6)
     # the CPU runs the plain passes
-    assert (sgm_pass.launches, direction_volumes.launches) == before
+    assert [counters()[k] for k in kernels] == before
     seq = sgm_accumulate(cv, dirs, 0.1, 0.5, 100.0)
     assert torch.equal(_acc_sum(stack), seq)
     for got, want in zip(sgm_wta(cv, stack, 0.1, 0.5, 100.0, 1, 1, 1, True),

@@ -32,6 +32,7 @@ from libstevi_tpu_torch.ops.sgm_cuda import (add_knight_volumes,
                                              sgm_knight_shard_pass_plain,
                                              sgm_wta_fused)
 from libstevi_tpu_torch.reference import to_port
+from libstevi_tpu_torch.utils.profiling import counters
 
 torch.set_num_threads(2)
 
@@ -108,10 +109,11 @@ def test_knight_pass_matches_jax(jdir, case):
 
     got = knight_adj(region, to_port(jdir), P1, P2, POUT, col0=ml, W_pout=W)
     np.testing.assert_allclose(padded(got), want, **TOL)
-    before = knight_volumes.launches
+    before = counters()["launches.knight_volumes"]
     vol = knight_volumes(region, [to_port(jdir)], P1, P2, POUT, col0=ml,
                          W_pout=W)[0]
-    assert knight_volumes.launches == before        # CPU: the plain version
+    # CPU: the plain version
+    assert counters()["launches.knight_volumes"] == before
     np.testing.assert_allclose(padded(vol), want, **TOL)
     acc = torch.from_numpy(_cv(99, region.shape))
     summed = acc.clone()
@@ -127,7 +129,7 @@ def test_k2k_wrapper_on_cpu_is_the_plain_version():
     principal direction and a wrong ``out`` raise."""
     cv = torch.from_numpy(_cv(3, (9, 11, 6)))
     acc = torch.from_numpy(_cv(4, (9, 11, 6)))
-    before = knight_volumes.launches
+    before = counters()["launches.knight_volumes"]
     got = knight_volumes(cv, _KNIGHT_DIRS, P1, P2, POUT)
     want = knight_volumes_plain(cv, _KNIGHT_DIRS, P1, P2, POUT)
     assert got.shape == (8, 9, 11, 6) and torch.equal(got, want)
@@ -144,7 +146,7 @@ def test_k2k_wrapper_on_cpu_is_the_plain_version():
                            sgm_knight_shard_pass_plain(cv, a_p, d, P1, P2,
                                                        POUT))
         assert torch.equal(a, a_p)
-    assert knight_volumes.launches == before
+    assert counters()["launches.knight_volumes"] == before
     with pytest.raises(ValueError):
         knight_volumes(cv, [SgmDirection.UP2DOWN], P1, P2, POUT)
     with pytest.raises(ValueError):
