@@ -5249,8 +5249,10 @@ def main(argv=None) -> int:
         frame_times[name] = median_ms(fn)
         print(f"time: {name}: {frame_times[name]:.3f} ms (median of 5; "
               f"{smi})", flush=True)
-    # peak device memory a frame, above what was allocated before it
-    for name, fn in (("flagship", lambda: entry.flagship_forward(L, R)),
+    # peak device memory a frame, above what was allocated before it (the
+    # flagship's eager frame: a replayed one writes buffers its graph holds)
+    for name, fn in (("flagship", lambda: dense_sgm_stereo(
+                         ZNCC, L, R, **entry.FLAGSHIP)),
                      ("HD D=320 bf16", lambda: entry.hd_forward(Lh, Rh))):
         print(f"memory: {name} frame peak {peak_bytes(fn) / 1e9:.3f} GB "
               f"above the inputs ({smi})", flush=True)

@@ -5,7 +5,9 @@
 D=120, bf16 volume) -> 8-direction SGM (P1=0.1, P2=0.5, Pout=100) -> tie-last
 WTA -> truncated band (r=1) -> parabola subpixel, at the reference benchmark
 geometry (480x640; `test/benchmarks/benchmarkCrossCorrelationAlgorithms.cpp:
-370-401`).  `entry(device)` returns it with a random pair made from seed 0.
+370-401`); on CUDA replayed as one CUDA graph per input geometry
+(`FLAGSHIP_GRAPHS`).  The other entries run eagerly.  `entry(device)`
+returns it with a random pair made from seed 0.
 
 `sgm16_forward` is the same path with 16 directions and a float32 volume
 (`bench_grid.py:114-126`, "SGM16 ZNCC SD D=120"); `census_sgm_forward` is
@@ -69,6 +71,8 @@ from .ops import (InterpolationKernel, dense_sgm_stereo,
                   extract_selected_index, patch_match,
                   unfold_based_cost_volume)
 from .ops.hierarchical import hierarchical_truncated_cost_volume
+from .ops.sgm import dense_sgm_buffers
+from .utils.frame_graph import FrameGraphs
 
 FLAGSHIP = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
                 n_directions=8, cost_vol_radius=1,
@@ -95,11 +99,27 @@ HD_HEIGHT, HD_WIDTH = 720, 1280
 UHD_HEIGHT, UHD_WIDTH = 2160, 3840
 
 
+def _flagship(img_l, img_r, **buffers):
+    return dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r, **FLAGSHIP,
+                            **buffers)[0]
+
+
+def _flagship_buffers(img_l, img_r):
+    return dense_sgm_buffers(img_l, FLAGSHIP["disp_width"],
+                             FLAGSHIP["n_directions"], FLAGSHIP["cv_dtype"])
+
+
+# the flagship's frames on CUDA, one captured graph per input geometry
+FLAGSHIP_GRAPHS = FrameGraphs(_flagship, _flagship_buffers)
+
+
 def flagship_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:
-    """Refined disparity (H, W) float32 of a gray pair."""
-    disp, _, _ = dense_sgm_stereo(MatchingFunction.ZNCC, img_l, img_r,
-                                  **FLAGSHIP)
-    return disp
+    """Refined disparity (H, W) float32 of a gray pair.  On CUDA a
+    geometry's third and later frames replay the frame captured at its
+    second (`FLAGSHIP_GRAPHS`, `utils.frame_graph`): K1 stats, K1, K2x7,
+    K3x7 and the band in one graph launch, with the bits of the eager
+    frame."""
+    return FLAGSHIP_GRAPHS(img_l, img_r)
 
 
 def sgm16_forward(img_l: torch.Tensor, img_r: torch.Tensor) -> torch.Tensor:

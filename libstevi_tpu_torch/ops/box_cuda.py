@@ -138,23 +138,33 @@ def box_cv_plain(func: MatchingFunction, img_l: torch.Tensor,
 
 def box_cv(func: MatchingFunction, img_l: torch.Tensor, img_r: torch.Tensor,
            h_radius: int, v_radius: int, disp_width: int,
-           cv_dtype=torch.float32, negate: bool = False) -> torch.Tensor:
+           cv_dtype=torch.float32, negate: bool = False,
+           out: torch.Tensor | None = None) -> torch.Tensor:
     """(H, W, D) dot-family cost volume, RIGHT_TO_LEFT over d in [0, D),
     gray images, stored as ``cv_dtype`` (float32 or bfloat16) and negated
-    when ``negate`` (SCORE volumes feed the COST-mode SGM negated).  On
-    CUDA, one launch of the statistics kernel (`window_stats`) and one of
-    the volume kernel, for any D."""
+    when ``negate`` (SCORE volumes feed the COST-mode SGM negated), into
+    ``out`` if given (contiguous, of that shape and dtype, on the images'
+    device).  On CUDA, one launch of the statistics kernel
+    (`window_stats`) and one of the volume kernel, for any D."""
+    D = int(disp_width)
+    if out is not None:
+        shape = tuple(img_l.shape) + (D,)
+        if (tuple(out.shape) != shape or out.dtype != cv_dtype
+                or out.device != img_l.device or not out.is_contiguous()):
+            raise ValueError(f"box_cv: out must be contiguous {cv_dtype} "
+                             f"of shape {shape} on the images' device")
     if img_l.device.type == "cpu":
-        return box_cv_plain(func, img_l, img_r, h_radius, v_radius,
-                            disp_width, cv_dtype, negate)
+        cv = box_cv_plain(func, img_l, img_r, h_radius, v_radius,
+                          disp_width, cv_dtype, negate)
+        return cv if out is None else out.copy_(cv)
     _check(func, img_l, img_r, h_radius, v_radius)
     if cv_dtype not in (torch.float32, torch.bfloat16):
         raise TypeError("box_cv stores float32 or bfloat16 volumes")
-    D = int(disp_width)
     if D < 1:
         raise ValueError("box_cv: D >= 1")
     H, W = img_l.shape
-    out = torch.empty((H, W, D), dtype=cv_dtype, device=img_l.device)
+    if out is None:
+        out = torch.empty((H, W, D), dtype=cv_dtype, device=img_l.device)
     lib = _build.load("box_cv")
     with torch.cuda.device(img_l.device):
         stream = torch.cuda.current_stream().cuda_stream

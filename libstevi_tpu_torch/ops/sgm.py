@@ -478,11 +478,41 @@ def _wta_truncated(route, cv, P1, P2, margins, Pout, n_directions, strategy,
     return idx, tcv
 
 
+def _k1_dtype(cv_dtype, n_directions: int):
+    """The dtype K1 stores the volume in: bfloat16 where asked, except
+    with 16 directions (the JAX package's TPU rule), else float32."""
+    if cv_dtype == torch.bfloat16 and n_directions < 16:
+        return torch.bfloat16
+    return torch.float32
+
+
+def dense_sgm_buffers(img_l: torch.Tensor, disp_width: int,
+                      n_directions: int = 8, cv_dtype=torch.float32) -> dict:
+    """``volume`` and ``k2`` for `dense_sgm_stereo` on the K1 + scan route:
+    K1's (H, W, D) volume and K2's buffer, a float32 volume for each
+    direction but the last where `sgm_cuda._one_launch` fits them (its one
+    ``cudaMemGetInfo``, with the volume allocated, as in an eager frame),
+    else one float32 accumulator.  They are the tensors live at an eager
+    frame's peak."""
+    from .sgm_cuda import _one_launch
+    H, W = img_l.shape
+    shape = (H, W, int(disp_width))
+    volume = torch.empty(shape, dtype=_k1_dtype(cv_dtype, n_directions),
+                         device=img_l.device)
+    n = n_directions - 1
+    stack = (n,) if _one_launch(volume, n) else ()
+    return {"volume": volume,
+            "k2": torch.empty(stack + shape, dtype=torch.float32,
+                              device=img_l.device)}
+
+
 def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
                      h_radius: int, v_radius: int, disp_width: int,
                      P1: float, P2: float, *, Pout: float = 100.0,
                      n_directions: int = 8, cost_vol_radius: int = 1,
-                     refine_kernel=None, cv_dtype=torch.float32):
+                     refine_kernel=None, cv_dtype=torch.float32,
+                     volume: torch.Tensor | None = None,
+                     k2: torch.Tensor | None = None):
     """Dense SGM stereo end-to-end: cost volume -> 4/8/16-direction SGM ->
     tie-last WTA -> truncated band -> optional cost-based subpixel (the
     dense hot loop of `examples/stereo-match/main.cpp:234-258`).
@@ -506,6 +536,11 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     directions builds a float32 volume, the JAX package's TPU rule
     (`libstevi_tpu/ops/sgm.py:477-478`).
 
+    ``volume`` and ``k2`` (`dense_sgm_buffers`) are preallocated tensors
+    that K1 and K2 write in place of their own on the K1 + scan route (the
+    same bits; other routes refuse them): a caller that holds them, as a
+    captured CUDA graph does, keeps the frame's peak allocated.
+
     The call is the span ``stevi.dense_sgm_stereo`` (`utils.profiling.span`),
     with its stages' spans inside: ``stevi.k1``, ``stevi.route``,
     ``stevi.k2`` and ``stevi.k3`` (scan) or ``stevi.k4d`` and ``stevi.k4b``
@@ -527,13 +562,19 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
             cv_dtype = torch.float32
         route = sgm_route(D, n_directions, P1, P2, img_l.is_cuda)
         count("route." + route)
+        k1 = func in DOT_FAMILY and img_l.ndim == 2 and route != "dense"
+        if (volume is not None or k2 is not None) and not (
+                k1 and route == "scan"):
+            raise ValueError("dense_sgm_stereo: volume and k2 serve the "
+                             "K1 + scan route only")
 
-        if func in DOT_FAMILY and img_l.ndim == 2 and route != "dense":
+        if k1:
             from .box_cuda import box_cv
-            dt = torch.bfloat16 if cv_dtype == torch.bfloat16 else torch.float32
             with span("stevi.k1"):
-                cv = box_cv(func, img_l, img_r, h_radius, v_radius, D, dt,
-                            negate=strategy is ExtractionStrategy.SCORE)
+                cv = box_cv(func, img_l, img_r, h_radius, v_radius, D,
+                            _k1_dtype(cv_dtype, n_directions),
+                            negate=strategy is ExtractionStrategy.SCORE,
+                            out=volume)
             if route == "scan":
                 from .sgm_cuda import sgm_wta_fused
                 fuse_refine = (refine_kernel is InterpolationKernel.PARABOLA
@@ -541,7 +582,7 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
                 idx, bands, disp = sgm_wta_fused(cv, float(P1), float(P2),
                                                  float(Pout), n_directions, r,
                                                  h_radius, v_radius,
-                                                 fuse_refine)
+                                                 fuse_refine, acc=k2)
                 with span("stevi.bands"):
                     idx, tcv = _tcv_from_bands(idx, bands, H, W, D,
                                                h_radius, v_radius, r)

@@ -594,14 +594,19 @@ def sgm_wta(cv: torch.Tensor, acc: torch.Tensor, P1: float, P2: float,
 # ---------------------------------------------------------------------------
 
 def sgm_accumulate(cv: torch.Tensor, directions, P1: float, P2: float,
-                   Pout: float, col0: int = 0,
-                   W_pout: int | None = None) -> torch.Tensor:
+                   Pout: float, col0: int = 0, W_pout: int | None = None,
+                   out: torch.Tensor | None = None) -> torch.Tensor:
     """Sum of the given directions' adjustments: one K2 launch for each
-    principal direction, into one accumulator in their order, then the
-    knight directions' volumes (`add_knight_volumes`) added one after
-    another, acc + (p0 + p1) each."""
+    principal direction, into one accumulator in their order (``out`` if
+    given, float32 of ``cv``'s shape), then the knight directions' volumes
+    (`add_knight_volumes`) added one after another, acc + (p0 + p1)
+    each."""
     cv = kernel_volume(cv)
-    acc = torch.empty(cv.shape, dtype=torch.float32, device=cv.device)
+    if out is not None and (out.shape != cv.shape
+                            or out.dtype != torch.float32):
+        raise ValueError("sgm_accumulate: out must be float32 of cv's shape")
+    acc = (torch.empty(cv.shape, dtype=torch.float32, device=cv.device)
+           if out is None else out)
     principal = [d for d in directions if not d.knight]
     knights = [d for d in directions if d.knight]
     for k, direction in enumerate(principal):
@@ -670,7 +675,7 @@ def _one_launch(cv: torch.Tensor, n_volumes: int) -> bool:
 
 def sgm_wta_fused(cv: torch.Tensor, P1: float, P2: float, Pout: float,
                   n_directions: int, r: int, h_radius: int, v_radius: int,
-                  refine: bool):
+                  refine: bool, acc: torch.Tensor | None = None):
     """SGM over a whole-image COST volume + WTA + band (+ subpixel): K2 for
     every principal direction but RIGHT2LEFT (16 directions: and K2k for
     the knight directions), then K3.  Where `one_launch_fits` (the volumes
@@ -678,27 +683,35 @@ def sgm_wta_fused(cv: torch.Tensor, P1: float, P2: float, Pout: float,
     knights into theirs (`knight_volumes`, two launches), and K3 sums the
     stack (up to 15 volumes) in order; else the K2 launches accumulate into
     one volume, one after another, and the knight volumes are added after
-    them (`sgm_accumulate`): the same bits.  The choice counts in
-    ``form.k2_one_launch`` or ``form.k2_accumulate``.  Returns what
-    `sgm_wta` returns."""
+    them (`sgm_accumulate`): the same bits.  A preallocated ``acc`` (float32,
+    contiguous) takes the place of K2's buffer and decides the form: an
+    (n_directions - 1, H, W, D) stack the one launch, an (H, W, D) volume
+    the accumulator.  The choice counts in ``form.k2_one_launch`` or
+    ``form.k2_accumulate``.  Returns what `sgm_wta` returns."""
     cv = kernel_volume(cv)
     dirs = [d for d in directions_for(n_directions)
             if d is not SgmDirection.RIGHT2LEFT]
+    stack = (len(dirs),) + tuple(cv.shape)
+    if acc is not None and tuple(acc.shape) not in (stack, tuple(cv.shape)):
+        raise ValueError(f"sgm_wta_fused: acc of shape {stack} or "
+                         f"{tuple(cv.shape)}")
     with span("stevi.route"):
-        one_launch = _one_launch(cv, len(dirs))
+        one_launch = (_one_launch(cv, len(dirs)) if acc is None
+                      else acc.ndim == 4)
     count("form.k2_one_launch" if one_launch else "form.k2_accumulate")
     with span("stevi.k2"):
         if one_launch:
             principal = [d for d in dirs if not d.knight]
             knights = [d for d in dirs if d.knight]
-            acc = torch.empty((len(dirs),) + tuple(cv.shape),
-                              dtype=torch.float32, device=cv.device)
+            if acc is None:
+                acc = torch.empty(stack, dtype=torch.float32,
+                                  device=cv.device)
             direction_volumes(cv, principal, P1, P2, Pout,
                               acc[:len(principal)])
             if knights:
                 knight_volumes(cv, knights, P1, P2, Pout,
                                out=acc[len(principal):])
         else:
-            acc = sgm_accumulate(cv, dirs, P1, P2, Pout)
+            acc = sgm_accumulate(cv, dirs, P1, P2, Pout, out=acc)
     with span("stevi.k3"):
         return sgm_wta(cv, acc, P1, P2, Pout, r, h_radius, v_radius, refine)
