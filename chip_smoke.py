@@ -23,7 +23,9 @@ instance; a shift list of step 2: the general one); K6 PatchMatch sweep (its thr
 K7 probe and search probe, exactly, on the 480x640x120 NCC volume, K6 also
 on a flood whose run crosses 2/3 of every line and at edge shapes (one and
 two lines, 45 chains, lower < 0, +inf and ties, costs not the volume's
-own); the lane-layout SGM kernels past D = 320,
+own); the census kernels (words and volume) bit for bit at
+480x640, D=120 (f32 and bf16) and at KITTI's 375x1242, D=192 (f32), with
+flat patches and zero samples; the lane-layout SGM kernels past D = 320,
 bitwise: K4a shear / unshear (both signs), K4b's row sweeps, column scans
 and WTA scan at the wide path's 480x640x384 f32 volume, at 37x101x333 and
 (after the HD wide path) at its 720x1280x640 volume, with the
@@ -47,8 +49,8 @@ each with the launch counts set to 0 just before it and read just after:
   the same three pairs, held to the
   `PARITY_r05` `zncc_sgm16_f32` bars; a bfloat16 request must give the
   float32 result;
-- census + SGM-8 (`entry.census_sgm_forward`) on the fixtures, held to the
-  `census_sgm8` bars;
+- census + SGM-8 (`entry.census_sgm_forward`: the census kernel, K2x7,
+  K3x7) on the fixtures, held to the `census_sgm8` bars;
 - HD (`entry.hd_forward`: 720x1280, D=320, bf16 volume, SGM-8) on a random
   pair;
 - PatchMatch (`entry.patchmatch_forward`: NCC 7x7, D=120, 5 iterations, 4
@@ -699,6 +701,63 @@ K4_CASES = {"480x640x384": (480, 640, 384, None),
             "H=1 1x640x384": (1, 640, 384, None),
             "W<132 20x100x333": (20, 100, 333, None),
             "direct loads 37x101x333": (37, 101, 333, (2 * 3 + 2) * 333 * 4)}
+
+
+def census_kernels(dev, smi):
+    """The census kernels (`ops/census_cuda`) on the card against their
+    plain versions on the same inputs, bit for bit (the costs are
+    integers): the words and the volume at `census_sgm_forward`'s 480x640,
+    D=120 (f32 and bf16) and at KITTI 2015's 375x1242, D=192 (f32), each
+    pair with a flat patch (equal samples) and zeros (equal to the
+    padding).  Times the KITTI f32 volume (both launches) against its plain
+    version, the unfold route's shifted-compare loop on the card.  Returns
+    (max_abs_err, (ms, plain_ms), (bound_ms, bound_by)).  Runs alone:
+    ``c.census_kernels(torch.device('cuda'), c.card())``."""
+    from libstevi_tpu_torch.ops.census_cuda import (census_cv,
+                                                    census_cv_plain,
+                                                    census_words,
+                                                    census_words_plain,
+                                                    n_words)
+    h = v = 3
+    for H, W, D, dts, seed in [(480, 640, 120, (torch.float32,
+                                                torch.bfloat16), 31),
+                               (375, 1242, 192, (torch.float32,), 32)]:
+        L, R = pair(H, W, seed, dev)
+        L[40:80, 100:180] = 0.5
+        R[42:82, 96:170] = 0.5
+        L[-3:, :5] = 0.0
+        reset_counters()
+        words = census_words(L, R, h, v)
+        exact(words.long() & 0xFFFFFFFF, census_words_plain(L, R, h, v),
+              ("census words", H, W))
+        want = census_cv_plain(L, R, h, v, D)
+        for dt in dts:
+            exact(census_cv(L, R, h, v, D, dt), want.to(dt),
+                  ("census volume", H, W, D, dt))
+        torch.cuda.synchronize()
+        assert launched("census_words") == 1 + len(dts), counters()
+        assert launched("census_cv") == len(dts), counters()
+        print(f"census kernels {H}x{W}x{D} "
+              f"{[str(dt).split('.')[-1] for dt in dts]}: the words equal "
+              f"census_words_plain and the volume census_cv_plain bit for "
+              f"bit", flush=True)
+        del words, want
+    def kern():
+        return census_cv(L, R, h, v, D)
+
+    def plain():
+        return census_cv_plain(L, R, h, v, D)
+    p1, k1, k2_, p2 = (median_ms(plain, 3), median_ms(kern),
+                       median_ms(kern), median_ms(plain, 3))
+    ms = ((k1 + k2_) / 2, (p1 + p2) / 2)
+    # two f32 images read, the f32 volume written; xor, popcount and add
+    # a word an entry
+    HWk = H * W
+    bnd = bound(2 * HWk * 4 + HWk * D * 4, 3 * n_words(h, v) * HWk * D)
+    print(f"time: census kernels {H}x{W}x{D} f32 {ms[0]:.3f} ms vs plain "
+          f"{ms[1]:.3f} ms (kernel median of 5, plain median of 3, twice "
+          f"each; bound {bnd[0]:.3f} ms by {bnd[1]}; {smi})", flush=True)
+    return 0.0, ms, bnd
 
 
 def k4_cases(dev):
@@ -4520,6 +4579,9 @@ def main(argv=None) -> int:
         # a list of step 2: the general instance
         check_k5(kernel, fr, fl, range(0, 26, 2), "37x101x13 F=49 step 2")
 
+    mark("the census kernels against their plain versions, exactly")
+    census_err, census_ms, census_bound = census_kernels(dev, smi)
+
     mark("K6 and K7 against their plain versions, exactly")
     # -- K6 and K7 against their plain versions, exactly ---------------------
     def state_err(got, want):
@@ -4811,14 +4873,19 @@ def main(argv=None) -> int:
               for name in CENSUS_BARS}
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
-    cs_launches = {"K1": launched("box_cv"), "K2": launched("sgm_pass"),
+    cs_launches = {"census words": launched("census_words"),
+                   "census volume": launched("census_cv"),
+                   "K1": launched("box_cv"), "K2": launched("sgm_pass"),
                    "K2x7": launched("direction_volumes"),
                    "K2k": launched("knight_volumes"),
                    "K3": launched("sgm_wta"),
                    "K5": launched("fused_fv_cost_volume")}
     print(f"census SGM-8 path: 2 pairs in {wall:.3f} s host wall, launches "
-          f"{cs_launches} (the census volume runs on the shifted-compare "
-          f"loop)", flush=True)
+          f"{cs_launches} (the census kernel's two launches a frame)",
+          flush=True)
+    assert cs_launches["census words"] == 2, cs_launches
+    assert cs_launches["census volume"] == 2, cs_launches
+    assert cs_launches["K1"] == 0 and cs_launches["K5"] == 0, cs_launches
     assert cs_launches["K2x7"] > 0 and cs_launches["K3"] > 0, cs_launches
     for name, disp in out_cs.items():
         assert disp.shape == (480, 640) and disp.dtype == torch.float32
@@ -5455,6 +5522,9 @@ def main(argv=None) -> int:
          "libstevi_tpu/ops/sgm_pallas_dhw.py:374", "K3x7"),
         ("K5 fv_cv", "libstevi_tpu_torch/csrc/fv_cv.cu",
          "libstevi_tpu/ops/fv_backend.py:38", "K5"),
+        ("census census_words + census_cv (two launches a volume)",
+         "libstevi_tpu_torch/csrc/census_cv.cu",
+         "libstevi_tpu/ops/cost_volume.py:102", "census"),
         ("K6 pm_sweep (runs, chains, costs: three launches a sweep)",
          "libstevi_tpu_torch/csrc/patchmatch.cu",
          "libstevi_tpu/ops/patchmatch_pallas.py:47", "K6"),
@@ -5493,6 +5563,11 @@ def main(argv=None) -> int:
                     K4d=uhd_launches["K4d"])
     launches.update({k: d_launches[k]
                      for k in ("K2s", "K4c", "K2k any-D", "K4b stack")})
+    # the census kernels' main path: census + SGM-8 on the two fixtures
+    launches["census"] = (cs_launches["census words"]
+                          + cs_launches["census volume"])
+    err["census"] = census_err
+    ms["census"] = census_ms
     # the any-D K2's main path: the distributed 4K UHD step (2 + 6 a shard)
     launches["K2 any-D"] = k2_uhd_launches
     # bounds from the timed calls' shapes: each input read once, each
@@ -5538,6 +5613,7 @@ def main(argv=None) -> int:
         # the four sweeps at 4K: cv read once, adj written once; the six
         # directions they carry
         "K4d": bound(2 * N4 * 4, SGM_OPS * 6 * N4),
+        "census": census_bound,
         **d_bounds,
     }
     library = {"K4a": lib_ms}

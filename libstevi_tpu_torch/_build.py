@@ -40,6 +40,12 @@ SIGNATURES = {
         # inv_n, negate, out_bf16, stream
         "box_cv_launch": [_P] * 7 + [_I] * 6 + [_F, _I, _I, _P],
     },
+    "census_cv": {
+        # src, tgt, words, H, W, h, v, n_words, stream
+        "census_words_launch": [_P] * 3 + [_I] * 5 + [_P],
+        # words, out, H, W, D, n_words, out_bf16, stream
+        "census_cv_launch": [_P] * 2 + [_I] * 5 + [_P],
+    },
     "sgm_lane": {
         # in, out, H, W_in, W_out, Dp, base, slope, stream
         "shift_rows_launch": [_P, _P] + [_I] * 6 + [_P],

@@ -12,7 +12,10 @@ returns it with a random pair made from seed 0.
 `sgm16_forward` is the same path with 16 directions and a float32 volume
 (`bench_grid.py:114-126`, "SGM16 ZNCC SD D=120"); `census_sgm_forward` is
 census + 8-direction SGM (P1=1, P2=4) + parabola, the `census_sgm8` row of
-`PARITY_r05` (`scripts/run_parity_r05.py:67-74`); `hd_forward` is the
+`PARITY_r05` (`scripts/run_parity_r05.py:67-74`); `kitti_census_forward`
+is that matcher over D=192 for KITTI 2015's 375x1242 pairs (`KITTI_HEIGHT`
+x `KITTI_WIDTH`): the census kernel, K2x7 and K3x7 with the parabola, on
+a float32 volume; `hd_forward` is the
 flagship at 720x1280 with D=320 (`bench_grid.py:153-154`, "SGM8 ZNCC bf16
 dense HD D=320").  `wide_forward` is the flagship just past K2's reach:
 ZNCC 7x7, D=384, SGM-8, a float32 volume (K4b casts to float32,
@@ -80,6 +83,7 @@ FLAGSHIP = dict(h_radius=3, v_radius=3, disp_width=120, P1=0.1, P2=0.5,
                 cv_dtype=torch.bfloat16)
 SGM16 = dict(FLAGSHIP, n_directions=16, cv_dtype=torch.float32)
 CENSUS_SGM8 = dict(FLAGSHIP, P1=1.0, P2=4.0, cv_dtype=torch.float32)
+KITTI_CENSUS = dict(CENSUS_SGM8, disp_width=192)
 HD_BF16 = dict(FLAGSHIP, disp_width=320)
 WIDE = dict(FLAGSHIP, disp_width=384, cv_dtype=torch.float32)
 HD_WIDE = dict(WIDE, disp_width=640)
@@ -96,6 +100,7 @@ BGFG = dict(func=MatchingFunction.ZNCC, radius=3, disp_width=192,
 HEIGHT, WIDTH = 480, 640
 BGFG_HEIGHT, BGFG_WIDTH = 1080, 1920
 HD_HEIGHT, HD_WIDTH = 720, 1280
+KITTI_HEIGHT, KITTI_WIDTH = 375, 1242
 UHD_HEIGHT, UHD_WIDTH = 2160, 3840
 
 
@@ -134,6 +139,15 @@ def census_sgm_forward(img_l: torch.Tensor,
     """Refined disparity (H, W) float32 of a gray pair, census + SGM-8."""
     disp, _, _ = dense_sgm_stereo(MatchingFunction.CENSUS, img_l, img_r,
                                   **CENSUS_SGM8)
+    return disp
+
+
+def kitti_census_forward(img_l: torch.Tensor,
+                         img_r: torch.Tensor) -> torch.Tensor:
+    """Refined disparity (H, W) float32 of a gray pair, census + SGM-8 over
+    D=192: the KITTI 2015 configuration, meant for 375x1242."""
+    disp, _, _ = dense_sgm_stereo(MatchingFunction.CENSUS, img_l, img_r,
+                                  **KITTI_CENSUS)
     return disp
 
 

@@ -24,8 +24,9 @@ of "the default backend is the TPU": `aggregate_cost` 'auto' launches K5
 (`fv_backend`) for dot/ssd/sad on CUDA where its tile fits on chip and
 takes the shifted-compare loop where it does not (`auto_backend`, as the
 JAX package falls back past its VMEM budget), and `unfold_based_cost_volume`
-'auto' launches K1 (`box_cuda`) for a dot-family cost on gray images,
-RIGHT_TO_LEFT over [0, D).  A 2-D (SearchOffset2) search is a loop of
+'auto' launches K1 (`box_cuda`) for a dot-family cost and the census
+kernel (`census_cuda`) for CENSUS on gray images, RIGHT_TO_LEFT over
+[0, D).  A 2-D (SearchOffset2) search is a loop of
 shifted compares over the (d0, d1) grid on either device, as it is XLA in
 the JAX package.
 """
@@ -46,6 +47,7 @@ from .fv_backend import (FUSABLE_KERNELS, fused_fits,
                          fused_fv_cost_volume, shifted_compare)
 from .matching import feature_comparison
 from .unfold import unfold
+from ..utils.profiling import span
 
 # ---------------------------------------------------------------------------
 # Feature-volume normalization
@@ -194,15 +196,47 @@ def feature_volume_to_cost_volume(func: MatchingFunction, fv_l: torch.Tensor,
                           search, direction, cv_dtype, backend=backend)
 
 
-def _k1_disp_width(func, img_l, search, direction):
-    """D when K1 takes the configuration (a dot-family cost on gray images,
-    RIGHT_TO_LEFT over [0, D)), else None."""
-    if func not in DOT_FAMILY or img_l.ndim != 2 \
-            or direction is not DispDirection.RIGHT_TO_LEFT:
+def volume_kernel(func, img_l, search,
+                  direction=DispDirection.RIGHT_TO_LEFT,
+                  cv_dtype=torch.float32):
+    """The port's kernel that builds this 1-D volume, and its D: ``("k1",
+    D)`` (K1, `box_cuda.box_cv`) for a dot-family cost, ``("census", D)``
+    (`census_cuda.census_cv`) for CENSUS, on gray images, RIGHT_TO_LEFT
+    over [0, D), into a float32 or bfloat16 volume; None otherwise.  The
+    one rule `unfold_based_cost_volume` and `sgm.dense_sgm_stereo` follow."""
+    if func in DOT_FAMILY:
+        kernel = "k1"
+    elif func is MatchingFunction.CENSUS:
+        kernel = "census"
+    else:
+        return None
+    if (img_l.ndim != 2 or direction is not DispDirection.RIGHT_TO_LEFT
+            or cv_dtype not in (torch.float32, torch.bfloat16)
+            or isinstance(search, SearchOffset2)):
         return None
     if isinstance(search, SearchOffset1):
-        return search.upper + 1 if search.lower == 0 else None
-    return int(search)
+        return (kernel, search.upper + 1) if search.lower == 0 else None
+    return kernel, int(search)
+
+
+def kernel_cost_volume(kernel: str, func: MatchingFunction,
+                       img_l: torch.Tensor, img_r: torch.Tensor,
+                       h_radius: int, v_radius: int, disp_width: int,
+                       cv_dtype=torch.float32, *, negate: bool = False,
+                       out: torch.Tensor | None = None) -> torch.Tensor:
+    """The (H, W, D) volume from the kernel `volume_kernel` named, inside
+    the span ``stevi.<kernel>`` (on CPU tensors its wrapper runs the plain
+    version).  ``negate`` (K1 only) stores a SCORE volume as costs;
+    ``out`` receives the volume."""
+    if kernel == "k1":
+        from .box_cuda import box_cv
+        with span("stevi.k1"):
+            return box_cv(func, img_l, img_r, h_radius, v_radius, disp_width,
+                          cv_dtype, negate=negate, out=out)
+    from .census_cuda import census_cv
+    with span("stevi.census"):
+        return census_cv(img_l, img_r, h_radius, v_radius, disp_width,
+                         cv_dtype, out=out)
 
 
 def unfold_based_cost_volume(func: MatchingFunction, img_l: torch.Tensor,
@@ -218,25 +252,29 @@ def unfold_based_cost_volume(func: MatchingFunction, img_l: torch.Tensor,
 
     ``backend``: 'auto' takes the box route when the function supports it
     and the search is 1-D, the unfold route otherwise; 'box' forces the box
-    route (K1 where it takes the configuration on CUDA, `box_backend`
+    route (K1 where `volume_kernel` picks it on CUDA, `box_backend`
     otherwise; it raises on a 2-D search, as the JAX package's does);
     'unfold' forces unfold + the shifted-compare loop.  On the unfold route
     under 'auto', `aggregate_cost` launches K5 for the dot/SSD/SAD families
-    on CUDA."""
+    on CUDA, and CENSUS takes the census kernel where `volume_kernel`
+    picks it on CUDA (the same volume from the images' float32 values)."""
     if backend not in ("auto", "box", "unfold"):
         raise ValueError(f"backend {backend!r}: 'auto', 'box' or 'unfold'")
     auto = backend == "auto"
     if auto:
         backend = ("box" if supports_box(func)
                    and not isinstance(search, SearchOffset2) else "unfold")
+    picked = (volume_kernel(func, img_l, search, direction, cv_dtype)
+              if img_l.is_cuda else None)
     if backend == "box":
-        dw = _k1_disp_width(func, img_l, search, direction)
-        if img_l.is_cuda and dw is not None:
-            from .box_cuda import box_cv
-            return box_cv(func, img_l, img_r, h_radius, v_radius, dw,
-                          cv_dtype)
+        if picked is not None and picked[0] == "k1":
+            return kernel_cost_volume("k1", func, img_l, img_r,
+                                      h_radius, v_radius, picked[1], cv_dtype)
         return box_cost_volume(func, img_l, img_r, h_radius, v_radius, search,
                                direction, cv_dtype)
+    if auto and picked is not None and picked[0] == "census":
+        return kernel_cost_volume("census", func, img_l, img_r, h_radius,
+                                  v_radius, picked[1], cv_dtype)
     fv_l = unfold(h_radius, v_radius, img_l)
     fv_r = unfold(h_radius, v_radius, img_r)
     # 'unfold' forces the loop; 'auto' lets aggregate_cost launch K5

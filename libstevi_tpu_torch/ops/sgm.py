@@ -524,11 +524,14 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     fused with the in-order sum of those volumes, WTA, band and, for
     PARABOLA, the subpixel).  At D > 320 it runs K1 (one launch) ->
     ``sgm_wta_truncated`` (K4b's or K4d's sweeps, then K4b's column scans
-    ending in the WTA scan; K2k for 16 directions) -> refinement in torch.  Other costs,
-    multichannel images and P2 < P1 take the JAX package's general route:
-    ``unfold_based_cost_volume`` (the box route, or unfold with K5 where
-    `aggregate_cost` launches it and the shifted-compare loop for CENSUS
-    and Hamming) -> ``sgm_wta_truncated`` -> refinement.  On the CPU every
+    ending in the WTA scan; K2k for 16 directions) -> refinement in torch.
+    CENSUS on gray images takes the same path with the census kernel
+    (`census_cuda.census_cv`: the words, then the Hamming volume) in K1's
+    place.  Other costs, multichannel images and P2 < P1 take the JAX
+    package's general route: ``unfold_based_cost_volume`` (the box route,
+    or unfold with K5 where `aggregate_cost` launches it, the census
+    kernel for CENSUS on CUDA and the shifted-compare loop for Hamming)
+    -> ``sgm_wta_truncated`` -> refinement.  On the CPU every
     kernel wrapper runs its plain version.  16 directions at D > 320 add
     the knight passes (K2k's any-D instance) to the lane route.  The
     volume is stored in ``cv_dtype`` (float32 or
@@ -537,21 +540,22 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
     (`libstevi_tpu/ops/sgm.py:477-478`).
 
     ``volume`` and ``k2`` (`dense_sgm_buffers`) are preallocated tensors
-    that K1 and K2 write in place of their own on the K1 + scan route (the
-    same bits; other routes refuse them): a caller that holds them, as a
-    captured CUDA graph does, keeps the frame's peak allocated.
+    that K1 (or the census kernel) and K2 write in place of their own on
+    the K1 or census + scan route (the same bits; other routes refuse
+    them): a caller that holds them, as a captured CUDA graph does, keeps
+    the frame's peak allocated.
 
     The call is the span ``stevi.dense_sgm_stereo`` (`utils.profiling.span`),
-    with its stages' spans inside: ``stevi.k1``, ``stevi.route``,
-    ``stevi.k2`` and ``stevi.k3`` (scan) or ``stevi.k4d`` and ``stevi.k4b``
-    (lane), ``stevi.bands``, ``stevi.refine``; its route counts in
-    ``route.<route>``.
+    with its stages' spans inside: ``stevi.k1`` (or ``stevi.census``),
+    ``stevi.route``, ``stevi.k2`` and ``stevi.k3`` (scan) or ``stevi.k4d``
+    and ``stevi.k4b`` (lane), ``stevi.bands``, ``stevi.refine``; its route
+    counts in ``route.<route>``.
 
     Returns ``(disp, idx, tcv)``: refined disparity (H, W) float32 (equal
     to ``idx`` when ``refine_kernel`` is None), the raw WTA index map, and
     the truncated cost volume (COST orientation)."""
     with span("stevi.dense_sgm_stereo"):
-        from .box_backend import DOT_FAMILY
+        from .cost_volume import kernel_cost_volume, volume_kernel
         from .refinement import (InterpolationKernel,
                                  refine_disp_cost_interpolation)
         strategy = MATCH_TRAITS[func].strategy
@@ -562,19 +566,19 @@ def dense_sgm_stereo(func, img_l: torch.Tensor, img_r: torch.Tensor,
             cv_dtype = torch.float32
         route = sgm_route(D, n_directions, P1, P2, img_l.is_cuda)
         count("route." + route)
-        k1 = func in DOT_FAMILY and img_l.ndim == 2 and route != "dense"
+        picked = None if route == "dense" else volume_kernel(
+            func, img_l, D, cv_dtype=_k1_dtype(cv_dtype, n_directions))
         if (volume is not None or k2 is not None) and not (
-                k1 and route == "scan"):
+                picked is not None and route == "scan"):
             raise ValueError("dense_sgm_stereo: volume and k2 serve the "
-                             "K1 + scan route only")
+                             "K1 + scan route (or the census kernel's) "
+                             "only")
 
-        if k1:
-            from .box_cuda import box_cv
-            with span("stevi.k1"):
-                cv = box_cv(func, img_l, img_r, h_radius, v_radius, D,
-                            _k1_dtype(cv_dtype, n_directions),
-                            negate=strategy is ExtractionStrategy.SCORE,
-                            out=volume)
+        if picked is not None:
+            cv = kernel_cost_volume(
+                picked[0], func, img_l, img_r, h_radius, v_radius, D,
+                _k1_dtype(cv_dtype, n_directions),
+                negate=strategy is ExtractionStrategy.SCORE, out=volume)
             if route == "scan":
                 from .sgm_cuda import sgm_wta_fused
                 fuse_refine = (refine_kernel is InterpolationKernel.PARABOLA

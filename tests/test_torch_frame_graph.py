@@ -254,12 +254,17 @@ def test_sixteen_directions_take_a_float32_volume():
         == torch.float32
 
 
-@pytest.mark.parametrize("config,func", [
-    ("HD_WIDE", ZNCC),                      # the lane route
-    ("FLAGSHIP", MatchingFunction.CENSUS),  # no K1
+@pytest.mark.parametrize("config,func,channels", [
+    pytest.param("HD_WIDE", ZNCC, 0,        # the lane route
+                 id="HD_WIDE-MatchingFunction.ZNCC"),
+    # multichannel images: the census kernel takes gray pairs only
+    pytest.param("FLAGSHIP", MatchingFunction.CENSUS, 1,
+                 id="FLAGSHIP-MatchingFunction.CENSUS"),
 ])
-def test_buffers_are_refused_off_the_k1_scan_route(config, func):
+def test_buffers_are_refused_off_the_k1_scan_route(config, func, channels):
     left, right = _pairs(6, 20, 1)[0]
+    if channels:
+        left, right = left[..., None], right[..., None]
     cfg = getattr(entry, config)
     volume = torch.empty((6, 20, cfg["disp_width"]))
     with pytest.raises(ValueError, match="K1 \\+ scan route"):
