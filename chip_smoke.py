@@ -14,8 +14,11 @@ shape and at D=300 (40x360), in float32 and bfloat16, and at the HD path's
 shape (720x1280, D=320) in bfloat16, and at each the WTA path's one-launch
 forms (the 7 K2 directions in one launch, a volume each, K3 summing them in
 order; SGM-16's 15 volumes, the 8 knight volumes after them) bitwise
-against the sequential accumulator and against the plain versions; the
-SGM entries with margins against the CPU; K5 feature-volume cost volume at
+against the sequential accumulator and against the plain versions; K3 at
+the edges of its layout (`k3_cases`: KITTI's census volume, 1, 7 and 15
+volumes, D = 1, 33 and 320, r = 0, W = 3, H = 1, +inf entries) against its
+plain version, its K3x7 timed at VGA and KITTI beside the form's byte
+floor; the SGM entries with margins against the CPU; K5 feature-volume cost volume at
 the WTA path's
 shape (480x640, D=120, F=49 and an RGB F=147) and at an odd shape
 (LEFT_TO_RIGHT, an offset search, an RGB F=147 input: the register-tiled
@@ -235,7 +238,10 @@ device), the WTA ZSAD frame, and the PatchMatch frame
 with its device items, K6's sweeps (480x640x120 and 720x1280x320), K7
 (K = 1, 4) and the random search's probe step as the checkout runs them
 (and, with ``--parent DIR``, a checkout of another commit, that one's too,
-in turns: parent, change, change, parent; first, while the card is empty),
+in turns: parent, change, change, parent; first, while the card is empty;
+then that commit's K3, built from its source, held bit for bit to this
+tree's on every case of `k3_cases` and `k3_wide_cases` and timed beside
+it: `k3_against`),
 and
 prints one JSON line of kernel records (each with its
 least time on the card, ``bound_ms``, from this run's shapes), the card's
@@ -390,23 +396,27 @@ def exact(got, want, tag):
     return 0.0
 
 
-def k3_vs_plain(cv, acc, tag):
+def k3_vs_plain(cv, acc, tag, r=1, refine=True, pen=(P1, P2)):
     """K3 over ``acc`` (one volume or a stack of direction volumes) against
-    its plain version: idx equal away from near-ties (gap > 1e-4) and on
-    >= 0.999 of the pixels, bands, the truncated volume's NaNs and disp
-    within 1e-4 where idx agrees.  Returns the max abs error."""
+    its plain version, with band radius ``r`` and penalties ``pen``: idx
+    equal away from near-ties (gap > 1e-4) and on >= 0.999 of the pixels,
+    bands, and with ``refine`` the truncated volume's NaNs and disp, within
+    1e-4 where idx agrees.  Returns the max abs error."""
     from libstevi_tpu_torch.ops.sgm import (SgmDirection, direction_adj,
                                             _tcv_from_bands)
     from libstevi_tpu_torch.ops.sgm_cuda import _acc_sum, sgm_wta, sgm_wta_plain
     H, W, D = cv.shape
-    idx, bands, disp = sgm_wta(cv, acc, P1, P2, POUT, 1, 3, 3, True)
-    idx_p, bands_p, disp_p = sgm_wta_plain(cv, acc, P1, P2, POUT, 1, 3, 3,
-                                           True)
-    C = (_acc_sum(acc) + direction_adj(cv.float(), SgmDirection.RIGHT2LEFT,
-                                       P1, P2, POUT) + cv.float())
-    two = torch.topk(C, 2, dim=-1, largest=False).values
-    clear = (two[..., 1] - two[..., 0]) > 1e-4
-    del C, two
+    idx, bands, disp = sgm_wta(cv, acc, *pen, POUT, r, 3, 3, refine)
+    idx_p, bands_p, disp_p = sgm_wta_plain(cv, acc, *pen, POUT, r, 3, 3,
+                                           refine)
+    if D > 1:
+        C = (_acc_sum(acc) + direction_adj(cv.float(), SgmDirection.RIGHT2LEFT,
+                                           *pen, POUT) + cv.float())
+        two = torch.topk(C, 2, dim=-1, largest=False).values
+        clear = (two[..., 1] - two[..., 0]) > 1e-4
+        del C, two
+    else:
+        clear = torch.ones_like(idx, dtype=torch.bool)
     torch.cuda.synchronize()
     same = idx == idx_p
     assert torch.equal(idx[clear], idx_p[clear]), tag
@@ -414,18 +424,226 @@ def k3_vs_plain(cv, acc, tag):
     assert agree >= 0.999, (tag, agree)
     torch.testing.assert_close(bands[same], bands_p[same], rtol=1e-4,
                                atol=1e-4)
-    _, tcv = _tcv_from_bands(idx, bands, H, W, D, 3, 3, 1)
-    _, tcv_p = _tcv_from_bands(idx_p, bands_p, H, W, D, 3, 3, 1)
-    assert torch.equal(torch.isnan(tcv[same]), torch.isnan(tcv_p[same]))
-    assert torch.equal(torch.isnan(disp[same]), torch.isnan(disp_p[same]))
-    f = same & torch.isfinite(disp_p)
-    torch.testing.assert_close(disp[f], disp_p[f], rtol=1e-4, atol=1e-4)
     fin = same[..., None] & torch.isfinite(bands_p)
-    e3 = max((bands - bands_p).abs()[fin].max().item(),
-             (disp - disp_p).abs()[f].max().item())
+    e3 = (bands - bands_p).abs()[fin].max().item() if fin.any() else 0.0
+    if refine:
+        _, tcv = _tcv_from_bands(idx, bands, H, W, D, 3, 3, r)
+        _, tcv_p = _tcv_from_bands(idx_p, bands_p, H, W, D, 3, 3, r)
+        assert torch.equal(torch.isnan(tcv[same]), torch.isnan(tcv_p[same]))
+        assert torch.equal(torch.isnan(disp[same]), torch.isnan(disp_p[same]))
+        f = same & torch.isfinite(disp_p)
+        torch.testing.assert_close(disp[f], disp_p[f], rtol=1e-4, atol=1e-4)
+        if f.any():
+            e3 = max(e3, (disp - disp_p).abs()[f].max().item())
     print(f"{tag}: idx agree {agree:.6f}, max |kernel - plain| = {e3:.3g}",
           flush=True)
     return e3
+
+
+# KITTI 2015 census + SGM-8's penalties (`CENSUS_SGM8`)
+CENSUS_PEN = (1.0, 4.0)
+
+
+def k3_cases(dev):
+    """K3's shapes at the edges of its layout, as (tag, cv, stack,
+    penalties, r, refine): the flagship's 480x640x120 bf16 over its 7
+    direction volumes, KITTI's 375x1242x192 f32 census volume over 7, the
+    480x640x120 f32 volume over SGM-16's 15 (7 + 8 knight volumes) and over
+    one accumulator (the accumulate form), D = 1, 33 and 320, r = 0
+    without refine, rows narrower than a block's reduce warps (W = 3),
+    H = 1, and a volume and stack with +inf entries.  A generator: each
+    case's volumes are made when it is drawn."""
+    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.ops.box_cuda import box_cv
+    from libstevi_tpu_torch.ops.census_cuda import census_cv
+    from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
+                                            _KNIGHT_DIRS)
+    from libstevi_tpu_torch.ops.sgm_cuda import (direction_volumes,
+                                                 knight_volumes,
+                                                 sgm_accumulate)
+    dirs = [d for d in directions_for(8) if d is not SgmDirection.RIGHT2LEFT]
+    bf16, f32 = torch.bfloat16, torch.float32
+
+    def zncc(H, W, D, dt, seed):
+        L, R = pair(H, W, seed, dev)
+        return box_cv(MatchingFunction.ZNCC, L, R, 3, 3, D, dt, negate=True)
+
+    def stack7(cv, pen=(P1, P2)):
+        return direction_volumes(cv, dirs, *pen, POUT)
+
+    def noise(shape, dt, seed):
+        g = torch.Generator(device=dev).manual_seed(seed)
+        return (torch.rand(shape, generator=g, device=dev) * 4).to(dt)
+
+    cv = zncc(480, 640, 120, bf16, 41)
+    st = stack7(cv)
+    yield "480x640x120 bf16, 7 volumes", cv, st, (P1, P2), 1, True
+    yield "480x640x120 bf16, 7 volumes, r = 0", cv, st, (P1, P2), 0, False
+    yield ("480x640x120 bf16, one accumulator", cv,
+           sgm_accumulate(cv, dirs, P1, P2, POUT)[None], (P1, P2), 1, True)
+    del cv, st
+    L, R = pair(375, 1242, 42, dev)
+    cv = census_cv(L, R, 3, 3, 192, f32)
+    yield ("375x1242x192 f32 census, 7 volumes", cv, stack7(cv, CENSUS_PEN),
+           CENSUS_PEN, 1, True)
+    cv = zncc(480, 640, 120, f32, 43)
+    st = torch.empty((15,) + tuple(cv.shape), device=dev)
+    direction_volumes(cv, dirs, P1, P2, POUT, out=st[:7])
+    knight_volumes(cv, _KNIGHT_DIRS, P1, P2, POUT, out=st[7:])
+    yield "480x640x120 f32, 15 volumes", cv, st, (P1, P2), 1, True
+    yield ("480x640x120 f32, one accumulator", cv,
+           sgm_accumulate(cv, dirs, P1, P2, POUT)[None], (P1, P2), 1, True)
+    del cv, st
+    for D, dt in ((1, f32), (33, bf16), (33, f32), (320, bf16), (320, f32)):
+        cv = zncc(64, 200, D, dt, 44 + D)
+        yield f"64x200x{D} {dt}, 7 volumes", cv, stack7(cv), (P1, P2), 1, True
+    cv = noise((30, 3, 120), f32, 45)
+    yield "30x3x120 f32, 7 volumes", cv, stack7(cv), (P1, P2), 1, True
+    cv = noise((1, 640, 120), bf16, 46)
+    yield "1x640x120 bf16, 7 volumes", cv, stack7(cv), (P1, P2), 1, True
+    cv = zncc(96, 160, 120, f32, 47)
+    cv[::7, ::5, ::3] = float("inf")
+    st = stack7(cv)
+    st[2, ::4, ::9] = float("inf")
+    yield "96x160x120 f32 with +inf, 7 volumes", cv, st, (P1, P2), 1, True
+
+
+def k3_times(fn, n=20, reps=3):
+    """ms a call of ``fn`` over n calls back to back (CUDA events, so the
+    host's enqueue hides behind the card's work), the median of ``reps``,
+    after a warm-up."""
+    fn()
+    times = []
+    for _ in range(reps):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        for _ in range(n):
+            fn()
+        end.record()
+        torch.cuda.synchronize()
+        times.append(start.elapsed_time(end) / n)
+    return statistics.median(times)
+
+
+def k3_floor_ms(cv, stack):
+    """K3's form floor: the volume and the stack read once, idx, the band
+    (r = 1) and disp written, at 3.35 TB/s."""
+    H, W, D = cv.shape
+    return (cv.numel() * cv.element_size() + stack.numel() * 4
+            + H * W * 20) / HBM_BYTES_PER_MS
+
+
+def k3_wide_cases(dev):
+    """K3 where the rows outnumber one wave of the old plan: the HD
+    entry's 720x1280x320 bf16 volume over its 7 direction volumes and over
+    SGM-16's 15 (7 + 8 knight volumes), in `k3_cases`' form.  The 7 are
+    the first 7 of the 15 (one contiguous block)."""
+    from libstevi_tpu_torch.core import MatchingFunction
+    from libstevi_tpu_torch.ops.box_cuda import box_cv
+    from libstevi_tpu_torch.ops.sgm import (SgmDirection, directions_for,
+                                            _KNIGHT_DIRS)
+    from libstevi_tpu_torch.ops.sgm_cuda import (direction_volumes,
+                                                 knight_volumes)
+    dirs = [d for d in directions_for(8) if d is not SgmDirection.RIGHT2LEFT]
+    L, R = pair(720, 1280, 51, dev)
+    cv = box_cv(MatchingFunction.ZNCC, L, R, 3, 3, 320, torch.bfloat16,
+                negate=True)
+    st = torch.empty((15,) + tuple(cv.shape), device=dev)
+    direction_volumes(cv, dirs, P1, P2, POUT, out=st[:7])
+    knight_volumes(cv, _KNIGHT_DIRS, P1, P2, POUT, out=st[7:])
+    yield "720x1280x320 bf16, 7 volumes", cv, st[:7], (P1, P2), 1, True
+    yield "720x1280x320 bf16, 15 volumes", cv, st, (P1, P2), 1, True
+
+
+# the cases `k3_against` times: the cells' K3x7 and the HD entry's K3s
+K3_TIMED = ("480x640x120 bf16, 7 volumes", "375x1242x192 f32 census, 7 volumes",
+            "720x1280x320 bf16, 7 volumes", "720x1280x320 bf16, 15 volumes")
+
+
+def k3_against(dev, smi, src):
+    """K3 of this tree against K3 built from another tree's
+    ``csrc/sgm_scan.cu`` (``src``: the parent's), on the same inputs: idx,
+    bands and disp equal bit for bit (their int32 images, so NaN positions
+    and payloads too) on every case of `k3_cases` and `k3_wide_cases`, and
+    this tree's layout held by the card (the blocks an SM can hold against
+    the rows it plans); then both timed in turns (other, this, this,
+    other) on the cases of K3_TIMED, beside the form's byte floor.  Builds
+    ``src`` with nvcc into a temporary directory, removed on return, and
+    calls its launcher with the signature of that tree's `_build.py`.
+    Returns {case: (this ms, other ms, floor ms)}.  Runs alone:
+    ``c.k3_against(torch.device('cuda'), c.card(),
+    'DIR/libstevi_tpu_torch/csrc/sgm_scan.cu')``."""
+    with tempfile.TemporaryDirectory(prefix="k3_other_") as tmp:
+        return _k3_against(dev, smi, Path(src).resolve(),
+                           Path(tmp) / "sgm_scan.so")
+
+
+def _k3_against(dev, smi, src, lib_path):
+    import ctypes
+    import importlib.util
+    import itertools
+    from libstevi_tpu_torch import _build
+    from libstevi_tpu_torch.ops.sgm_cuda import sgm_wta
+    subprocess.run([_build.nvcc_path(), *_build.NVCC_FLAGS, "-o",
+                    str(lib_path), str(src)], check=True, capture_output=True)
+    spec = importlib.util.spec_from_file_location(
+        "other_build", src.parent.parent / "_build.py")
+    other_build = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(other_build)
+    sig = other_build.SIGNATURES["sgm_scan"]["sgm_wta_launch"]
+    launch = ctypes.CDLL(str(lib_path)).sgm_wta_launch
+    launch.argtypes, launch.restype = sig, ctypes.c_int
+
+    def other(cv, stack, pen, r, refine):
+        H, W, D = cv.shape
+        idx = torch.empty((H, W), dtype=torch.int32, device=dev)
+        bands = torch.empty((H, W, 2 * r + 1), device=dev)
+        disp = torch.empty((H, W), device=dev) if refine else None
+        args = [cv.data_ptr(), int(cv.dtype == torch.bfloat16),
+                stack.data_ptr(), stack.shape[0], idx.data_ptr(),
+                bands.data_ptr(), disp.data_ptr() if refine else None, H, W,
+                D, *pen, POUT, r, 3, 3]
+        args += [None] * (len(sig) - 1 - len(args))  # a layout out-pointer
+        err = launch(*args, torch.cuda.current_stream().cuda_stream)
+        assert err == 0, ("other tree's sgm_wta_launch", err)
+        return idx, bands, disp
+
+    def bits(t):
+        return None if t is None else t.view(torch.int32)
+
+    timed = {}
+    for tag, cv, stack, pen, r, subpixel in itertools.chain(
+            k3_cases(dev), k3_wide_cases(dev)):
+        mine = sgm_wta(cv, stack, *pen, POUT, r, 3, 3, subpixel)
+        layout, resident = sgm_wta.layout, sgm_wta.resident
+        assert resident >= layout.rows_sm, (tag, layout, resident)
+        theirs = other(cv, stack, pen, r, subpixel)
+        torch.cuda.synchronize()
+        for name, a, b in zip(("idx", "bands", "disp"), mine, theirs):
+            assert (a is None) == (b is None), (tag, name)
+            assert a is None or torch.equal(bits(a), bits(b)), (tag, name)
+        nan = int(torch.isnan(mine[2]).sum()) if subpixel else 0
+        print(f"K3 {tag}: idx, bands and disp equal the other tree's bit for "
+              f"bit ({nan} NaN disparities); layout {tuple(layout)}, "
+              f"{resident} blocks an SM can hold", flush=True)
+        if tag in K3_TIMED and r == 1:
+            def kern():
+                sgm_wta(cv, stack, *pen, POUT, 1, 3, 3, True)
+
+            def prev():
+                other(cv, stack, pen, 1, True)
+            p1, k1, k2_, p2 = (k3_times(prev), k3_times(kern), k3_times(kern),
+                               k3_times(prev))
+            timed[tag] = ((k1 + k2_) / 2, (p1 + p2) / 2,
+                          k3_floor_ms(cv, stack))
+            print(f"time: K3 {tag}: this tree {timed[tag][0]:.4f} ms "
+                  f"({k1:.4f}, {k2_:.4f}), the other {timed[tag][1]:.4f} ms "
+                  f"({p1:.4f}, {p2:.4f}); the form's byte floor "
+                  f"{timed[tag][2]:.4f} ms (20 calls back to back, median "
+                  f"of 3, in turns; {smi})", flush=True)
+        del cv, stack, mine, theirs
+    return timed
 
 
 def shift_rows_gather(x, W_out, base, slope):
@@ -4333,6 +4551,9 @@ def main(argv=None) -> int:
     # the checkouts' timing first, while this process holds no volume: a
     # parent's 4K frame holds ~64 GB of the card
     parent_and_change(parent, smi)
+    if parent:  # K3 bit for bit against the parent's, and both timed
+        k3_against(dev, smi, Path(parent) / "libstevi_tpu_torch" / "csrc"
+                   / "sgm_scan.cu")
     # the CPU references of the full-size holds, beside the card's work
     start_cpu_jobs()
 
@@ -4471,6 +4692,24 @@ def main(argv=None) -> int:
             print(f"K3 {tag}: over the 15 volumes of SGM-16 equal to K3 over "
                   f"the sequential accumulator bitwise", flush=True)
             del stack15, acc_k, acc
+
+    # K3 at the edges of its layout (`k3_cases`) against its plain version;
+    # the flagship's and KITTI's K3x7 timed beside the form's byte floor
+    # (the kernels line's K3x7 row)
+    k3_form = {}
+    for tag, cv, stack, pen, r, subpixel in k3_cases(dev):
+        key = "K3x7" if stack.shape[0] == 7 else "K3"
+        err[key] = max(err[key], k3_vs_plain(cv, stack, f"K3 {tag}", r,
+                                             subpixel, pen))
+        if r == 1 and tag in ("480x640x120 bf16, 7 volumes",
+                              "375x1242x192 f32 census, 7 volumes"):
+            k3_form[tag.split(",")[0]] = (
+                k3_times(lambda: sgm_wta(cv, stack, *pen, POUT, 1, 3, 3,
+                                         True)), k3_floor_ms(cv, stack))
+        del cv, stack
+    print("time: K3x7 (ms a call, 20 back to back; the form's byte floor): "
+          + ", ".join(f"{k} {v[0]:.4f} ({v[1]:.4f})"
+                      for k, v in k3_form.items()) + f" ({smi})", flush=True)
 
     # SGM margins: the region runs contiguous (image column offset and
     # width for Pout) and is padded back; against the plain path on the CPU
@@ -5635,6 +5874,9 @@ def main(argv=None) -> int:
          **({"bgfg_launches": bgfg_launches[key]}
             if key in bgfg_launches else {}),
          **({"device_ms": device_ms[key]} if key in device_ms else {}),
+         **({"form_ms": {k: v[0] for k, v in k3_form.items()},
+             "form_floor_ms": {k: v[1] for k, v in k3_form.items()}}
+            if key == "K3x7" else {}),
          **({"instances": instances[key]} if key in instances else {})}
         for name, src, rep, key in records]}), flush=True)
     print(f"script wall time {time.perf_counter() - t_script:.1f} s",

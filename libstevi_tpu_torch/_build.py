@@ -76,9 +76,10 @@ SIGNATURES = {
         "sgm_knight_launch": [_P, _I, _P, _P, _P, _P, _I, _P] + [_I] * 4
                              + [_F] * 3 + [_I] * 4 + [_P],
         # cv, cv_bf16, acc, n_acc, idx, bands, disp, H, W, D, P1, P2, Pout,
-        # r, h_radius, v_radius, stream
+        # r, h_radius, v_radius, used (8 ints out: the layout and the blocks
+        # of it an SM holds), stream
         "sgm_wta_launch": [_P, _I, _P, _I, _P, _P, _P, _I, _I, _I, _F, _F,
-                           _F] + [_I] * 3 + [_P],
+                           _F] + [_I] * 3 + [_P, _P],
     },
     "fv_cv": {
         # src, tgt, shifts, out, H, W, F, D, min_shift, span, kind,

@@ -70,9 +70,13 @@
 // volume: K3 sums them in their order, (((a_0 + a_1) + a_2) + ...), which is
 // the sum K2 launches accumulating one after another would leave in one
 // volume, bit for bit (the adjustments are computed alike and added in the
-// same order; only the sign of a zero may differ).
+// same order; only the sign of a zero may differ).  Only the recurrence is
+// serial along a row; the rest of a pixel reads its adj and nothing later
+// in the row reads it, so K3 splits the two (a scan warp and reduce warps
+// a row, below).
 //
-// Layout and mapping: one warp per scanline; lane l owns d = l + 32k
+// Layout and mapping: one warp per scanline (in K3 the row's scan warp;
+// its reduce warps use the same lanes for a pixel); lane l owns d = l + 32k
 // (k < K = ceil(D / 32), so D = 120 takes 4 values a lane), lanes with
 // d >= D hold +inf.  d +- 1 come from two warp shuffles a slice (a rotation
 // by one lane each way; lanes 0 and 31 take the neighbouring slice's value),
@@ -94,7 +98,7 @@
 // accumulator for the horizontal passes; this one reads (H, W, D) for every
 // direction.
 //
-// What bounds K2 and K3 on an H100, and what the design does about it.  At
+// What bounds K2 on an H100, and what the design does about it.  At
 // 480x640x120 the bf16 volume is 73.7 MB and the f32 acc 147 MB, so one
 // pass moves ~370 MB (~0.11 ms at 3.35 TB/s).  But a scan has only H, W or
 // H + W - 1 lines (480 to 1119 warps for 132 SMs, 528 warp schedulers), and
@@ -124,10 +128,37 @@
 //   takes this form only where the volumes fit (`ops/sgm_cuda.py`).
 // The knights (K2k) take the same two measures: their 8 directions share
 // a launch, a volume each, and each line stages through the ring.
+//
+// What bounds K3.  Its form reads the cost volume and the n_acc direction
+// volumes once: (1 + n_acc) volumes, 1.11 GB at 480x640x120 bf16 with 7
+// (0.33 ms at 3.35 TB/s) and 2.87 GB at 375x1242x192 f32 (0.86 ms).  It
+// used to run one warp a row through the whole pixel on every step of the
+// row's chain: wait for the pixel's 1 + n_acc copies, sum the acc vectors,
+// issue the next copies, the DP step, C, two reductions, the band and the
+// parabola, in program order.  That was H warps (480 at VGA, 375 at KITTI;
+// under 4 an SM, fewer than an SM has schedulers), so nothing hid a step's
+// latency: 1.40 us a step at VGA and 1.63 us at KITTI, 37% and 42% of the
+// byte floor (0.896 and 2.024 ms on an H100).  Only the recurrence is
+// serial, so now a row is a block: a scan warp runs the DP alone (a step
+// is a few hundred cycles, well inside a row's share of the bandwidth),
+// and R reduce warps take the row's pixels in turn, each staging its own
+// pixels' 1 + n_acc vectors S pixels ahead and waiting on the scan warp
+// only for the pixel's adj.  A block's reduce rings are sized
+// (`wta_layout`) so the rows an SM holds keep ~100 KB or more of copies in
+// flight, far more than the card's bandwidth-latency product needs (~25 KB
+// an SM), so the (1 + n_acc) volume reads bound the form.  Where the SMs
+// cannot hold all H rows at once, the rows run in waves, one after
+// another, each as long as a row's chain, and a row with fewer reduce
+// warps than it needs to keep pace with its scan warp (WTA_PACE) runs
+// slower; `wta_layout` plans the rows an SM holds that end soonest.  At
+// 720x1280x320 bf16 over 7 volumes that is 2 rows an SM with 4 reduce
+// warps, 3 waves: 3.5 ms, where 1 row with 8 (6 waves) took 5.9 ms and
+// the old form's warp a row 4.0 ms (H100).  The reduce work per pixel is
+// unchanged, op for op, so idx, bands and disp keep their bits.
 // Left for later PRs: several directions in one sweep (the TPU kernel's
 // layout: fewer bytes and no direction volumes; for the knights, both
-// phases of a direction in one sweep), a producer warp that feeds the
-// rings, and CUDA graphs over the launches.
+// phases of a direction in one sweep), and fewer f32 volumes between K2
+// and K3.
 
 #include <cuda_runtime.h>
 #include <cuda_bf16.h>
@@ -145,6 +176,19 @@ constexpr int MAX_DIRS = 7;
 constexpr int MAX_KNIGHTS = 8;
 // acc volumes K3 sums: SGM-16's directions but K3's own
 constexpr int MAX_ACC = MAX_DIRS + MAX_KNIGHTS;
+// K3's layout (`wta_layout`): the most reduce warps a row, the reduce
+// warps a row needs to keep pace with its scan warp (a reduce warp's pixel
+// takes about 4 scan steps, measured on an H100), the warps an
+// SM plans with (its registers), a scan chunk's bytes of cost vectors and
+// the scan ring's chunks
+constexpr int WTA_REDUCE = 8;
+constexpr int WTA_PACE = 4;
+constexpr int WTA_WARPS_SM = 24;
+constexpr int WTA_CHUNK = 2048;
+constexpr int WTA_CHUNKS = 4;
+// K3's barriers: the scan chunks', two an adj slot (A = 2 R), a stage's
+constexpr int WTA_BARS = WTA_CHUNKS + 4 * WTA_REDUCE + WTA_REDUCE * RING;
+static_assert(1 + WTA_REDUCE <= WTA_WARPS_SM / 2, "K3's launch bounds");
 constexpr unsigned FULL = 0xffffffffu;
 
 // The directions of one K2 launch, (di, dj) each; blockIdx.y picks one.
@@ -239,6 +283,14 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, unsigned parity) {
       " @!p bra WAIT_%=;\n}\n" ::"r"(smem_u32(bar)),
       "r"(parity)
       : "memory");
+}
+
+// one arrival of the calling thread (release: its earlier shared-memory
+// writes and reads are ordered before the phase completes)
+__device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(
+                   smem_u32(bar))
+               : "memory");
 }
 
 __device__ __forceinline__ const char* down16(const void* p) {
@@ -1004,72 +1056,188 @@ sgm_knight_smem_kernel(const T* __restrict__ cv, float* __restrict__ vol,
   }
 }
 
-// K3: the right-to-left direction fused with WTA, band and subpixel.  One
-// warp per image row of a whole image, D <= 32 K; the ring of
-// `sgm_pass_kernel` with n_acc acc vectors a stage (summed in their order),
-// then 32 K floats of C a warp (the band's source).  disp may be null (no
-// subpixel).
+// How a K3 launch lays out a row's block (`wta_layout`): R reduce warps,
+// each with S stages of `stage` bytes (the cost cover, cb bytes, then
+// n_acc acc covers of ab bytes) and 32 K floats of C; the scan warp's SC
+// chunks of P pixels' cost vectors (pb bytes each); A adj slots of 32 K
+// floats.  smem is the dynamic shared memory a block, rows the rows an SM
+// is planned to hold at once.
+struct WtaLayout {
+  int R, S, cb, ab, stage, P, pb, SC, A;
+  int smem, rows;
+};
+
+// K3: the right-to-left direction fused with WTA, band and subpixel, one
+// image row a block of 1 + R warps (`WtaLayout`; D <= 32 K).  Warp 0 scans:
+// it stages the row's cost vectors P pixels a bulk copy (a row's vectors
+// are contiguous), runs `dp_step` and carry = cost + adj, and leaves each
+// pixel's adj in slot t % A of the block's adj ring (t the scan step, from
+// the right), whose `full` barrier its 32 lanes arrive on.  Reduce warp q
+// (warps 1..R) takes steps q, q + R, q + 2 R, ...: it stages each pixel's
+// cost and n_acc acc vectors S of its pixels ahead (`stage_pixel`), sums
+// the acc vectors in their order, waits for the pixel's adj slot, reads
+// it and releases it (`empty`), then forms C and writes idx, the band and
+// disp from its own 32 K floats of C.  disp may be null (no subpixel).
+// The launch bounds hold a thread to 80 registers, so any WTA_WARPS_SM
+// warps fit an SM's registers, as `wta_layout` plans (the K = 10
+// instances would take 96, and an SM would hold 5 of 6 planned rows).
 template <int K, typename T>
-__global__ void __launch_bounds__(32 * LINE_WARPS)
+__global__ void __launch_bounds__(32 * WTA_WARPS_SM / 2, 2)
 sgm_wta_kernel(const T* __restrict__ cv, const float* __restrict__ acc,
                int n_acc, int* __restrict__ idx_out,
                float* __restrict__ bands, float* __restrict__ disp, int H,
                int W, int D, float P1, float P2, float Pout, int r, int hr,
-               int vr, int S, int cb, int stage) {
+               int vr, WtaLayout ly) {
   extern __shared__ __align__(16) unsigned char wta_smem[];
-  __shared__ __align__(8) uint64_t bars_w[LINE_WARPS][RING];
+  __shared__ __align__(8) uint64_t wta_bars[WTA_BARS];
   const int lane = threadIdx.x & 31, wid = threadIdx.x >> 5;
-  const int i = blockIdx.x * (blockDim.x >> 5) + wid;
-  if (i >= H) return;
+  const int i = blockIdx.x;  // the image row
+  uint64_t* chunk_bar = wta_bars;        // SC: a scan chunk landed
+  uint64_t* full = chunk_bar + ly.SC;    // A: an adj slot written
+  uint64_t* empty = full + ly.A;         // A: an adj slot read
+  uint64_t* stage_bar = empty + ly.A;    // R x S: a reduce stage landed
+  unsigned char* chunks = wta_smem;
+  float* adj_ring = reinterpret_cast<float*>(chunks + (size_t)ly.SC * ly.pb);
+  unsigned char* reduce_area =
+      reinterpret_cast<unsigned char*>(adj_ring) + (size_t)ly.A * 128 * K;
+  if (threadIdx.x == 0) {
+    for (int s = 0; s < ly.SC; ++s) mbar_init(&chunk_bar[s], 1);
+    for (int a = 0; a < ly.A; ++a) {
+      mbar_init(&full[a], 32);
+      mbar_init(&empty[a], 32);
+    }
+    for (int s = 0; s < ly.R * ly.S; ++s) mbar_init(&stage_bar[s], n_acc + 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
+  const long long row = (long long)i * W;
+
+  if (wid == 0) {  // the scan warp: the right-to-left recurrence alone
+    const T* cvr = cv + row * D;
+    const int P = ly.P, n_chunks = (W + P - 1) / P;
+    // chunk c holds scan steps [c P, c P + P): pixels lo(c) .. W - 1 - c P
+    auto lo_of = [&](int c) { return max(0, W - (c + 1) * P); };
+    auto load_chunk = [&](int c, int s) {  // lane 0
+      const int lo = lo_of(c);
+      const T* g = cvr + (size_t)lo * D;
+      const unsigned bytes = cover(g, (W - c * P - lo) * D);
+      asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+      asm volatile(
+          "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(
+              smem_u32(&chunk_bar[s])),
+          "r"(bytes)
+          : "memory");
+      bulk_copy(chunks + (size_t)s * ly.pb, g, bytes, &chunk_bar[s]);
+    };
+    if (lane == 0)
+      for (int c = 0; c < ly.SC && c < n_chunks; ++c) load_chunk(c, c);
+    float carry[K];
+#pragma unroll
+    for (int k = 0; k < K; ++k) carry[k] = lane + 32 * k < D ? 0.f : INFINITY;
+    int c = 0, s = 0, in = 0, a = 0, use = 0;  // chunk, its slot, step in it
+    const T* base = nullptr;
+    for (int t = 0; t < W; ++t) {
+      const int j = W - 1 - t;
+      if (in == 0) {
+        mbar_wait(&chunk_bar[s], (unsigned)(c / ly.SC) & 1u);
+        base = staged(chunks + (size_t)s * ly.pb, cvr + (size_t)lo_of(c) * D);
+      }
+      const T* cs = base + (size_t)(j - lo_of(c)) * D;
+      float b[K], adj[K];
+#pragma unroll
+      for (int k = 0; k < K; ++k) {
+        const int d = lane + 32 * k;
+        b[k] = d < D ? load(cs + d) : INFINITY;
+      }
+      if (++in == P || t == W - 1) {  // the chunk is read: refill its slot
+        __syncwarp();
+        if (lane == 0 && c + ly.SC < n_chunks) load_chunk(c + ly.SC, s);
+        in = 0;
+        ++c;
+        s = s + 1 == ly.SC ? 0 : s + 1;
+      }
+      dp_step<K>(carry, adj, lane, j, W, P1, P2, Pout);
+#pragma unroll
+      for (int k = 0; k < K; ++k)
+        if (lane + 32 * k < D) carry[k] = b[k] + adj[k];
+      // hand adj to the pixel's reduce warp once it has read the slot's
+      // last use
+      if (use > 0) mbar_wait(&empty[a], (unsigned)(use - 1) & 1u);
+      float* slot = adj_ring + (size_t)a * 32 * K;
+#pragma unroll
+      for (int k = 0; k < K; ++k) slot[lane + 32 * k] = adj[k];
+      mbar_arrive(&full[a]);
+      if (++a == ly.A) {
+        a = 0;
+        ++use;
+      }
+    }
+    return;
+  }
+
+  // a reduce warp
+  const int q = wid - 1, R = ly.R, S = ly.S;
+  if (q >= W) return;
   unsigned char* ring =
-      wta_smem + (size_t)wid * ((size_t)S * stage + sizeof(float) * 32 * K);
-  float* c_s = reinterpret_cast<float*>(ring + (size_t)S * stage);
-  uint64_t* bar = bars_w[wid];
-  const int ab = (stage - cb) / n_acc;
+      reduce_area + (size_t)q * ((size_t)S * ly.stage + 128 * K);
+  float* c_s = reinterpret_cast<float*>(ring + (size_t)S * ly.stage);
+  uint64_t* bar = stage_bar + q * S;
+  const int cb = ly.cb, ab = ly.ab;
   const long long acc_stride = (long long)H * W * D;
   const int nb = 2 * r + 1;
   const bool row_ok = i >= vr && i + vr < H;
-
-  long long pix = (long long)i * W + (W - 1);
-  ring_start(ring, bar, S, stage, cb, ab, cv, acc, n_acc, acc_stride,
-             [=](int s) { return pix - s; }, W, D, lane);
-  float carry[K];
-#pragma unroll
-  for (int k = 0; k < K; ++k) carry[k] = lane + 32 * k < D ? 0.f : INFINITY;
-  int slot = 0;
-  for (int j = W - 1; j >= 0; --j, --pix) {
+  const int n_pix = (W - 1 - q) / R + 1;
+  // its u-th pixel: scan step q + u R, column W - 1 - q - u R
+  for (int u = 0; u < S && u < n_pix; ++u)
+    stage_pixel(ring + (size_t)u * ly.stage, cb, ab, cv, acc, n_acc,
+                acc_stride, row + W - 1 - q - u * R, D, &bar[u], lane);
+  // step t's adj slot is t % A, in its (t / A)-th use; R < A
+  int slot = 0, adj_slot = q, adj_use = 0;
+  for (int u = 0; u < n_pix; ++u) {
+    const int j = W - 1 - q - u * R;
+    const long long pix = row + j;
     __syncwarp();  // c_s is free again (the last pixel's band is written)
-    mbar_wait(&bar[slot], (unsigned)((W - 1 - j) / S) & 1u);
-    unsigned char* st = ring + slot * stage;
+    mbar_wait(&bar[slot], (unsigned)(u / S) & 1u);
+    unsigned char* st = ring + (size_t)slot * ly.stage;
     const T* cs = staged(st, cv + pix * D);
     float b[K], a[K], adj[K], C[K];
+    // the acc volumes in their order, (((a_0 + a_1) + a_2) + ...)
+    const float* as = staged(st + cb, acc + pix * D);
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int d = lane + 32 * k;
       b[k] = d < D ? load(cs + d) : INFINITY;
-      a[k] = 0.f;
+      a[k] = d < D ? as[d] : 0.f;
     }
-    for (int q = 0; q < n_acc; ++q) {  // the acc volumes in their order
-      const float* as =
-          staged(st + cb + q * ab, acc + q * acc_stride + pix * D);
+#pragma unroll 4
+    for (int v = 1; v < n_acc; ++v) {
+      as = staged(st + cb + v * ab, acc + v * acc_stride + pix * D);
 #pragma unroll
       for (int k = 0; k < K; ++k) {
         const int d = lane + 32 * k;
-        if (d < D) a[k] = q == 0 ? as[d] : a[k] + as[d];
+        if (d < D) a[k] = a[k] + as[d];
       }
     }
-    __syncwarp();  // the stage is read: refill it with the pixel S ahead
-    if (j >= S)
-      stage_pixel(st, cb, ab, cv, acc, n_acc, acc_stride, pix - S, D,
+    __syncwarp();  // the stage is read: refill it with this warp's pixel S on
+    if (u + S < n_pix)
+      stage_pixel(st, cb, ab, cv, acc, n_acc, acc_stride, pix - S * R, D,
                   &bar[slot], lane);
-    dp_step<K>(carry, adj, lane, j, W, P1, P2, Pout);
+    mbar_wait(&full[adj_slot], adj_use & 1u);
+    const float* adj_s = adj_ring + (size_t)adj_slot * 32 * K;
+#pragma unroll
+    for (int k = 0; k < K; ++k) adj[k] = adj_s[lane + 32 * k];
+    mbar_arrive(&empty[adj_slot]);
+    adj_slot += R;  // this warp's next step, t + R
+    if (adj_slot >= ly.A) {
+      adj_slot -= ly.A;
+      ++adj_use;
+    }
     float lm = INFINITY;
 #pragma unroll
     for (int k = 0; k < K; ++k) {
       const int d = lane + 32 * k;
       C[k] = INFINITY;
       if (d < D) {
-        carry[k] = b[k] + adj[k];
         C[k] = a[k] + adj[k] + b[k];
         c_s[d] = C[k];
       }
@@ -1104,7 +1272,7 @@ sgm_wta_kernel(const T* __restrict__ cv, const float* __restrict__ acc,
   }
 }
 
-// How a K2 / K3 launch lays out its shared memory: each warp holds S stages
+// How a K2 / K2k launch lays out its shared memory: each warp holds S stages
 // of `stage` bytes (the cost cover, cb bytes, then n_acc acc covers), then
 // `extra` bytes (a multiple of 16); a block holds up to LINE_WARPS warps.
 // The ring is RING stages deep, or shallower where the launch's lines would
@@ -1179,8 +1347,11 @@ PassLayout pass_layout(int D, int elt, int n_acc, int lines, int sms) {
   return r;
 }
 
+// A block takes more than 48 KB of shared memory, its static arrays and
+// the dynamic part together, only where its kernel opts in; the kernels
+// here keep at most 4 KB static (PASS_SMEM's margin).
 cudaError_t allow_smem(const void* fn, size_t smem) {
-  if (smem <= 48 * 1024) return cudaSuccess;
+  if (smem + 4096 <= 48 * 1024) return cudaSuccess;
   return cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                               (int)smem);
 }
@@ -1327,25 +1498,95 @@ cudaError_t knight_t(const void* cv, float* vol, const float* cin,
   return cudaGetLastError();
 }
 
+// K3's layout, a pure function of its arguments (ops/sgm_cuda.wta_layout
+// is its Python twin: change both together).  A row is one block.  Each row
+// an SM is planned to hold at once gets an equal share of SMEM_SM (all of
+// SMEM_MAX where one reduce warp of two stages needs it).  The scan warp's
+// ring is WTA_CHUNKS chunks of P = WTA_CHUNK / (D elt) pixels (at least
+// 1); a reduce warp takes two stages, its C vector and two adj slots
+// (A = 2 R: the scan warp may run a slot ahead of every reduce warp), and a
+// row takes as many as its share holds, up to WTA_REDUCE and to
+// WTA_WARPS_SM warps on the SM; what is left deepens the reduce rings, up
+// to RING stages.  The rows an SM plans, n, are the count whose rows end
+// soonest: they run in ceil(H / (n sms)) waves, one after another, and a
+// row with R < WTA_PACE reduce warps takes WTA_PACE / R times as long as
+// its scan warp alone; the fewest rows among equals.  More rows an SM cut
+// the waves but thin each row's reduce warps (720 rows of D = 320 over 7
+// volumes: 2 rows an SM, 4 reduce warps each, 3 waves).
+int wta_reduce_warps(int budget, int scan, int warp, int rows) {
+  int R = (budget - scan) / warp;
+  if (R > WTA_REDUCE) R = WTA_REDUCE;
+  if (R > WTA_WARPS_SM / rows - 1) R = WTA_WARPS_SM / rows - 1;
+  return R;
+}
+
+bool wta_layout(int D, int elt, int n_acc, int H, int sms, WtaLayout& ly) {
+  const int K = (D + 31) / 32, vec = 128 * K;
+  ly.cb = round16(D * elt + 15);
+  ly.ab = round16(D * 4 + 15);
+  ly.stage = ly.cb + n_acc * ly.ab;
+  ly.P = WTA_CHUNK / (D * elt) > 1 ? WTA_CHUNK / (D * elt) : 1;
+  ly.pb = round16(ly.P * D * elt + 15);
+  ly.SC = WTA_CHUNKS;
+  const int scan = ly.SC * ly.pb, warp = 2 * ly.stage + 3 * vec;
+  if (scan + warp > SMEM_MAX) return false;
+  auto share = [&](int rows) {
+    const int b = (int)(SMEM_SM / rows);
+    return b > SMEM_MAX ? SMEM_MAX : (scan + warp > b ? SMEM_MAX : b);
+  };
+  // a count of rows n is better than m where its waves over its pace,
+  // ceil(H / (n sms)) / min(R, WTA_PACE), are fewer
+  int rows = 1, waves = (H + sms - 1) / sms;
+  int pace = wta_reduce_warps(share(1), scan, warp, 1);
+  pace = pace < WTA_PACE ? pace : WTA_PACE;
+  for (int n = 2; n <= WTA_WARPS_SM / 2 && scan + warp <= SMEM_SM / n; ++n) {
+    const int w = (H + n * sms - 1) / (n * sms);
+    int p = wta_reduce_warps(share(n), scan, warp, n);
+    p = p < WTA_PACE ? p : WTA_PACE;
+    if ((long long)w * pace < (long long)waves * p) {
+      rows = n;
+      waves = w;
+      pace = p;
+    }
+  }
+  const int budget = share(rows);
+  ly.R = wta_reduce_warps(budget, scan, warp, rows);
+  ly.A = 2 * ly.R;
+  ly.S = (budget - scan - ly.R * 3 * vec) / (ly.R * ly.stage);
+  ly.S = ly.S > RING ? RING : ly.S;
+  ly.smem = scan + ly.A * vec + ly.R * (ly.S * ly.stage + vec);
+  ly.rows = rows;
+  return true;
+}
+
 template <typename T>
 cudaError_t wta_t(const void* cv, const float* acc, int n_acc, int* idx,
                   float* bands, float* disp, int H, int W, int D, float P1,
-                  float P2, float Pout, int r, int hr, int vr,
+                  float P2, float Pout, int r, int hr, int vr, int* used,
                   cudaStream_t s) {
   const int K = (D + 31) / 32;
-  Layout ly;
-  if (!ring_layout(D, sizeof(T), n_acc, 4 * 32 * K, H, ly))
+  WtaLayout ly;
+  if (!wta_layout(D, sizeof(T), n_acc, H, sm_count(), ly))
     return cudaErrorInvalidValue;
-  const int blocks = (H + ly.warps - 1) / ly.warps;
+  if (used != nullptr) {  // the layout this launch runs, for the caller
+    const int u[7] = {ly.R, ly.S, ly.P, ly.SC, ly.A, ly.smem, ly.rows};
+    for (int k = 0; k < 7; ++k) used[k] = u[k];
+  }
   const T* v = static_cast<const T*>(cv);
   cudaError_t e;
+  // used[7]: the blocks of this layout an SM can hold, by the compiled
+  // instance's registers and the card's limits (the plan's check)
 #define SGM_WTA_CASE(k)                                                    \
   case k:                                                                  \
     e = allow_smem((const void*)sgm_wta_kernel<k, T>, ly.smem);            \
     if (e != cudaSuccess) return e;                                        \
-    sgm_wta_kernel<k, T><<<blocks, 32 * ly.warps, ly.smem, s>>>(           \
+    if (used != nullptr)                                                   \
+      e = cudaOccupancyMaxActiveBlocksPerMultiprocessor(                   \
+          &used[7], sgm_wta_kernel<k, T>, 32 * (1 + ly.R), ly.smem);       \
+    if (e != cudaSuccess) return e;                                        \
+    sgm_wta_kernel<k, T><<<H, 32 * (1 + ly.R), ly.smem, s>>>(              \
         v, acc, n_acc, idx, bands, disp, H, W, D, P1, P2, Pout, r, hr, vr, \
-        ly.S, ly.cb, ly.stage);                                            \
+        ly);                                                               \
     break;
   switch (K) {
     SGM_WTA_CASE(1) SGM_WTA_CASE(2) SGM_WTA_CASE(3) SGM_WTA_CASE(4)
@@ -1461,11 +1702,13 @@ extern "C" int sgm_knight_launch(const void* cv, int cv_bf16, void* vol,
 
 // D <= 320 (K = ceil(D / 32) <= 10 register slices); whole images.  acc is
 // n_acc <= MAX_ACC volumes of H * W * D floats, one after another, summed
-// in order.
+// in order.  used, where not null, receives 8 ints: the layout the launch
+// runs (R, S, P, SC, A, the dynamic shared-memory bytes and the rows an SM
+// is planned to hold), then the blocks of it an SM can hold.
 extern "C" int sgm_wta_launch(const void* cv, int cv_bf16, const void* acc,
                               int n_acc, void* idx, void* bands, void* disp,
                               int H, int W, int D, float P1, float P2,
-                              float Pout, int r, int hr, int vr,
+                              float Pout, int r, int hr, int vr, void* used,
                               void* stream) {
   if (bad_region(H, W, D, 0, W) || D > 32 * REG_K || n_acc < 1 ||
       n_acc > MAX_ACC || r < 0 || hr < 0 || vr < 0 ||
@@ -1475,11 +1718,12 @@ extern "C" int sgm_wta_launch(const void* cv, int cv_bf16, const void* acc,
   int* ix = static_cast<int*>(idx);
   float* bd = static_cast<float*>(bands);
   float* dp = static_cast<float*>(disp);
+  int* u = static_cast<int*>(used);
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
   return (int)(cv_bf16 ? wta_t<__nv_bfloat16>(cv, a, n_acc, ix, bd, dp, H, W,
-                                              D, P1, P2, Pout, r, hr, vr, s)
+                                              D, P1, P2, Pout, r, hr, vr, u, s)
                        : wta_t<float>(cv, a, n_acc, ix, bd, dp, H, W, D, P1,
-                                      P2, Pout, r, hr, vr, s));
+                                      P2, Pout, r, hr, vr, u, s));
 }
 
 extern "C" const char* cuda_error_string(int err) {

@@ -20,7 +20,10 @@ keeps its carry in shared memory, past its ring (`ring_fits`) in global
 memory.  K3 takes D <= 320 (`ops.sgm.sgm_route` sends wider ranges to the
 lane route, K4b / K4d).  K2, K2k and K3 stage the pixels ahead of each
 line's step in a shared-memory ring filled by asynchronous copies, so a
-step does not wait on device memory.
+step does not wait on device memory.  K3 runs a row a block: a scan warp
+carries the right-to-left recurrence and hands each pixel's adjustment to
+reduce warps that sum the stack, take the WTA and write the band and
+disparity (`wta_layout`, its shapes).
 
 K2s (`sgm_shard_pass`, `sgm_knight_shard_pass`) is K2 and K2k on one shard
 of a distributed image, the port of `sgm_rows_shard_pass_dhw` and
@@ -70,6 +73,7 @@ from .sgm import (SgmDirection, directions_for, direction_adj,
                   direction_shard_adj, wta_bands, _dp_step, _tcv_from_bands)
 
 MAX_D = 320        # K3 keeps ceil(D / 32) <= 10 values per lane
+MAX_ACC = 15       # acc volumes K3 sums: SGM-16's 7 principal, 8 knight
 # a block's 227 KB less room for the static barriers (csrc/sgm_scan.cu)
 SMEM_MAX = 232448 - 1024
 # the any-D K2's limits, as in csrc/sgm_scan.cu
@@ -80,6 +84,14 @@ PASS_SMEM = 232448 - 4096   # a block's 227 KB less the static arrays
 BUF_MAX_D = PASS_SMEM // 8  # the shared instance's two carries
 RING = 8                # most stages of a ring
 SMEM_SM = 0.9 * 233472  # the share of an SM's 228 KB a ring plans with
+# K3's layout (`wta_layout`), as in csrc/sgm_scan.cu
+WTA_REDUCE = 8          # most reduce warps a row
+WTA_PACE = 4            # reduce warps a row needs to keep pace with its scan
+WTA_WARPS_SM = 24       # the warps an SM plans with (its registers)
+WTA_CHUNK = 2048        # a scan chunk's bytes of cost vectors
+WTA_CHUNKS = 4          # scan chunks in the scan warp's ring
+# the static barriers of a K3 block: the chunks', two an adj slot, a stage's
+WTA_BARS = WTA_CHUNKS + 4 * WTA_REDUCE + WTA_REDUCE * RING
 
 
 def _r16(x: int) -> int:
@@ -517,6 +529,72 @@ def sgm_knight_shard_pass(cv: torch.Tensor, acc: torch.Tensor,
 # K3: right-to-left direction + WTA + band + subpixel
 # ---------------------------------------------------------------------------
 
+class WtaLayout(NamedTuple):
+    """How a K3 launch lays out a row's block (`wta_layout`)."""
+    reduce_warps: int   # R: the block is a scan warp and R reduce warps
+    stages: int         # S: a reduce warp's ring of pixels' vectors
+    scan_pixels: int    # P: pixels a scan chunk (one bulk copy)
+    scan_chunks: int    # SC: chunks in the scan warp's ring
+    adj_slots: int      # A: the adj ring between the scan and reduce warps
+    smem: int           # dynamic shared memory a block
+    rows_sm: int        # rows (blocks) an SM is planned to hold at once
+
+
+def _wta_reduce_warps(budget: int, scan: int, warp: int, rows: int) -> int:
+    return min((budget - scan) // warp, WTA_REDUCE, WTA_WARPS_SM // rows - 1)
+
+
+def wta_layout(D: int, elt: int = 4, n_acc: int = 1, H: int = 1,
+               sms: int = H100_SMS) -> WtaLayout:
+    """The layout of a K3 launch over an (H, W, D) volume of ``elt``-byte
+    entries and ``n_acc`` f32 acc volumes on ``sms`` SMs: `wta_layout` in
+    csrc/sgm_scan.cu.  One image row a block.  Each row an SM is planned
+    to hold at once gets an equal share of SMEM_SM (all of SMEM_MAX where
+    one reduce warp of two stages needs it).  The scan warp stages
+    WTA_CHUNKS chunks of P = WTA_CHUNK // (D elt) pixels' cost vectors; a
+    reduce warp takes two stages of a pixel's cost and acc covers, its
+    32 K floats of C and two adj slots, and a row takes as many as its
+    share holds, up to WTA_REDUCE and to WTA_WARPS_SM warps an SM; what is
+    left deepens the reduce rings, up to RING stages.  An SM plans the
+    count of rows n whose rows end soonest: ceil(H / (n sms)) waves, one
+    after another, each WTA_PACE / R times as long as its scan warp alone
+    where a row has R < WTA_PACE reduce warps (the fewest rows among
+    equals).  A pure function of its arguments.  Nothing in the port
+    calls it: the launcher computes the layout itself and reports it
+    (`sgm_wta.layout`); this twin lets tests/test_torch_k3_layout.py check
+    the layout for every shape on the CPU."""
+    if not 1 <= D <= MAX_D or not 1 <= n_acc <= MAX_ACC:
+        raise ValueError(f"wta_layout: 1 <= D <= {MAX_D}, "
+                         f"1 <= n_acc <= {MAX_ACC}")
+    vec = 128 * -(-D // 32)
+    stage = _r16(D * elt + 15) + n_acc * _r16(4 * D + 15)
+    P = max(1, WTA_CHUNK // (D * elt))
+    scan = WTA_CHUNKS * _r16(P * D * elt + 15)
+    warp = 2 * stage + 3 * vec
+
+    def share(rows):
+        b = int(SMEM_SM / rows)
+        return SMEM_MAX if b > SMEM_MAX or scan + warp > b else b
+
+    def waves_and_pace(rows):
+        return (-(-H // (rows * sms)),
+                min(_wta_reduce_warps(share(rows), scan, warp, rows),
+                    WTA_PACE))
+
+    rows, (waves, pace) = 1, waves_and_pace(1)
+    for n in range(2, WTA_WARPS_SM // 2 + 1):
+        if scan + warp > SMEM_SM / n:
+            break
+        w, p = waves_and_pace(n)
+        if w * pace < waves * p:    # fewer waves over their pace
+            rows, waves, pace = n, w, p
+    budget = share(rows)
+    R = _wta_reduce_warps(budget, scan, warp, rows)
+    S = min(RING, (budget - scan - R * 3 * vec) // (R * stage))
+    return WtaLayout(R, S, P, WTA_CHUNKS, 2 * R,
+                     scan + 2 * R * vec + R * (S * stage + vec), rows)
+
+
 def _acc_sum(acc: torch.Tensor) -> torch.Tensor:
     """An (H, W, D) accumulator, or the in-order sum of an (n, H, W, D)
     stack of adjustment volumes, (((a_0 + a_1) + a_2) + ...): the volume
@@ -561,32 +639,41 @@ def sgm_wta(cv: torch.Tensor, acc: torch.Tensor, P1: float, P2: float,
         return sgm_wta_plain(cv, acc, P1, P2, Pout, r, h_radius, v_radius,
                              refine)
     stack = acc if acc.ndim == 4 else acc[None]
-    for a in stack:
-        _check_cuda(cv, a, "sgm_wta")
     if cv.shape[-1] > MAX_D:
         # K3 keeps ceil(D / 32) <= 10 values a lane in registers;
         # `sgm.sgm_route` sends wider ranges to K4b / K4d
         raise NotImplementedError(f"sgm_wta: 1 <= D <= {MAX_D}")
-    if not stack.is_contiguous():
-        raise ValueError("sgm_wta: acc must be contiguous")
+    if not stack.is_contiguous() or not 1 <= stack.shape[0] <= MAX_ACC:
+        raise ValueError(f"sgm_wta: acc must be contiguous, 1 to {MAX_ACC} "
+                         f"volumes")
     if r < 0 or (refine and r < 1):
         raise ValueError("sgm_wta: band radius r >= 0, and >= 1 to refine")
+    for a in stack:
+        _check_cuda(cv, a, "sgm_wta")
     H, W, D = cv.shape
     idx = torch.empty((H, W), dtype=torch.int32, device=cv.device)
     bands = torch.empty((H, W, 2 * r + 1), dtype=torch.float32,
                         device=cv.device)
     disp = (torch.empty((H, W), dtype=torch.float32, device=cv.device)
             if refine else None)
+    used = (ctypes.c_int * 8)()
     lib = _build.load("sgm_scan")
     with torch.cuda.device(cv.device):
         err = lib.sgm_wta_launch(
             cv.data_ptr(), int(cv.dtype == torch.bfloat16), stack.data_ptr(),
             stack.shape[0], idx.data_ptr(), bands.data_ptr(),
             disp.data_ptr() if refine else None, H, W, D, P1, P2, Pout, r,
-            h_radius, v_radius, torch.cuda.current_stream().cuda_stream)
+            h_radius, v_radius, ctypes.addressof(used),
+            torch.cuda.current_stream().cuda_stream)
     _build.check(lib, err, "sgm_wta_launch")
     count("launches.sgm_wta")
+    sgm_wta.layout = WtaLayout(*used[:7])
+    sgm_wta.resident = used[7]
     return idx, bands, disp
+
+
+sgm_wta.layout = None  # the last launch's `WtaLayout`, as it reports it
+sgm_wta.resident = None  # the blocks of it an SM can hold, as the card says
 
 
 # ---------------------------------------------------------------------------

@@ -174,6 +174,43 @@ def test_k3_matches_plain(dev, shape, dtype):
     torch.testing.assert_close(d1[f], d2[f], rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("H,W,D,n_acc,dtype,r,refine", [
+    (1, 640, 120, 7, torch.bfloat16, 1, True),   # one row
+    (9, 3, 120, 7, torch.float32, 1, True),      # rows narrower than R
+    (12, 40, 1, 1, torch.float32, 0, False),     # D = 1, r = 0
+    (12, 70, 33, 15, torch.bfloat16, 1, True),   # SGM-16's stack
+    (6, 50, 320, 7, torch.float32, 2, True),     # K = 10
+    (140, 30, 120, 1, torch.bfloat16, 1, True),  # 2 rows an SM planned
+    (720, 48, 320, 7, torch.bfloat16, 1, True),  # past 4 rows an SM
+])
+def test_k3_layout_and_edge_shapes(dev, H, W, D, n_acc, dtype, r, refine):
+    """K3 runs the layout its Python twin gives for the card's SM count
+    (`wta_layout`), an SM can hold the rows the layout plans (by the
+    compiled instance's registers too), and K3 matches its plain version
+    (idx on >= 0.999 of the pixels, bands and disp within 1e-4 where idx
+    agrees) over an acc stack with +inf entries, at the edges of its
+    layout."""
+    from libstevi_tpu_torch.ops.sgm_cuda import wta_layout
+    cv = _volume(dev, (H, W, D), dtype)
+    g = torch.Generator(device=dev).manual_seed(H * W + D)
+    stack = torch.rand((n_acc, H, W, D), generator=g, device=dev)
+    stack[0, :, ::5, ::3] = float("inf")
+    i1, b1, d1 = sgm_wta(cv, stack, 0.1, 0.5, 100.0, r, 3, 3, refine)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    assert sgm_wta.layout == wta_layout(D, cv.element_size(), n_acc, H, sms)
+    assert sgm_wta.resident >= sgm_wta.layout.rows_sm
+    i2, b2, d2 = sgm_wta_plain(cv, stack, 0.1, 0.5, 100.0, r, 3, 3, refine)
+    torch.cuda.synchronize()
+    assert b1.shape == (H, W, 2 * r + 1) and (d1 is None) == (not refine)
+    same = i1 == i2
+    assert same.float().mean().item() >= 0.999
+    torch.testing.assert_close(b1[same], b2[same], rtol=1e-4, atol=1e-4)
+    if refine:
+        assert torch.equal(torch.isnan(d1[same]), torch.isnan(d2[same]))
+        f = same & torch.isfinite(d2)
+        torch.testing.assert_close(d1[f], d2[f], rtol=1e-4, atol=1e-4)
+
+
 def _path_counts():
     """The launch counts of K1, K2 (one direction a launch), K2 (up to 7
     directions in one launch), K2k and K3."""
